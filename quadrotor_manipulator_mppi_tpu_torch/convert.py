@@ -1,12 +1,14 @@
 """Carry the JAX package's configuration tree and solver state across.
 
 MPPI has no learned weights: what crosses between the two packages is the
-configuration (a tree of frozen dataclasses) and the solver state.
+configuration (a tree of frozen dataclasses), the solver state and the
+closed loop's plant state.
 :func:`params_from_dict` reads the plain JSON-able dict that the JAX
 package's ``config.to_dict`` writes — ``{"__dataclass__": name, ...}``
 nodes, ``{"__ndarray__": list, "dtype": str}`` arrays and
 ``{"__schedule__": {"kind": "ee_error", ...}}`` sigma schedules — and
-rebuilds it from this package's dataclasses.
+rebuilds it from this package's dataclasses.  :func:`plant_from_numpy`
+reads the JAX plant-kernel state vector (``pack_plant``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import torch
 
 from .models.multirotor import MultirotorParams
 from .models.whole_body import WholeBodyParams
+from .sim.flight_control import FlightGains
+from .sim.whole_body_loop import WholeBodyLoopConfig, WholeBodyPlant
 from .solver.mppi import MPPIConfig, MPPIState
 from .solver.whole_body import (
     WholeBodyCostParams, WholeBodyMPPIParams, ee_error_sigma_schedule,
@@ -27,7 +31,7 @@ from .utils.device import resolve_device
 
 _REGISTRY = {cls.__name__: cls for cls in (
     MPPIConfig, MultirotorParams, WholeBodyParams, WholeBodyCostParams,
-    WholeBodyMPPIParams,
+    WholeBodyMPPIParams, FlightGains, WholeBodyLoopConfig,
 )}
 _SCHEDULES = {"ee_error": ee_error_sigma_schedule}
 
@@ -60,6 +64,13 @@ def _from_dict(data: Any) -> Any:
     return data
 
 
+def config_from_dict(d: dict) -> Any:
+    """Any configuration tree of the registered dataclasses (solver
+    parameters, ``FlightGains``, ``WholeBodyLoopConfig``) from its JAX
+    ``config.to_dict`` form."""
+    return _from_dict(d)
+
+
 def params_from_dict(d: dict) -> WholeBodyMPPIParams:
     """The port's ``WholeBodyMPPIParams`` from the JAX ``config.to_dict``
     form of a ``WholeBodyMPPIParams``."""
@@ -78,3 +89,15 @@ def state_from_numpy(u_prev, sigma, seed: int, device="cuda", step: int = 0) -> 
         sigma=torch.tensor(np.asarray(sigma, dtype=np.float32), device=dev),
         seed=int(seed), step=int(step),
     )
+
+
+def plant_from_numpy(vec46, device="cuda") -> WholeBodyPlant:
+    """A ``WholeBodyPlant`` from the JAX ``pack_plant`` vector (46 floats:
+    base position, quaternion, velocity, body rates, rotor speeds, arm q,
+    qdot and the flight controller's state)."""
+    from .ops.cuda.plant_kernel import STATE_SIZE, unpack_plant
+
+    vec = np.asarray(vec46, dtype=np.float32)
+    if vec.shape != (STATE_SIZE,):
+        raise ValueError(f"expected a ({STATE_SIZE},) plant vector, got {vec.shape}")
+    return unpack_plant(torch.tensor(vec, device=resolve_device(device)))

@@ -219,6 +219,34 @@ def forward_kinematics_posquat(
     return t_pos, t_quat
 
 
+def joint_frames_posquat(
+    spec: ChainSpec,
+    q: Tensor,
+    base_pos: Tensor,
+    base_quat: Tensor,
+) -> tuple:
+    """The world-frame origin and rotation axis of every revolute joint and
+    the tip pose: (origins [..., J, 3], axes [..., J, 3], tip position
+    [..., 3], tip quaternion [..., 4]).  Joint j turns the chain beyond it
+    about ``axes[j]`` through ``origins[j]``, so the tip moves by
+    axes[j] x (tip - origins[j]) per radian: the exact geometric Jacobian."""
+    t_quat, t_pos = base_quat, base_pos
+    origins, axes = [], []
+    for j in range(spec.n_joints):
+        if int(spec.joint_type[j]) != REVOLUTE:
+            raise ValueError("joint_frames_posquat takes revolute chains")
+        jt = _const_vec(_floats(spec.origin_trans[j]), q[..., j])
+        t_pos = t_pos + rot.quat_rotate(t_quat, jt)
+        t_quat = rot.quat_multiply(t_quat, _revolute_quat(spec, j, q[..., j]))
+        origins.append(t_pos)
+        axes.append(_rotate_const(t_quat, _floats(spec.axis[j])))
+    if not np.allclose(spec.tip_trans, 0.0):
+        t_pos = t_pos + _rotate_const(t_quat, _floats(spec.tip_trans))
+    if not np.allclose(spec.tip_rot, np.eye(3)):
+        t_quat = _mul_const(t_quat, _floats(matrix_to_quat_np(spec.tip_rot)))
+    return torch.stack(origins, dim=-2), torch.stack(axes, dim=-2), t_pos, t_quat
+
+
 def link_positions_posquat(spec: ChainSpec, q: Tensor, offsets: np.ndarray) -> Tensor:
     """World-frame position of a fixed offset point (e.g. the link COM) in
     every joint child frame, from the chain root.  offsets: (J, 3) host

@@ -22,6 +22,7 @@ import torch
 
 from ..ops import integrators
 from ..utils import rotations as rot
+from ..utils.device import device_const
 from ..utils.pose import Pose
 from . import chain as chain_mod
 from . import kinova
@@ -101,7 +102,7 @@ def arm_gravity_torque_fast(
     tau = sum_i m_i (c_i x g_b), COM positions from the quaternion chain."""
     coms = chain_mod.link_positions_posquat(spec, q, inertials.com)  # [..., J, 3]
     g_b = -9.81 * base_rot.transpose(-1, -2)[..., :, 2]
-    masses = torch.as_tensor(inertials.mass, dtype=q.dtype, device=q.device)
+    masses = device_const(inertials.mass, q)
     cross = torch.linalg.cross(coms, g_b[..., None, :].expand_as(coms), dim=-1)
     return torch.einsum("...ji,j->...i", cross, masses)
 
@@ -161,17 +162,13 @@ def _attitude_response_matrices(h: int, dt: float, kp: float, kd: float):
     return g_phi, g_omega, hom
 
 
-def _t(x: np.ndarray, like: Tensor) -> Tensor:
-    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
-
-
 def _drag_velocity(drag_kd: float, dt: float, vel0: Tensor, acc: Tensor) -> Tensor:
     """Velocity trajectory under linear drag from the (K, H, 3) acceleration
     sequence; plain cumsum when drag is off."""
     if not drag_kd:
         return vel0 + torch.cumsum(acc * dt, dim=-2)
     d, hom = _drag_decay_operator(acc.shape[-2], 1.0 - dt * drag_kd)
-    return torch.einsum("ts,...si->...ti", _t(d, acc), acc * dt) + _t(hom, acc)[:, None] * vel0
+    return torch.einsum("ts,...si->...ti", device_const(d, acc), acc * dt) + device_const(hom, acc)[:, None] * vel0
 
 
 def _quat_from_rpy(rpy: Tensor) -> Tensor:
@@ -221,7 +218,7 @@ def _base_rollout_parallel(
     """Direct-wrench rollout: damped body rates, quaternion prefix scan for
     attitude, thrust -> acceleration -> (drag-decayed) velocity -> position."""
     m = params.vehicle.mass + params.arm_mass_lump
-    inertia = _t(np.asarray(params.vehicle.inertia, np.float64), base_u)
+    inertia = device_const(np.asarray(params.vehicle.inertia, np.float64), base_u)
     omega = _drag_velocity(params.rate_damping, dt, state.base.omega, base_u[..., 1:4] / inertia)
     dq = rot.quat_from_axis_angle(omega * dt)
     prefix = _quat_prefix_scan(dq)
@@ -247,10 +244,10 @@ def _base_rollout_attitude(
     for i, (kp, kd) in enumerate(gains):
         g_phi, g_om, hom = _attitude_response_matrices(h, dt, kp, kd)
         x0 = torch.stack([rpy0[i], om0[i]])
-        hom_traj = torch.einsum("hij,j->hi", _t(hom, base_u), x0)
+        hom_traj = torch.einsum("hij,j->hi", device_const(hom, base_u), x0)
         u = base_u[..., 1 + i]
-        phis.append(torch.einsum("ts,ks->kt", _t(g_phi, u), u) + hom_traj[:, 0])
-        oms.append(torch.einsum("ts,ks->kt", _t(g_om, u), u) + hom_traj[:, 1])
+        phis.append(torch.einsum("ts,ks->kt", device_const(g_phi, u), u) + hom_traj[:, 0])
+        oms.append(torch.einsum("ts,ks->kt", device_const(g_om, u), u) + hom_traj[:, 1])
     quat = _quat_from_rpy(torch.stack(phis, dim=-1))
     omega = torch.stack(oms, dim=-1)
     acc = _z_world(quat) * base_u[..., 0:1] / m - _gravity(base_u[..., 0])
@@ -274,9 +271,9 @@ def _base_rollout_position(
         g_phi, g_om, hom = _attitude_response_matrices(h, dt, kp, kd)
         u = setpoints[..., i]
         x0 = torch.stack([pos0[i], vel0[i]])
-        hom_traj = torch.einsum("hij,j->hi", _t(hom, u), x0)
-        p = torch.einsum("ts,ks->kt", _t(g_phi, u), u) + hom_traj[:, 0]
-        v = torch.einsum("ts,ks->kt", _t(g_om, u), u) + hom_traj[:, 1]
+        hom_traj = torch.einsum("hij,j->hi", device_const(hom, u), x0)
+        p = torch.einsum("ts,ks->kt", device_const(g_phi, u), u) + hom_traj[:, 0]
+        v = torch.einsum("ts,ks->kt", device_const(g_om, u), u) + hom_traj[:, 1]
         ps.append(p)
         vs.append(v)
         accs.append(kp * (u - p) - kd * v)
@@ -303,13 +300,13 @@ def rollout(
     arm_u = actions[..., N_BASE_ACTIONS:]
 
     q, qdot = integrators.double_integrate(arm_u, state.q, state.qdot, dt)
-    q_fk = torch.minimum(torch.maximum(q, _t(spec.lower, q)), _t(spec.upper, q))
+    q_fk = torch.minimum(torch.maximum(q, device_const(spec.lower, q)), device_const(spec.upper, q))
 
     if params.control_mode == "position":
         base_traj = _base_rollout_position(params, state, base_u, dt)
     elif params.control_mode == "attitude":
         if params.rotor_lag_tau > 0.0:
-            f = _t(_rotor_lag_matrix(h, dt, params.rotor_lag_tau), base_u)
+            f = device_const(_rotor_lag_matrix(h, dt, params.rotor_lag_tau), base_u)
             thrust = torch.einsum("ts,ks->kt", f, base_u[..., 0])[..., None]
             base_u = torch.cat([thrust, base_u[..., 1:4]], dim=-1)
         base_traj = _base_rollout_attitude(params, state, base_u, dt)
@@ -317,7 +314,7 @@ def rollout(
         if not params.time_parallel:
             raise ValueError("only the parallel-in-time wrench rollout is ported")
         if params.rotor_lag_tau > 0.0:
-            f = _t(_rotor_lag_matrix(h, dt, params.rotor_lag_tau), base_u)
+            f = device_const(_rotor_lag_matrix(h, dt, params.rotor_lag_tau), base_u)
             base_u = torch.einsum("ts,ksa->kta", f, base_u)
         if params.couple_arm_gravity:
             # Quasi-static coupling at the initial attitude: only the

@@ -12,6 +12,9 @@ station-keeping target (3)].
 
 ``out_vec`` (25,): [action (11), qdes (7), vdes (7)].
 
+The bridge head (:func:`make_bridge_step`) answers instead with
+``reply_vec`` (10,): [arm efforts (7), base position carrot (3)].
+
 The carry holds the warm start on the device and the Philox seed and solve
 index on the host; sigma is a build-time constant.
 """
@@ -132,3 +135,59 @@ def make_packed_step(
         return PackedCarry(u_prev=st.u_prev, seed=st.seed, step=st.step)
 
     return pstep, pinit
+
+
+BRIDGE_OUT_SIZE = 10
+
+
+def make_bridge_step(
+    params: Optional["wbs.WholeBodyMPPIParams"] = None,
+    setpoint_lookahead: int = 10,
+    device="cuda",
+    low_k_guard: str = "warn",
+):
+    """The whole-body bridge head: the solve, the inertia-weighted tracking
+    torque and the smooth-carrot base setpoint in one call.
+
+    ``bstep(carry, obs_vec, target_vec, z=None) -> (reply_vec, carry)`` with
+    ``reply_vec`` (10,) = [arm efforts tau (7), base position carrot (3)].
+    Position mode only (its base command is a position setpoint).
+    ``bpinit(seed) -> PackedCarry``."""
+    from ..models import rigid_body as rb
+    from ..models.whole_body import _base_rollout_position
+
+    params = params or wbs.position_mode_params(n_samples=512, n_horizon=50)
+    if params.model.control_mode != "position":
+        raise ValueError("the bridge head requires the position mode")
+    if params.mppi.adaptive_sigma:
+        raise ValueError(
+            "packed serving folds sigma to a build-time constant; "
+            "adaptive_sigma needs the full MPPIState API"
+        )
+    dev = resolve_device(device)
+    step, init = wbs.make_whole_body_solver(params, device=dev, low_k_guard=low_k_guard)
+    sigma_const = _diag_sigma(params.mppi, torch.float32, dev)
+    spec = params.model.chain()
+    inertials = params.model.inertials()
+    lookahead = min(setpoint_lookahead, params.mppi.n_horizon - 1)
+
+    def bstep(carry: PackedCarry, obs_vec: Tensor, target_vec: Tensor, z=None):
+        obs = unpack_obs(obs_vec, target_vec)
+        out, new = step(MPPIState(u_prev=carry.u_prev, sigma=sigma_const, seed=carry.seed,
+                                  step=carry.step), obs, z)
+        q, qdot = obs.state.q, obs.state.qdot
+        base_rot = rot.quat_to_matrix(rot.quat_normalize(obs_vec[3:7]))
+        m = rb.mass_matrix(spec, inertials, q)
+        nle = rb.nonlinear_effects(spec, inertials, q, qdot, base_rot=base_rot)
+        tau = m @ (400.0 * (out.qdes - q) - 40.0 * qdot) + nle
+        # Smooth carrot: the plan's predicted position a short lookahead on.
+        pred = _base_rollout_position(params.model, obs.state, out.u_seq[None, :, :4],
+                                      params.mppi.dt)
+        reply = torch.cat([tau, pred.pos[0, lookahead]])
+        return reply, PackedCarry(u_prev=new.u_prev, seed=new.seed, step=new.step)
+
+    def bpinit(seed: int, dtype=torch.float32) -> PackedCarry:
+        st = init(seed, dtype)
+        return PackedCarry(u_prev=st.u_prev, seed=st.seed, step=st.step)
+
+    return bstep, bpinit

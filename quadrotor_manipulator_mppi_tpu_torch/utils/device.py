@@ -7,7 +7,26 @@ on the CPU: a CPU run must always be something the caller asked for.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+_CONSTS: dict = {}
+
+
+def device_const(array, like: torch.Tensor) -> torch.Tensor:
+    """A host constant (NumPy array or nested floats) as a tensor of
+    ``like``'s dtype on ``like``'s device.  It is copied there once per
+    process, keyed by its value, and reused after that, so a loop that asks
+    for it again makes no host-to-device copy (a blocking copy would make
+    the host wait for the card).  The result is shared: never modify it in
+    place."""
+    a = np.asarray(array, np.float64)
+    key = (a.shape, a.tobytes(), like.dtype, like.device)
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.tensor(a, dtype=like.dtype).to(like.device)
+    return t
 
 
 def resolve_device(device) -> torch.device:

@@ -70,7 +70,7 @@ def test_carried_schedule_scales_like_jax(preset):
 
 def test_params_from_dict_rejects_foreign_trees():
     with pytest.raises(ValueError, match="no counterpart"):
-        convert.params_from_dict({"__dataclass__": "FlightGains"})
+        convert.params_from_dict({"__dataclass__": "GraspableParams"})
     with pytest.raises(ValueError, match="expected a WholeBodyMPPIParams"):
         convert.params_from_dict(jcfg.to_dict(jwb.WholeBodyMPPIParams().model))
     with pytest.raises(ValueError, match="unknown sigma schedule"):
@@ -132,3 +132,54 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     # the plain pipeline is a CPU reference, never a stand-in on a device
     with pytest.raises(ValueError, match="CPU reference"):
         twb.make_whole_body_solver(params, device="meta", backend="torch")
+
+
+def test_loop_config_and_gains_trees_load():
+    from quadrotor_manipulator_mppi_tpu.sim import flight_control as jfc
+    from quadrotor_manipulator_mppi_tpu.sim import whole_body_loop as jwbl
+
+    for tree in (jwbl.WholeBodyLoopConfig(arm_coeffs_per_control=True, plant_kernel=True,
+                                          tube_gain=1.1),
+                 jwbl.WholeBodyLoopConfig(), jfc.FlightGains(kp_x=3.5, kd_y=1.0),
+                 jfc.SIM_TUNED_GAINS):
+        got = convert.config_from_dict(jcfg.to_dict(tree))
+        _assert_same_tree(tree, got)
+    with pytest.raises(ValueError, match="expected a WholeBodyMPPIParams"):
+        convert.params_from_dict(jcfg.to_dict(jwbl.WholeBodyLoopConfig()))
+
+
+def test_plant_from_numpy_round_trips_a_jax_plant():
+    import jax.numpy as jnp
+
+    from quadrotor_manipulator_mppi_tpu.ops.pallas import plant_kernel as jpk
+    from quadrotor_manipulator_mppi_tpu.sim import whole_body_loop as jwbl
+    from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import plant_kernel as pk
+
+    rng = np.random.default_rng(5)
+    plant = jwbl.init_plant(jwb.position_mode_params().model.vehicle)
+    vec = np.asarray(jpk.pack_plant(plant)) + rng.normal(0, 0.05, 46).astype(np.float32)
+    tplant = convert.plant_from_numpy(vec, device="cpu")
+    np.testing.assert_array_equal(N(pk.pack_plant(tplant)), vec)
+    np.testing.assert_array_equal(N(tplant.base.quat), vec[3:7])
+    np.testing.assert_array_equal(N(tplant.ctrl.n_hat), vec[44:46])
+    back = jpk.unpack_plant(jnp.asarray(N(pk.pack_plant(tplant))), plant)
+    np.testing.assert_array_equal(np.asarray(back.qdot), vec[28:35])
+    with pytest.raises(ValueError, match="plant vector"):
+        convert.plant_from_numpy(vec[:45], device="cpu")
+
+
+def test_closed_loop_entry_points_default_to_the_card(monkeypatch):
+    from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import plant_kernel as pk
+    from quadrotor_manipulator_mppi_tpu_torch.sim import flight_control as fc
+    from quadrotor_manipulator_mppi_tpu_torch.sim import whole_body_loop as wbl
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = twb.position_mode_params(n_samples=128, n_horizon=10)
+    for build in (lambda: wbl.make_whole_body_episode(params),
+                  lambda: wbl.init_plant(params.model.vehicle),
+                  lambda: pk.make_plant_tick_kernel(params.model.vehicle, fc.FlightGains(),
+                                                    params.model.chain(), extra_mass=5.54),
+                  lambda: serving.make_bridge_step(params),
+                  lambda: convert.plant_from_numpy(np.zeros(46))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()

@@ -10,7 +10,10 @@ import pytest
 import torch
 
 from quadrotor_manipulator_mppi_tpu_torch.ops import sampling
+from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import plant_kernel as pk
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import whole_body_kernel as wk
+from quadrotor_manipulator_mppi_tpu_torch.sim import flight_control as fc
+from quadrotor_manipulator_mppi_tpu_torch.sim import whole_body_loop as wbl
 from quadrotor_manipulator_mppi_tpu_torch.solver import mppi, serving
 from quadrotor_manipulator_mppi_tpu_torch.solver import whole_body as wb
 
@@ -116,3 +119,44 @@ def test_packed_serving_launches_both_kernels():
         out, carry = pstep(carry, obs_vec, target_vec)
     assert (wk.wb_cost.launches - n_cost, wk.wb_update.launches - n_update) == (3, 3)
     assert out.shape == (serving.OUT_SIZE,) and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 1024])
+def test_plant_tick_matches_plain(rows):
+    dev = _card()
+    model = wb.position_mode_params().model
+    pc = pk.make_plant_config(model.vehicle, fc.FlightGains(), model.chain(),
+                              extra_mass=model.arm_mass_lump)
+    state, dyn, cmd, tau = pk.sample_rows(model.vehicle, model.chain(), model.inertials(), rows,
+                                          seed=rows, device=dev)
+    n0 = pk.plant_tick.launches
+    got = pk.plant_tick(pc, state, dyn, cmd, tau)
+    want = pk.plant_tick_plain(pc, state, dyn, cmd, tau)
+    assert pk.plant_tick.launches == n0 + 1
+    assert got.shape == (rows, pk.STATE_SIZE)
+    # atan2f/asinf against torch.atan2/asin on the same card; float32 rounding only
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_serving_episode_kernel_matches_plain_physics():
+    dev = _card()
+    n = 20
+    params = wb.position_mode_params(n_samples=K, n_horizon=H)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    z = torch.randn((n, K, H, wk.A_TOTAL), generator=gen, device=dev)
+    obs = wb.default_obs(device=dev)
+    logs = {}
+    for use_kernel in (True, False):
+        cfg = wbl.WholeBodyLoopConfig(arm_coeffs_per_control=True, plant_kernel=use_kernel)
+        run = wbl.make_whole_body_episode(params, cfg=cfg, n_control_steps=n, device=dev)
+        _, init = wb.make_whole_body_solver(params, device=dev)
+        n0 = pk.plant_tick.launches
+        final, logs[use_kernel] = run(wbl.init_plant(params.model.vehicle, device=dev), init(0),
+                                      obs.ee_target, obs.base_target, z=z)
+        assert pk.plant_tick.launches - n0 == (n if use_kernel else 0)
+        assert all(bool(torch.isfinite(f).all()) for f in logs[use_kernel])
+    torch.testing.assert_close(logs[True].ee_err, logs[False].ee_err, rtol=0, atol=5e-3)
+    torch.testing.assert_close(logs[True].base_pos, logs[False].base_pos, rtol=0, atol=5e-3)

@@ -120,3 +120,34 @@ def test_packed_rejects_adaptive_sigma():
                                                         sigma_scale_fn=None))
     with pytest.raises(ValueError, match="adaptive_sigma"):
         serving.make_packed_step(p, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def bridge_pair():
+    jp = jwb.position_mode_params(n_samples=64, n_horizon=8)
+    jstep, jinit = jserving.make_bridge_step(jp, backend="xla", low_k_guard="off")
+    bstep, binit = serving.make_bridge_step(to_port(jp), device="cpu", low_k_guard="off")
+    return jstep, jinit, bstep, binit
+
+
+def test_bridge_step_matches_jax_bridge(bridge_pair):
+    jstep, jinit, bstep, binit = bridge_pair
+    jcarry, carry = jinit(jax.random.key(3)), binit(3)
+    key = jcarry.key
+    obs = _perturbed_port_obs()
+    obs_vec, target_vec = (np.asarray(N(v)) for v in serving.pack_obs(obs))
+    for _ in range(3):
+        key, z = shared_z(key, 64, 8)
+        jreply, jcarry = jstep(jcarry, jnp.asarray(obs_vec), jnp.asarray(target_vec))
+        reply, carry = bstep(carry, T(obs_vec), T(target_vec), z)
+        assert reply.shape == (serving.BRIDGE_OUT_SIZE,)
+        np.testing.assert_allclose(N(reply), np.asarray(jreply), atol=2e-3)
+        np.testing.assert_allclose(N(carry.u_prev), np.asarray(jcarry.u_prev), atol=2e-3)
+
+
+def test_bridge_step_refusals(monkeypatch):
+    with pytest.raises(ValueError, match="position mode"):
+        serving.make_bridge_step(twb.WholeBodyMPPIParams(), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving.make_bridge_step(twb.position_mode_params(n_samples=64, n_horizon=8))
