@@ -1,5 +1,5 @@
-"""On-card smoke run of the PyTorch/CUDA port: the whole-body solve and the
-whole-body closed loop.
+"""On-card smoke run of the PyTorch/CUDA port: the whole-body solve, the
+whole-body closed loop, and the scenario-batched and sample-sharded solves.
 
     python3 chip_smoke.py
 
@@ -21,9 +21,19 @@ lines; any failure exits non-zero before the final ``ok`` line):
    profiler breakdown;
 7. the reach gate: 1000-step episodes (10 s of flight) for seeds 0-2,
    scored with ``episode_quality``; each must converge and hold;
+8. the scenario batch, B=256 x K=4096 x H=50 in the attitude preset: the
+   batched kernels (spill and no-spill pairs) against their plain versions
+   on 4 scenarios, the batched step against 4 unbatched steps, 1 + 1
+   launches per batched solve, ms per batched solve at B=1, 16, 256;
+9. no spill against spill at K=4096 (du, u_seq, sigma), and each new
+   kernel (rows 4-7) against its plain version with timings and bounds;
+10. the sample-sharded solve: two gloo ranks on the one card, K=4096 as
+   2 x 2048, both kernel pairs against the one-rank solve over 3 solves,
+   all-reduce calls per solve, ms per sharded solve, weak scaling;
 then one ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
 """
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -32,6 +42,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from quadrotor_manipulator_mppi_tpu_torch.evaluation.metrics import episode_quality
 from quadrotor_manipulator_mppi_tpu_torch.models import rigid_body as rb
@@ -39,6 +51,9 @@ from quadrotor_manipulator_mppi_tpu_torch.ops import sampling
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import build
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import plant_kernel as pk
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import whole_body_kernel as wk
+from quadrotor_manipulator_mppi_tpu_torch.parallel import mesh as mesh_mod
+from quadrotor_manipulator_mppi_tpu_torch.parallel import multihost, scaling, sharded
+from quadrotor_manipulator_mppi_tpu_torch.parallel.multihost import tree_map
 from quadrotor_manipulator_mppi_tpu_torch.sim import flight_control as fc
 from quadrotor_manipulator_mppi_tpu_torch.sim import whole_body_loop as wbl
 from quadrotor_manipulator_mppi_tpu_torch.solver import mppi, serving
@@ -91,6 +106,18 @@ N_REACH = 1000       # phase 7 control steps per seed (10 s of flight)
 REACH_SEEDS = (0, 1, 2)
 SERVING_LOOP = dict(arm_coeffs_per_control=True, plant_kernel=True)
 
+B_BATCH = 256                  # phase 8: BASELINE.json config 5's 256 scenarios
+B_TIMED = (1, 16, B_BATCH)
+CHECK_SCENARIOS = (0, 85, 170, 255)
+TOL_BATCH = 1e-6     # batched vs unbatched step, relative to max|u|: float order only
+TOL_SPILL = 1e-6     # no spill vs spill: the same draws, relative
+# wb_update's REGEN variants per noise element: the second Philox draw
+# (~100), erfinv and scaling (~35), weight and accumulations (~20).
+WB_REGEN_OPS_PER_ELEMENT = 100 + 35 + 20
+SHARD_RANKS = 2
+N_SHARD_SOLVES = 3
+SHARD_TIMEOUT_S = 300
+
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
@@ -113,6 +140,27 @@ def event_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     sync()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Mean device time per launch of the CUDA kernel whose name contains
+    ``kernel`` (``fn`` launches it once), from the profiler: where a kernel
+    is shorter than its wrapper's host work, ``event_ms`` times the wrapper
+    calls instead.  Averaged over the launches the profiler recorded, which
+    may be fewer than ``reps``.  0.0 when it recorded none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and kernel in e.key]
+    n = sum(e.count for e in hits)
+    return sum(e.self_device_time_total for e in hits) / n / 1e3 if n else 0.0
 
 
 def host_ms(fn, reps: int = 5) -> float:
@@ -160,7 +208,9 @@ def inputs(params, dev, gen):
     step, init = wb.make_whole_body_solver(params, device=dev, low_k_guard="off")
     state = init(0)
     obs = wb.default_obs(device=dev)
-    sigma = state.sigma * cfg.sigma_scale_fn(obs)
+    sigma = state.sigma
+    if cfg.sigma_scale_fn is not None:
+        sigma = sigma * cfg.sigma_scale_fn(obs)
     z = torch.randn((K, H, A), generator=gen, device=dev)
     eps = (z * sigma).permute(2, 1, 0).contiguous()
     return state, obs, z, wk.pack_scalars(obs, sigma), eps
@@ -251,33 +301,43 @@ def phase_serving(dev):
     return launches, statistics.median(block_ms), (pstep, carry, obs_vec, target_vec)
 
 
-def phase_profile(serve, solve_ms: float) -> None:
-    """Where a serving solve's device time goes: CUDA-side profiler events
-    of 10 solves, their busy share of the profiled wall time and of the
-    unprofiled solve time, and the device ops that take the most time."""
+def profile_solves(tag: str, fn, n: int, solve_ms: float) -> None:
+    """Where a solve's device time goes: CUDA-side profiler events of ``n``
+    calls of ``fn``, their busy share of the profiled wall time and of the
+    unprofiled solve time ``solve_ms``, and the device ops that take the
+    most time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    pstep, carry, obs_vec, target_vec = serve
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(10):
-            out, carry = pstep(carry, obs_vec, target_vec)
+        for _ in range(n):
+            fn()
         sync()
         wall_us = (time.perf_counter() - t0) * 1e6
     ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in ops)
     launches = sum(e.count for e in ops)
     if not dev_us:
-        print("[4] profiler: device time not measured (no CUDA events)", flush=True)
+        print(f"{tag} profiler: device time not measured (no CUDA events)", flush=True)
         return
-    print(f"[4] profiler: device busy {dev_us / 10:.1f} us/solve; busy share "
-          f"{dev_us / wall_us:.3f} of the profiled wall ({wall_us / 10:.1f} us/solve), "
-          f"{dev_us / 10 / (solve_ms * 1e3):.3f} of the unprofiled solve; "
-          f"{launches / 10:.0f} device ops/solve", flush=True)
+    print(f"{tag} profiler: device busy {dev_us / n:.1f} us/solve; busy share "
+          f"{dev_us / wall_us:.3f} of the profiled wall ({wall_us / n:.1f} us/solve), "
+          f"{dev_us / n / (solve_ms * 1e3):.3f} of the unprofiled solve; "
+          f"{launches / n:.0f} device ops/solve", flush=True)
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"    {e.self_device_time_total / 10:8.1f} us/solve {e.count / 10:6.1f} ops/solve  "
+        print(f"    {e.self_device_time_total / n:8.1f} us/solve {e.count / n:6.1f} ops/solve  "
               f"{e.key[:90]}")
+
+
+def phase_profile(serve, solve_ms: float) -> None:
+    pstep, carry, obs_vec, target_vec = serve
+    box = [carry]
+
+    def one():
+        _, box[0] = pstep(box[0], obs_vec, target_vec)
+
+    profile_solves("[4]", one, 10, solve_ms)
 
 
 def phase_timing(dev):
@@ -521,12 +581,390 @@ def phase_reach(dev):
         fail(f"reach gate not met (converged and held >= 0.99) for seeds {bad}")
 
 
+def scenario_obs(dev, n: int, seed: int = 8):
+    """n hover-and-reach observations that differ in base position, tilt,
+    velocity, rates, arm angles and EE target position."""
+    obs = wb.default_obs(device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def rnd(width, scale):
+        return scale * (2.0 * torch.rand((n, width), generator=gen, device=dev) - 1.0)
+
+    st, base = obs.state, obs.state.base
+    base = base._replace(pos=base.pos + rnd(3, 0.1), rpy=base.rpy + rnd(3, 0.05),
+                         vel=base.vel + rnd(3, 0.1), omega=base.omega + rnd(3, 0.05))
+    state = st._replace(base=base, q=st.q + rnd(7, 0.1), qdot=st.qdot.expand(n, 7).clone())
+    target = obs.ee_target._replace(position=obs.ee_target.position + rnd(3, 0.1),
+                                    quat=obs.ee_target.quat.expand(n, 4).clone())
+    return obs._replace(state=state, ee_target=target,
+                        base_target=obs.base_target.expand(n, 3).clone())
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max(1, max |want|)."""
+    return (got - want).abs().max().item() / max(1.0, want.abs().max().item())
+
+
+def reset_counts() -> None:
+    for f in wk.KERNEL_WRAPPERS:
+        f.launches = 0
+
+
+def counts(*fns) -> dict:
+    return {f.__name__: f.launches for f in fns}
+
+
+PAIRS = {True: (wk.wb_cost, wk.wb_update), False: (wk.wb_cost_nospill, wk.wb_update_regen)}
+
+
+def phase_batch(dev, errs):
+    """The scenario batch at B=256 (BASELINE.json config 5's shape on one
+    card): batched kernels against their plain versions on 4 scenarios,
+    the batched step against unbatched steps, launches per batched solve,
+    then ms per batched solve at B=1, 16, 256 for both kernel pairs."""
+    params = wb.WholeBodyMPPIParams()
+    cfg = params.mppi
+    kc = wk.make_kernel_config(params)
+    obs = scenario_obs(dev, B_BATCH)
+    _, init = wb.make_whole_body_solver(params, device=dev, n_scenarios=B_BATCH)
+    state = init(0)
+    sc = wk.pack_scalars(obs, state.sigma * cfg.sigma_scale_fn(obs))
+    u_prev, seeds = state.u_prev, state.seed
+    s, m, e, eps = wk.wb_cost(kc, sc, u_prev, None, seeds, 0)
+    du, m2 = wk.wb_update(kc, eps, s, m, e)
+    s4, m4, e4 = wk.wb_cost_nospill(kc, sc, u_prev, seeds, 0)
+    du5, m2_5 = wk.wb_update_regen(kc, sc, s4, m4, e4, seeds, 0)
+    worst = {"S": 0.0, "eps": 0.0, "du": 0.0, "du_regen": 0.0, "S_nospill": 0.0}
+    for i in CHECK_SCENARIOS:
+        seed_i = int(seeds[i])
+        s_p, _, _, eps_p = wk.wb_cost_plain(kc, sc[i], u_prev[i], None, seed_i, 0)
+        du_p, m2_p = wk.wb_update_plain(kc, eps[i], s[i], m[i], e[i])
+        du5_p, m2_5p = wk.wb_update_regen_plain(kc, sc[i], s4[i], m4[i], e4[i], seed_i, 0)
+        sync()
+        worst["S"] = max(worst["S"], rel_err(s[i], s_p))
+        worst["S_nospill"] = max(worst["S_nospill"], rel_err(s4[i], s_p))
+        worst["eps"] = max(worst["eps"], (eps[i] - eps_p).abs().max().item())
+        worst["du"] = max(worst["du"], rel_err(du[i], du_p), rel_err(m2[i], m2_p))
+        worst["du_regen"] = max(worst["du_regen"], rel_err(du5[i], du5_p),
+                                rel_err(m2_5[i], m2_5p))
+        errs["wb_cost_nospill"] = max(errs["wb_cost_nospill"], (s4[i] - s_p).abs().max().item())
+        errs["wb_update_regen"] = max(errs["wb_update_regen"],
+                                      (du5[i] - du5_p).abs().max().item(),
+                                      (m2_5[i] - m2_5p).abs().max().item())
+    print(f"[8] B={B_BATCH} batched kernels vs plain on scenarios {CHECK_SCENARIOS}: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()), flush=True)
+    if not (worst["S"] <= TOL_COST and worst["S_nospill"] <= TOL_COST
+            and worst["eps"] <= TOL_NOISE and worst["du"] <= TOL_UPDATE
+            and worst["du_regen"] <= TOL_UPDATE):
+        fail("a batched kernel disagrees with its plain version")
+    del s, m, e, eps, du, m2, s4, m4, e4, du5, m2_5
+
+    # The batched step against unbatched steps on the same seeds and z.
+    nb = len(CHECK_SCENARIOS)
+    obs4 = tree_map(lambda x: x[:nb], obs)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(77)
+    z = torch.randn((nb, K, H, A), generator=gen, device=dev)
+    step_err = 0.0
+    for spill in (True, False):
+        step_b, init_b = wb.make_whole_body_solver(params, device=dev, n_scenarios=nb,
+                                                   noise_spill=spill)
+        step_1, init_1 = wb.make_whole_body_solver(params, device=dev, noise_spill=spill)
+        st_b = init_b(3)
+        for zz in (None, z):
+            out_b, st_nb = step_b(st_b, obs4, zz)
+            for b, seed_b in enumerate(st_b.seed.tolist()):
+                out_1, st_n1 = step_1(init_1(seed_b), tree_map(lambda x: x[b], obs4),
+                                      None if zz is None else zz[b])
+                step_err = max(step_err, rel_err(out_b.u_seq[b], out_1.u_seq),
+                               rel_err(st_nb.u_prev[b], st_n1.u_prev))
+    sync()
+    print(f"[8] batched step vs {nb} unbatched steps (Philox and z, spill and no spill): "
+          f"max rel {step_err:.2e}", flush=True)
+    if not step_err <= TOL_BATCH:
+        fail("the batched step disagrees with the unbatched steps")
+
+    # Launches per batched solve, then ms per solve at B = 1, 16, 256.
+    rows, launches = [], {}
+    for b in B_TIMED:
+        obs_b = tree_map(lambda x: x[:b], obs)
+        for spill in (True, False):
+            step_b, init_b = wb.make_whole_body_solver(params, device=dev, n_scenarios=b,
+                                                       noise_spill=spill)
+            st = init_b(0)
+            step_b(st, obs_b)  # warm up
+            sync()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            out, _ = step_b(st, obs_b)
+            sync()
+            one = counts(*PAIRS[spill])
+            if list(one.values()) != [1, 1] or not bool(torch.isfinite(out.u_seq).all()):
+                fail(f"B={b}: a batched solve launched {one}, not one of each kernel")
+            reset_counts()
+            h_ms = host_ms(lambda: step_b(st, obs_b), reps=5)
+            e_ms = event_ms(lambda: step_b(st, obs_b), reps=10, warmup=1)
+            if b == B_BATCH:
+                launches.update(counts(*PAIRS[spill]))
+                if spill:
+                    profile_solves(f"[8] B={b}", lambda: step_b(st, obs_b), 5, e_ms)
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            rows.append((b, spill, h_ms, e_ms, b * 1e3 / e_ms, peak, one))
+    for b, spill, h_ms, e_ms, rate, peak, one in rows:
+        print(f"[8] B={b:3d} {'spill   ' if spill else 'no spill'} {one}: host {h_ms:.3f} ms, "
+              f"events {e_ms:.3f} ms per batched solve, {rate:.1f} solves/s, "
+              f"peak {peak:.3f} GiB", flush=True)
+
+    # The kernels alone at B=256 against B times the one-scenario bound.
+    sc = wk.pack_scalars(obs, state.sigma * cfg.sigma_scale_fn(obs))
+    s, m, e, eps = wk.wb_cost(kc, sc, u_prev, None, seeds, 1)
+    t = {"wb_cost": event_ms(lambda: wk.wb_cost(kc, sc, u_prev, None, seeds, 1), reps=5),
+         "wb_cost_nospill": event_ms(lambda: wk.wb_cost_nospill(kc, sc, u_prev, seeds, 1), reps=5),
+         "wb_update": event_ms(lambda: wk.wb_update(kc, eps, s, m, e), reps=5),
+         "wb_update_regen": event_ms(lambda: wk.wb_update_regen(kc, sc, s, m, e, seeds, 1),
+                                     reps=5)}
+    b_cost = bound(B_BATCH * cost_bytes(kc, True), B_BATCH * K * H * WB_COST_OPS_PER_SAMPLE_STEP)
+    print(f"[8] kernels at B={B_BATCH} (ms per launch; per scenario): " + ", ".join(
+        f"{k} {v:.3f} ({v / B_BATCH * 1e3:.2f} us)" for k, v in t.items())
+        + f" | wb_cost bound {b_cost[0]:.3f} ms by {b_cost[1]}", flush=True)
+    return launches, t, rows
+
+
+def cost_bytes(kc, spill: bool) -> int:
+    """Bytes pass 1 must move for one scenario: scalars, warm start, costs,
+    partials, and the noise it spills."""
+    return (wk.SC_LEN + H * A + K + 2 * kc.n_blocks) * 4 + (A * H * K * 4 if spill else 0)
+
+
+def phase_nospill(dev, errs):
+    """No spill against spill at K=4096 on one scenario (du, u_seq, sigma),
+    then each new kernel against its plain version with its timings and
+    bounds."""
+    adaptive = wb.position_mode_params()
+    adaptive = dataclasses.replace(adaptive, mppi=dataclasses.replace(
+        adaptive.mppi, adaptive_sigma=True, sigma_scale_fn=None))
+    for name, params in (("attitude", wb.WholeBodyMPPIParams()),
+                         ("position, adaptive sigma", adaptive)):
+        kc = wk.make_kernel_config(params)
+        state, obs, _, sc, _ = inputs(params, dev, torch.Generator(device=dev))
+        u_prev = state.u_prev.contiguous()
+        s, m, e, eps = wk.wb_cost(kc, sc, u_prev, None, 5, 2)
+        du3, _ = wk.wb_update(kc, eps, s, m, e)
+        s4, m4, e4 = wk.wb_cost_nospill(kc, sc, u_prev, 5, 2)
+        du5, _ = wk.wb_update_regen(kc, sc, s4, m4, e4, 5, 2)
+        res = {}
+        for spill in (True, False):
+            step = wk.make_whole_body_cuda_step(params, dev, noise_spill=spill)
+            res[spill] = step(state, obs)
+        sync()
+        err = {"du": rel_err(du5, du3),
+               "u_seq": rel_err(res[False][0], res[True][0]),
+               "sigma": rel_err(res[False][1].sigma, res[True][1].sigma)}
+        print(f"[9] {name}: no spill vs spill " + ", ".join(
+            f"{k} {v:.2e}" for k, v in err.items()) + " (relative)", flush=True)
+        if max(err.values()) > TOL_SPILL:
+            fail("the no-spill pair disagrees with the spill pair")
+
+    params = wb.WholeBodyMPPIParams()
+    kc = wk.make_kernel_config(params)
+    state, obs, _, sc, _ = inputs(params, dev, torch.Generator(device=dev))
+    u_prev = state.u_prev.contiguous()
+    seed, step, k_off = 1, 0, 0
+    s, m, e, eps = wk.wb_cost(kc, sc, u_prev, None, seed, step)
+    se = wk.softmin_normalizers(kc, m, e).contiguous()
+    flat = eps.view(A * H, K)
+    w = torch.exp((se[0] - s) * kc.inv_lam) / se[1]
+    cases = {  # wrapper, plain version, arguments, tolerance, kernel instantiation
+        "wb_cost_nospill": (wk.wb_cost_nospill, wk.wb_cost_nospill_plain,
+                            (kc, sc, u_prev, seed, step, k_off), TOL_COST,
+                            "wb_cost_kernel<0, true, false>"),
+        "wb_update_regen": (wk.wb_update_regen, wk.wb_update_regen_plain,
+                            (kc, sc, s, m, e, seed, step, k_off), TOL_UPDATE,
+                            "wb_update_kernel<true, false>"),
+        "wb_update_shard_regen": (wk.wb_update_shard_regen, wk.wb_update_shard_regen_plain,
+                                  (kc, sc, s, se, seed, step, k_off), TOL_UPDATE,
+                                  "wb_update_kernel<true, true>"),
+        "wb_update_shard": (wk.wb_update_shard, wk.wb_update_shard_plain,
+                            (kc, eps, s, se), TOL_UPDATE, "wb_update_kernel<false, true>"),
+    }
+    t = {"wb_update_device": device_ms(lambda: wk.wb_update(kc, eps, s, m, e),
+                                       "wb_update_kernel<false, false>")}
+    for name, (kern, plain, args, tol, key) in cases.items():
+        # (S, block minima) of pass 1, (du, m2) of pass 2; pass 1's block sums
+        # of exp((m - S)/lambda) amplify S's last bits by 1/lambda and are
+        # checked through pass 2's du, as in phase 2
+        got, want = kern(*args)[:2], plain(*args)[:2]
+        sync()
+        rel = max(rel_err(g, p) for g, p in zip(got, want))
+        errs[name] = max(errs[name], max((g - p).abs().max().item() for g, p in zip(got, want)))
+        if not rel <= tol:
+            fail(f"{name} disagrees with its plain version ({rel:.2e})")
+        t[name] = event_ms(lambda: kern(*args))
+        t[name + "_device"] = device_ms(lambda: kern(*args), key)
+        t[name + "_plain"] = event_ms(lambda: plain(*args), reps=5)
+        print(f"[9] {name} vs plain rel {rel:.2e}", flush=True)
+    t["library_mv"] = event_ms(lambda: torch.mv(flat, w))
+    t["library_mv_device"] = device_ms(lambda: torch.mv(flat, w), "gemv")  # cuBLAS gemv
+
+    small_bytes = (K + wk.SC_LEN + 2 * A * H) * 4
+    bounds = {
+        "wb_cost_nospill": bound(cost_bytes(kc, False), K * H * WB_COST_OPS_PER_SAMPLE_STEP),
+        "wb_update_regen": bound(small_bytes + 2 * kc.n_blocks * 4,
+                                 A * H * K * WB_REGEN_OPS_PER_ELEMENT),
+        "wb_update_shard_regen": bound(small_bytes + 2 * 4, A * H * K * WB_REGEN_OPS_PER_ELEMENT),
+        "wb_update_shard": bound(A * H * K * 4 + (K + 2 + 2 * A * H) * 4,
+                                 A * H * K * WB_UPDATE_OPS_PER_ELEMENT),
+    }
+    print("[9] timings (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+          + " | bounds (ms): " + ", ".join(f"{k} {v[0]:.2e} by {v[1]}" for k, v in bounds.items()),
+          flush=True)
+    return t, bounds
+
+
+def _counting(calls: list):
+    """``dist.all_reduce`` that records each call."""
+    inner = dist.all_reduce
+
+    def counted(*args, **kwargs):
+        calls.append(kwargs.get("op"))
+        return inner(*args, **kwargs)
+
+    return counted
+
+
+def shard_rank(rank: int, port: int, device: str, queue) -> None:
+    """One of two gloo ranks on the one card (NCCL refuses two ranks on one
+    device): the sample-sharded solve at K_local = 2048 for both kernel
+    pairs against the one-rank K=4096 solve, collective counts, and ms per
+    sharded solve."""
+    import traceback
+
+    try:
+        dev = torch.device(device)
+        multihost.initialize(f"tcp://127.0.0.1:{port}", SHARD_RANKS, rank, backend="gloo")
+        mesh = mesh_mod.make_mesh()
+        params = wb.WholeBodyMPPIParams()
+        obs = wb.default_obs(device=dev)
+        ref = []
+        if rank == 0:
+            step1, init1 = wb.make_whole_body_solver(params, device=dev)
+            st = init1(0)
+            for _ in range(N_SHARD_SOLVES):
+                out, st = step1(st, obs)
+                ref.append(out.u_seq)
+        out_d = {"rank": rank, "err": {}, "launches": {}, "all_reduce": {}, "ms": {}}
+        for spill in (True, False):
+            step, init = sharded.make_sharded_solver(
+                wb.make_whole_body_solver, mesh, batch_scenarios=False, params=params,
+                device=dev, noise_spill=spill)
+            name = "spill" if spill else "no spill"
+            reset_counts()
+            st, err = init(0), 0.0
+            for i in range(N_SHARD_SOLVES):
+                out, st = step(st, obs)
+                if ref:
+                    b = ref[i]
+                    err = max(err, ((out.u_seq - b).abs() / (1.0 + b.abs())).max().item())
+            sync()
+            out_d["err"][name] = err
+            out_d["launches"].update({f.__name__: f.launches for f in wk.KERNEL_WRAPPERS
+                                      if f.launches})
+            calls, plain = [], dist.all_reduce
+            dist.all_reduce = _counting(calls)
+            try:
+                step(st, obs)
+            finally:
+                dist.all_reduce = plain
+            out_d["all_reduce"][name] = len(calls)
+            out_d["ms"][name] = host_ms(lambda: step(st, obs), reps=10)
+        adaptive = dataclasses.replace(params, mppi=dataclasses.replace(
+            params.mppi, adaptive_sigma=True, sigma_scale_fn=None))
+        step, init = sharded.make_sharded_solver(wb.make_whole_body_solver, mesh,
+                                                 batch_scenarios=False, params=adaptive,
+                                                 device=dev, low_k_guard="off")
+        calls, plain = [], dist.all_reduce
+        dist.all_reduce = _counting(calls)
+        try:
+            step(init(0), obs)
+        finally:
+            dist.all_reduce = plain
+        out_d["all_reduce"]["adaptive sigma"] = len(calls)
+        out_d["scaling"] = scaling.measure_weak_scaling(k_per_device=K // SHARD_RANKS, h=H,
+                                                        iters=10, device=dev)
+        queue.put(out_d)
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:  # reported to the parent, which fails the phase
+        queue.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+
+
+def phase_sharded(dev):
+    """Two gloo ranks on the card run the sample-sharded solve; any rank that
+    fails, hangs past the timeout or exits non-zero fails the phase."""
+    import queue as queue_mod
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=shard_rank, args=(r, port, str(dev), q))
+             for r in range(SHARD_RANKS)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        deadline = time.time() + SHARD_TIMEOUT_S
+        while len(results) < SHARD_RANKS:
+            try:
+                res = q.get(timeout=max(1.0, deadline - time.time()))
+            except queue_mod.Empty:
+                fail(f"sharded ranks did not report within {SHARD_TIMEOUT_S} s")
+            if "error" in res:
+                fail(f"sharded rank {res['rank']} failed:\n{res['error']}")
+            results[res["rank"]] = res
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * SHARD_RANKS:
+        fail(f"sharded ranks exited with {codes}")
+    r0 = results[0]
+    sc = r0["scaling"]
+    print(f"[10] {SHARD_RANKS} gloo ranks on one card, K={K} as {SHARD_RANKS} x "
+          f"{K // SHARD_RANKS}: sharded vs one-rank over {N_SHARD_SOLVES} solves "
+          + ", ".join(f"{k} {v:.2e}" for k, v in r0["err"].items())
+          + f" | all_reduce per solve {r0['all_reduce']} | launches {r0['launches']} | "
+          f"ms per sharded solve (host) " + ", ".join(f"{k} {v:.3f}" for k, v in r0["ms"].items()),
+          flush=True)
+    print(f"[10] weak scaling (rank 0, CUDA events): " + ", ".join(
+        f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}" for k, v in sc.items()),
+        flush=True)
+    want = {"spill": 3, "no spill": 3, "adaptive sigma": 4}
+    if max(r0["err"].values()) > TOL_STEP or r0["all_reduce"] != want:
+        fail("the sharded solve disagrees with the one-rank solve or its collective count")
+    if r0["launches"] != {"wb_cost": N_SHARD_SOLVES, "wb_update_shard": N_SHARD_SOLVES,
+                          "wb_cost_nospill": N_SHARD_SOLVES,
+                          "wb_update_shard_regen": N_SHARD_SOLVES}:
+        fail(f"the sharded solve did not run through rows 1+7 and 4+6: {r0['launches']}")
+    return r0
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
     dev = torch.device("cuda", 0)
     smi = phase_build(dev)
-    errs = {"wb_cost": 0.0, "wb_update": 0.0, "plant_tick": 0.0}
+    errs = dict.fromkeys(("wb_cost", "wb_update", "plant_tick", "wb_cost_nospill",
+                          "wb_update_regen", "wb_update_shard_regen", "wb_update_shard"), 0.0)
     phase_kernels(dev, errs)
     phase_philox(dev)
     launches, solve_ms, serve = phase_serving(dev)
@@ -535,6 +973,20 @@ def main() -> None:
     t_plant, plant_bound = phase_plant(dev, errs)
     episode_launches, step_ms = phase_episode(dev)
     phase_reach(dev)
+    batch_launches, t_b256, batch_rows = phase_batch(dev, errs)
+    t_new, new_bounds = phase_nospill(dev, errs)
+    shard = phase_sharded(dev)
+    b256 = {(b, spill): e_ms for b, spill, _, e_ms, _, _, _ in batch_rows}
+
+    def new_row(name, replaces, launches_n, library_ms, **extra):
+        if library_ms is not None:
+            extra["library_device_ms"] = t_new["library_mv_device"]
+        return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+                "replaces": f"{TPU_KERNEL}:{replaces}", "launches": launches_n,
+                "max_abs_err": errs[name], "ms": t_new[name], "plain_ms": t_new[name + "_plain"],
+                "bound_ms": new_bounds[name][0], "bound_by": new_bounds[name][1],
+                "library_ms": library_ms, "device_ms": t_new[name + "_device"], **extra}
+
     kernels = [
         {"name": "wb_cost", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": f"{TPU_KERNEL}:575 _cost_kernel_store, {TPU_KERNEL}:564 _cost_kernel_noise",
@@ -545,23 +997,36 @@ def main() -> None:
          "noise_ms": t["wb_cost_noise"], "noise_plain_ms": t["wb_cost_noise_plain"],
          "noise_bound_ms": bounds["wb_cost_noise"][0],
          "noise_bound_by": bounds["wb_cost_noise"][1],
-         "episode_launches": episode_launches["wb_cost"]},
+         "episode_launches": episode_launches["wb_cost"], "b256_ms": t_b256["wb_cost"]},
         {"name": "wb_update", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": f"{TPU_KERNEL}:655 _update_kernel_fused_noise (_fused_update_body :624)",
          "launches": launches["wb_update"], "max_abs_err": errs["wb_update"],
          "ms": t["wb_update"], "plain_ms": t["wb_update_plain"],
          "bound_ms": bounds["wb_update"][0], "bound_by": bounds["wb_update"][1],
-         "library_ms": t["library_mv"], "episode_launches": episode_launches["wb_update"]},
+         "library_ms": t["library_mv"], "episode_launches": episode_launches["wb_update"],
+         "b256_ms": t_b256["wb_update"], "device_ms": t_new["wb_update_device"],
+         "library_device_ms": t_new["library_mv_device"]},
         {"name": "plant_tick", "route": "cuda", "source": PLANT_SOURCE,
          "replaces": f"{PLANT_TPU_KERNEL}:116 make_plant_tick_kernel (kernel :137)",
          "launches": episode_launches["plant_tick"], "max_abs_err": errs["plant_tick"],
          "ms": t_plant["plant_tick"], "plain_ms": t_plant["plant_tick_plain"],
          "bound_ms": plant_bound[0], "bound_by": plant_bound[1], "library_ms": None,
          "b1024_ms": t_plant["plant_tick_b1024"]},
+        new_row("wb_cost_nospill", "551 _cost_kernel", batch_launches["wb_cost_nospill"], None,
+                b256_ms=t_b256["wb_cost_nospill"]),
+        new_row("wb_update_regen", "647 _update_kernel_fused",
+                batch_launches["wb_update_regen"], t_new["library_mv"],
+                b256_ms=t_b256["wb_update_regen"]),
+        new_row("wb_update_shard_regen", "607 _update_kernel",
+                shard["launches"]["wb_update_shard_regen"], t_new["library_mv"]),
+        new_row("wb_update_shard", "616 _update_kernel_noise",
+                shard["launches"]["wb_update_shard"], t_new["library_mv"]),
     ]
     print(json.dumps({"kernels": kernels}))
-    print(f"serving solve {solve_ms:.4f} ms, serving episode {step_ms:.4f} ms/control step "
-          f"on {smi}")
+    print(f"serving solve {solve_ms:.4f} ms, serving episode {step_ms:.4f} ms/control step, "
+          f"batched solve at B={B_BATCH} {b256[(B_BATCH, True)]:.3f} ms (spill) / "
+          f"{b256[(B_BATCH, False)]:.3f} ms (no spill), sharded solve "
+          f"{shard['ms']['spill']:.3f} ms on {smi}")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
 MPPI has no learned weights: what crosses between the two packages is the
 configuration (a tree of frozen dataclasses), the solver state and the
-closed loop's plant state.
+closed loop's plant state.  Batched solver states come across from the JAX
+package's vmapped states (:func:`batched_state_from_numpy`).
 :func:`params_from_dict` reads the plain JSON-able dict that the JAX
 package's ``config.to_dict`` writes — ``{"__dataclass__": name, ...}``
 nodes, ``{"__ndarray__": list, "dtype": str}`` arrays and
@@ -89,6 +90,22 @@ def state_from_numpy(u_prev, sigma, seed: int, device="cuda", step: int = 0) -> 
         sigma=torch.tensor(np.asarray(sigma, dtype=np.float32), device=dev),
         seed=int(seed), step=int(step),
     )
+
+
+def batched_state_from_numpy(u_prev, sigma, seeds, device="cuda", step: int = 0) -> MPPIState:
+    """A scenario-batched ``MPPIState`` from host arrays: warm starts
+    (B, H, A) and sigmas (B, A), e.g. the leaves of the JAX package's
+    ``jax.vmap(init)`` states, with B Philox seeds of the port's own (the
+    JAX keys have no counterpart) and the shared solve index."""
+    u = np.asarray(u_prev, dtype=np.float32)
+    sg = np.asarray(sigma, dtype=np.float32)
+    seeds = [int(x) for x in seeds]
+    if u.ndim != 3 or sg.shape != (u.shape[0], u.shape[2]) or len(seeds) != u.shape[0]:
+        raise ValueError(f"expected u_prev (B, H, A), sigma (B, A) and B seeds, got "
+                         f"{u.shape}, {sg.shape} and {len(seeds)} seeds")
+    dev = resolve_device(device)
+    return MPPIState(u_prev=torch.tensor(u, device=dev), sigma=torch.tensor(sg, device=dev),
+                     seed=torch.tensor(seeds, dtype=torch.int64, device=dev), step=int(step))
 
 
 def plant_from_numpy(vec46, device="cuda") -> WholeBodyPlant:

@@ -2,13 +2,28 @@
 //
 // Replaces the TPU kernels of
 // quadrotor_manipulator_mppi_tpu/ops/pallas/whole_body_kernel.py:
-//   wb_cost   <- _cost_kernel_store (in-kernel PRNG, noise spilled to HBM)
-//                and _cost_kernel_noise (explicit noise): noise draw,
-//                rollout, 7-joint FK, the whole cost stack, per-block
-//                softmin partials (_softmin_partials).
-//   wb_update <- _update_kernel_fused_noise / _fused_update_body: softmin
-//                weights, the weighted noise sum du and the weighted second
-//                moment for adaptive sigma.
+//   wb_cost<MODE, DRAW, STORE>, pass 1: noise draw, rollout, 7-joint FK,
+//     the whole cost stack, per-block softmin partials (_softmin_partials).
+//       DRAW, STORE   <- _cost_kernel_store (in-kernel PRNG, noise spilled)
+//       DRAW, !STORE  <- _cost_kernel (in-kernel PRNG, no spill)
+//       !DRAW         <- _cost_kernel_noise (explicit noise)
+//   wb_update<REGEN, GIVEN>, pass 2: softmin weights, the weighted noise
+//     sum du and the weighted second moment for adaptive sigma, per row.
+//       !REGEN, !GIVEN <- _update_kernel_fused_noise / _fused_update_body
+//       REGEN,  !GIVEN <- _update_kernel_fused (draws the noise again)
+//       REGEN,  GIVEN  <- _update_kernel (sharded; draws the noise again)
+//       !REGEN, GIVEN  <- _update_kernel_noise (sharded; reads the noise)
+//     GIVEN: the global (rho, eta) arrive from the host's collectives (the
+//     sample-sharded solve); otherwise they are combined from this solve's
+//     per-block partials.  The per-tile du/m2 partials of the sharded TPU
+//     kernels exist only for Mosaic; here each rank writes one row per
+//     (a, t) and the host all-reduces it.
+//
+// Every variant takes a second grid dimension over independent scenarios
+// (blockIdx.y): per-scenario scalars, warm start, noise, costs and partials
+// are contiguous slabs, and each scenario has its own Philox key, so one
+// launch solves a batch of B problems.  Slab offsets are size_t (the noise
+// of 256 scenarios at K=4096, H=50 is 577 M floats).
 //
 // What bounds them on this card.
 //   wb_cost is bound by dependent arithmetic, not by bytes: per sample it
@@ -19,7 +34,10 @@
 //   parallelism: K=4096 samples give only 4096 threads, ~1/16 of what the
 //   H100's 132 SMs can hold, so the kernel is latency bound.
 //   wb_update reads the 9.0 MB of noise once (2.7 us at 3.35 TB/s) and is
-//   bound by bytes.
+//   bound by bytes; the REGEN variants read no noise and are bound by the
+//   ~155 operations per element of the second draw (~5 us).  Batching B
+//   scenarios multiplies both bounds by B and gives wb_cost B * 4096
+//   threads, enough to fill the card.
 //
 // What the design does about it.
 //   wb_cost: one thread per sample; every horizon operator of the TPU
@@ -38,10 +56,14 @@
 //   normalizers (rho, eta) are combined from wb_cost's per-block partials
 //   inside each block, so no K-wide op runs between the two kernels.
 //
-// Randomness: Philox4x32-10 (Random123), key = the solver state's 64-bit
-// seed, counter = (solve index, sample, a*H + t, 0), output word 0; normal
-// z = sqrt(2) erfinv(((bits >> 8) - (2^23 - 0.5)) 2^-23), exact in float32
-// and finite.  ops/sampling.py holds the same stream in plain PyTorch.
+// Randomness: Philox4x32-10 (Random123), key = the scenario's 64-bit seed,
+// counter = (solve index, global sample index, a*H + t, 0), output word 0;
+// normal z = sqrt(2) erfinv(((bits >> 8) - (2^23 - 0.5)) 2^-23), exact in
+// float32 and finite.  The global sample index is k_off + k, so a shard of
+// the sample axis draws exactly its slice of the one-rank noise set.  Pass 2
+// draws again through the same draw_eps as pass 1, so regenerated noise is
+// bit-identical to the spilled noise.  ops/sampling.py holds the same
+// stream in plain PyTorch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -115,6 +137,23 @@ __device__ __forceinline__ float bits_to_normal(uint32_t bits) {
   return erfinvf(x) * 1.41421356f;
 }
 
+// The scenario's Philox key: seeds[b] when a per-scenario seed array is
+// given, else the by-value seed.
+__device__ __forceinline__ void philox_key(const unsigned long long* seeds,
+                                           unsigned long long seed, int b,
+                                           uint32_t& k0, uint32_t& k1) {
+  const unsigned long long s = seeds ? seeds[b] : seed;
+  k0 = (uint32_t)(s & 0xffffffffull);
+  k1 = (uint32_t)(s >> 32);
+}
+
+// eps(a, t, k) = sigma_a z(step, global sample kg, row = a*H + t): the one
+// code path of every draw, in pass 1 and again in pass 2.
+__device__ __forceinline__ float draw_eps(uint32_t step, uint32_t kg, uint32_t row,
+                                          float sigma, uint32_t k0, uint32_t k1) {
+  return bits_to_normal(philox_word0(step, kg, row, 0u, k0, k1)) * sigma;
+}
+
 struct Quat {
   float w, x, y, z;
 };
@@ -165,12 +204,13 @@ __device__ __forceinline__ Quat quat_from_rotvec(float rx, float ry, float rz) {
   return Quat{cosf(half), rx * k, ry * k, rz * k};
 }
 
-// Per-sample rollout + cost: the whole of pass 1 for sample k.  With DRAW
-// the sample's noise is drawn from Philox and spilled to eps; otherwise it
-// is read from eps.  eps is (A, H, K).
-template <int MODE, bool DRAW>
+// Per-sample rollout + cost: the whole of pass 1 for sample k (global index
+// k_off + k).  With DRAW the sample's noise is drawn from Philox, and with
+// STORE also spilled to eps; without DRAW it is read from eps.  eps is
+// (A, H, K).
+template <int MODE, bool DRAW, bool STORE>
 __device__ __forceinline__ float sample_cost(const WbParams& p, const float* sc,
-                             const float* u_prev, float* eps, int k,
+                             const float* u_prev, float* eps, int k, int k_off,
                              uint32_t key0, uint32_t key1, uint32_t step) {
   const int H = p.h, K = p.k;
   const float dt = p.dt;
@@ -212,9 +252,9 @@ __device__ __forceinline__ float sample_cost(const WbParams& p, const float* sc,
       const size_t idx = ((size_t)(a * H + t)) * K + k;
       float e;
       if (DRAW) {
-        e = bits_to_normal(philox_word0(step, (uint32_t)k, (uint32_t)(a * H + t),
-                                        0u, key0, key1)) * sc[SC_SIGMA + a];
-        eps[idx] = e;
+        e = draw_eps(step, (uint32_t)(k_off + k), (uint32_t)(a * H + t), sc[SC_SIGMA + a],
+                     key0, key1);
+        if (STORE) eps[idx] = e;
       } else {
         e = eps[idx];
       }
@@ -414,13 +454,24 @@ __device__ __forceinline__ float sample_cost(const WbParams& p, const float* sc,
   return total;
 }
 
-template <int MODE, bool DRAW>
+template <int MODE, bool DRAW, bool STORE>
 __global__ void __launch_bounds__(WB_BLOCK)
 wb_cost_kernel(const WbParams p, const float* __restrict__ sc,
                const float* __restrict__ u_prev, float* __restrict__ eps,
                float* __restrict__ s, float* __restrict__ m_part,
-               float* __restrict__ e_part, uint32_t key0, uint32_t key1,
-               uint32_t step) {
+               float* __restrict__ e_part, const unsigned long long* __restrict__ seeds,
+               unsigned long long seed, uint32_t step, int k_off) {
+  // Scenario b's slabs: sc (SC_LEN), u_prev (H, A), eps (A, H, K), s (K),
+  // partials (n_blocks).
+  const int b = blockIdx.y;
+  const int n_blocks = gridDim.x;
+  sc += (size_t)b * SC_LEN;
+  u_prev += (size_t)b * p.h * WB_A;
+  if (eps) eps += (size_t)b * WB_A * p.h * p.k;
+  s += (size_t)b * p.k;
+  m_part += (size_t)b * n_blocks;
+  e_part += (size_t)b * n_blocks;
+
   extern __shared__ float smem[];  // [SC_LEN scalars | H * A warm start]
   float* sc_sm = smem;
   float* u_sm = smem + SC_LEN;
@@ -428,8 +479,11 @@ wb_cost_kernel(const WbParams p, const float* __restrict__ sc,
   for (int i = threadIdx.x; i < p.h * WB_A; i += blockDim.x) u_sm[i] = u_prev[i];
   __syncthreads();
 
+  uint32_t key0 = 0u, key1 = 0u;
+  if (DRAW) philox_key(seeds, seed, b, key0, key1);
   const int k = blockIdx.x * WB_BLOCK + threadIdx.x;
-  const float cost = sample_cost<MODE, DRAW>(p, sc_sm, u_sm, eps, k, key0, key1, step);
+  const float cost =
+      sample_cost<MODE, DRAW, STORE>(p, sc_sm, u_sm, eps, k, k_off, key0, key1, step);
   s[k] = cost;
 
   // Per-block softmin partials: m = min S, e = sum exp((m - S) / lambda),
@@ -447,29 +501,53 @@ wb_cost_kernel(const WbParams p, const float* __restrict__ sc,
   }
 }
 
+// Pass 2, one block per (row = a*H + t, scenario b).  REGEN: draw the row's
+// noise again (no eps read); else read row of eps.  GIVEN: (rho, eta) =
+// se[b] (global, from the host's collectives); else combined from the
+// scenario's n_part block partials.
+template <bool REGEN, bool GIVEN>
 __global__ void __launch_bounds__(WB_UPDATE_THREADS)
 wb_update_kernel(const float* __restrict__ eps, const float* __restrict__ s,
                  const float* __restrict__ m_part, const float* __restrict__ e_part,
-                 int n_part, int K, float inv_lam, float* __restrict__ du,
-                 float* __restrict__ m2) {
+                 const float* __restrict__ se, const float* __restrict__ sc,
+                 const unsigned long long* __restrict__ seeds, unsigned long long seed,
+                 uint32_t step, int k_off, int n_part, int K, int H, float inv_lam,
+                 float* __restrict__ du, float* __restrict__ m2) {
+  const int b = blockIdx.y, row = blockIdx.x, rows = gridDim.x;
   __shared__ float rho_eta[2];
   __shared__ float red[2][WB_UPDATE_THREADS / 32];
   if (threadIdx.x == 0) {
-    // rho = min_i m_i; eta = sum_i e_i exp((rho - m_i) / lambda)
-    float rho = m_part[0];
-    for (int i = 1; i < n_part; ++i) rho = fminf(rho, m_part[i]);
-    float eta = 0.0f;
-    for (int i = 0; i < n_part; ++i) eta += e_part[i] * expf((rho - m_part[i]) * inv_lam);
-    rho_eta[0] = rho;
-    rho_eta[1] = eta;
+    if (GIVEN) {
+      rho_eta[0] = se[2 * b];
+      rho_eta[1] = se[2 * b + 1];
+    } else {
+      // rho = min_i m_i; eta = sum_i e_i exp((rho - m_i) / lambda)
+      const float* mp = m_part + (size_t)b * n_part;
+      const float* ep = e_part + (size_t)b * n_part;
+      float rho = mp[0];
+      for (int i = 1; i < n_part; ++i) rho = fminf(rho, mp[i]);
+      float eta = 0.0f;
+      for (int i = 0; i < n_part; ++i) eta += ep[i] * expf((rho - mp[i]) * inv_lam);
+      rho_eta[0] = rho;
+      rho_eta[1] = eta;
+    }
   }
   __syncthreads();
   const float rho = rho_eta[0], eta = rho_eta[1];
-  const float* row = eps + (size_t)blockIdx.x * K;
+  const float* sb = s + (size_t)b * K;
+  const float* rowp = REGEN ? nullptr : eps + ((size_t)b * rows + row) * K;
+  uint32_t key0 = 0u, key1 = 0u;
+  float sigma = 0.0f;
+  if (REGEN) {
+    philox_key(seeds, seed, b, key0, key1);
+    sigma = sc[(size_t)b * SC_LEN + SC_SIGMA + row / H];
+  }
   float acc = 0.0f, acc2 = 0.0f;
   for (int k = threadIdx.x; k < K; k += WB_UPDATE_THREADS) {
-    const float w = expf((rho - s[k]) * inv_lam) / eta;
-    const float e = row[k];
+    const float w = expf((rho - sb[k]) * inv_lam) / eta;
+    const float e = REGEN ? draw_eps(step, (uint32_t)(k_off + k), (uint32_t)row, sigma,
+                                     key0, key1)
+                          : rowp[k];
     acc += w * e;
     acc2 += w * e * e;
   }
@@ -485,55 +563,82 @@ wb_update_kernel(const float* __restrict__ eps, const float* __restrict__ s,
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    float a = 0.0f, b = 0.0f;
+    float a = 0.0f, c = 0.0f;
     for (int i = 0; i < WB_UPDATE_THREADS / 32; ++i) {
       a += red[0][i];
-      b += red[1][i];
+      c += red[1][i];
     }
-    du[blockIdx.x] = a;
-    m2[blockIdx.x] = b;
+    du[(size_t)b * rows + row] = a;
+    m2[(size_t)b * rows + row] = c;
   }
 }
 
-template <int MODE, bool DRAW>
-static void launch_cost(const WbParams& p, const float* sc, const float* u_prev,
+template <int MODE, bool DRAW, bool STORE>
+static void launch_cost(const WbParams& p, int n_scen, const float* sc, const float* u_prev,
                         float* eps, float* s, float* m_part, float* e_part,
-                        uint32_t key0, uint32_t key1, uint32_t step,
-                        cudaStream_t stream) {
+                        const unsigned long long* seeds, unsigned long long seed,
+                        uint32_t step, int k_off, cudaStream_t stream) {
   const size_t smem = (size_t)(SC_LEN + p.h * WB_A) * sizeof(float);
-  wb_cost_kernel<MODE, DRAW><<<p.k / WB_BLOCK, WB_BLOCK, smem, stream>>>(
-      p, sc, u_prev, eps, s, m_part, e_part, key0, key1, step);
+  const dim3 grid(p.k / WB_BLOCK, n_scen);
+  wb_cost_kernel<MODE, DRAW, STORE><<<grid, WB_BLOCK, smem, stream>>>(
+      p, sc, u_prev, eps, s, m_part, e_part, seeds, seed, step, k_off);
 }
 
 extern "C" {
 
-// Pass 1.  draw != 0: Philox noise, spilled to eps (out); else eps is read.
+// Pass 1 over n_scen scenarios.  variant 0: eps is read (explicit noise);
+// 1: Philox noise, spilled to eps (out); 2: Philox noise, not stored (eps
+// may be NULL).  seeds: n_scen per-scenario keys, or NULL to use seed.
 // Returns cudaGetLastError() after the launch.
-int wb_cost_launch(const WbParams* p, const float* sc, const float* u_prev,
-                   float* eps, float* s, float* m_part, float* e_part,
-                   unsigned long long seed, unsigned int step, int draw,
-                   void* stream) {
-  const uint32_t key0 = (uint32_t)(seed & 0xffffffffull);
-  const uint32_t key1 = (uint32_t)(seed >> 32);
+int wb_cost_launch(const WbParams* p, const float* sc, const float* u_prev, float* eps,
+                   float* s, float* m_part, float* e_part,
+                   const unsigned long long* seeds, unsigned long long seed,
+                   unsigned int step, int k_off, int variant, int n_scen, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  switch (p->mode * 2 + (draw ? 1 : 0)) {
-    case 0: launch_cost<MODE_ATTITUDE, false>(*p, sc, u_prev, eps, s, m_part, e_part, key0, key1, step, st); break;
-    case 1: launch_cost<MODE_ATTITUDE, true>(*p, sc, u_prev, eps, s, m_part, e_part, key0, key1, step, st); break;
-    case 2: launch_cost<MODE_POSITION, false>(*p, sc, u_prev, eps, s, m_part, e_part, key0, key1, step, st); break;
-    case 3: launch_cost<MODE_POSITION, true>(*p, sc, u_prev, eps, s, m_part, e_part, key0, key1, step, st); break;
-    case 4: launch_cost<MODE_WRENCH, false>(*p, sc, u_prev, eps, s, m_part, e_part, key0, key1, step, st); break;
-    case 5: launch_cost<MODE_WRENCH, true>(*p, sc, u_prev, eps, s, m_part, e_part, key0, key1, step, st); break;
+#define WB_COST_CASE(M, V, D, S)                                                      \
+  case (M) * 3 + (V):                                                                 \
+    launch_cost<M, D, S>(*p, n_scen, sc, u_prev, eps, s, m_part, e_part, seeds, seed, \
+                         step, k_off, st);                                            \
+    break;
+  switch (p->mode * 3 + variant) {
+    WB_COST_CASE(MODE_ATTITUDE, 0, false, false)
+    WB_COST_CASE(MODE_ATTITUDE, 1, true, true)
+    WB_COST_CASE(MODE_ATTITUDE, 2, true, false)
+    WB_COST_CASE(MODE_POSITION, 0, false, false)
+    WB_COST_CASE(MODE_POSITION, 1, true, true)
+    WB_COST_CASE(MODE_POSITION, 2, true, false)
+    WB_COST_CASE(MODE_WRENCH, 0, false, false)
+    WB_COST_CASE(MODE_WRENCH, 1, true, true)
+    WB_COST_CASE(MODE_WRENCH, 2, true, false)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef WB_COST_CASE
   return (int)cudaGetLastError();
 }
 
-// Pass 2: one block per (a, t) row of eps (rows = A * H).
+// Pass 2 over n_scen scenarios, one block per (row, scenario), rows = A*H.
+// regen != 0: draw the noise again from (seeds | seed, step, k_off) and the
+// sigma in sc; else read eps.  se != NULL: the given (rho, eta) per
+// scenario; else combine the n_part partials per scenario.
 int wb_update_launch(const float* eps, const float* s, const float* m_part,
-                     const float* e_part, int n_part, int k, int rows,
-                     float inv_lam, float* du, float* m2, void* stream) {
-  wb_update_kernel<<<rows, WB_UPDATE_THREADS, 0, (cudaStream_t)stream>>>(
-      eps, s, m_part, e_part, n_part, k, inv_lam, du, m2);
+                     const float* e_part, const float* se, const float* sc,
+                     const unsigned long long* seeds, unsigned long long seed,
+                     unsigned int step, int k_off, int n_part, int k, int h, int n_scen,
+                     float inv_lam, int regen, float* du, float* m2, void* stream) {
+  const dim3 grid(WB_A * h, n_scen);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (regen && se)
+    wb_update_kernel<true, true><<<grid, WB_UPDATE_THREADS, 0, st>>>(
+        eps, s, m_part, e_part, se, sc, seeds, seed, step, k_off, n_part, k, h, inv_lam, du, m2);
+  else if (regen)
+    wb_update_kernel<true, false><<<grid, WB_UPDATE_THREADS, 0, st>>>(
+        eps, s, m_part, e_part, se, sc, seeds, seed, step, k_off, n_part, k, h, inv_lam, du, m2);
+  else if (se)
+    wb_update_kernel<false, true><<<grid, WB_UPDATE_THREADS, 0, st>>>(
+        eps, s, m_part, e_part, se, sc, seeds, seed, step, k_off, n_part, k, h, inv_lam, du, m2);
+  else
+    wb_update_kernel<false, false><<<grid, WB_UPDATE_THREADS, 0, st>>>(
+        eps, s, m_part, e_part, se, sc, seeds, seed, step, k_off, n_part, k, h, inv_lam, du, m2);
   return (int)cudaGetLastError();
 }
 

@@ -1,26 +1,49 @@
-"""The whole-body MPPI solve on two hand-written CUDA kernels.
+"""The whole-body MPPI solve on hand-written CUDA kernels.
 
-Port of the JAX package's ``ops/pallas/whole_body_kernel.py`` (its
-single-device path).  Per solve:
+Port of the JAX package's ``ops/pallas/whole_body_kernel.py``: its
+single-device, sample-sharded and (through a scenario axis, its ``vmap``)
+batched paths.  Per solve, two launches of ``csrc/whole_body_kernel.cu``:
 
-* :func:`wb_cost` (pass 1, ``csrc/whole_body_kernel.cu``) draws the noise
-  (Philox, spilled to device memory as (A, H, K)) or reads explicit noise,
-  rolls out base + arm, runs the 7-joint FK and the whole cost stack, and
-  writes the per-sample cost S and per-block softmin partials (min, sum exp);
-* :func:`wb_update` (pass 2) forms the softmin weights from those partials
-  and reduces the weighted noise sum du and the weighted second moment per
-  (action, step) row.
+* pass 1 draws the noise (Philox) or reads explicit noise, rolls out base
+  + arm, runs the 7-joint FK and the whole cost stack, and writes the
+  per-sample cost S and per-block softmin partials (min, sum exp):
+  :func:`wb_cost` spills the drawn noise to device memory as (A, H, K),
+  :func:`wb_cost_nospill` keeps it in registers only;
+* pass 2 forms the softmin weights and reduces the weighted noise sum du
+  and the weighted second moment per (action, step) row: :func:`wb_update`
+  reads the spilled noise and :func:`wb_update_regen` draws it again, both
+  with (rho, eta) combined from the pass-1 partials; the sample-sharded
+  twins :func:`wb_update_shard` (reads) and :func:`wb_update_shard_regen`
+  (draws again) take the global (rho, eta) that the host's collectives
+  reduced over the ranks.
 
-Between and after them only (H, A)-sized work runs in plain PyTorch:
-reshaping du, the Savitzky-Golay matmul, the clamp, the warm start and the
-adaptive-sigma update.  What the kernels need from the observation is
-packed into one 54-float vector (:func:`pack_scalars`).
+========================  ===========================  ===============
+wrapper                   TPU kernel                   PERF.md row
+========================  ===========================  ===============
+wb_cost (Philox)          _cost_kernel_store           1
+wb_cost (explicit eps)    _cost_kernel_noise           2
+wb_update                 _update_kernel_fused_noise   3
+wb_cost_nospill           _cost_kernel                 4
+wb_update_regen           _update_kernel_fused         5
+wb_update_shard_regen     _update_kernel               6
+wb_update_shard           _update_kernel_noise         7
+========================  ===========================  ===============
+
+Every wrapper takes one scenario (``sc`` (54,), ``u_prev`` (H, A), ...) or
+a batch with a leading scenario axis (``sc`` (B, 54), ...); one launch
+covers the batch.  A seed is an int, or for a batch a (B,) int64 tensor of
+per-scenario Philox keys on the card.
+
+Between and after the passes only (H, A)-sized work runs in plain PyTorch:
+reshaping du, the collectives of the sharded solve, the Savitzky-Golay
+matmul, the clamp, the warm start and the adaptive-sigma update.  What the
+kernels need from the observation is packed into one 54-float vector per
+scenario (:func:`pack_scalars`).
 
 Each wrapper launches its kernel for CUDA tensors, or raises; for CPU
-tensors it runs its plain version (:func:`wb_cost_plain`,
-:func:`wb_update_plain`), which the CPU tests use and which the on-card
-checks hold the kernels against.  ``wb_cost.launches`` and
-``wb_update.launches`` count kernel launches.
+tensors it runs its plain version (``*_plain``), which the CPU tests use
+and which the on-card checks hold the kernels against.  Each wrapper's
+``launches`` counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -32,6 +55,7 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ...models import kinova
 from ...models.chain import REVOLUTE, matrix_to_quat_np
@@ -110,11 +134,13 @@ def _fill(arr, values) -> None:
         arr[i] = float(v)
 
 
-def make_kernel_config(params) -> WbKernelConfig:
+def make_kernel_config(params, n_local_samples: Optional[int] = None) -> WbKernelConfig:
     """Validate ``params`` for the kernels (the JAX kernel's checks, same
-    messages) and build the constant struct."""
+    messages) and build the constant struct.  ``n_local_samples``: this
+    rank's share of the samples in a sample-sharded solve (default: all
+    ``n_samples``)."""
     cfg, mp, cp = params.mppi, params.model, params.cost
-    h, k, dt = cfg.n_horizon, cfg.n_samples, cfg.dt
+    h, k, dt = cfg.n_horizon, n_local_samples or cfg.n_samples, cfg.dt
     if cfg.n_action != A_TOTAL:
         raise ValueError(f"whole-body kernel expects {A_TOTAL} actions")
     if k % BLOCK:
@@ -191,31 +217,36 @@ def make_kernel_config(params) -> WbKernelConfig:
 # ---------------------------------------------------------------------------
 
 def pack_scalars(obs, sigma_live: Tensor) -> Tensor:
-    """The kernels' per-solve inputs from the observation (54 floats):
-    q0, qd0, pos0, vel0, EE target pose, base target, live sigma, rpy0,
-    omega0, and the initial attitude quaternion and base-frame gravity."""
+    """The kernels' per-solve inputs from the observation (54 floats per
+    scenario): q0, qd0, pos0, vel0, EE target pose, base target, live
+    sigma, rpy0, omega0, and the initial attitude quaternion and base-frame
+    gravity.  With a leading scenario axis on the observation's fields the
+    result is (B, 54); ``sigma_live`` (A,) or (B, A) broadcasts."""
     st = obs.state
     rpy = st.base.rpy.to(torch.float32)
+    lead = tuple(rpy.shape[:-1])
     bq0 = _quat_from_rpy(rpy)
-    g_b = -9.81 * rot.quat_to_matrix(bq0)[2, :]
+    g_b = -9.81 * rot.quat_to_matrix(bq0)[..., 2, :]
     parts = (st.q, st.qdot, st.base.pos, st.base.vel, obs.ee_target.position,
              obs.ee_target.quat, obs.base_target, sigma_live, rpy, st.base.omega,
              bq0, g_b)
-    return torch.cat([p.to(torch.float32).reshape(-1) for p in parts])
+    return torch.cat([torch.broadcast_to(p.to(torch.float32), lead + p.shape[-1:])
+                      for p in parts], dim=-1)
 
 
 def obs_from_scalars(sc: Tensor):
     """Inverse of :func:`pack_scalars` (the observation part)."""
     from ...solver.whole_body import WholeBodyObs
 
-    base = Multirotor12State(
-        pos=sc[SC_POS0:SC_POS0 + 3], rpy=sc[SC_RPY0:SC_RPY0 + 3],
-        vel=sc[SC_VEL0:SC_VEL0 + 3], omega=sc[SC_OM0:SC_OM0 + 3],
-    )
+    def part(i, n):
+        return sc[..., i:i + n]
+
+    base = Multirotor12State(pos=part(SC_POS0, 3), rpy=part(SC_RPY0, 3),
+                             vel=part(SC_VEL0, 3), omega=part(SC_OM0, 3))
     return WholeBodyObs(
-        state=WholeBodyState(base=base, q=sc[SC_Q0:SC_Q0 + 7], qdot=sc[SC_QD0:SC_QD0 + 7]),
-        ee_target=Pose(position=sc[SC_TPOS:SC_TPOS + 3], quat=sc[SC_TQUAT:SC_TQUAT + 4]),
-        base_target=sc[SC_BTGT:SC_BTGT + 3],
+        state=WholeBodyState(base=base, q=part(SC_Q0, 7), qdot=part(SC_QD0, 7)),
+        ee_target=Pose(position=part(SC_TPOS, 3), quat=part(SC_TQUAT, 4)),
+        base_target=part(SC_BTGT, 3),
     )
 
 
@@ -223,25 +254,30 @@ def obs_from_scalars(sc: Tensor):
 # Kernel wrappers and their plain versions
 # ---------------------------------------------------------------------------
 
+_U64 = 0xFFFFFFFFFFFFFFFF
+_U32 = 0xFFFFFFFF
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load_library("whole_body_kernel")
-    vp = ctypes.c_void_p
-    lib.wb_cost_launch.argtypes = [ctypes.POINTER(WbParams), vp, vp, vp, vp, vp, vp,
-                                   ctypes.c_uint64, ctypes.c_uint32, ctypes.c_int, vp]
-    lib.wb_cost_launch.restype = ctypes.c_int
-    lib.wb_update_launch.argtypes = [vp, vp, vp, vp, ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_float, vp, vp, vp]
-    lib.wb_update_launch.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.wb_cost_launch.argtypes = [ctypes.POINTER(WbParams), vp, vp, vp, vp, vp, vp, vp,
+                                   ctypes.c_uint64, ctypes.c_uint32, ci, ci, ci, vp]
+    lib.wb_cost_launch.restype = ci
+    lib.wb_update_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, ctypes.c_uint64,
+                                     ctypes.c_uint32, ci, ci, ci, ci, ci, ctypes.c_float,
+                                     ci, vp, vp, vp]
+    lib.wb_update_launch.restype = ci
     return lib
 
 
-def _check(t: Tensor, shape, device, name: str) -> None:
-    if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) \
+def _check(t: Tensor, shape, device, name: str, dtype=torch.float32) -> None:
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
             or not t.is_contiguous():
         raise ValueError(
-            f"{name}: expected a contiguous float32 tensor of shape {tuple(shape)} on "
-            f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+            f"{name}: expected a contiguous {str(dtype)[6:]} tensor of shape {tuple(shape)} "
+            f"on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
         )
 
 
@@ -250,50 +286,210 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
 
 
-def wb_cost(kc: WbKernelConfig, sc: Tensor, u_prev: Tensor, eps: Optional[Tensor] = None,
-            seed: int = 0, step: int = 0) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Pass 1.  Returns (S (K,), block minima (n_blocks,), block sums of
-    exp((m - S)/lambda) (n_blocks,), eps (A, H, K)).  With ``eps=None`` the
-    noise is the Philox stream of (seed, step) scaled by the packed sigma,
-    and is returned; otherwise ``eps`` is read."""
-    if sc.device.type == "cpu":
-        return wb_cost_plain(kc, sc, u_prev, eps, seed, step)
+def _ptr(t: Optional[Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _seed_args(seed, lead, device):
+    """(per-scenario seed array pointer or None, by-value seed): a (B,)
+    int64 tensor gives each scenario its own key, an int one key for all."""
+    if isinstance(seed, Tensor):
+        _check(seed, lead or (1,), device, "seed", torch.int64)
+        return seed.data_ptr(), 0
+    return None, int(seed) & _U64
+
+
+def _seed_list(seed, n: int) -> list:
+    if isinstance(seed, Tensor):
+        return [int(x) & _U64 for x in seed.reshape(-1).tolist()]
+    return [int(seed) & _U64] * n
+
+
+def _n_scen(lead) -> int:
+    return lead[0] if lead else 1
+
+
+def _launch_cost(kc: WbKernelConfig, name: str, sc: Tensor, u_prev: Tensor,
+                 eps: Optional[Tensor], seed, step: int, k_off: int, variant: int):
     k, h, dev = kc.n_samples, kc.n_horizon, sc.device
-    _check(sc, (SC_LEN,), dev, "sc")
-    _check(u_prev, (h, A_TOTAL), dev, "u_prev")
-    draw = eps is None
-    if draw:
-        eps = torch.empty((A_TOTAL, h, k), dtype=torch.float32, device=dev)
-    _check(eps, (A_TOTAL, h, k), dev, "eps")
-    s = torch.empty(k, dtype=torch.float32, device=dev)
-    m_part = torch.empty(kc.n_blocks, dtype=torch.float32, device=dev)
-    e_part = torch.empty(kc.n_blocks, dtype=torch.float32, device=dev)
+    lead = tuple(sc.shape[:-1])
+    _check(sc, lead + (SC_LEN,), dev, "sc")
+    _check(u_prev, lead + (h, A_TOTAL), dev, "u_prev")
+    if variant == 1:
+        eps = torch.empty(lead + (A_TOTAL, h, k), dtype=torch.float32, device=dev)
+    if eps is not None:
+        _check(eps, lead + (A_TOTAL, h, k), dev, "eps")
+    s = torch.empty(lead + (k,), dtype=torch.float32, device=dev)
+    m_part = torch.empty(lead + (kc.n_blocks,), dtype=torch.float32, device=dev)
+    e_part = torch.empty(lead + (kc.n_blocks,), dtype=torch.float32, device=dev)
+    seeds, seed_val = _seed_args(seed, lead, dev) if variant else (None, 0)
     rc = _lib().wb_cost_launch(
-        ctypes.byref(kc.struct), sc.data_ptr(), u_prev.data_ptr(), eps.data_ptr(),
-        s.data_ptr(), m_part.data_ptr(), e_part.data_ptr(),
-        int(seed) & 0xFFFFFFFFFFFFFFFF, int(step) & 0xFFFFFFFF, int(draw),
-        torch.cuda.current_stream(dev).cuda_stream,
+        ctypes.byref(kc.struct), sc.data_ptr(), u_prev.data_ptr(), _ptr(eps), s.data_ptr(),
+        m_part.data_ptr(), e_part.data_ptr(), seeds, seed_val, int(step) & _U32, int(k_off),
+        variant, _n_scen(lead), torch.cuda.current_stream(dev).cuda_stream,
     )
-    _raise_on(rc, "wb_cost")
-    wb_cost.launches += 1
+    _raise_on(rc, name)
     return s, m_part, e_part, eps
+
+
+def _launch_update(kc: WbKernelConfig, name: str, s: Tensor, eps: Optional[Tensor] = None,
+                   m_part: Optional[Tensor] = None, e_part: Optional[Tensor] = None,
+                   se: Optional[Tensor] = None, sc: Optional[Tensor] = None, seed=0,
+                   step: int = 0, k_off: int = 0) -> Tuple[Tensor, Tensor]:
+    k, h, dev = kc.n_samples, kc.n_horizon, s.device
+    lead = tuple(s.shape[:-1])
+    rows = A_TOTAL * h
+    _check(s, lead + (k,), dev, "s")
+    if eps is not None:
+        _check(eps, lead + (A_TOTAL, h, k), dev, "eps")
+    else:
+        _check(sc, lead + (SC_LEN,), dev, "sc")
+    if se is not None:
+        _check(se, lead + (2,), dev, "se")
+    else:
+        _check(m_part, lead + (kc.n_blocks,), dev, "m_part")
+        _check(e_part, lead + (kc.n_blocks,), dev, "e_part")
+    regen = eps is None
+    seeds, seed_val = _seed_args(seed, lead, dev) if regen else (None, 0)
+    du = torch.empty(lead + (rows,), dtype=torch.float32, device=dev)
+    m2 = torch.empty(lead + (rows,), dtype=torch.float32, device=dev)
+    rc = _lib().wb_update_launch(
+        _ptr(eps), s.data_ptr(), _ptr(m_part), _ptr(e_part), _ptr(se), _ptr(sc), seeds,
+        seed_val, int(step) & _U32, int(k_off), kc.n_blocks, k, h, _n_scen(lead), kc.inv_lam,
+        int(regen), du.data_ptr(), m2.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, name)
+    return du, m2
+
+
+def wb_cost(kc: WbKernelConfig, sc: Tensor, u_prev: Tensor, eps: Optional[Tensor] = None,
+            seed=0, step: int = 0, k_off: int = 0) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Pass 1 (rows 1 and 2).  Returns (S (K,), block minima (n_blocks,),
+    block sums of exp((m - S)/lambda) (n_blocks,), eps (A, H, K)), each
+    with the batch's leading axis.  With ``eps=None`` the noise is the
+    Philox stream of (seed, step) at global samples k_off + k, scaled by
+    the packed sigma, and is returned; otherwise ``eps`` is read."""
+    if sc.device.type == "cpu":
+        return wb_cost_plain(kc, sc, u_prev, eps, seed, step, k_off)
+    out = _launch_cost(kc, "wb_cost", sc, u_prev, eps, seed, step, k_off,
+                       1 if eps is None else 0)
+    wb_cost.launches += 1
+    return out
 
 
 wb_cost.launches = 0
 
 
+def wb_cost_nospill(kc: WbKernelConfig, sc: Tensor, u_prev: Tensor, seed=0, step: int = 0,
+                    k_off: int = 0) -> Tuple[Tensor, Tensor, Tensor]:
+    """Pass 1 without the noise spill (row 4): :func:`wb_cost`'s Philox
+    variant, returning (S, block minima, block sums) and writing no noise;
+    pass 2 draws it again (:func:`wb_update_regen`,
+    :func:`wb_update_shard_regen`)."""
+    if sc.device.type == "cpu":
+        return wb_cost_nospill_plain(kc, sc, u_prev, seed, step, k_off)
+    s, m_part, e_part, _ = _launch_cost(kc, "wb_cost_nospill", sc, u_prev, None, seed, step,
+                                        k_off, 2)
+    wb_cost_nospill.launches += 1
+    return s, m_part, e_part
+
+
+wb_cost_nospill.launches = 0
+
+
+def wb_update(kc: WbKernelConfig, eps: Tensor, s: Tensor, m_part: Tensor,
+              e_part: Tensor) -> Tuple[Tensor, Tensor]:
+    """Pass 2 (row 3).  Softmin weights w = exp((rho - S)/lambda)/eta from
+    the block partials; returns (du, m2), each (A*H,) over the rows (a, t)
+    of eps: du = sum_k w_k eps_k and m2 = sum_k w_k eps_k^2."""
+    if eps.device.type == "cpu":
+        return wb_update_plain(kc, eps, s, m_part, e_part)
+    out = _launch_update(kc, "wb_update", s, eps=eps, m_part=m_part, e_part=e_part)
+    wb_update.launches += 1
+    return out
+
+
+wb_update.launches = 0
+
+
+def wb_update_regen(kc: WbKernelConfig, sc: Tensor, s: Tensor, m_part: Tensor,
+                    e_part: Tensor, seed=0, step: int = 0,
+                    k_off: int = 0) -> Tuple[Tensor, Tensor]:
+    """Pass 2 after :func:`wb_cost_nospill` (row 5): :func:`wb_update` on
+    the noise drawn again from (seed, step, k_off) and the packed sigma."""
+    if s.device.type == "cpu":
+        return wb_update_regen_plain(kc, sc, s, m_part, e_part, seed, step, k_off)
+    out = _launch_update(kc, "wb_update_regen", s, m_part=m_part, e_part=e_part, sc=sc,
+                         seed=seed, step=step, k_off=k_off)
+    wb_update_regen.launches += 1
+    return out
+
+
+wb_update_regen.launches = 0
+
+
+def wb_update_shard(kc: WbKernelConfig, eps: Tensor, s: Tensor,
+                    se: Tensor) -> Tuple[Tensor, Tensor]:
+    """Sharded pass 2 on the spilled noise (row 7): this rank's (du, m2)
+    rows with the global ``se`` = (rho, eta) (2,) per scenario, for the
+    host to all-reduce."""
+    if s.device.type == "cpu":
+        return wb_update_shard_plain(kc, eps, s, se)
+    out = _launch_update(kc, "wb_update_shard", s, eps=eps, se=se)
+    wb_update_shard.launches += 1
+    return out
+
+
+wb_update_shard.launches = 0
+
+
+def wb_update_shard_regen(kc: WbKernelConfig, sc: Tensor, s: Tensor, se: Tensor, seed=0,
+                          step: int = 0, k_off: int = 0) -> Tuple[Tensor, Tensor]:
+    """Sharded pass 2 after :func:`wb_cost_nospill` (row 6):
+    :func:`wb_update_shard` on the noise drawn again."""
+    if s.device.type == "cpu":
+        return wb_update_shard_regen_plain(kc, sc, s, se, seed, step, k_off)
+    out = _launch_update(kc, "wb_update_shard_regen", s, se=se, sc=sc, seed=seed, step=step,
+                         k_off=k_off)
+    wb_update_shard_regen.launches += 1
+    return out
+
+
+wb_update_shard_regen.launches = 0
+
+KERNEL_WRAPPERS = (wb_cost, wb_cost_nospill, wb_update, wb_update_regen, wb_update_shard,
+                   wb_update_shard_regen)
+
+
+def philox_eps(kc: WbKernelConfig, sc: Tensor, seed=0, step: int = 0,
+               k_off: int = 0) -> Tensor:
+    """The noise (A, H, K) the kernels draw: Philox normals at global
+    samples k_off + k scaled by the packed sigma; per scenario for a
+    batch."""
+    if sc.ndim == 2:
+        seeds = _seed_list(seed, sc.shape[0])
+        return torch.stack([philox_eps(kc, sc[b], seeds[b], step, k_off)
+                            for b in range(sc.shape[0])])
+    z = sampling.philox_normals(_seed_list(seed, 1)[0], step, kc.n_samples, kc.n_horizon,
+                                A_TOTAL, sc.device, sample_offset=k_off)
+    return z * sc[SC_SIGMA:SC_SIGMA + A_TOTAL].view(A_TOTAL, 1, 1)
+
+
 def wb_cost_plain(kc: WbKernelConfig, sc: Tensor, u_prev: Tensor,
-                  eps: Optional[Tensor] = None, seed: int = 0,
-                  step: int = 0) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+                  eps: Optional[Tensor] = None, seed=0, step: int = 0,
+                  k_off: int = 0) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Plain version of :func:`wb_cost`: the operator-form rollout and cost
     stack of ``solver/whole_body`` on v = u_prev + eps, then the per-block
-    softmin partials."""
+    softmin partials; one scenario at a time."""
     from ...solver.whole_body import rollout_cost_fns
 
-    k, h = kc.n_samples, kc.n_horizon
+    if sc.ndim == 2:
+        seeds = _seed_list(seed, sc.shape[0])
+        outs = [wb_cost_plain(kc, sc[b], u_prev[b], None if eps is None else eps[b],
+                              seeds[b], step, k_off) for b in range(sc.shape[0])]
+        return tuple(torch.stack(x) for x in zip(*outs))
     if eps is None:
-        z = sampling.philox_normals(seed, step, k, h, A_TOTAL, sc.device)
-        eps = z * sc[SC_SIGMA:SC_SIGMA + A_TOTAL].view(A_TOTAL, 1, 1)
+        eps = philox_eps(kc, sc, seed, step, k_off)
     v = u_prev[None] + eps.permute(2, 1, 0)
     obs = obs_from_scalars(sc)
     rollout_fn, cost_fn = rollout_cost_fns(kc.params)
@@ -304,57 +500,98 @@ def wb_cost_plain(kc: WbKernelConfig, sc: Tensor, u_prev: Tensor,
     return s, m, e, eps
 
 
-def wb_update(kc: WbKernelConfig, eps: Tensor, s: Tensor, m_part: Tensor,
-              e_part: Tensor) -> Tuple[Tensor, Tensor]:
-    """Pass 2.  Softmin weights w = exp((rho - S)/lambda)/eta from the block
-    partials; returns (du, m2), each (A*H,) over the rows (a, t) of eps:
-    du = sum_k w_k eps_k and m2 = sum_k w_k eps_k^2."""
-    if eps.device.type == "cpu":
-        return wb_update_plain(kc, eps, s, m_part, e_part)
-    k, h, dev = kc.n_samples, kc.n_horizon, eps.device
-    rows = A_TOTAL * h
-    _check(eps, (A_TOTAL, h, k), dev, "eps")
-    _check(s, (k,), dev, "s")
-    _check(m_part, (kc.n_blocks,), dev, "m_part")
-    _check(e_part, (kc.n_blocks,), dev, "e_part")
-    du = torch.empty(rows, dtype=torch.float32, device=dev)
-    m2 = torch.empty(rows, dtype=torch.float32, device=dev)
-    rc = _lib().wb_update_launch(
-        eps.data_ptr(), s.data_ptr(), m_part.data_ptr(), e_part.data_ptr(),
-        kc.n_blocks, k, rows, kc.inv_lam, du.data_ptr(), m2.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(rc, "wb_update")
-    wb_update.launches += 1
-    return du, m2
+def wb_cost_nospill_plain(kc: WbKernelConfig, sc: Tensor, u_prev: Tensor, seed=0,
+                          step: int = 0, k_off: int = 0) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain version of :func:`wb_cost_nospill`."""
+    return wb_cost_plain(kc, sc, u_prev, None, seed, step, k_off)[:3]
 
 
-wb_update.launches = 0
+def softmin_normalizers(kc: WbKernelConfig, m_part: Tensor, e_part: Tensor) -> Tensor:
+    """(rho, eta) (2,) per scenario from the block partials:
+    rho = min_i m_i, eta = sum_i e_i exp((rho - m_i)/lambda)."""
+    rho = m_part.min(dim=-1, keepdim=True).values
+    eta = torch.sum(e_part * torch.exp((rho - m_part) * kc.inv_lam), dim=-1, keepdim=True)
+    return torch.cat([rho, eta], dim=-1)
+
+
+def _weighted_rows(kc: WbKernelConfig, eps: Tensor, s: Tensor,
+                   se: Tensor) -> Tuple[Tensor, Tensor]:
+    w = torch.exp((se[..., :1] - s) * kc.inv_lam) / se[..., 1:]
+    flat = eps.reshape(eps.shape[:-3] + (A_TOTAL * kc.n_horizon, kc.n_samples))
+    return (flat @ w[..., None])[..., 0], ((flat * flat) @ w[..., None])[..., 0]
 
 
 def wb_update_plain(kc: WbKernelConfig, eps: Tensor, s: Tensor, m_part: Tensor,
                     e_part: Tensor) -> Tuple[Tensor, Tensor]:
     """Plain version of :func:`wb_update`: the softmin from the partials,
     the weighted sum and the weighted second moment."""
-    rho = m_part.min()
-    eta = torch.sum(e_part * torch.exp((rho - m_part) * kc.inv_lam))
-    w = torch.exp((rho - s) * kc.inv_lam) / eta
-    flat = eps.reshape(A_TOTAL * kc.n_horizon, kc.n_samples)
-    return flat @ w, (flat * flat) @ w
+    return _weighted_rows(kc, eps, s, softmin_normalizers(kc, m_part, e_part))
+
+
+def wb_update_regen_plain(kc: WbKernelConfig, sc: Tensor, s: Tensor, m_part: Tensor,
+                          e_part: Tensor, seed=0, step: int = 0,
+                          k_off: int = 0) -> Tuple[Tensor, Tensor]:
+    """Plain version of :func:`wb_update_regen`."""
+    return wb_update_plain(kc, philox_eps(kc, sc, seed, step, k_off), s, m_part, e_part)
+
+
+def wb_update_shard_plain(kc: WbKernelConfig, eps: Tensor, s: Tensor,
+                          se: Tensor) -> Tuple[Tensor, Tensor]:
+    """Plain version of :func:`wb_update_shard`."""
+    return _weighted_rows(kc, eps, s, se)
+
+
+def wb_update_shard_regen_plain(kc: WbKernelConfig, sc: Tensor, s: Tensor, se: Tensor,
+                                seed=0, step: int = 0,
+                                k_off: int = 0) -> Tuple[Tensor, Tensor]:
+    """Plain version of :func:`wb_update_shard_regen`."""
+    return _weighted_rows(kc, philox_eps(kc, sc, seed, step, k_off), s, se)
 
 
 # ---------------------------------------------------------------------------
 # The solve step
 # ---------------------------------------------------------------------------
 
-def make_whole_body_cuda_step(params, device="cuda"):
-    """Build ``step(state, obs, z=None) -> (u_seq, new_state)`` on the two
-    kernels.  ``z``: optional standard normals (K, H, A), the layout of
-    ``sampling.sample_noise``, used instead of the Philox stream."""
+def global_softmin(kc: WbKernelConfig, m_part: Tensor, e_part: Tensor, group) -> Tensor:
+    """(rho, eta) over every rank of the sample ``group``, in the JAX order:
+    all-reduce MIN of rho, then SUM of eta (which needs the global rho)."""
+    rho = m_part.min(dim=-1, keepdim=True).values
+    dist.all_reduce(rho, op=dist.ReduceOp.MIN, group=group)
+    eta = torch.sum(e_part * torch.exp((rho - m_part) * kc.inv_lam), dim=-1, keepdim=True)
+    dist.all_reduce(eta, op=dist.ReduceOp.SUM, group=group)
+    return torch.cat([rho, eta], dim=-1)
+
+
+def make_whole_body_cuda_step(params, device="cuda", group=None,
+                              n_local_samples: Optional[int] = None, noise_spill: bool = True,
+                              n_scenarios: Optional[int] = None):
+    """Build ``step(state, obs, z=None) -> (u_seq, new_state)`` on the
+    kernels.
+
+    ``z``: optional standard normals (K, H, A), the layout of
+    ``sampling.sample_noise``, used instead of the Philox stream (pass 1
+    then reads them, row 2).  On the Philox stream one rank runs rows 1 + 3
+    (``noise_spill``) or rows 4 + 5.
+
+    ``group`` and ``n_local_samples`` (the JAX builder's ``axis_name`` and
+    ``n_local_samples``): this rank solves its ``n_local_samples`` of the
+    samples of a ``torch.distributed`` sample group, at global sample
+    offset (group rank) * n_local_samples; pass 2 is rows 7 or 6, between
+    the passes the group all-reduces rho (MIN) and eta (SUM), then du (SUM,
+    before smoothing) and, with adaptive sigma, m2 (SUM).  ``z`` is then
+    this rank's (n_local_samples, H, A) block.
+
+    ``n_scenarios``: B independent problems per call, each pass one launch
+    (the JAX step's ``vmap``): ``state.u_prev`` (B, H, A), ``state.sigma``
+    (B, A), ``state.seed`` a (B,) int64 tensor of keys on the card, the
+    observation's fields and ``u_seq`` with a leading B, ``z`` (B, K, H, A).
+    The sigma schedule's FK runs batched too."""
     dev = resolve_device(device)
-    kc = make_kernel_config(params)
+    kc = make_kernel_config(params, n_local_samples)
     cfg = params.mppi
     h = cfg.n_horizon
+    lead = () if n_scenarios is None else (int(n_scenarios),)
+    k_off = 0 if group is None else dist.get_rank(group) * kc.n_samples
     sigma_base = _diag_sigma(cfg, torch.float32, dev)
     smoother = None
     if cfg.savgol_window:
@@ -371,19 +608,37 @@ def make_whole_body_cuda_step(params, device="cuda"):
             sigma_live = sigma_live * cfg.sigma_scale_fn(obs)
         sc = pack_scalars(obs, sigma_live)
         u_prev = state.u_prev.to(torch.float32).contiguous()
+        seed, n = state.seed, state.step
         eps = None
         if z is not None:
             z = torch.as_tensor(z, dtype=torch.float32, device=dev)
-            eps = (z * sigma_live).permute(2, 1, 0).contiguous()
-        s, m_part, e_part, eps = wb_cost(kc, sc, u_prev, eps, state.seed, state.step)
-        du_rows, m2_rows = wb_update(kc, eps, s, m_part, e_part)
-        du = du_rows.view(A_TOTAL, h).T
+            sigma = sc[..., None, None, SC_SIGMA:SC_SIGMA + A_TOTAL]
+            eps = (z * sigma).transpose(-1, -3).contiguous()
+            s, m_part, e_part, eps = wb_cost(kc, sc, u_prev, eps)
+        elif noise_spill:
+            s, m_part, e_part, eps = wb_cost(kc, sc, u_prev, None, seed, n, k_off)
+        else:
+            s, m_part, e_part = wb_cost_nospill(kc, sc, u_prev, seed, n, k_off)
+        if group is None:
+            if eps is not None:
+                du_rows, m2_rows = wb_update(kc, eps, s, m_part, e_part)
+            else:
+                du_rows, m2_rows = wb_update_regen(kc, sc, s, m_part, e_part, seed, n)
+        else:
+            se = global_softmin(kc, m_part, e_part, group)
+            if eps is not None:
+                du_rows, m2_rows = wb_update_shard(kc, eps, s, se)
+            else:
+                du_rows, m2_rows = wb_update_shard_regen(kc, sc, s, se, seed, n, k_off)
+            dist.all_reduce(du_rows, op=dist.ReduceOp.SUM, group=group)
+        du = du_rows.view(lead + (A_TOTAL, h)).transpose(-1, -2)
         u, warm = update_tail(cfg, u_prev, du, smoother, lo, hi, nominal)
         sigma_next = state.sigma
         if cfg.adaptive_sigma:
-            m2 = m2_rows.view(A_TOTAL, h).sum(dim=1) / h
+            m2 = m2_rows.view(lead + (A_TOTAL, h)).sum(dim=-1) / h
+            if group is not None:
+                dist.all_reduce(m2, op=dist.ReduceOp.SUM, group=group)
             sigma_next = adapt_sigma(cfg, state.sigma, m2, sigma_base)
-        return u, MPPIState(u_prev=warm, sigma=sigma_next, seed=state.seed,
-                            step=state.step + 1)
+        return u, MPPIState(u_prev=warm, sigma=sigma_next, seed=seed, step=n + 1)
 
     return step

@@ -3,9 +3,16 @@
 Randomness is explicit.  A solve either receives standard normals ``z``
 (the parity path: tests hand both packages the same numbers) or draws them
 from Philox4x32-10 with key = the solver state's 64-bit seed and counter =
-(solve index, sample, action*H + t, 0), using output word 0.  The CUDA
-kernel (``csrc/whole_body_kernel.cu``) draws the same stream; the functions
-here are its plain version, in int64 arithmetic so they run on any device.
+(solve index, global sample index, action*H + t, 0), using output word 0.
+The CUDA kernel (``csrc/whole_body_kernel.cu``) draws the same stream; the
+functions here are its plain version, in int64 arithmetic so they run on
+any device.
+
+A shard of the sample axis that starts at global sample ``sample_offset``
+draws exactly its slice of the one-rank noise set, so a sample-sharded
+solve equals the one-rank solve on the same seed up to summation order.
+That is how shards decorrelate (the counterpart of the JAX package's
+``fold_in`` of the shard index); a counter-based generator makes it free.
 
 Normals use the 24-bit inverse-CDF form of the TPU kernel:
 x = ((bits >> 8) - (2^23 - 0.5)) * 2^-23 is exact in float32 and lies in
@@ -71,11 +78,13 @@ def bits_to_normal(bits: Tensor) -> Tensor:
 
 def philox_normals(
     seed: int, step: int, n_samples: int, n_horizon: int, n_action: int,
-    device=None,
+    device=None, sample_offset: int = 0,
 ) -> Tensor:
-    """Standard normals of solve ``step`` under ``seed``, laid out (A, H, K)
-    — sample index fastest, the layout the cost kernel spills."""
-    k = torch.arange(n_samples, dtype=torch.int64, device=device)
+    """Standard normals of solve ``step`` under ``seed`` for the global
+    samples ``sample_offset .. sample_offset + n_samples - 1``, laid out
+    (A, H, K) — sample index fastest, the layout the cost kernel spills."""
+    k = torch.arange(sample_offset, sample_offset + n_samples, dtype=torch.int64,
+                     device=device)
     row = torch.arange(n_action * n_horizon, dtype=torch.int64, device=device)
     c1 = k.view(1, 1, -1).expand(n_action, n_horizon, n_samples)
     c2 = row.view(n_action, n_horizon, 1).expand(n_action, n_horizon, n_samples)

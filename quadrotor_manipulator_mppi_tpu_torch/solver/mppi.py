@@ -22,6 +22,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..ops import sampling, weights as weights_ops
 from ..utils import savgol
@@ -55,9 +56,9 @@ class MPPIConfig:
 
 
 class MPPIState(NamedTuple):
-    u_prev: Tensor  # (H, A) warm-start control sequence
-    sigma: Tensor   # (A,) live per-action exploration std (or (A, A))
-    seed: int       # 64-bit Philox key
+    u_prev: Tensor  # (H, A) warm-start control sequence; (B, H, A) for a batch
+    sigma: Tensor   # (A,) live per-action exploration std (or (A, A)); (B, A)
+    seed: Any       # 64-bit Philox key; for a batch a (B,) int64 tensor of keys
     step: int       # solve index: the first Philox counter word
 
 
@@ -96,14 +97,14 @@ def update_tail(
     lo: Optional[Tensor], hi: Optional[Tensor], nominal: Tensor,
 ) -> Tuple[Tensor, Tensor]:
     """The (H, A) tail shared by the plain pipeline and the kernel step:
-    smooth du, add, clamp, then the warm start (shift and decay).
-    Returns (u, warm)."""
+    smooth du, add, clamp, then the warm start (shift and decay).  Leading
+    scenario axes broadcast.  Returns (u, warm)."""
     if smoother is not None:
         du = torch.matmul(smoother, du)
     u = u_prev + du
     if lo is not None or hi is not None:
         u = torch.clamp(u, min=lo, max=hi)
-    warm = torch.cat([u[1:], u[-1:]], dim=0) if config.shift_warm_start else u
+    warm = torch.cat([u[..., 1:, :], u[..., -1:, :]], dim=-2) if config.shift_warm_start else u
     if config.warm_start_decay < 1.0:
         warm = nominal + config.warm_start_decay * (warm - nominal)
     return u, warm
@@ -120,11 +121,21 @@ def adapt_sigma(config: MPPIConfig, sigma: Tensor, m2: Tensor, base: Tensor) -> 
 
 def make_step(
     config: MPPIConfig, rollout_fn: Callable, cost_fn: Callable,
+    group: Optional[Any] = None, n_local_samples: Optional[int] = None,
 ) -> Callable[..., Tuple[Tensor, MPPIState]]:
-    """Build the plain solve step (any device; no kernels)."""
+    """Build the plain solve step (any device; no kernels).
+
+    Sample-sharded (``group``: the ``torch.distributed`` group of the
+    sample axis; ``n_local_samples``: this rank's share of
+    ``config.n_samples``), each rank draws its K-shard of the Philox stream
+    at global sample offset (group rank) * n_local_samples, and the
+    reductions become the group's collectives (``ops/weights``, plus the
+    SUM of m2 with adaptive sigma).  A ``z`` passed in is then this rank's
+    (n_local_samples, H, A) block."""
     if config.adaptive_sigma and config.sigma_scale_fn is not None:
         raise ValueError("adaptive_sigma and sigma_scale_fn are exclusive")
-    k, h, a = config.n_samples, config.n_horizon, config.n_action
+    k, h, a = n_local_samples or config.n_samples, config.n_horizon, config.n_action
+    k_off = 0 if group is None else dist.get_rank(group) * k
 
     def step(state: MPPIState, obs: Any, z=None) -> Tuple[Tensor, MPPIState]:
         dev, dtype = state.u_prev.device, state.u_prev.dtype
@@ -132,7 +143,8 @@ def make_step(
         if config.sigma_scale_fn is not None:
             sigma_live = sigma_live * config.sigma_scale_fn(obs)
         if z is None:
-            z = sampling.philox_normals(state.seed, state.step, k, h, a, dev).permute(2, 1, 0)
+            z = sampling.philox_normals(state.seed, state.step, k, h, a, dev,
+                                        sample_offset=k_off).permute(2, 1, 0)
         z = torch.as_tensor(z, dtype=dtype, device=dev)
         noise = sampling.sample_noise(z, sigma_live)
         if config.zero_mean_noise:
@@ -140,8 +152,8 @@ def make_step(
 
         v = state.u_prev[None] + noise
         s = cost_fn(rollout_fn(v, obs), v, state.u_prev, obs)
-        w = weights_ops.softmin_weights(s, config.lam)
-        du = weights_ops.weighted_noise_average(w, noise)
+        w = weights_ops.softmin_weights(s, config.lam, group)
+        du = weights_ops.weighted_noise_average(w, noise, group)
         smoother = None
         if config.savgol_window:
             smoother = torch.as_tensor(
@@ -155,6 +167,8 @@ def make_step(
         sigma_next = state.sigma
         if config.adaptive_sigma:
             m2 = torch.einsum("k,kha->a", w, noise * noise) / h
+            if group is not None:
+                dist.all_reduce(m2, op=dist.ReduceOp.SUM, group=group)
             sigma_next = adapt_sigma(config, state.sigma, m2, _diag_sigma(config, dtype, dev))
         return u, MPPIState(u_prev=warm, sigma=sigma_next, seed=state.seed,
                             step=state.step + 1)

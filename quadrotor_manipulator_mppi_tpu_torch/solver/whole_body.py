@@ -33,6 +33,7 @@ from ..models.whole_body import (
     rollout,
 )
 from ..ops import costs as costs_mod
+from ..parallel.sharded import scenario_seeds
 from ..utils.device import resolve_device
 from ..utils.pose import Pose
 from .mppi import MPPIConfig, MPPIState, _diag_sigma, make_step
@@ -100,19 +101,22 @@ def ee_error_sigma_schedule(
 ):
     """Scale sigma by the current end-effector distance-to-go,
     ``clip(|p_ee - p*| / r0, floor, 1)``; ``base_floor`` sets a separate
-    floor for the 4 base channels.  One 7-joint FK per solve."""
+    floor for the 4 base channels.  One 7-joint FK per solve; for an
+    observation with a leading scenario axis B the scale is (B, 1) or
+    (B, A), one FK per scenario in one batched pass."""
 
     def scale(obs: "WholeBodyObs") -> Tensor:
         bq = _quat_from_rpy(obs.state.base.rpy)
         ee_pos, _ = chain_mod.forward_kinematics_posquat(
             _SCHEDULE_CHAIN, obs.state.q, base_pos=obs.state.base.pos, base_quat=bq
         )
-        d = torch.linalg.norm(ee_pos - obs.ee_target.position)
-        s_arm = torch.clamp(d / r0, floor, 1.0)
+        d = torch.linalg.norm(ee_pos - obs.ee_target.position, dim=-1)
+        s_arm = torch.clamp(d / r0, floor, 1.0)[..., None]
         if base_floor is None:
-            return s_arm
-        s_base = torch.clamp(d / r0, base_floor, 1.0)
-        return torch.cat([s_base.expand(N_BASE_ACTIONS), s_arm.expand(kinova.N_JOINTS)])
+            return s_arm if d.ndim else s_arm[0]
+        s_base = torch.clamp(d / r0, base_floor, 1.0)[..., None]
+        return torch.cat([s_base.expand(*d.shape, N_BASE_ACTIONS),
+                          s_arm.expand(*d.shape, kinova.N_JOINTS)], dim=-1)
 
     # Declarative identity, so the configuration tree round-trips.
     scale.__qmm_schedule__ = {
@@ -265,6 +269,10 @@ def make_whole_body_solver(
     device="cuda",
     backend: str = "cuda",
     low_k_guard: str = "warn",
+    group=None,
+    n_local_samples: Optional[int] = None,
+    noise_spill: bool = True,
+    n_scenarios: Optional[int] = None,
 ):
     """Build ``(step, init)`` for the whole-body solve.
 
@@ -273,7 +281,17 @@ def make_whole_body_solver(
     Philox stream.  ``init(seed) -> MPPIState``.
 
     ``low_k_guard`` polices the attitude-mode floor
-    (:data:`ATTITUDE_MIN_SAMPLES`): ``"warn"``, ``"error"`` or ``"off"``."""
+    (:data:`ATTITUDE_MIN_SAMPLES`): ``"warn"``, ``"error"`` or ``"off"``.
+
+    Sample-sharded (``parallel/sharded.make_sharded_solver`` passes
+    these): ``group`` is the ``torch.distributed`` group of the sample axis
+    and ``n_local_samples`` this rank's share of ``n_samples``; ``z`` is
+    then this rank's (n_local_samples, H, A) block.  ``noise_spill=False``
+    draws the noise again in pass 2 instead of spilling it (CUDA backend).
+    ``n_scenarios`` (CUDA backend): B independent problems per call, every
+    state, observation and output field with a leading B;
+    ``init(seed)`` then takes one seed (spread over the scenarios with
+    ``parallel.sharded.scenario_seeds``) or B seeds."""
     dev = resolve_device(device)
     cfg, mp = params.mppi, params.model
     if mp.control_mode == "attitude" and cfg.n_samples < ATTITUDE_MIN_SAMPLES:
@@ -293,33 +311,48 @@ def make_whole_body_solver(
     if backend == "cuda":
         from ..ops.cuda.whole_body_kernel import make_whole_body_cuda_step
 
-        inner = make_whole_body_cuda_step(params, dev)
+        inner = make_whole_body_cuda_step(params, dev, group=group,
+                                          n_local_samples=n_local_samples,
+                                          noise_spill=noise_spill, n_scenarios=n_scenarios)
     elif backend == "torch":
         if dev.type != "cpu":
             raise ValueError(
                 "backend='torch' is the CPU reference pipeline; on the card "
                 "the solve runs the CUDA kernels (backend='cuda')"
             )
-        inner = make_step(cfg, *rollout_cost_fns(params))
+        if n_scenarios is not None:
+            raise ValueError("n_scenarios needs backend='cuda' (the batched kernel step)")
+        inner = make_step(cfg, *rollout_cost_fns(params), group=group,
+                          n_local_samples=n_local_samples)
     else:
         raise ValueError(f"unknown backend {backend!r}")
 
     def step(state: MPPIState, obs: WholeBodyObs, z=None) -> Tuple[WholeBodyOutput, MPPIState]:
-        qddot_prev = state.u_prev[0, N_BASE_ACTIONS:]
+        qddot_prev = state.u_prev[..., 0, N_BASE_ACTIONS:]
         u_seq, new_state = inner(state, obs, z)
-        u0 = u_seq[0]
-        arm_u0 = u0[N_BASE_ACTIONS:]
+        u0 = u_seq[..., 0, :]
+        arm_u0 = u0[..., N_BASE_ACTIONS:]
         vdes = obs.state.qdot + arm_u0 * cfg.dt
         qdes = obs.state.q + qddot_prev * cfg.dt + 0.5 * arm_u0 * cfg.dt * cfg.dt
         return WholeBodyOutput(action=u0, u_seq=u_seq, qdes=qdes, vdes=vdes), new_state
 
-    def init(seed: int, dtype=torch.float32) -> MPPIState:
+    def init(seed, dtype=torch.float32) -> MPPIState:
         if mp.control_mode == "position":
             u0 = torch.zeros((cfg.n_horizon, N_ACTIONS), dtype=dtype, device=dev)
         else:
             u0 = hover_nominal_action(mp, cfg.n_horizon, dtype, dev)
-        return MPPIState(u_prev=u0, sigma=_diag_sigma(cfg, dtype, dev),
-                         seed=int(seed), step=0)
+        sigma = _diag_sigma(cfg, dtype, dev)
+        if n_scenarios is None:
+            return MPPIState(u_prev=u0, sigma=sigma, seed=int(seed), step=0)
+        seeds = (scenario_seeds(seed, n_scenarios) if isinstance(seed, (int, np.integer))
+                 else [int(x) for x in seed])
+        if len(seeds) != n_scenarios:
+            raise ValueError(f"{len(seeds)} seeds for {n_scenarios} scenarios")
+        return MPPIState(
+            u_prev=u0.expand(n_scenarios, *u0.shape).clone(),
+            sigma=sigma.expand(n_scenarios, *sigma.shape).clone(),
+            seed=torch.tensor(seeds, dtype=torch.int64, device=dev), step=0,
+        )
 
     return step, init
 

@@ -12,6 +12,7 @@ import torch
 from quadrotor_manipulator_mppi_tpu_torch.ops import sampling
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import plant_kernel as pk
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import whole_body_kernel as wk
+from quadrotor_manipulator_mppi_tpu_torch.parallel.multihost import tree_map
 from quadrotor_manipulator_mppi_tpu_torch.sim import flight_control as fc
 from quadrotor_manipulator_mppi_tpu_torch.sim import whole_body_loop as wbl
 from quadrotor_manipulator_mppi_tpu_torch.solver import mppi, serving
@@ -160,3 +161,78 @@ def test_serving_episode_kernel_matches_plain_physics():
         assert all(bool(torch.isfinite(f).all()) for f in logs[use_kernel])
     torch.testing.assert_close(logs[True].ee_err, logs[False].ee_err, rtol=0, atol=5e-3)
     torch.testing.assert_close(logs[True].base_pos, logs[False].base_pos, rtol=0, atol=5e-3)
+
+
+def _rel(got, want) -> float:
+    return (got - want).abs().max().item() / max(1.0, want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", [4, 5, 6, 7])
+def test_new_variants_match_plain(row):
+    """Rows 4-7 against their plain versions at a sample offset, each
+    launching its kernel once."""
+    dev = _card()
+    params = _params("attitude")
+    kc = wk.make_kernel_config(params)
+    state, _, _, sc, _ = _inputs(params, dev)
+    u_prev, seed, step, k_off = state.u_prev, 2**33 + 1, 4, 512
+    s, m, e, eps = wk.wb_cost(kc, sc, u_prev, None, seed, step, k_off)
+    se = wk.softmin_normalizers(kc, m, e).contiguous()
+    kernel, run, plain = {
+        4: (wk.wb_cost_nospill, lambda f: f(kc, sc, u_prev, seed, step, k_off),
+            wk.wb_cost_nospill_plain),
+        5: (wk.wb_update_regen, lambda f: f(kc, sc, s, m, e, seed, step, k_off),
+            wk.wb_update_regen_plain),
+        6: (wk.wb_update_shard_regen, lambda f: f(kc, sc, s, se, seed, step, k_off),
+            wk.wb_update_shard_regen_plain),
+        7: (wk.wb_update_shard, lambda f: f(kc, eps, s, se), wk.wb_update_shard_plain),
+    }[row]
+    n0 = kernel.launches
+    got, want = run(kernel), run(plain)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 1
+    # (S, block minima): recurrence vs operator form; (du, m2): order only
+    tol = 1e-4 if row == 4 else 1e-5
+    for g, w in zip(got[:2], want[:2]):
+        assert _rel(g, w) <= tol
+    if row == 4:  # the same draw as the spill variant: identical costs
+        assert torch.equal(got[0], s)
+
+
+@pytest.mark.cuda
+def test_batched_launch_matches_plain():
+    dev = _card()
+    params = _params("position")
+    kc = wk.make_kernel_config(params)
+    _, init = wb.make_whole_body_solver(params, device=dev, n_scenarios=3)
+    state = init(5)
+    # three scenarios apart in every field but the (unit) target quaternion
+    obs = tree_map(lambda x: x if x.shape[-1] == 4 else torch.stack([x, x + 0.02, x - 0.03]),
+                   wb.default_obs(device=dev))
+    obs = obs._replace(ee_target=obs.ee_target._replace(
+        quat=obs.ee_target.quat.expand(3, 4).contiguous()))
+    sc = wk.pack_scalars(obs, state.sigma)
+    n_cost, n_upd = wk.wb_cost.launches, wk.wb_update.launches
+    s, m, e, eps = wk.wb_cost(kc, sc, state.u_prev, None, state.seed, 1)
+    du, m2 = wk.wb_update(kc, eps, s, m, e)
+    assert (wk.wb_cost.launches - n_cost, wk.wb_update.launches - n_upd) == (1, 1)
+    s_p, _, _, eps_p = wk.wb_cost_plain(kc, sc, state.u_prev, None, state.seed, 1)
+    du_p, m2_p = wk.wb_update_plain(kc, eps, s, m, e)
+    torch.cuda.synchronize()
+    assert s.shape == (3, K) and du.shape == (3, wk.A_TOTAL * H)
+    assert _rel(s, s_p) <= 1e-4 and (eps - eps_p).abs().max().item() <= 1e-5
+    assert _rel(du, du_p) <= 1e-5 and _rel(m2, m2_p) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["attitude", "position"])
+def test_nospill_step_equals_spill_step(mode):
+    dev = _card()
+    params = _params(mode)
+    state, obs, _, _, _ = _inputs(params, dev)
+    u = {}
+    for spill in (True, False):
+        step = wk.make_whole_body_cuda_step(params, dev, noise_spill=spill)
+        u[spill], _ = step(state, obs)
+    assert _rel(u[False], u[True]) <= 1e-6
