@@ -22,15 +22,21 @@ lines; any failure exits non-zero before the final ``ok`` line):
 7. the reach gate: 1000-step episodes (10 s of flight) for seeds 0-2,
    scored with ``episode_quality``; each must converge and hold;
 8. the scenario batch, B=256 x K=4096 x H=50 in the attitude preset: the
-   batched kernels (spill and no-spill pairs) against their plain versions
-   on 4 scenarios, the batched step against 4 unbatched steps, 1 + 1
-   launches per batched solve, ms per batched solve at B=1, 16, 256;
+   no-spill pair (rows 4, 5) against its plain versions on all 256
+   scenarios and the spill pair on 4, the batched step against 4
+   unbatched steps, 1 + 1 launches per batched solve, ms per batched solve
+   at B=1, 16, 256, then the kernels alone at B=256;
 9. no spill against spill at K=4096 (du, u_seq, sigma), and each new
-   kernel (rows 4-7) against its plain version with timings and bounds;
+   kernel (rows 4-7) against its plain version at one scenario, K=4096,
+   with timings and bounds;
 10. the sample-sharded solve: two gloo ranks on the one card, K=4096 as
    2 x 2048, both kernel pairs against the one-rank solve over 3 solves,
-   all-reduce calls per solve, ms per sharded solve, weak scaling;
-then one ``kernels`` JSON line, the ``nvidia-smi`` line and the ``ok`` line.
+   all-reduce calls per solve, ms per sharded solve, weak scaling; then
+   on each rank pass 2 (rows 7, 6) on that rank's own inputs of each solve
+   against its plain version, and its timings at K_local = 2048;
+then one ``kernels`` JSON line (rows 4-5 at B=256 and rows 6-7 at K_local,
+the shapes of the runs that count their launches), the ``nvidia-smi`` line
+and the ``ok`` line.
 """
 
 import dataclasses
@@ -142,12 +148,12 @@ def event_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel: str, reps: int = 20) -> float:
+def device_ms(fn, kernel: str, reps: int = 20):
     """Mean device time per launch of the CUDA kernel whose name contains
     ``kernel`` (``fn`` launches it once), from the profiler: where a kernel
     is shorter than its wrapper's host work, ``event_ms`` times the wrapper
     calls instead.  Averaged over the launches the profiler recorded, which
-    may be fewer than ``reps``.  0.0 when it recorded none."""
+    may be fewer than ``reps``.  None (not measured) when it recorded none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -160,7 +166,22 @@ def device_ms(fn, kernel: str, reps: int = 20) -> float:
     hits = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and kernel in e.key]
     n = sum(e.count for e in hits)
-    return sum(e.self_device_time_total for e in hits) / n / 1e3 if n else 0.0
+    return sum(e.self_device_time_total for e in hits) / n / 1e3 if n else None
+
+
+def fmt_ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f}"
+
+
+def timed_once(fn):
+    """(result, device ms) of one call of ``fn``, from CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    sync()
+    start.record()
+    out = fn()
+    end.record()
+    sync()
+    return out, start.elapsed_time(end)
 
 
 def host_ms(fn, reps: int = 5) -> float:
@@ -256,7 +277,8 @@ def phase_philox(dev) -> None:
     kc = wk.make_kernel_config(params)
     state, obs, _, sc, _ = inputs(params, dev, torch.Generator(device=dev))
     seed, step = 0x5EED_0123_4567_89AB, 17
-    _, _, _, eps = wk.wb_cost(kc, sc, state.u_prev.contiguous(), None, seed, step)
+    _, _, _, eps = wk.wb_cost(kc, sc, state.u_prev.contiguous(), None,
+                              wk.philox_keys(seed, dev), step)
     sigma = sc[wk.SC_SIGMA:wk.SC_SIGMA + A].view(A, 1, 1)
     z_k = eps / sigma
     z_p = sampling.philox_normals(seed, step, K, H, A, dev)
@@ -345,15 +367,17 @@ def phase_timing(dev):
     kc = wk.make_kernel_config(params)
     state, obs, z, sc, _ = inputs(params, dev, torch.Generator(device=dev))
     u_prev = state.u_prev.contiguous()
-    s, m, e, eps = wk.wb_cost(kc, sc, u_prev, None, 1, 0)
+    keys = wk.philox_keys(1, dev)
+    s, m, e, eps = wk.wb_cost(kc, sc, u_prev, None, keys, 0)
     rho = m.min()
     w = torch.exp((rho - s) * kc.inv_lam) / torch.sum(e * torch.exp((rho - m) * kc.inv_lam))
     flat = eps.view(A * H, K)
 
     eps_in = eps.clone()
     t = {
-        "wb_cost": event_ms(lambda: wk.wb_cost(kc, sc, u_prev, None, 1, 0)),
-        "wb_cost_plain": event_ms(lambda: wk.wb_cost_plain(kc, sc, u_prev, None, 1, 0), reps=5),
+        "wb_cost": event_ms(lambda: wk.wb_cost(kc, sc, u_prev, None, keys, 0)),
+        "wb_cost_plain": event_ms(lambda: wk.wb_cost_plain(kc, sc, u_prev, None, keys, 0),
+                                  reps=5),
         "wb_cost_noise": event_ms(lambda: wk.wb_cost(kc, sc, u_prev, eps_in)),
         "wb_cost_noise_plain": event_ms(lambda: wk.wb_cost_plain(kc, sc, u_prev, eps_in),
                                         reps=5),
@@ -620,9 +644,11 @@ PAIRS = {True: (wk.wb_cost, wk.wb_update), False: (wk.wb_cost_nospill, wk.wb_upd
 
 def phase_batch(dev, errs):
     """The scenario batch at B=256 (BASELINE.json config 5's shape on one
-    card): batched kernels against their plain versions on 4 scenarios,
+    card): the no-spill pair (rows 4 and 5, whose main path this is)
+    against its plain versions on all 256 scenarios, the spill pair on 4,
     the batched step against unbatched steps, launches per batched solve,
-    then ms per batched solve at B=1, 16, 256 for both kernel pairs."""
+    ms per batched solve at B=1, 16, 256 for both kernel pairs, then the
+    kernels alone at B=256."""
     params = wb.WholeBodyMPPIParams()
     cfg = params.mppi
     kc = wk.make_kernel_config(params)
@@ -635,30 +661,35 @@ def phase_batch(dev, errs):
     du, m2 = wk.wb_update(kc, eps, s, m, e)
     s4, m4, e4 = wk.wb_cost_nospill(kc, sc, u_prev, seeds, 0)
     du5, m2_5 = wk.wb_update_regen(kc, sc, s4, m4, e4, seeds, 0)
-    worst = {"S": 0.0, "eps": 0.0, "du": 0.0, "du_regen": 0.0, "S_nospill": 0.0}
+    plain_ms = {}
+    (s_p, m_p, _), plain_ms["wb_cost_nospill"] = timed_once(
+        lambda: wk.wb_cost_nospill_plain(kc, sc, u_prev, seeds, 0))
+    (du5_p, m2_5p), plain_ms["wb_update_regen"] = timed_once(
+        lambda: wk.wb_update_regen_plain(kc, sc, s4, m4, e4, seeds, 0))
+    # (S, block minima) of pass 1 as in phase 2; (du, m2) of pass 2
+    worst = {"S_nospill": max(rel_err(s4, s_p), rel_err(m4, m_p)),
+             "du_regen": max(rel_err(du5, du5_p), rel_err(m2_5, m2_5p)),
+             "S": 0.0, "eps": 0.0, "du": 0.0}
+    errs["wb_cost_nospill"] = max((s4 - s_p).abs().max().item(), (m4 - m_p).abs().max().item())
+    errs["wb_update_regen"] = max((du5 - du5_p).abs().max().item(),
+                                  (m2_5 - m2_5p).abs().max().item())
     for i in CHECK_SCENARIOS:
-        seed_i = int(seeds[i])
-        s_p, _, _, eps_p = wk.wb_cost_plain(kc, sc[i], u_prev[i], None, seed_i, 0)
+        eps_p = wk.philox_eps(kc, sc[i], seeds[i:i + 1], 0)
         du_p, m2_p = wk.wb_update_plain(kc, eps[i], s[i], m[i], e[i])
-        du5_p, m2_5p = wk.wb_update_regen_plain(kc, sc[i], s4[i], m4[i], e4[i], seed_i, 0)
         sync()
-        worst["S"] = max(worst["S"], rel_err(s[i], s_p))
-        worst["S_nospill"] = max(worst["S_nospill"], rel_err(s4[i], s_p))
+        worst["S"] = max(worst["S"], rel_err(s[i], s_p[i]))
         worst["eps"] = max(worst["eps"], (eps[i] - eps_p).abs().max().item())
         worst["du"] = max(worst["du"], rel_err(du[i], du_p), rel_err(m2[i], m2_p))
-        worst["du_regen"] = max(worst["du_regen"], rel_err(du5[i], du5_p),
-                                rel_err(m2_5[i], m2_5p))
-        errs["wb_cost_nospill"] = max(errs["wb_cost_nospill"], (s4[i] - s_p).abs().max().item())
-        errs["wb_update_regen"] = max(errs["wb_update_regen"],
-                                      (du5[i] - du5_p).abs().max().item(),
-                                      (m2_5[i] - m2_5p).abs().max().item())
-    print(f"[8] B={B_BATCH} batched kernels vs plain on scenarios {CHECK_SCENARIOS}: "
-          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()), flush=True)
+    print(f"[8] B={B_BATCH} batched kernels vs plain (no-spill pair on all {B_BATCH} scenarios, "
+          f"spill pair on {CHECK_SCENARIOS}): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + f" | plain ms at B={B_BATCH}: " + ", ".join(f"{k} {v:.1f}" for k, v in plain_ms.items()),
+          flush=True)
     if not (worst["S"] <= TOL_COST and worst["S_nospill"] <= TOL_COST
             and worst["eps"] <= TOL_NOISE and worst["du"] <= TOL_UPDATE
             and worst["du_regen"] <= TOL_UPDATE):
         fail("a batched kernel disagrees with its plain version")
-    del s, m, e, eps, du, m2, s4, m4, e4, du5, m2_5
+    del s, m, e, eps, du, m2, s4, m4, e4, du5, m2_5, s_p, m_p, du5_p, m2_5p
 
     # The batched step against unbatched steps on the same seeds and z.
     nb = len(CHECK_SCENARIOS)
@@ -716,43 +747,99 @@ def phase_batch(dev, errs):
               f"events {e_ms:.3f} ms per batched solve, {rate:.1f} solves/s, "
               f"peak {peak:.3f} GiB", flush=True)
 
-    # The kernels alone at B=256 against B times the one-scenario bound.
-    sc = wk.pack_scalars(obs, state.sigma * cfg.sigma_scale_fn(obs))
-    s, m, e, eps = wk.wb_cost(kc, sc, u_prev, None, seeds, 1)
-    t = {"wb_cost": event_ms(lambda: wk.wb_cost(kc, sc, u_prev, None, seeds, 1), reps=5),
-         "wb_cost_nospill": event_ms(lambda: wk.wb_cost_nospill(kc, sc, u_prev, seeds, 1), reps=5),
+    # The kernels alone at B=256 (the inputs of the checks above) against B
+    # times the one-scenario bound; the library yardstick of pass 2 is one
+    # batched matrix-vector product of the spilled noise by the weights.
+    s, m, e, eps = wk.wb_cost(kc, sc, u_prev, None, seeds, 0)
+    se = wk.softmin_normalizers(kc, m, e)
+    w = torch.exp((se[:, :1] - s) * kc.inv_lam) / se[:, 1:]
+    flat = eps.view(B_BATCH, A * H, K)
+    t = {"wb_cost": event_ms(lambda: wk.wb_cost(kc, sc, u_prev, None, seeds, 0), reps=5),
+         "wb_cost_nospill": event_ms(lambda: wk.wb_cost_nospill(kc, sc, u_prev, seeds, 0), reps=5),
          "wb_update": event_ms(lambda: wk.wb_update(kc, eps, s, m, e), reps=5),
-         "wb_update_regen": event_ms(lambda: wk.wb_update_regen(kc, sc, s, m, e, seeds, 1),
-                                     reps=5)}
-    b_cost = bound(B_BATCH * cost_bytes(kc, True), B_BATCH * K * H * WB_COST_OPS_PER_SAMPLE_STEP)
+         "wb_update_regen": event_ms(lambda: wk.wb_update_regen(kc, sc, s, m, e, seeds, 0),
+                                     reps=5),
+         "library_bmm": event_ms(lambda: torch.bmm(flat, w[..., None]), reps=5)}
+    t.update({f"{k}_plain": v for k, v in plain_ms.items()})
+    work = new_work(K)
+    bounds = {k: bound(B_BATCH * work[k][0], B_BATCH * work[k][1])
+              for k in ("wb_cost_nospill", "wb_update_regen")}
+    b_cost = bound(B_BATCH * cost_bytes(K, True), B_BATCH * K * H * WB_COST_OPS_PER_SAMPLE_STEP)
     print(f"[8] kernels at B={B_BATCH} (ms per launch; per scenario): " + ", ".join(
         f"{k} {v:.3f} ({v / B_BATCH * 1e3:.2f} us)" for k, v in t.items())
-        + f" | wb_cost bound {b_cost[0]:.3f} ms by {b_cost[1]}", flush=True)
-    return launches, t, rows
+        + f" | bounds: wb_cost {b_cost[0]:.3f} ms by {b_cost[1]}, "
+        + ", ".join(f"{k} {v[0]:.3f} ms by {v[1]}" for k, v in bounds.items()), flush=True)
+    return launches, t, rows, bounds
 
 
-def cost_bytes(kc, spill: bool) -> int:
-    """Bytes pass 1 must move for one scenario: scalars, warm start, costs,
-    partials, and the noise it spills."""
-    return (wk.SC_LEN + H * A + K + 2 * kc.n_blocks) * 4 + (A * H * K * 4 if spill else 0)
+def cost_bytes(k: int, spill: bool) -> int:
+    """Bytes pass 1 must move for one scenario of k samples: scalars, warm
+    start, costs, partials, and the noise it spills."""
+    return (wk.SC_LEN + H * A + k + 2 * (k // wk.BLOCK)) * 4 + (A * H * k * 4 if spill else 0)
 
 
-def phase_nospill(dev, errs):
+def new_work(k: int) -> dict:
+    """(bytes, float32 operations) of rows 4-7 for one scenario of k
+    samples: pass 1 without the spill; pass 2 reads the costs and either
+    the scalars (to draw the noise again) or the noise, the block partials
+    or the given (rho, eta), and writes du and m2."""
+    small = (k + wk.SC_LEN + 2 * A * H) * 4
+    regen_ops = A * H * k * WB_REGEN_OPS_PER_ELEMENT
+    return {"wb_cost_nospill": (cost_bytes(k, False), k * H * WB_COST_OPS_PER_SAMPLE_STEP),
+            "wb_update_regen": (small + 2 * (k // wk.BLOCK) * 4, regen_ops),
+            "wb_update_shard_regen": (small + 2 * 4, regen_ops),
+            "wb_update_shard": (A * H * k * 4 + (k + 2 + 2 * A * H) * 4,
+                                A * H * k * WB_UPDATE_OPS_PER_ELEMENT)}
+
+
+# The instantiation each new wrapper launches, as the profiler names it.
+KERNEL_KEYS = {"wb_cost_nospill": "wb_cost_kernel<0, true, false>",
+               "wb_update_regen": "wb_update_kernel<true, false>",
+               "wb_update_shard_regen": "wb_update_kernel<true, true>",
+               "wb_update_shard": "wb_update_kernel<false, true>"}
+
+
+def compare(kern, plain, args):
+    """(max |d|, max relative error) of a wrapper against its plain version
+    on ``args``: (S, block minima) of pass 1, (du, m2) of pass 2.  Pass 1's
+    block sums of exp((m - S)/lambda) amplify S's last bits by 1/lambda and
+    are checked through pass 2's du, as in phase 2."""
+    got, want = kern(*args)[:2], plain(*args)[:2]
+    sync()
+    return (max((g - p).abs().max().item() for g, p in zip(got, want)),
+            max(rel_err(g, p) for g, p in zip(got, want)))
+
+
+def time_kernel(name, kern, plain, args) -> dict:
+    return {"ms": event_ms(lambda: kern(*args)),
+            "device_ms": device_ms(lambda: kern(*args), KERNEL_KEYS[name]),
+            "plain_ms": event_ms(lambda: plain(*args), reps=5)}
+
+
+def time_library(flat, w) -> dict:
+    """torch.mv of the noise rows by the weights: one PyTorch call for what
+    pass 2 computes (its du)."""
+    return {"ms": event_ms(lambda: torch.mv(flat, w)),
+            "device_ms": device_ms(lambda: torch.mv(flat, w), "gemv")}  # cuBLAS gemv
+
+
+def phase_nospill(dev):
     """No spill against spill at K=4096 on one scenario (du, u_seq, sigma),
-    then each new kernel against its plain version with its timings and
-    bounds."""
+    then each new kernel against its plain version at one scenario, K=4096,
+    with its timings (beside the main paths' numbers of phases 8 and 10)."""
     adaptive = wb.position_mode_params()
     adaptive = dataclasses.replace(adaptive, mppi=dataclasses.replace(
         adaptive.mppi, adaptive_sigma=True, sigma_scale_fn=None))
+    keys = wk.philox_keys(5, dev)
     for name, params in (("attitude", wb.WholeBodyMPPIParams()),
                          ("position, adaptive sigma", adaptive)):
         kc = wk.make_kernel_config(params)
         state, obs, _, sc, _ = inputs(params, dev, torch.Generator(device=dev))
         u_prev = state.u_prev.contiguous()
-        s, m, e, eps = wk.wb_cost(kc, sc, u_prev, None, 5, 2)
+        s, m, e, eps = wk.wb_cost(kc, sc, u_prev, None, keys, 2)
         du3, _ = wk.wb_update(kc, eps, s, m, e)
-        s4, m4, e4 = wk.wb_cost_nospill(kc, sc, u_prev, 5, 2)
-        du5, _ = wk.wb_update_regen(kc, sc, s4, m4, e4, 5, 2)
+        s4, m4, e4 = wk.wb_cost_nospill(kc, sc, u_prev, keys, 2)
+        du5, _ = wk.wb_update_regen(kc, sc, s4, m4, e4, keys, 2)
         res = {}
         for spill in (True, False):
             step = wk.make_whole_body_cuda_step(params, dev, noise_spill=spill)
@@ -770,56 +857,34 @@ def phase_nospill(dev, errs):
     kc = wk.make_kernel_config(params)
     state, obs, _, sc, _ = inputs(params, dev, torch.Generator(device=dev))
     u_prev = state.u_prev.contiguous()
-    seed, step, k_off = 1, 0, 0
-    s, m, e, eps = wk.wb_cost(kc, sc, u_prev, None, seed, step)
-    se = wk.softmin_normalizers(kc, m, e).contiguous()
-    flat = eps.view(A * H, K)
-    w = torch.exp((se[0] - s) * kc.inv_lam) / se[1]
-    cases = {  # wrapper, plain version, arguments, tolerance, kernel instantiation
+    keys, step, k_off = wk.philox_keys(1, dev), 0, 0
+    s, m, e, eps = wk.wb_cost(kc, sc, u_prev, None, keys, step)
+    se = wk.softmin_normalizers(kc, m, e)
+    cases = {  # wrapper, plain version, arguments, tolerance
         "wb_cost_nospill": (wk.wb_cost_nospill, wk.wb_cost_nospill_plain,
-                            (kc, sc, u_prev, seed, step, k_off), TOL_COST,
-                            "wb_cost_kernel<0, true, false>"),
+                            (kc, sc, u_prev, keys, step, k_off), TOL_COST),
         "wb_update_regen": (wk.wb_update_regen, wk.wb_update_regen_plain,
-                            (kc, sc, s, m, e, seed, step, k_off), TOL_UPDATE,
-                            "wb_update_kernel<true, false>"),
+                            (kc, sc, s, m, e, keys, step, k_off), TOL_UPDATE),
         "wb_update_shard_regen": (wk.wb_update_shard_regen, wk.wb_update_shard_regen_plain,
-                                  (kc, sc, s, se, seed, step, k_off), TOL_UPDATE,
-                                  "wb_update_kernel<true, true>"),
+                                  (kc, sc, s, se, keys, step, k_off), TOL_UPDATE),
         "wb_update_shard": (wk.wb_update_shard, wk.wb_update_shard_plain,
-                            (kc, eps, s, se), TOL_UPDATE, "wb_update_kernel<false, true>"),
+                            (kc, eps, s, se), TOL_UPDATE),
     }
-    t = {"wb_update_device": device_ms(lambda: wk.wb_update(kc, eps, s, m, e),
-                                       "wb_update_kernel<false, false>")}
-    for name, (kern, plain, args, tol, key) in cases.items():
-        # (S, block minima) of pass 1, (du, m2) of pass 2; pass 1's block sums
-        # of exp((m - S)/lambda) amplify S's last bits by 1/lambda and are
-        # checked through pass 2's du, as in phase 2
-        got, want = kern(*args)[:2], plain(*args)[:2]
-        sync()
-        rel = max(rel_err(g, p) for g, p in zip(got, want))
-        errs[name] = max(errs[name], max((g - p).abs().max().item() for g, p in zip(got, want)))
+    t = {"wb_update": {"device_ms": device_ms(lambda: wk.wb_update(kc, eps, s, m, e),
+                                              "wb_update_kernel<false, false>")}}
+    for name, (kern, plain, args, tol) in cases.items():
+        _, rel = compare(kern, plain, args)
         if not rel <= tol:
             fail(f"{name} disagrees with its plain version ({rel:.2e})")
-        t[name] = event_ms(lambda: kern(*args))
-        t[name + "_device"] = device_ms(lambda: kern(*args), key)
-        t[name + "_plain"] = event_ms(lambda: plain(*args), reps=5)
+        t[name] = time_kernel(name, kern, plain, args)
         print(f"[9] {name} vs plain rel {rel:.2e}", flush=True)
-    t["library_mv"] = event_ms(lambda: torch.mv(flat, w))
-    t["library_mv_device"] = device_ms(lambda: torch.mv(flat, w), "gemv")  # cuBLAS gemv
-
-    small_bytes = (K + wk.SC_LEN + 2 * A * H) * 4
-    bounds = {
-        "wb_cost_nospill": bound(cost_bytes(kc, False), K * H * WB_COST_OPS_PER_SAMPLE_STEP),
-        "wb_update_regen": bound(small_bytes + 2 * kc.n_blocks * 4,
-                                 A * H * K * WB_REGEN_OPS_PER_ELEMENT),
-        "wb_update_shard_regen": bound(small_bytes + 2 * 4, A * H * K * WB_REGEN_OPS_PER_ELEMENT),
-        "wb_update_shard": bound(A * H * K * 4 + (K + 2 + 2 * A * H) * 4,
-                                 A * H * K * WB_UPDATE_OPS_PER_ELEMENT),
-    }
-    print("[9] timings (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
-          + " | bounds (ms): " + ", ".join(f"{k} {v[0]:.2e} by {v[1]}" for k, v in bounds.items()),
-          flush=True)
-    return t, bounds
+    t["library_mv"] = time_library(eps.view(A * H, K), torch.exp((se[0] - s) * kc.inv_lam) / se[1])
+    bounds = {k: bound(*v) for k, v in new_work(K).items()}
+    print(f"[9] timings at one scenario, K={K} (ms): " + ", ".join(
+        f"{k} {q} {fmt_ms(v)}" for k, d in t.items() for q, v in d.items())
+        + " | bounds (ms): " + ", ".join(f"{k} {v[0]:.2e} by {v[1]}" for k, v in bounds.items()),
+        flush=True)
+    return t
 
 
 def _counting(calls: list):
@@ -833,11 +898,40 @@ def _counting(calls: list):
     return counted
 
 
+# Pass 2 of the sharded solve: (wrapper, plain version) with the spill
+# (row 7) and without (row 6).
+SHARD_PASS2 = {True: (wk.wb_update_shard, wk.wb_update_shard_plain),
+               False: (wk.wb_update_shard_regen, wk.wb_update_shard_regen_plain)}
+
+
+def shard_pass2(kc, params, states, obs, spill: bool, k_off: int, group):
+    """Pass 2 of the sharded solve on this rank's own inputs of each solve
+    in ``states`` (pass 1 again at this rank's sample offset, then the
+    global (rho, eta) through the group's collectives) against its plain
+    version: (max |d|, max relative error, the last solve's arguments)."""
+    kern, plain = SHARD_PASS2[spill]
+    worst_abs = worst_rel = 0.0
+    for st in states:
+        sc = wk.pack_scalars(obs, st.sigma * params.mppi.sigma_scale_fn(obs))
+        u_prev, keys = st.u_prev.contiguous(), wk.philox_keys(st.seed, sc.device)
+        if spill:
+            s, m, e, eps = wk.wb_cost(kc, sc, u_prev, None, keys, st.step, k_off)
+            args = (kc, eps, s, wk.softmin_normalizers(kc, m, e, group))
+        else:
+            s, m, e = wk.wb_cost_nospill(kc, sc, u_prev, keys, st.step, k_off)
+            args = (kc, sc, s, wk.softmin_normalizers(kc, m, e, group), keys, st.step, k_off)
+        d_abs, d_rel = compare(kern, plain, args)
+        worst_abs, worst_rel = max(worst_abs, d_abs), max(worst_rel, d_rel)
+    return worst_abs, worst_rel, args
+
+
 def shard_rank(rank: int, port: int, device: str, queue) -> None:
     """One of two gloo ranks on the one card (NCCL refuses two ranks on one
     device): the sample-sharded solve at K_local = 2048 for both kernel
-    pairs against the one-rank K=4096 solve, collective counts, and ms per
-    sharded solve."""
+    pairs against the one-rank K=4096 solve, collective counts, ms per
+    sharded solve; then pass 2 (rows 7 and 6) on this rank's own inputs of
+    each solve against its plain version, and (rank 0, while rank 1 waits)
+    its timings at K_local."""
     import traceback
 
     try:
@@ -846,6 +940,8 @@ def shard_rank(rank: int, port: int, device: str, queue) -> None:
         mesh = mesh_mod.make_mesh()
         params = wb.WholeBodyMPPIParams()
         obs = wb.default_obs(device=dev)
+        kc = wk.make_kernel_config(params, K // SHARD_RANKS)
+        k_off = mesh.sample_index * kc.n_samples
         ref = []
         if rank == 0:
             step1, init1 = wb.make_whole_body_solver(params, device=dev)
@@ -853,15 +949,18 @@ def shard_rank(rank: int, port: int, device: str, queue) -> None:
             for _ in range(N_SHARD_SOLVES):
                 out, st = step1(st, obs)
                 ref.append(out.u_seq)
-        out_d = {"rank": rank, "err": {}, "launches": {}, "all_reduce": {}, "ms": {}}
+        out_d = {"rank": rank, "k_off": k_off, "err": {}, "launches": {}, "all_reduce": {},
+                 "ms": {}, "kernel_err": {}, "timing": {}}
+        last_args = {}
         for spill in (True, False):
             step, init = sharded.make_sharded_solver(
                 wb.make_whole_body_solver, mesh, batch_scenarios=False, params=params,
                 device=dev, noise_spill=spill)
             name = "spill" if spill else "no spill"
             reset_counts()
-            st, err = init(0), 0.0
+            st, err, states = init(0), 0.0, []
             for i in range(N_SHARD_SOLVES):
+                states.append(st)
                 out, st = step(st, obs)
                 if ref:
                     b = ref[i]
@@ -870,6 +969,10 @@ def shard_rank(rank: int, port: int, device: str, queue) -> None:
             out_d["err"][name] = err
             out_d["launches"].update({f.__name__: f.launches for f in wk.KERNEL_WRAPPERS
                                       if f.launches})
+            kern_name = SHARD_PASS2[spill][0].__name__
+            d_abs, d_rel, last_args[kern_name] = shard_pass2(kc, params, states, obs, spill,
+                                                             k_off, mesh.sample_group)
+            out_d["kernel_err"][kern_name] = {"abs": d_abs, "rel": d_rel}
             calls, plain = [], dist.all_reduce
             dist.all_reduce = _counting(calls)
             try:
@@ -890,6 +993,15 @@ def shard_rank(rank: int, port: int, device: str, queue) -> None:
         finally:
             dist.all_reduce = plain
         out_d["all_reduce"]["adaptive sigma"] = len(calls)
+        dist.barrier()
+        if rank == 0:  # the card to itself: rank 1 waits at the barrier
+            for spill, (kern, plain) in SHARD_PASS2.items():
+                name = kern.__name__
+                out_d["timing"][name] = time_kernel(name, kern, plain, last_args[name])
+            _, eps, s, se = last_args["wb_update_shard"]
+            out_d["timing"]["library_mv"] = time_library(
+                eps.view(A * H, kc.n_samples), torch.exp((se[0] - s) * kc.inv_lam) / se[1])
+        dist.barrier()
         out_d["scaling"] = scaling.measure_weak_scaling(k_per_device=K // SHARD_RANKS, h=H,
                                                         iters=10, device=dev)
         queue.put(out_d)
@@ -948,13 +1060,25 @@ def phase_sharded(dev):
     print(f"[10] weak scaling (rank 0, CUDA events): " + ", ".join(
         f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}" for k, v in sc.items()),
         flush=True)
+    for r, res in sorted(results.items()):
+        print(f"[10] rank {r} (k_off {res['k_off']}): pass 2 on its own inputs of each sharded "
+              f"solve vs plain " + ", ".join(
+                  f"{k} max|d| {v['abs']:.2e} rel {v['rel']:.2e}"
+                  for k, v in res["kernel_err"].items()), flush=True)
+    print(f"[10] pass 2 at K_local={K // SHARD_RANKS}, rank 0 alone on the card (ms): " + ", ".join(
+        f"{k} {q} {fmt_ms(v)}" for k, d in r0["timing"].items() for q, v in d.items()),
+        flush=True)
     want = {"spill": 3, "no spill": 3, "adaptive sigma": 4}
     if max(r0["err"].values()) > TOL_STEP or r0["all_reduce"] != want:
         fail("the sharded solve disagrees with the one-rank solve or its collective count")
+    if any(v["rel"] > TOL_UPDATE for res in results.values() for v in res["kernel_err"].values()):
+        fail("a sharded pass-2 kernel disagrees with its plain version")
     if r0["launches"] != {"wb_cost": N_SHARD_SOLVES, "wb_update_shard": N_SHARD_SOLVES,
                           "wb_cost_nospill": N_SHARD_SOLVES,
                           "wb_update_shard_regen": N_SHARD_SOLVES}:
         fail(f"the sharded solve did not run through rows 1+7 and 4+6: {r0['launches']}")
+    r0["kernel_err_all_ranks"] = {
+        k: max(res["kernel_err"][k]["abs"] for res in results.values()) for k in r0["kernel_err"]}
     return r0
 
 
@@ -973,19 +1097,34 @@ def main() -> None:
     t_plant, plant_bound = phase_plant(dev, errs)
     episode_launches, step_ms = phase_episode(dev)
     phase_reach(dev)
-    batch_launches, t_b256, batch_rows = phase_batch(dev, errs)
-    t_new, new_bounds = phase_nospill(dev, errs)
+    batch_launches, t_b256, batch_rows, b256_bounds = phase_batch(dev, errs)
+    t_k4096 = phase_nospill(dev)
     shard = phase_sharded(dev)
+    errs.update(shard["kernel_err_all_ranks"])
     b256 = {(b, spill): e_ms for b, spill, _, e_ms, _, _, _ in batch_rows}
+    shard_bounds = {k: bound(*v) for k, v in new_work(K // SHARD_RANKS).items()}
 
-    def new_row(name, replaces, launches_n, library_ms, **extra):
-        if library_ms is not None:
-            extra["library_device_ms"] = t_new["library_mv_device"]
+    def new_row(name, replaces, launches_n, ms, plain_ms, bound_ms, library_ms, **extra):
+        """Rows 4-7: every number from the shape the main path gives the
+        kernel (B=256 for rows 4-5, K_local for rows 6-7), and its one-scenario
+        K=4096 times of phase 9 beside them."""
+        one = t_k4096[name]
         return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
                 "replaces": f"{TPU_KERNEL}:{replaces}", "launches": launches_n,
-                "max_abs_err": errs[name], "ms": t_new[name], "plain_ms": t_new[name + "_plain"],
-                "bound_ms": new_bounds[name][0], "bound_by": new_bounds[name][1],
-                "library_ms": library_ms, "device_ms": t_new[name + "_device"], **extra}
+                "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms[0], "bound_by": bound_ms[1], "library_ms": library_ms,
+                **extra, "k4096_b1_ms": one["ms"], "k4096_b1_device_ms": one["device_ms"],
+                "k4096_b1_plain_ms": one["plain_ms"]}
+
+    def batch_row(name, replaces, library_ms):
+        return new_row(name, replaces, batch_launches[name], t_b256[name],
+                       t_b256[name + "_plain"], b256_bounds[name], library_ms, b=B_BATCH)
+
+    def shard_row(name, replaces):
+        tm, lib = shard["timing"][name], shard["timing"]["library_mv"]
+        return new_row(name, replaces, shard["launches"][name], tm["ms"], tm["plain_ms"],
+                       shard_bounds[name], lib["ms"], k_local=K // SHARD_RANKS,
+                       device_ms=tm["device_ms"], library_device_ms=lib["device_ms"])
 
     kernels = [
         {"name": "wb_cost", "route": "cuda", "source": KERNEL_SOURCE,
@@ -1004,23 +1143,18 @@ def main() -> None:
          "ms": t["wb_update"], "plain_ms": t["wb_update_plain"],
          "bound_ms": bounds["wb_update"][0], "bound_by": bounds["wb_update"][1],
          "library_ms": t["library_mv"], "episode_launches": episode_launches["wb_update"],
-         "b256_ms": t_b256["wb_update"], "device_ms": t_new["wb_update_device"],
-         "library_device_ms": t_new["library_mv_device"]},
+         "b256_ms": t_b256["wb_update"], "device_ms": t_k4096["wb_update"]["device_ms"],
+         "library_device_ms": t_k4096["library_mv"]["device_ms"]},
         {"name": "plant_tick", "route": "cuda", "source": PLANT_SOURCE,
          "replaces": f"{PLANT_TPU_KERNEL}:116 make_plant_tick_kernel (kernel :137)",
          "launches": episode_launches["plant_tick"], "max_abs_err": errs["plant_tick"],
          "ms": t_plant["plant_tick"], "plain_ms": t_plant["plant_tick_plain"],
          "bound_ms": plant_bound[0], "bound_by": plant_bound[1], "library_ms": None,
          "b1024_ms": t_plant["plant_tick_b1024"]},
-        new_row("wb_cost_nospill", "551 _cost_kernel", batch_launches["wb_cost_nospill"], None,
-                b256_ms=t_b256["wb_cost_nospill"]),
-        new_row("wb_update_regen", "647 _update_kernel_fused",
-                batch_launches["wb_update_regen"], t_new["library_mv"],
-                b256_ms=t_b256["wb_update_regen"]),
-        new_row("wb_update_shard_regen", "607 _update_kernel",
-                shard["launches"]["wb_update_shard_regen"], t_new["library_mv"]),
-        new_row("wb_update_shard", "616 _update_kernel_noise",
-                shard["launches"]["wb_update_shard"], t_new["library_mv"]),
+        batch_row("wb_cost_nospill", "551 _cost_kernel", None),
+        batch_row("wb_update_regen", "647 _update_kernel_fused", t_b256["library_bmm"]),
+        shard_row("wb_update_shard_regen", "607 _update_kernel"),
+        shard_row("wb_update_shard", "616 _update_kernel_noise"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"serving solve {solve_ms:.4f} ms, serving episode {step_ms:.4f} ms/control step, "

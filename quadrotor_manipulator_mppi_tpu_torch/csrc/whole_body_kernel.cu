@@ -137,12 +137,10 @@ __device__ __forceinline__ float bits_to_normal(uint32_t bits) {
   return erfinvf(x) * 1.41421356f;
 }
 
-// The scenario's Philox key: seeds[b] when a per-scenario seed array is
-// given, else the by-value seed.
-__device__ __forceinline__ void philox_key(const unsigned long long* seeds,
-                                           unsigned long long seed, int b,
+// Scenario b's Philox key, seeds[b].
+__device__ __forceinline__ void philox_key(const unsigned long long* seeds, int b,
                                            uint32_t& k0, uint32_t& k1) {
-  const unsigned long long s = seeds ? seeds[b] : seed;
+  const unsigned long long s = seeds[b];
   k0 = (uint32_t)(s & 0xffffffffull);
   k1 = (uint32_t)(s >> 32);
 }
@@ -460,7 +458,7 @@ wb_cost_kernel(const WbParams p, const float* __restrict__ sc,
                const float* __restrict__ u_prev, float* __restrict__ eps,
                float* __restrict__ s, float* __restrict__ m_part,
                float* __restrict__ e_part, const unsigned long long* __restrict__ seeds,
-               unsigned long long seed, uint32_t step, int k_off) {
+               uint32_t step, int k_off) {
   // Scenario b's slabs: sc (SC_LEN), u_prev (H, A), eps (A, H, K), s (K),
   // partials (n_blocks).
   const int b = blockIdx.y;
@@ -480,7 +478,7 @@ wb_cost_kernel(const WbParams p, const float* __restrict__ sc,
   __syncthreads();
 
   uint32_t key0 = 0u, key1 = 0u;
-  if (DRAW) philox_key(seeds, seed, b, key0, key1);
+  if (DRAW) philox_key(seeds, b, key0, key1);
   const int k = blockIdx.x * WB_BLOCK + threadIdx.x;
   const float cost =
       sample_cost<MODE, DRAW, STORE>(p, sc_sm, u_sm, eps, k, k_off, key0, key1, step);
@@ -510,8 +508,8 @@ __global__ void __launch_bounds__(WB_UPDATE_THREADS)
 wb_update_kernel(const float* __restrict__ eps, const float* __restrict__ s,
                  const float* __restrict__ m_part, const float* __restrict__ e_part,
                  const float* __restrict__ se, const float* __restrict__ sc,
-                 const unsigned long long* __restrict__ seeds, unsigned long long seed,
-                 uint32_t step, int k_off, int n_part, int K, int H, float inv_lam,
+                 const unsigned long long* __restrict__ seeds, uint32_t step, int k_off,
+                 int n_part, int K, int H, float inv_lam,
                  float* __restrict__ du, float* __restrict__ m2) {
   const int b = blockIdx.y, row = blockIdx.x, rows = gridDim.x;
   __shared__ float rho_eta[2];
@@ -539,7 +537,7 @@ wb_update_kernel(const float* __restrict__ eps, const float* __restrict__ s,
   uint32_t key0 = 0u, key1 = 0u;
   float sigma = 0.0f;
   if (REGEN) {
-    philox_key(seeds, seed, b, key0, key1);
+    philox_key(seeds, b, key0, key1);
     sigma = sc[(size_t)b * SC_LEN + SC_SIGMA + row / H];
   }
   float acc = 0.0f, acc2 = 0.0f;
@@ -576,29 +574,29 @@ wb_update_kernel(const float* __restrict__ eps, const float* __restrict__ s,
 template <int MODE, bool DRAW, bool STORE>
 static void launch_cost(const WbParams& p, int n_scen, const float* sc, const float* u_prev,
                         float* eps, float* s, float* m_part, float* e_part,
-                        const unsigned long long* seeds, unsigned long long seed,
-                        uint32_t step, int k_off, cudaStream_t stream) {
+                        const unsigned long long* seeds, uint32_t step, int k_off,
+                        cudaStream_t stream) {
   const size_t smem = (size_t)(SC_LEN + p.h * WB_A) * sizeof(float);
   const dim3 grid(p.k / WB_BLOCK, n_scen);
   wb_cost_kernel<MODE, DRAW, STORE><<<grid, WB_BLOCK, smem, stream>>>(
-      p, sc, u_prev, eps, s, m_part, e_part, seeds, seed, step, k_off);
+      p, sc, u_prev, eps, s, m_part, e_part, seeds, step, k_off);
 }
 
 extern "C" {
 
 // Pass 1 over n_scen scenarios.  variant 0: eps is read (explicit noise);
 // 1: Philox noise, spilled to eps (out); 2: Philox noise, not stored (eps
-// may be NULL).  seeds: n_scen per-scenario keys, or NULL to use seed.
+// may be NULL).  seeds: the n_scen scenarios' keys (unused by variant 0).
 // Returns cudaGetLastError() after the launch.
 int wb_cost_launch(const WbParams* p, const float* sc, const float* u_prev, float* eps,
                    float* s, float* m_part, float* e_part,
-                   const unsigned long long* seeds, unsigned long long seed,
-                   unsigned int step, int k_off, int variant, int n_scen, void* stream) {
+                   const unsigned long long* seeds, unsigned int step, int k_off,
+                   int variant, int n_scen, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
 #define WB_COST_CASE(M, V, D, S)                                                      \
   case (M) * 3 + (V):                                                                 \
-    launch_cost<M, D, S>(*p, n_scen, sc, u_prev, eps, s, m_part, e_part, seeds, seed, \
-                         step, k_off, st);                                            \
+    launch_cost<M, D, S>(*p, n_scen, sc, u_prev, eps, s, m_part, e_part, seeds, step, \
+                         k_off, st);                                                  \
     break;
   switch (p->mode * 3 + variant) {
     WB_COST_CASE(MODE_ATTITUDE, 0, false, false)
@@ -617,28 +615,28 @@ int wb_cost_launch(const WbParams* p, const float* sc, const float* u_prev, floa
 }
 
 // Pass 2 over n_scen scenarios, one block per (row, scenario), rows = A*H.
-// regen != 0: draw the noise again from (seeds | seed, step, k_off) and the
+// regen != 0: draw the noise again from (seeds, step, k_off) and the
 // sigma in sc; else read eps.  se != NULL: the given (rho, eta) per
 // scenario; else combine the n_part partials per scenario.
 int wb_update_launch(const float* eps, const float* s, const float* m_part,
                      const float* e_part, const float* se, const float* sc,
-                     const unsigned long long* seeds, unsigned long long seed,
-                     unsigned int step, int k_off, int n_part, int k, int h, int n_scen,
+                     const unsigned long long* seeds, unsigned int step, int k_off,
+                     int n_part, int k, int h, int n_scen,
                      float inv_lam, int regen, float* du, float* m2, void* stream) {
   const dim3 grid(WB_A * h, n_scen);
   cudaStream_t st = (cudaStream_t)stream;
   if (regen && se)
     wb_update_kernel<true, true><<<grid, WB_UPDATE_THREADS, 0, st>>>(
-        eps, s, m_part, e_part, se, sc, seeds, seed, step, k_off, n_part, k, h, inv_lam, du, m2);
+        eps, s, m_part, e_part, se, sc, seeds, step, k_off, n_part, k, h, inv_lam, du, m2);
   else if (regen)
     wb_update_kernel<true, false><<<grid, WB_UPDATE_THREADS, 0, st>>>(
-        eps, s, m_part, e_part, se, sc, seeds, seed, step, k_off, n_part, k, h, inv_lam, du, m2);
+        eps, s, m_part, e_part, se, sc, seeds, step, k_off, n_part, k, h, inv_lam, du, m2);
   else if (se)
     wb_update_kernel<false, true><<<grid, WB_UPDATE_THREADS, 0, st>>>(
-        eps, s, m_part, e_part, se, sc, seeds, seed, step, k_off, n_part, k, h, inv_lam, du, m2);
+        eps, s, m_part, e_part, se, sc, seeds, step, k_off, n_part, k, h, inv_lam, du, m2);
   else
     wb_update_kernel<false, false><<<grid, WB_UPDATE_THREADS, 0, st>>>(
-        eps, s, m_part, e_part, se, sc, seeds, seed, step, k_off, n_part, k, h, inv_lam, du, m2);
+        eps, s, m_part, e_part, se, sc, seeds, step, k_off, n_part, k, h, inv_lam, du, m2);
   return (int)cudaGetLastError();
 }
 

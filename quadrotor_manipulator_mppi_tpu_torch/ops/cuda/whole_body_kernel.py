@@ -31,8 +31,8 @@ wb_update_shard           _update_kernel_noise         7
 
 Every wrapper takes one scenario (``sc`` (54,), ``u_prev`` (H, A), ...) or
 a batch with a leading scenario axis (``sc`` (B, 54), ...); one launch
-covers the batch.  A seed is an int, or for a batch a (B,) int64 tensor of
-per-scenario Philox keys on the card.
+covers the batch.  The Philox keys are a (B,) int64 tensor on the
+tensors' device, (1,) for one scenario (:func:`philox_keys`).
 
 Between and after the passes only (H, A)-sized work runs in plain PyTorch:
 reshaping du, the collectives of the sharded solve, the Savitzky-Golay
@@ -263,11 +263,10 @@ def _lib() -> ctypes.CDLL:
     lib = build.load_library("whole_body_kernel")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.wb_cost_launch.argtypes = [ctypes.POINTER(WbParams), vp, vp, vp, vp, vp, vp, vp,
-                                   ctypes.c_uint64, ctypes.c_uint32, ci, ci, ci, vp]
+                                   ctypes.c_uint32, ci, ci, ci, vp]
     lib.wb_cost_launch.restype = ci
-    lib.wb_update_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, ctypes.c_uint64,
-                                     ctypes.c_uint32, ci, ci, ci, ci, ci, ctypes.c_float,
-                                     ci, vp, vp, vp]
+    lib.wb_update_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, ctypes.c_uint32, ci, ci,
+                                     ci, ci, ci, ctypes.c_float, ci, vp, vp, vp]
     lib.wb_update_launch.restype = ci
     return lib
 
@@ -290,19 +289,28 @@ def _ptr(t: Optional[Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _seed_args(seed, lead, device):
-    """(per-scenario seed array pointer or None, by-value seed): a (B,)
-    int64 tensor gives each scenario its own key, an int one key for all."""
+def philox_keys(seed, device) -> Tensor:
+    """The kernels' Philox keys: a (B,) int64 tensor as it is (a batch's
+    ``state.seed``), or one int seed as a (1,) tensor on ``device``, filled
+    there without a host sync and kept for later calls with that seed."""
     if isinstance(seed, Tensor):
-        _check(seed, lead or (1,), device, "seed", torch.int64)
-        return seed.data_ptr(), 0
-    return None, int(seed) & _U64
+        return seed
+    return _key_tensor(int(seed) & _U64, torch.device(device))
 
 
-def _seed_list(seed, n: int) -> list:
-    if isinstance(seed, Tensor):
-        return [int(x) & _U64 for x in seed.reshape(-1).tolist()]
-    return [int(seed) & _U64] * n
+@functools.lru_cache(maxsize=64)
+def _key_tensor(seed: int, device: torch.device) -> Tensor:
+    signed = seed - (1 << 64) if seed >> 63 else seed  # the same 64 bits as int64
+    return torch.full((1,), signed, dtype=torch.int64, device=device)
+
+
+def _key_ptr(seeds: Tensor, lead, device):
+    _check(seeds, lead or (1,), device, "seeds", torch.int64)
+    return seeds.data_ptr()
+
+
+def _key_list(seeds: Tensor) -> list:
+    return [int(x) & _U64 for x in seeds.reshape(-1).tolist()]
 
 
 def _n_scen(lead) -> int:
@@ -310,7 +318,8 @@ def _n_scen(lead) -> int:
 
 
 def _launch_cost(kc: WbKernelConfig, name: str, sc: Tensor, u_prev: Tensor,
-                 eps: Optional[Tensor], seed, step: int, k_off: int, variant: int):
+                 eps: Optional[Tensor], seeds: Optional[Tensor], step: int, k_off: int,
+                 variant: int):
     k, h, dev = kc.n_samples, kc.n_horizon, sc.device
     lead = tuple(sc.shape[:-1])
     _check(sc, lead + (SC_LEN,), dev, "sc")
@@ -322,11 +331,11 @@ def _launch_cost(kc: WbKernelConfig, name: str, sc: Tensor, u_prev: Tensor,
     s = torch.empty(lead + (k,), dtype=torch.float32, device=dev)
     m_part = torch.empty(lead + (kc.n_blocks,), dtype=torch.float32, device=dev)
     e_part = torch.empty(lead + (kc.n_blocks,), dtype=torch.float32, device=dev)
-    seeds, seed_val = _seed_args(seed, lead, dev) if variant else (None, 0)
+    keys = _key_ptr(seeds, lead, dev) if variant else None
     rc = _lib().wb_cost_launch(
         ctypes.byref(kc.struct), sc.data_ptr(), u_prev.data_ptr(), _ptr(eps), s.data_ptr(),
-        m_part.data_ptr(), e_part.data_ptr(), seeds, seed_val, int(step) & _U32, int(k_off),
-        variant, _n_scen(lead), torch.cuda.current_stream(dev).cuda_stream,
+        m_part.data_ptr(), e_part.data_ptr(), keys, int(step) & _U32, int(k_off), variant,
+        _n_scen(lead), torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, name)
     return s, m_part, e_part, eps
@@ -334,8 +343,9 @@ def _launch_cost(kc: WbKernelConfig, name: str, sc: Tensor, u_prev: Tensor,
 
 def _launch_update(kc: WbKernelConfig, name: str, s: Tensor, eps: Optional[Tensor] = None,
                    m_part: Optional[Tensor] = None, e_part: Optional[Tensor] = None,
-                   se: Optional[Tensor] = None, sc: Optional[Tensor] = None, seed=0,
-                   step: int = 0, k_off: int = 0) -> Tuple[Tensor, Tensor]:
+                   se: Optional[Tensor] = None, sc: Optional[Tensor] = None,
+                   seeds: Optional[Tensor] = None, step: int = 0,
+                   k_off: int = 0) -> Tuple[Tensor, Tensor]:
     k, h, dev = kc.n_samples, kc.n_horizon, s.device
     lead = tuple(s.shape[:-1])
     rows = A_TOTAL * h
@@ -350,12 +360,12 @@ def _launch_update(kc: WbKernelConfig, name: str, s: Tensor, eps: Optional[Tenso
         _check(m_part, lead + (kc.n_blocks,), dev, "m_part")
         _check(e_part, lead + (kc.n_blocks,), dev, "e_part")
     regen = eps is None
-    seeds, seed_val = _seed_args(seed, lead, dev) if regen else (None, 0)
+    keys = _key_ptr(seeds, lead, dev) if regen else None
     du = torch.empty(lead + (rows,), dtype=torch.float32, device=dev)
     m2 = torch.empty(lead + (rows,), dtype=torch.float32, device=dev)
     rc = _lib().wb_update_launch(
-        _ptr(eps), s.data_ptr(), _ptr(m_part), _ptr(e_part), _ptr(se), _ptr(sc), seeds,
-        seed_val, int(step) & _U32, int(k_off), kc.n_blocks, k, h, _n_scen(lead), kc.inv_lam,
+        _ptr(eps), s.data_ptr(), _ptr(m_part), _ptr(e_part), _ptr(se), _ptr(sc), keys,
+        int(step) & _U32, int(k_off), kc.n_blocks, k, h, _n_scen(lead), kc.inv_lam,
         int(regen), du.data_ptr(), m2.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, name)
@@ -363,15 +373,16 @@ def _launch_update(kc: WbKernelConfig, name: str, s: Tensor, eps: Optional[Tenso
 
 
 def wb_cost(kc: WbKernelConfig, sc: Tensor, u_prev: Tensor, eps: Optional[Tensor] = None,
-            seed=0, step: int = 0, k_off: int = 0) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+            seeds: Optional[Tensor] = None, step: int = 0,
+            k_off: int = 0) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Pass 1 (rows 1 and 2).  Returns (S (K,), block minima (n_blocks,),
     block sums of exp((m - S)/lambda) (n_blocks,), eps (A, H, K)), each
     with the batch's leading axis.  With ``eps=None`` the noise is the
-    Philox stream of (seed, step) at global samples k_off + k, scaled by
+    Philox stream of (seeds, step) at global samples k_off + k, scaled by
     the packed sigma, and is returned; otherwise ``eps`` is read."""
     if sc.device.type == "cpu":
-        return wb_cost_plain(kc, sc, u_prev, eps, seed, step, k_off)
-    out = _launch_cost(kc, "wb_cost", sc, u_prev, eps, seed, step, k_off,
+        return wb_cost_plain(kc, sc, u_prev, eps, seeds, step, k_off)
+    out = _launch_cost(kc, "wb_cost", sc, u_prev, eps, seeds, step, k_off,
                        1 if eps is None else 0)
     wb_cost.launches += 1
     return out
@@ -380,15 +391,15 @@ def wb_cost(kc: WbKernelConfig, sc: Tensor, u_prev: Tensor, eps: Optional[Tensor
 wb_cost.launches = 0
 
 
-def wb_cost_nospill(kc: WbKernelConfig, sc: Tensor, u_prev: Tensor, seed=0, step: int = 0,
-                    k_off: int = 0) -> Tuple[Tensor, Tensor, Tensor]:
+def wb_cost_nospill(kc: WbKernelConfig, sc: Tensor, u_prev: Tensor, seeds: Tensor,
+                    step: int = 0, k_off: int = 0) -> Tuple[Tensor, Tensor, Tensor]:
     """Pass 1 without the noise spill (row 4): :func:`wb_cost`'s Philox
     variant, returning (S, block minima, block sums) and writing no noise;
     pass 2 draws it again (:func:`wb_update_regen`,
     :func:`wb_update_shard_regen`)."""
     if sc.device.type == "cpu":
-        return wb_cost_nospill_plain(kc, sc, u_prev, seed, step, k_off)
-    s, m_part, e_part, _ = _launch_cost(kc, "wb_cost_nospill", sc, u_prev, None, seed, step,
+        return wb_cost_nospill_plain(kc, sc, u_prev, seeds, step, k_off)
+    s, m_part, e_part, _ = _launch_cost(kc, "wb_cost_nospill", sc, u_prev, None, seeds, step,
                                         k_off, 2)
     wb_cost_nospill.launches += 1
     return s, m_part, e_part
@@ -413,14 +424,14 @@ wb_update.launches = 0
 
 
 def wb_update_regen(kc: WbKernelConfig, sc: Tensor, s: Tensor, m_part: Tensor,
-                    e_part: Tensor, seed=0, step: int = 0,
+                    e_part: Tensor, seeds: Tensor, step: int = 0,
                     k_off: int = 0) -> Tuple[Tensor, Tensor]:
     """Pass 2 after :func:`wb_cost_nospill` (row 5): :func:`wb_update` on
-    the noise drawn again from (seed, step, k_off) and the packed sigma."""
+    the noise drawn again from (seeds, step, k_off) and the packed sigma."""
     if s.device.type == "cpu":
-        return wb_update_regen_plain(kc, sc, s, m_part, e_part, seed, step, k_off)
+        return wb_update_regen_plain(kc, sc, s, m_part, e_part, seeds, step, k_off)
     out = _launch_update(kc, "wb_update_regen", s, m_part=m_part, e_part=e_part, sc=sc,
-                         seed=seed, step=step, k_off=k_off)
+                         seeds=seeds, step=step, k_off=k_off)
     wb_update_regen.launches += 1
     return out
 
@@ -443,13 +454,14 @@ def wb_update_shard(kc: WbKernelConfig, eps: Tensor, s: Tensor,
 wb_update_shard.launches = 0
 
 
-def wb_update_shard_regen(kc: WbKernelConfig, sc: Tensor, s: Tensor, se: Tensor, seed=0,
-                          step: int = 0, k_off: int = 0) -> Tuple[Tensor, Tensor]:
+def wb_update_shard_regen(kc: WbKernelConfig, sc: Tensor, s: Tensor, se: Tensor,
+                          seeds: Tensor, step: int = 0,
+                          k_off: int = 0) -> Tuple[Tensor, Tensor]:
     """Sharded pass 2 after :func:`wb_cost_nospill` (row 6):
     :func:`wb_update_shard` on the noise drawn again."""
     if s.device.type == "cpu":
-        return wb_update_shard_regen_plain(kc, sc, s, se, seed, step, k_off)
-    out = _launch_update(kc, "wb_update_shard_regen", s, se=se, sc=sc, seed=seed, step=step,
+        return wb_update_shard_regen_plain(kc, sc, s, se, seeds, step, k_off)
+    out = _launch_update(kc, "wb_update_shard_regen", s, se=se, sc=sc, seeds=seeds, step=step,
                          k_off=k_off)
     wb_update_shard_regen.launches += 1
     return out
@@ -461,35 +473,34 @@ KERNEL_WRAPPERS = (wb_cost, wb_cost_nospill, wb_update, wb_update_regen, wb_upda
                    wb_update_shard_regen)
 
 
-def philox_eps(kc: WbKernelConfig, sc: Tensor, seed=0, step: int = 0,
+def philox_eps(kc: WbKernelConfig, sc: Tensor, seeds: Tensor, step: int = 0,
                k_off: int = 0) -> Tensor:
     """The noise (A, H, K) the kernels draw: Philox normals at global
     samples k_off + k scaled by the packed sigma; per scenario for a
     batch."""
-    if sc.ndim == 2:
-        seeds = _seed_list(seed, sc.shape[0])
-        return torch.stack([philox_eps(kc, sc[b], seeds[b], step, k_off)
-                            for b in range(sc.shape[0])])
-    z = sampling.philox_normals(_seed_list(seed, 1)[0], step, kc.n_samples, kc.n_horizon,
-                                A_TOTAL, sc.device, sample_offset=k_off)
-    return z * sc[SC_SIGMA:SC_SIGMA + A_TOTAL].view(A_TOTAL, 1, 1)
+    keys = _key_list(seeds)
+    scs = sc.reshape(-1, SC_LEN)
+    eps = torch.stack([
+        sampling.philox_normals(key, step, kc.n_samples, kc.n_horizon, A_TOTAL, sc.device,
+                                sample_offset=k_off)
+        * row[SC_SIGMA:SC_SIGMA + A_TOTAL].view(A_TOTAL, 1, 1)
+        for key, row in zip(keys, scs)])
+    return eps.view(sc.shape[:-1] + eps.shape[1:])
 
 
 def wb_cost_plain(kc: WbKernelConfig, sc: Tensor, u_prev: Tensor,
-                  eps: Optional[Tensor] = None, seed=0, step: int = 0,
-                  k_off: int = 0) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+                  eps: Optional[Tensor] = None, seeds: Optional[Tensor] = None,
+                  step: int = 0, k_off: int = 0) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Plain version of :func:`wb_cost`: the operator-form rollout and cost
     stack of ``solver/whole_body`` on v = u_prev + eps, then the per-block
     softmin partials; one scenario at a time."""
     from ...solver.whole_body import rollout_cost_fns
 
-    if sc.ndim == 2:
-        seeds = _seed_list(seed, sc.shape[0])
-        outs = [wb_cost_plain(kc, sc[b], u_prev[b], None if eps is None else eps[b],
-                              seeds[b], step, k_off) for b in range(sc.shape[0])]
-        return tuple(torch.stack(x) for x in zip(*outs))
     if eps is None:
-        eps = philox_eps(kc, sc, seed, step, k_off)
+        eps = philox_eps(kc, sc, seeds, step, k_off)
+    if sc.ndim == 2:
+        outs = [wb_cost_plain(kc, sc[b], u_prev[b], eps[b]) for b in range(sc.shape[0])]
+        return tuple(torch.stack(x) for x in zip(*outs))
     v = u_prev[None] + eps.permute(2, 1, 0)
     obs = obs_from_scalars(sc)
     rollout_fn, cost_fn = rollout_cost_fns(kc.params)
@@ -500,17 +511,25 @@ def wb_cost_plain(kc: WbKernelConfig, sc: Tensor, u_prev: Tensor,
     return s, m, e, eps
 
 
-def wb_cost_nospill_plain(kc: WbKernelConfig, sc: Tensor, u_prev: Tensor, seed=0,
+def wb_cost_nospill_plain(kc: WbKernelConfig, sc: Tensor, u_prev: Tensor, seeds: Tensor,
                           step: int = 0, k_off: int = 0) -> Tuple[Tensor, Tensor, Tensor]:
     """Plain version of :func:`wb_cost_nospill`."""
-    return wb_cost_plain(kc, sc, u_prev, None, seed, step, k_off)[:3]
+    return wb_cost_plain(kc, sc, u_prev, None, seeds, step, k_off)[:3]
 
 
-def softmin_normalizers(kc: WbKernelConfig, m_part: Tensor, e_part: Tensor) -> Tensor:
+def softmin_normalizers(kc: WbKernelConfig, m_part: Tensor, e_part: Tensor,
+                        group=None) -> Tensor:
     """(rho, eta) (2,) per scenario from the block partials:
-    rho = min_i m_i, eta = sum_i e_i exp((rho - m_i)/lambda)."""
+    rho = min_i m_i, eta = sum_i e_i exp((rho - m_i)/lambda).  With a
+    ``torch.distributed`` sample ``group``, over every rank's partials in
+    the JAX order: all-reduce MIN of rho, then SUM of eta (which needs the
+    global rho)."""
     rho = m_part.min(dim=-1, keepdim=True).values
+    if group is not None:
+        dist.all_reduce(rho, op=dist.ReduceOp.MIN, group=group)
     eta = torch.sum(e_part * torch.exp((rho - m_part) * kc.inv_lam), dim=-1, keepdim=True)
+    if group is not None:
+        dist.all_reduce(eta, op=dist.ReduceOp.SUM, group=group)
     return torch.cat([rho, eta], dim=-1)
 
 
@@ -529,10 +548,10 @@ def wb_update_plain(kc: WbKernelConfig, eps: Tensor, s: Tensor, m_part: Tensor,
 
 
 def wb_update_regen_plain(kc: WbKernelConfig, sc: Tensor, s: Tensor, m_part: Tensor,
-                          e_part: Tensor, seed=0, step: int = 0,
+                          e_part: Tensor, seeds: Tensor, step: int = 0,
                           k_off: int = 0) -> Tuple[Tensor, Tensor]:
     """Plain version of :func:`wb_update_regen`."""
-    return wb_update_plain(kc, philox_eps(kc, sc, seed, step, k_off), s, m_part, e_part)
+    return wb_update_plain(kc, philox_eps(kc, sc, seeds, step, k_off), s, m_part, e_part)
 
 
 def wb_update_shard_plain(kc: WbKernelConfig, eps: Tensor, s: Tensor,
@@ -542,25 +561,15 @@ def wb_update_shard_plain(kc: WbKernelConfig, eps: Tensor, s: Tensor,
 
 
 def wb_update_shard_regen_plain(kc: WbKernelConfig, sc: Tensor, s: Tensor, se: Tensor,
-                                seed=0, step: int = 0,
+                                seeds: Tensor, step: int = 0,
                                 k_off: int = 0) -> Tuple[Tensor, Tensor]:
     """Plain version of :func:`wb_update_shard_regen`."""
-    return _weighted_rows(kc, philox_eps(kc, sc, seed, step, k_off), s, se)
+    return _weighted_rows(kc, philox_eps(kc, sc, seeds, step, k_off), s, se)
 
 
 # ---------------------------------------------------------------------------
 # The solve step
 # ---------------------------------------------------------------------------
-
-def global_softmin(kc: WbKernelConfig, m_part: Tensor, e_part: Tensor, group) -> Tensor:
-    """(rho, eta) over every rank of the sample ``group``, in the JAX order:
-    all-reduce MIN of rho, then SUM of eta (which needs the global rho)."""
-    rho = m_part.min(dim=-1, keepdim=True).values
-    dist.all_reduce(rho, op=dist.ReduceOp.MIN, group=group)
-    eta = torch.sum(e_part * torch.exp((rho - m_part) * kc.inv_lam), dim=-1, keepdim=True)
-    dist.all_reduce(eta, op=dist.ReduceOp.SUM, group=group)
-    return torch.cat([rho, eta], dim=-1)
-
 
 def make_whole_body_cuda_step(params, device="cuda", group=None,
                               n_local_samples: Optional[int] = None, noise_spill: bool = True,
@@ -608,7 +617,7 @@ def make_whole_body_cuda_step(params, device="cuda", group=None,
             sigma_live = sigma_live * cfg.sigma_scale_fn(obs)
         sc = pack_scalars(obs, sigma_live)
         u_prev = state.u_prev.to(torch.float32).contiguous()
-        seed, n = state.seed, state.step
+        seeds, n = philox_keys(state.seed, dev), state.step
         eps = None
         if z is not None:
             z = torch.as_tensor(z, dtype=torch.float32, device=dev)
@@ -616,20 +625,20 @@ def make_whole_body_cuda_step(params, device="cuda", group=None,
             eps = (z * sigma).transpose(-1, -3).contiguous()
             s, m_part, e_part, eps = wb_cost(kc, sc, u_prev, eps)
         elif noise_spill:
-            s, m_part, e_part, eps = wb_cost(kc, sc, u_prev, None, seed, n, k_off)
+            s, m_part, e_part, eps = wb_cost(kc, sc, u_prev, None, seeds, n, k_off)
         else:
-            s, m_part, e_part = wb_cost_nospill(kc, sc, u_prev, seed, n, k_off)
+            s, m_part, e_part = wb_cost_nospill(kc, sc, u_prev, seeds, n, k_off)
         if group is None:
             if eps is not None:
                 du_rows, m2_rows = wb_update(kc, eps, s, m_part, e_part)
             else:
-                du_rows, m2_rows = wb_update_regen(kc, sc, s, m_part, e_part, seed, n)
+                du_rows, m2_rows = wb_update_regen(kc, sc, s, m_part, e_part, seeds, n)
         else:
-            se = global_softmin(kc, m_part, e_part, group)
+            se = softmin_normalizers(kc, m_part, e_part, group)
             if eps is not None:
                 du_rows, m2_rows = wb_update_shard(kc, eps, s, se)
             else:
-                du_rows, m2_rows = wb_update_shard_regen(kc, sc, s, se, seed, n, k_off)
+                du_rows, m2_rows = wb_update_shard_regen(kc, sc, s, se, seeds, n, k_off)
             dist.all_reduce(du_rows, op=dist.ReduceOp.SUM, group=group)
         du = du_rows.view(lead + (A_TOTAL, h)).transpose(-1, -2)
         u, warm = update_tail(cfg, u_prev, du, smoother, lo, hi, nominal)
@@ -639,6 +648,6 @@ def make_whole_body_cuda_step(params, device="cuda", group=None,
             if group is not None:
                 dist.all_reduce(m2, op=dist.ReduceOp.SUM, group=group)
             sigma_next = adapt_sigma(cfg, state.sigma, m2, sigma_base)
-        return u, MPPIState(u_prev=warm, sigma=sigma_next, seed=seed, step=n + 1)
+        return u, MPPIState(u_prev=warm, sigma=sigma_next, seed=state.seed, step=n + 1)
 
     return step

@@ -82,7 +82,7 @@ def measure_weak_scaling(k_per_device: int = 2048, h: int = 50, iters: int = 10,
 
     return {
         "devices": n,
-        "backend": "cuda",
+        "backend": dev.type,
         "k_per_device": k_per_device,
         "h": h,
         "t_1dev_ms": t1,

@@ -134,7 +134,7 @@ def _kernel_inputs(params, batched: bool):
     _, init = twb.make_whole_body_solver(params, device="cpu", low_k_guard="off",
                                          n_scenarios=B if batched else None)
     st = init(21)
-    return kc, sc, st.u_prev, st.seed
+    return kc, sc, st.u_prev, wk.philox_keys(st.seed, "cpu")
 
 
 @pytest.mark.parametrize("batched", [False, True])
@@ -222,13 +222,18 @@ def test_torch_backend_refuses_a_scenario_batch():
 
 
 def test_seed_arguments():
+    cpu = torch.device("cpu")
     lead_seeds = torch.tensor([1, 2, 3], dtype=torch.int64)
-    ptr, val = wk._seed_args(lead_seeds, (3,), torch.device("cpu"))
-    assert ptr == lead_seeds.data_ptr() and val == 0
-    assert wk._seed_args(-1, (), torch.device("cpu")) == (None, 2**64 - 1)
-    with pytest.raises(ValueError, match="seed: expected a contiguous int64"):
-        wk._seed_args(lead_seeds.float(), (3,), torch.device("cpu"))
-    assert wk._seed_list(lead_seeds, 3) == [1, 2, 3] and wk._seed_list(4, 2) == [4, 4]
+    assert wk.philox_keys(lead_seeds, cpu) is lead_seeds
+    assert wk._key_ptr(lead_seeds, (3,), cpu) == lead_seeds.data_ptr()
+    one = wk.philox_keys(-1, cpu)
+    assert one.shape == (1,) and one.dtype == torch.int64 and wk.philox_keys(2**64 - 1, cpu) is one
+    assert wk._key_list(one) == [2**64 - 1] and wk._key_list(lead_seeds) == [1, 2, 3]
+    assert wk._key_ptr(one, (), cpu) == one.data_ptr()
+    with pytest.raises(ValueError, match="seeds: expected a contiguous int64"):
+        wk._key_ptr(lead_seeds.float(), (3,), cpu)
+    with pytest.raises(ValueError, match=r"shape \(1,\)"):
+        wk._key_ptr(lead_seeds, (), cpu)
 
 
 def _c_params(src: str, fn: str) -> int:
@@ -257,8 +262,8 @@ def test_c_interface_matches_the_cuda_source():
     finally:
         wk.build.load_library = orig
         wk._lib.cache_clear()
-    assert len(lib.wb_cost_launch.argtypes) == _c_params(src, "wb_cost_launch") == 14
-    assert len(lib.wb_update_launch.argtypes) == _c_params(src, "wb_update_launch") == 19
+    assert len(lib.wb_cost_launch.argtypes) == _c_params(src, "wb_cost_launch") == 13
+    assert len(lib.wb_update_launch.argtypes) == _c_params(src, "wb_update_launch") == 18
     cases = re.findall(r"WB_COST_CASE\((MODE_\w+), (\d), (true|false), (true|false)\)", src)
     assert sorted((m, int(v)) for m, v, _, _ in cases) == sorted(
         (m, v) for m in ("MODE_ATTITUDE", "MODE_POSITION", "MODE_WRENCH") for v in range(3))

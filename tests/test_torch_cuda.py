@@ -89,7 +89,8 @@ def test_philox_spill_matches_plain():
     params = _params("attitude")
     kc = wk.make_kernel_config(params)
     state, _, _, sc, _ = _inputs(params, dev)
-    _, _, _, eps = wk.wb_cost(kc, sc, state.u_prev, None, seed=2**40 + 3, step=9)
+    keys = wk.philox_keys(2**40 + 3, dev)
+    _, _, _, eps = wk.wb_cost(kc, sc, state.u_prev, None, keys, step=9)
     z = sampling.philox_normals(2**40 + 3, 9, K, H, wk.A_TOTAL, dev)
     sigma = sc[wk.SC_SIGMA:wk.SC_SIGMA + wk.A_TOTAL].view(-1, 1, 1)
     assert (eps / sigma - z).abs().max().item() <= 1e-5
@@ -176,7 +177,7 @@ def test_new_variants_match_plain(row):
     params = _params("attitude")
     kc = wk.make_kernel_config(params)
     state, _, _, sc, _ = _inputs(params, dev)
-    u_prev, seed, step, k_off = state.u_prev, 2**33 + 1, 4, 512
+    u_prev, seed, step, k_off = state.u_prev, wk.philox_keys(2**33 + 1, dev), 4, 512
     s, m, e, eps = wk.wb_cost(kc, sc, u_prev, None, seed, step, k_off)
     se = wk.softmin_normalizers(kc, m, e).contiguous()
     kernel, run, plain = {

@@ -67,7 +67,7 @@ def _setup(make=lambda: twb.position_mode_params(n_samples=256, n_horizon=12)):
 
 def test_wb_cost_plain_partials_and_philox_spill():
     params, kc, obs, sc, u_prev = _setup()
-    s, m, e, eps = wk.wb_cost(kc, sc, u_prev, None, seed=99, step=4)
+    s, m, e, eps = wk.wb_cost(kc, sc, u_prev, None, wk.philox_keys(99, "cpu"), step=4)
     assert s.shape == (256,) and m.shape == e.shape == (256 // wk.BLOCK,)
     z = sampling.philox_normals(99, 4, 256, 12, 11)
     torch.testing.assert_close(eps, z * sc[wk.SC_SIGMA:wk.SC_SIGMA + 11].view(11, 1, 1))
@@ -82,7 +82,7 @@ def test_wb_cost_plain_partials_and_philox_spill():
 
 def test_wb_update_plain_is_the_softmin_average():
     params, kc, obs, sc, u_prev = _setup()
-    s, m, e, eps = wk.wb_cost(kc, sc, u_prev, None, seed=5, step=0)
+    s, m, e, eps = wk.wb_cost(kc, sc, u_prev, None, wk.philox_keys(5, "cpu"), step=0)
     du, m2 = wk.wb_update(kc, eps, s, m, e)
     w = tweights.softmin_weights(s, params.mppi.lam)
     noise = eps.permute(2, 1, 0)  # (K, H, A)

@@ -180,6 +180,7 @@ def test_weak_scaling_reports_the_jax_keys(run):
             "global_k_sample_axis", "global_solves_per_s_scenario_axis"}
     res = run[1]
     assert set(res["scaling_keys"].tolist()) == want
+    assert str(res["scaling_backend"]) == "cpu"  # host-clock times on the CPU
     devices, global_k, *times = res["scaling_vals"]
     assert (devices, global_k) == (2, 128)
     assert all(np.isfinite(t) and t > 0 for t in times)

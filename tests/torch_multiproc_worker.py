@@ -135,6 +135,7 @@ def main():
     # Weak scaling at a tiny size: the JAX function's keys, finite times.
     sc = scaling.measure_weak_scaling(k_per_device=64, h=8, iters=1, device="cpu")
     out["scaling_keys"] = np.array(sorted(sc))
+    out["scaling_backend"] = np.array(sc["backend"])
     out["scaling_vals"] = np.array([sc["devices"], sc["global_k_sample_axis"],
                                     sc["t_1dev_ms"], sc["t_sample_sharded_ms"],
                                     sc["t_scenario_sharded_ms"]], dtype=np.float64)
