@@ -1,5 +1,6 @@
 """On-card smoke run of the PyTorch/CUDA port: the whole-body solve, the
-whole-body closed loop, and the scenario-batched and sample-sharded solves.
+whole-body closed loop, the scenario-batched and sample-sharded solves, and
+the drone MPPI path.
 
     python3 chip_smoke.py
 
@@ -34,9 +35,20 @@ lines; any failure exits non-zero before the final ``ok`` line):
    all-reduce calls per solve, ms per sharded solve, weak scaling; then
    on each rank pass 2 (rows 7, 6) on that rank's own inputs of each solve
    against its plain version, and its timings at K_local = 2048;
-then one ``kernels`` JSON line (rows 4-5 at B=256 and rows 6-7 at K_local,
-the shapes of the runs that count their launches), the ``nvidia-smi`` line
-and the ``ok`` line.
+11. the drone kernels (rows 9a-9d) against their plain versions at the
+   preset K=1000, H=32, at K=1024, 4096, 16384 (H=32) and at K=16384,
+   H=100, with timings, bounds and the ``torch.mv`` yardstick of pass 2;
+   the kernel solve against the first step of ``make_drone_solver`` on the
+   same seed; host ms per solve of both at K=1024, with profiles;
+12. the drone's closed loops: (a) the kernel solve in the point-mass loop,
+   800 steps at the preset, the key advanced on the card (800 + 800
+   launches of rows 9a and 9b); (b) the explicit-noise loop, 80 steps at
+   K=1024 (80 + 80 of rows 9c and 9d); (c) the drone waypoint episode,
+   ``make_drone_solver`` at the preset through ``make_episode`` with
+   backstepping, 2000 control steps; each with its gate;
+then one ``kernels`` JSON line (rows 4-5 at B=256, rows 6-7 at K_local,
+rows 9a-9b at K=1000 and 9c-9d at K=1024: the shapes of the runs that
+count their launches), the ``nvidia-smi`` line and the ``ok`` line.
 """
 
 import dataclasses
@@ -52,17 +64,21 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from quadrotor_manipulator_mppi_tpu_torch.evaluation.metrics import episode_quality
+from quadrotor_manipulator_mppi_tpu_torch.models import multirotor as mr
+from quadrotor_manipulator_mppi_tpu_torch.models import point_mass as pm
 from quadrotor_manipulator_mppi_tpu_torch.models import rigid_body as rb
-from quadrotor_manipulator_mppi_tpu_torch.ops import sampling
+from quadrotor_manipulator_mppi_tpu_torch.ops import sampling, weights
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import build
+from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import drone_kernel as dk
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import plant_kernel as pk
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import whole_body_kernel as wk
 from quadrotor_manipulator_mppi_tpu_torch.parallel import mesh as mesh_mod
 from quadrotor_manipulator_mppi_tpu_torch.parallel import multihost, scaling, sharded
 from quadrotor_manipulator_mppi_tpu_torch.parallel.multihost import tree_map
+from quadrotor_manipulator_mppi_tpu_torch.sim import closed_loop as cl
 from quadrotor_manipulator_mppi_tpu_torch.sim import flight_control as fc
 from quadrotor_manipulator_mppi_tpu_torch.sim import whole_body_loop as wbl
-from quadrotor_manipulator_mppi_tpu_torch.solver import mppi, serving
+from quadrotor_manipulator_mppi_tpu_torch.solver import drone, mppi, serving
 from quadrotor_manipulator_mppi_tpu_torch.solver import whole_body as wb
 
 K, H, A = 4096, 50, wk.A_TOTAL
@@ -123,6 +139,33 @@ WB_REGEN_OPS_PER_ELEMENT = 100 + 35 + 20
 SHARD_RANKS = 2
 N_SHARD_SOLVES = 3
 SHARD_TIMEOUT_S = 300
+
+DRONE_SOURCE = "quadrotor_manipulator_mppi_tpu_torch/csrc/drone_kernel.cu"
+DRONE_TPU_KERNEL = "quadrotor_manipulator_mppi_tpu/ops/pallas/drone_kernel.py"
+DRONE_H, DRONE_A = 32, 3
+DRONE_K = 1000                 # the reference preset (K=1000, H=32)
+DRONE_NOISE_K = 1024           # the explicit-noise loop of tests/test_pallas_kernel.py
+# Phase 11's sweep: the preset, the JAX crossover sweep, and the 20 MB
+# noise case of the TPU kernel's notes.
+DRONE_SIZES = ((1000, 32), (1024, 32), (4096, 32), (16384, 32), (16384, 100))
+# Operations per element (sample, step, action): a Philox draw (~100
+# integer operations) with the erfinv normal and its scaling (~35); the
+# integration and cost of pass 1 (~10); pass 2's weighted accumulation (2).
+DRONE_DRAW_OPS = 100 + 35
+DRONE_COST_OPS = 10
+DRONE_UPDATE_OPS = 2
+TOL_DRONE_STEP = 2e-4          # |a - b| <= TOL (1 + |b|): tests/test_pallas_kernel.py's
+N_DRONE_LOOP = 800             # phase 12a: tests/test_solver_golden.py's loop
+N_DRONE_NOISE_LOOP = 80        # phase 12b: tests/test_pallas_kernel.py's loop
+N_DRONE_EPISODE = 2000         # phase 12c: tests/test_sim.py's waypoint episode
+# The instantiation each drone wrapper launches, as the profiler names it.
+DRONE_KEYS = {"drone_cost": "drone_cost_kernel<true>", "drone_update": "drone_update_kernel<true>",
+              "drone_cost_noise": "drone_cost_kernel<false>",
+              "drone_update_noise": "drone_update_kernel<false>"}
+DRONE_REPLACES = {"drone_cost": "99 _cost_kernel (call :216)",
+                  "drone_update": "115 _update_kernel (call :249)",
+                  "drone_cost_noise": "130 _cost_kernel_noise (call :230)",
+                  "drone_update_noise": "140 _update_kernel_noise (call :258)"}
 
 
 def fail(msg: str) -> None:
@@ -209,7 +252,7 @@ def phase_build(dev) -> str:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    names = ("whole_body_kernel", "plant_kernel")
+    names = ("whole_body_kernel", "plant_kernel", "drone_kernel")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all at once
         list(pool.map(build.build, names))
     for name in names:
@@ -217,10 +260,15 @@ def phase_build(dev) -> str:
     print(f"[1] device {torch.cuda.get_device_name(dev)} | {smi} | "
           f"torch {torch.__version__} cuda {torch.version.cuda} | "
           f"build {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in build.build_report("whole_body_kernel").splitlines():
+    for name in ("whole_body_kernel", "drone_kernel"):
+        print_ptxas(name)
+    return smi
+
+
+def print_ptxas(name: str) -> None:
+    for line in build.build_report(name).splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"    ptxas: {line.strip()}")
-    return smi
 
 
 def inputs(params, dev, gen):
@@ -323,11 +371,11 @@ def phase_serving(dev):
     return launches, statistics.median(block_ms), (pstep, carry, obs_vec, target_vec)
 
 
-def profile_solves(tag: str, fn, n: int, solve_ms: float) -> None:
-    """Where a solve's device time goes: CUDA-side profiler events of ``n``
-    calls of ``fn``, their busy share of the profiled wall time and of the
-    unprofiled solve time ``solve_ms``, and the device ops that take the
-    most time."""
+def profile_solves(tag: str, fn, n: int, solve_ms: float, unit: str = "solve") -> None:
+    """Where a solve's (or a control step's: ``unit``) device time goes:
+    CUDA-side profiler events of ``n`` calls of ``fn``, their busy share of
+    the profiled wall time and of the unprofiled time per call
+    ``solve_ms``, and the device ops that take the most time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -343,12 +391,12 @@ def profile_solves(tag: str, fn, n: int, solve_ms: float) -> None:
     if not dev_us:
         print(f"{tag} profiler: device time not measured (no CUDA events)", flush=True)
         return
-    print(f"{tag} profiler: device busy {dev_us / n:.1f} us/solve; busy share "
-          f"{dev_us / wall_us:.3f} of the profiled wall ({wall_us / n:.1f} us/solve), "
-          f"{dev_us / n / (solve_ms * 1e3):.3f} of the unprofiled solve; "
-          f"{launches / n:.0f} device ops/solve", flush=True)
+    print(f"{tag} profiler: device busy {dev_us / n:.1f} us/{unit}; busy share "
+          f"{dev_us / wall_us:.3f} of the profiled wall ({wall_us / n:.1f} us/{unit}), "
+          f"{dev_us / n / (solve_ms * 1e3):.3f} of the unprofiled {unit}; "
+          f"{launches / n:.0f} device ops/{unit}", flush=True)
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"    {e.self_device_time_total / n:8.1f} us/solve {e.count / n:6.1f} ops/solve  "
+        print(f"    {e.self_device_time_total / n:8.1f} us/{unit} {e.count / n:6.1f} ops/{unit}  "
               f"{e.key[:90]}")
 
 
@@ -476,9 +524,7 @@ def phase_plant(dev, errs):
           f"{t['plant_tick_b1024']:.4f} = {t['plant_tick_b1024'] / 1024 * 1e3:.3f} us/row "
           f"(plain {t['plant_tick_plain_b1024']:.3f}, bound {b1024[0]:.2e} by {b1024[1]}) | "
           f"{ops} ops/row", flush=True)
-    for line in build.build_report("plant_kernel").splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"    ptxas: {line.strip()}")
+    print_ptxas("plant_kernel")
     return t, b1
 
 
@@ -526,26 +572,8 @@ def phase_episode(dev):
             or not finite:
         fail("serving episode did not run through all three kernels with finite logs")
 
-    # No host synchronization inside the loop: any synchronizing CUDA call
-    # in a short episode shows up here as a warning.
-    import warnings
-
     args = warm_start(2)
-    sync()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            warm(*args)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = [f"{w.filename}:{w.lineno}" for w in caught
-             if "called a synchronizing" in str(w.message)]
-    print(f"[6] host synchronizations in 5 control steps: {len(syncs)}", flush=True)
-    if syncs:
-        for where in sorted(set(syncs)):
-            print(f"    {syncs.count(where)} x {where}")
-        fail("the episode loop synchronizes the host with the card")
+    check_no_syncs("[6]", "5 control steps", lambda: warm(*args))
 
     n_prof = 20
     window, window_start = serving_episode(params, dev, n_prof)
@@ -578,6 +606,28 @@ def phase_episode(dev):
     print("[6] host time per part (profiled, us/control step): " + ", ".join(
         f"{e.key[8:]} {e.cpu_time_total / n_prof:.0f}" for e in parts), flush=True)
     return launches, step_ms
+
+
+def check_no_syncs(tag: str, what: str, fn) -> None:
+    """No host synchronization inside a loop: any synchronizing CUDA call
+    while ``fn`` runs shows up as a warning, and fails the phase."""
+    import warnings
+
+    sync()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught
+             if "called a synchronizing" in str(w.message)]
+    print(f"{tag} host synchronizations in {what}: {len(syncs)}", flush=True)
+    if syncs:
+        for where in sorted(set(syncs)):
+            print(f"    {syncs.count(where)} x {where}")
+        fail("the loop synchronizes the host with the card")
 
 
 def phase_reach(dev):
@@ -1082,6 +1132,257 @@ def phase_sharded(dev):
     return r0
 
 
+def drone_case(dev, k: int, h: int):
+    """Arguments of each drone wrapper at K=k, H=h, made on the card from a
+    seed: a warm start, the state, the target, a key, sigma-scaled
+    explicit noise; pass 2's weights are the softmin of the plain pass 1
+    on the same noise (drawn or explicit), as the solve forms them."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1000 * k + h)
+    u_prev = torch.randn((h, DRONE_A), generator=gen, device=dev)
+    x0 = torch.tensor([0.1, -0.2, 1.0], device=dev)
+    v0 = torch.tensor([0.0, 0.3, 0.0], device=dev)
+    target = torch.tensor(drone.DEFAULT_TARGET, device=dev)
+    keys = sampling.philox_keys(2**36 + 1000 * k + h, dev)
+    noise = 30.0 * torch.randn((k, h, DRONE_A), generator=gen, device=dev)
+    cost = (u_prev, x0, v0, target, keys, k, 0.01, 30.0, 100.0, 20.0)
+    cost_noise = (u_prev, noise, x0, v0, target, 0.01, 100.0, 20.0)
+    w_draw = weights.softmin_weights(dk.drone_cost_plain(*cost), 0.1)
+    w_noise = weights.softmin_weights(dk.drone_cost_noise_plain(*cost_noise), 0.1)
+    return {"drone_cost": cost, "drone_update": (w_draw, keys, h, DRONE_A, 30.0),
+            "drone_cost_noise": cost_noise, "drone_update_noise": (noise, w_noise)}
+
+
+def drone_work(name: str, k: int, h: int):
+    """(bytes, float32 operations) of one drone kernel at K=k, H=h: each
+    input read once and each output written once, the draws counted where
+    the kernel draws, the noise bytes where it reads them."""
+    el = k * h * DRONE_A
+    small = (h * DRONE_A + 3 * DRONE_A) * 4
+    return {"drone_cost": (small + k * 4 + 8, el * (DRONE_DRAW_OPS + DRONE_COST_OPS)),
+            "drone_cost_noise": (small + k * 4 + el * 4, el * DRONE_COST_OPS),
+            "drone_update": (k * 4 + h * DRONE_A * 4 + 8, el * (DRONE_DRAW_OPS + DRONE_UPDATE_OPS)),
+            "drone_update_noise": (k * 4 + el * 4 + h * DRONE_A * 4,
+                                   el * DRONE_UPDATE_OPS)}[name]
+
+
+def drone_compare(name: str, args):
+    """(max |d|, relative error) of a drone wrapper against its plain
+    version: S relative to max(1, max|S|), du relative to max|du|."""
+    got, want = getattr(dk, name)(*args), getattr(dk, name + "_plain")(*args)
+    sync()
+    d = (got - want).abs().max().item()
+    scale = max(1.0, want.abs().max().item()) if "cost" in name else want.abs().max().item()
+    return d, d / scale
+
+
+def drone_params(k: int):
+    params = drone.DroneMPPIParams()
+    return dataclasses.replace(params, mppi=dataclasses.replace(params.mppi, n_samples=k))
+
+
+def drone_solve_inputs(dev):
+    """The preset's first step: (step, state, obs)."""
+    step, init = drone.make_drone_solver(drone_params(DRONE_K), device=dev)
+    obs = drone.DroneObs(x=torch.tensor([0.1, -0.2, 1.0], device=dev),
+                         v=torch.tensor([0.0, 0.3, 0.0], device=dev),
+                         target=torch.tensor(drone.DEFAULT_TARGET, device=dev))
+    return step, init(21), obs
+
+
+def phase_drone_kernels(dev, errs):
+    """Rows 9a-9d against their plain versions at every size of the sweep
+    (S 1e-4, du 1e-5 on the same weights), with CUDA-event, profiler and
+    plain times, bounds and the torch.mv yardstick of pass 2; the kernel
+    solve against the preset's first step; host ms per solve of both at
+    K=1024."""
+    sweep = {}
+    for k, h in DRONE_SIZES:
+        case = drone_case(dev, k, h)
+        rels = {}
+        for name, args in case.items():
+            d, rels[name] = drone_compare(name, args)
+            tol = TOL_COST if "cost" in name else TOL_UPDATE
+            if not rels[name] <= tol:
+                fail(f"{name} at K={k}, H={h} disagrees with its plain version ({rels[name]:.2e})")
+            errs[name] = max(errs.get(name, 0.0), d)
+        noise, w = case["drone_update_noise"]
+        flat = noise.view(k, h * DRONE_A).t()
+        lib = {"ms": event_ms(lambda: torch.mv(flat, w)),
+               "device_ms": device_ms(lambda: torch.mv(flat, w), "gemv")}
+        for name, args in case.items():
+            kern, plain = getattr(dk, name), getattr(dk, name + "_plain")
+            b = bound(*drone_work(name, k, h))
+            sweep[(name, k, h)] = {
+                "k": k, "h": h, "ms": event_ms(lambda: kern(*args)),
+                "device_ms": device_ms(lambda: kern(*args), DRONE_KEYS[name]),
+                "plain_ms": event_ms(lambda: plain(*args), reps=5), "bound_ms": b[0],
+                "bound_by": b[1],
+                "library_ms": lib["ms"] if "update" in name else None,
+                "library_device_ms": lib["device_ms"] if "update" in name else None}
+        print(f"[11] K={k} H={h}: vs plain " + ", ".join(f"{n} {r:.2e}" for n, r in rels.items())
+              + " | ms (events / device / plain / bound): " + ", ".join(
+                  f"{n} {fmt_ms(s['ms'])}/{fmt_ms(s['device_ms'])}/{s['plain_ms']:.3f}/"
+                  f"{s['bound_ms']:.2e} by {s['bound_by']}"
+                  for (n, kk, hh), s in sweep.items() if (kk, hh) == (k, h))
+              + f" | torch.mv {lib['ms']:.4f}/{fmt_ms(lib['device_ms'])}", flush=True)
+
+    # The kernel solve against the preset's first step on the same seed.
+    step, state, obs = drone_solve_inputs(dev)
+    out, _ = step(state, obs)
+    u = dk.solve_drone_cuda(state.u_prev, obs.x, obs.v, obs.target, state.seed,
+                            n_samples=DRONE_K)
+    sync()
+    step_err = ((u - out.u_seq).abs() / (1.0 + out.u_seq.abs())).max().item()
+    s_sorted = dk.drone_cost_plain(state.u_prev, obs.x, obs.v, obs.target,
+                                   sampling.philox_keys(state.seed, dev), DRONE_K, 0.01, 30.0,
+                                   100.0, 20.0).sort().values
+    gap = (s_sorted[1] - s_sorted[0]).item()
+    print(f"[11] solve_drone_cuda vs make_drone_solver's first step (K={DRONE_K}, seed "
+          f"{state.seed}): {step_err:.2e} | gap between the two lowest S {gap:.4g} "
+          f"(lambda 0.1)", flush=True)
+    if not step_err <= TOL_DRONE_STEP:
+        fail("the kernel solve disagrees with the preset's first step")
+
+    # Host ms per solve at K=1024: the kernel solve (production mode)
+    # against the preset's plain step, and where each spends the card.
+    step_p, init_p = drone.make_drone_solver(drone_params(DRONE_NOISE_K), device=dev)
+    st_p = init_p(3)
+    keys = sampling.philox_keys(3, dev)
+    u0 = st_p.u_prev
+
+    def kernel_solve():
+        return dk.solve_drone_cuda(u0, obs.x, obs.v, obs.target, keys, n_samples=DRONE_NOISE_K)
+
+    def plain_step():
+        return step_p(st_p, obs)
+
+    host = {"kernel_solve": host_ms(kernel_solve, reps=20),
+            "make_drone_solver_step": host_ms(plain_step, reps=20)}
+    print(f"[11] host ms per solve at K={DRONE_NOISE_K}, H={DRONE_H}: " + ", ".join(
+        f"{n} {v:.4f}" for n, v in host.items()), flush=True)
+    profile_solves("[11] kernel solve", kernel_solve, 20, host["kernel_solve"])
+    profile_solves("[11] make_drone_solver step", plain_step, 20, host["make_drone_solver_step"])
+    return sweep, host
+
+
+def drone_point_mass_loop(target, n_steps: int, k: int, gen=None, seed: int = 0):
+    """The kernel solve closing the point-mass loop toward ``target`` (3,)
+    on the card: per step one solve (Philox, or explicit noise from
+    ``gen``), the plant stepped on u[0], the distance to the target kept
+    on the card.  The key tensor is this loop's own and is advanced in
+    place on the card."""
+    dev = target.device
+    u = torch.zeros((DRONE_H, DRONE_A), device=dev)
+    st = pm.PointMassState(torch.zeros(3, device=dev), torch.zeros(3, device=dev))
+    keys = sampling.philox_keys(seed, dev).clone()
+    errs = []
+    for _ in range(n_steps):
+        noise = None if gen is None else 30.0 * torch.randn((k, DRONE_H, DRONE_A), generator=gen,
+                                                            device=dev)
+        u = dk.solve_drone_cuda(u, st.pos, st.vel, target, keys, noise=noise, n_samples=k)
+        keys.add_(1)
+        st = pm.step(st, u[0], 0.01)
+        errs.append(torch.linalg.norm(st.pos - target))
+    return torch.stack(errs)
+
+
+def reset_drone_counts() -> None:
+    for f in dk.KERNEL_WRAPPERS:
+        f.launches = 0
+
+
+def drone_counts() -> dict:
+    return {f.__name__: f.launches for f in dk.KERNEL_WRAPPERS}
+
+
+def phase_drone_loops(dev):
+    """(a) the kernel solve in production mode in the point-mass loop, 800
+    steps at the preset; (b) the explicit-noise loop, 80 steps at K=1024;
+    (c) the drone waypoint episode: the preset through make_episode with
+    backstepping, 2000 control steps.  Each with its gate, launch counts,
+    host ms per step; (a) and (c) with a host-sync check."""
+    target = torch.tensor(drone.DEFAULT_TARGET, device=dev)
+    drone_point_mass_loop(target, 3, DRONE_K)  # warm up
+    check_no_syncs("[12a]", "5 kernel-solve steps",
+                   lambda: drone_point_mass_loop(target, 5, DRONE_K, seed=9))
+    launches = {}
+    reset_drone_counts()
+    t0 = time.perf_counter()
+    errs = drone_point_mass_loop(target, N_DRONE_LOOP, DRONE_K).cpu().numpy()
+    ms_a = (time.perf_counter() - t0) * 1e3 / N_DRONE_LOOP
+    launches["a"] = drone_counts()
+    late = float(errs[300:].mean())
+    print(f"[12a] kernel solve, point-mass loop, {N_DRONE_LOOP} steps at K={DRONE_K}, H={DRONE_H}: "
+          f"min err {errs.min():.4f} m | mean err[300:] {late:.4f} m | {ms_a:.4f} ms/step | "
+          f"launches {launches['a']}", flush=True)
+    if not (errs.min() < 0.15 and late < 0.6):
+        fail("the kernel-solve loop missed its gate (min err < 0.15, mean err[300:] < 0.6)")
+    if launches["a"] != {"drone_cost": N_DRONE_LOOP, "drone_update": N_DRONE_LOOP,
+                         "drone_cost_noise": 0, "drone_update_noise": 0}:
+        fail("the kernel-solve loop did not run through rows 9a and 9b once per step")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(61)
+    reset_drone_counts()
+    t0 = time.perf_counter()
+    errs_b = drone_point_mass_loop(target, N_DRONE_NOISE_LOOP, DRONE_NOISE_K,
+                                   gen=gen).cpu().numpy()
+    ms_b = (time.perf_counter() - t0) * 1e3 / N_DRONE_NOISE_LOOP
+    launches["b"] = drone_counts()
+    print(f"[12b] explicit-noise loop, {N_DRONE_NOISE_LOOP} steps at K={DRONE_NOISE_K}: err "
+          f"{errs_b[0]:.4f} -> {errs_b[-1]:.4f} m | {ms_b:.4f} ms/step | launches {launches['b']}",
+          flush=True)
+    if not errs_b[-1] < 0.6 * errs_b[0]:
+        fail("the explicit-noise loop missed its gate (errs[-1] < 0.6 errs[0])")
+    if launches["b"] != {"drone_cost": 0, "drone_update": 0,
+                         "drone_cost_noise": N_DRONE_NOISE_LOOP,
+                         "drone_update_noise": N_DRONE_NOISE_LOOP}:
+        fail("the explicit-noise loop did not run through rows 9c and 9d once per step")
+
+    # (c) The waypoint episode of tests/test_sim.py on the card.
+    step, init = drone.make_drone_solver(drone_params(DRONE_K), device=dev)
+    cfg = cl.LoopConfig(controller="backstepping")
+    veh = mr.MultirotorParams()
+
+    def episode(n):
+        return cl.make_episode(
+            cfg, veh, fc.FlightGains(), step,
+            make_obs=lambda plant: drone.DroneObs(x=plant.pos, v=plant.vel, target=target),
+            setpoint_of=lambda out, plant: fc.hover_setpoint(out.xdes), n_control_steps=n)
+
+    def start(seed):
+        return cl.init_loop_state(cfg, veh, init(seed), pos=(0.0, 0.0, 2.0), device=dev)
+
+    warm = episode(5)
+    warm(start(1))
+    s2 = start(2)
+    check_no_syncs("[12c]", "5 control steps", lambda: warm(s2))
+    run, s0 = episode(N_DRONE_EPISODE), start(0)
+    sync()
+    reset_drone_counts()
+    t0 = time.perf_counter()
+    _, (pos, _, _) = run(s0)
+    sync()
+    ms_c = (time.perf_counter() - t0) * 1e3 / N_DRONE_EPISODE
+    err = torch.linalg.norm(pos - target, dim=-1).cpu().numpy()
+    finite = bool(torch.isfinite(pos).all())
+    print(f"[12c] drone waypoint episode, {N_DRONE_EPISODE} control steps (preset K={DRONE_K}, "
+          f"backstepping): min err {err.min():.4f} m | mean err[1000:] {err[1000:].mean():.4f} m "
+          f"| final {err[-1]:.4f} m | finite {finite} | {ms_c:.3f} ms/control step | "
+          f"drone kernel launches {drone_counts()}", flush=True)
+    if not (finite and err.min() < 0.8 and err[1000:].mean() < 1.5):
+        fail("the drone episode missed its gate (min err < 0.8, mean err[1000:] < 1.5)")
+    window = episode(1)
+    box = [start(3)]
+
+    def one_step():
+        box[0], _ = window(box[0])
+
+    profile_solves("[12c]", one_step, 20, ms_c, unit="control step")
+    return launches, {"a": ms_a, "b": ms_b, "c": ms_c}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1101,6 +1402,8 @@ def main() -> None:
     t_k4096 = phase_nospill(dev)
     shard = phase_sharded(dev)
     errs.update(shard["kernel_err_all_ranks"])
+    drone_sweep, drone_host = phase_drone_kernels(dev, errs)
+    drone_launches, drone_loop_ms = phase_drone_loops(dev)
     b256 = {(b, spill): e_ms for b, spill, _, e_ms, _, _, _ in batch_rows}
     shard_bounds = {k: bound(*v) for k, v in new_work(K // SHARD_RANKS).items()}
 
@@ -1156,11 +1459,33 @@ def main() -> None:
         shard_row("wb_update_shard_regen", "607 _update_kernel"),
         shard_row("wb_update_shard", "616 _update_kernel_noise"),
     ]
+
+    def drone_row(name, k, launches_n):
+        """Rows 9a-9d: the numbers at the K of the loop that counts the
+        launches (phase 12a: the preset K=1000; 12b: K=1024), the sweep
+        of phase 11 beside them."""
+        s = drone_sweep[(name, k, DRONE_H)]
+        return {"name": name, "route": "cuda", "source": DRONE_SOURCE,
+                "replaces": f"{DRONE_TPU_KERNEL}:{DRONE_REPLACES[name]}", "launches": launches_n,
+                "max_abs_err": errs[name], "ms": s["ms"], "plain_ms": s["plain_ms"],
+                "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
+                "library_ms": s["library_ms"], "device_ms": s["device_ms"],
+                "library_device_ms": s["library_device_ms"], "k": k, "h": DRONE_H,
+                "sweep": [v for (n, _, _), v in drone_sweep.items() if n == name]}
+
+    kernels += [drone_row("drone_cost", DRONE_K, drone_launches["a"]["drone_cost"]),
+                drone_row("drone_update", DRONE_K, drone_launches["a"]["drone_update"]),
+                drone_row("drone_cost_noise", DRONE_NOISE_K,
+                          drone_launches["b"]["drone_cost_noise"]),
+                drone_row("drone_update_noise", DRONE_NOISE_K,
+                          drone_launches["b"]["drone_update_noise"])]
     print(json.dumps({"kernels": kernels}))
     print(f"serving solve {solve_ms:.4f} ms, serving episode {step_ms:.4f} ms/control step, "
           f"batched solve at B={B_BATCH} {b256[(B_BATCH, True)]:.3f} ms (spill) / "
           f"{b256[(B_BATCH, False)]:.3f} ms (no spill), sharded solve "
-          f"{shard['ms']['spill']:.3f} ms on {smi}")
+          f"{shard['ms']['spill']:.3f} ms, drone kernel solve {drone_host['kernel_solve']:.4f} ms "
+          f"/ preset step {drone_host['make_drone_solver_step']:.4f} ms at K={DRONE_NOISE_K}, "
+          f"drone episode {drone_loop_ms['c']:.3f} ms/control step on {smi}")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -22,8 +22,10 @@ import torch
 
 from .models.multirotor import MultirotorParams
 from .models.whole_body import WholeBodyParams
+from .sim.closed_loop import LoopConfig
 from .sim.flight_control import FlightGains
 from .sim.whole_body_loop import WholeBodyLoopConfig, WholeBodyPlant
+from .solver.drone import DroneMPPIParams
 from .solver.mppi import MPPIConfig, MPPIState
 from .solver.whole_body import (
     WholeBodyCostParams, WholeBodyMPPIParams, ee_error_sigma_schedule,
@@ -32,7 +34,7 @@ from .utils.device import resolve_device
 
 _REGISTRY = {cls.__name__: cls for cls in (
     MPPIConfig, MultirotorParams, WholeBodyParams, WholeBodyCostParams,
-    WholeBodyMPPIParams, FlightGains, WholeBodyLoopConfig,
+    WholeBodyMPPIParams, FlightGains, WholeBodyLoopConfig, DroneMPPIParams, LoopConfig,
 )}
 _SCHEDULES = {"ee_error": ee_error_sigma_schedule}
 
@@ -67,18 +69,28 @@ def _from_dict(data: Any) -> Any:
 
 def config_from_dict(d: dict) -> Any:
     """Any configuration tree of the registered dataclasses (solver
-    parameters, ``FlightGains``, ``WholeBodyLoopConfig``) from its JAX
-    ``config.to_dict`` form."""
+    parameters, ``FlightGains``, ``WholeBodyLoopConfig``, ``LoopConfig``)
+    from its JAX ``config.to_dict`` form."""
     return _from_dict(d)
+
+
+def _typed_from_dict(d: dict, cls):
+    params = _from_dict(d)
+    if not isinstance(params, cls):
+        raise ValueError(f"expected a {cls.__name__} tree, got {type(params).__name__}")
+    return params
 
 
 def params_from_dict(d: dict) -> WholeBodyMPPIParams:
     """The port's ``WholeBodyMPPIParams`` from the JAX ``config.to_dict``
     form of a ``WholeBodyMPPIParams``."""
-    params = _from_dict(d)
-    if not isinstance(params, WholeBodyMPPIParams):
-        raise ValueError(f"expected a WholeBodyMPPIParams tree, got {type(params).__name__}")
-    return params
+    return _typed_from_dict(d, WholeBodyMPPIParams)
+
+
+def drone_params_from_dict(d: dict) -> DroneMPPIParams:
+    """The port's ``DroneMPPIParams`` from the JAX ``config.to_dict`` form
+    of a ``DroneMPPIParams``."""
+    return _typed_from_dict(d, DroneMPPIParams)
 
 
 def state_from_numpy(u_prev, sigma, seed: int, device="cuda", step: int = 0) -> MPPIState:

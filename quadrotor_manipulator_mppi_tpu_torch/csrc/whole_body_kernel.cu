@@ -63,10 +63,13 @@
 // the sample axis draws exactly its slice of the one-rank noise set.  Pass 2
 // draws again through the same draw_eps as pass 1, so regenerated noise is
 // bit-identical to the spilled noise.  ops/sampling.py holds the same
-// stream in plain PyTorch.
+// stream in plain PyTorch; philox.cuh holds the draw, shared with
+// drone_kernel.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "philox.cuh"
 
 #define WB_A 11          // 4 base + 7 arm actions
 #define WB_J 7           // arm joints
@@ -111,46 +114,6 @@ struct WbParams {
   float w_obs, w_stop, stop_horizon;
   float obs[WB_MAX_OBS][4];  // (x, y, z, radius)
 };
-
-__device__ __forceinline__ uint32_t philox_word0(uint32_t c0, uint32_t c1,
-                                                 uint32_t c2, uint32_t c3,
-                                                 uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
-    c0 = n0;
-    c1 = lo1;
-    c2 = n2;
-    c3 = lo0;
-  }
-  return c0;
-}
-
-__device__ __forceinline__ float bits_to_normal(uint32_t bits) {
-  const float x = ((float)(bits >> 8) - 8388607.5f) * (1.0f / 8388608.0f);
-  return erfinvf(x) * 1.41421356f;
-}
-
-// Scenario b's Philox key, seeds[b].
-__device__ __forceinline__ void philox_key(const unsigned long long* seeds, int b,
-                                           uint32_t& k0, uint32_t& k1) {
-  const unsigned long long s = seeds[b];
-  k0 = (uint32_t)(s & 0xffffffffull);
-  k1 = (uint32_t)(s >> 32);
-}
-
-// eps(a, t, k) = sigma_a z(step, global sample kg, row = a*H + t): the one
-// code path of every draw, in pass 1 and again in pass 2.
-__device__ __forceinline__ float draw_eps(uint32_t step, uint32_t kg, uint32_t row,
-                                          float sigma, uint32_t k0, uint32_t k1) {
-  return bits_to_normal(philox_word0(step, kg, row, 0u, k0, k1)) * sigma;
-}
 
 struct Quat {
   float w, x, y, z;

@@ -1,7 +1,7 @@
 """MPPI cost terms of the whole-body task, as pure functions on tensors.
 
 Port of the subset of the JAX package's ``ops/costs.py`` that the
-whole-body solve sums.  Conventions: sample trajectories carry shape
+whole-body and drone solves sum.  Conventions: sample trajectories carry shape
 [..., K, H, ...]; every term returns the per-sample cost S of shape [..., K].
 """
 
@@ -59,6 +59,12 @@ def position_stage_cost(traj: Tensor, target: Tensor, weight: float) -> Tensor:
     """weight * sum_{t<H-1} |p_t - p*|^2."""
     err = traj[..., :-1, :] - target
     return weight * torch.sum(err * err, dim=(-1, -2))
+
+
+def position_terminal_cost(traj: Tensor, target: Tensor, weight: float) -> Tensor:
+    """weight * |p_{H-1} - p*|^2."""
+    err = traj[..., -1, :] - target
+    return weight * torch.sum(err * err, dim=-1)
 
 
 def action_cost(v: Tensor, weight: float, gamma: float) -> Tensor:

@@ -2,8 +2,9 @@
 
 Each source under ``csrc/`` is compiled to its own shared library with a
 plain C interface (bound with ``ctypes``) for ``sm_90a``.  The build goes to
-``build/<name>-<hash>/`` inside the package, keyed by a hash of the source
-and the flags, so a changed source rebuilds and an unchanged one loads.
+``build/<name>-<hash>/`` inside the package, keyed by a hash of the source,
+the shared headers (``csrc/*.cuh``) and the flags, so a changed source or
+header rebuilds and an unchanged one loads.
 The directory is git-ignored.  ``ptxas -v`` reports each kernel's registers,
 shared memory and spills; the report is kept beside the library
 (:func:`build_report`).
@@ -51,9 +52,13 @@ def nvcc_path() -> str:
 
 
 def _build_dir(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:16]
-    return BUILD_ROOT / f"{name}-{digest}"
+    """The build directory of ``name``, keyed by its source, every shared
+    header under ``csrc/`` (names and bytes) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(_flags(name)).encode())
+    return BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}"
 
 
 def build(name: str) -> Path:

@@ -62,6 +62,7 @@ from ...models.chain import REVOLUTE, matrix_to_quat_np
 from ...models.multirotor import Multirotor12State
 from ...models.whole_body import WholeBodyState, _attitude_response_pair, _quat_from_rpy
 from ...ops import sampling
+from ...ops.sampling import key_list as _key_list, philox_keys  # noqa: F401 (re-exported)
 from ...solver.mppi import (
     MPPIState, _diag_sigma, action_bounds, adapt_sigma, nominal_sequence, update_tail,
 )
@@ -254,7 +255,6 @@ def obs_from_scalars(sc: Tensor):
 # Kernel wrappers and their plain versions
 # ---------------------------------------------------------------------------
 
-_U64 = 0xFFFFFFFFFFFFFFFF
 _U32 = 0xFFFFFFFF
 
 
@@ -289,28 +289,9 @@ def _ptr(t: Optional[Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def philox_keys(seed, device) -> Tensor:
-    """The kernels' Philox keys: a (B,) int64 tensor as it is (a batch's
-    ``state.seed``), or one int seed as a (1,) tensor on ``device``, filled
-    there without a host sync and kept for later calls with that seed."""
-    if isinstance(seed, Tensor):
-        return seed
-    return _key_tensor(int(seed) & _U64, torch.device(device))
-
-
-@functools.lru_cache(maxsize=64)
-def _key_tensor(seed: int, device: torch.device) -> Tensor:
-    signed = seed - (1 << 64) if seed >> 63 else seed  # the same 64 bits as int64
-    return torch.full((1,), signed, dtype=torch.int64, device=device)
-
-
 def _key_ptr(seeds: Tensor, lead, device):
     _check(seeds, lead or (1,), device, "seeds", torch.int64)
     return seeds.data_ptr()
-
-
-def _key_list(seeds: Tensor) -> list:
-    return [int(x) & _U64 for x in seeds.reshape(-1).tolist()]
 
 
 def _n_scen(lead) -> int:

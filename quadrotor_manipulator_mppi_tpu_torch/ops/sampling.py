@@ -4,9 +4,9 @@ Randomness is explicit.  A solve either receives standard normals ``z``
 (the parity path: tests hand both packages the same numbers) or draws them
 from Philox4x32-10 with key = the solver state's 64-bit seed and counter =
 (solve index, global sample index, action*H + t, 0), using output word 0.
-The CUDA kernel (``csrc/whole_body_kernel.cu``) draws the same stream; the
-functions here are its plain version, in int64 arithmetic so they run on
-any device.
+The CUDA kernels (``csrc/philox.cuh``) draw the same stream; the functions
+here are its plain version, in int64 arithmetic so they run on any device.
+The kernels read their keys from a device tensor (:func:`philox_keys`).
 
 A shard of the sample axis that starts at global sample ``sample_offset``
 draws exactly its slice of the one-rank noise set, so a sample-sharded
@@ -21,6 +21,7 @@ x = ((bits >> 8) - (2^23 - 0.5)) * 2^-23 is exact in float32 and lies in
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -74,6 +75,30 @@ def bits_to_normal(bits: Tensor) -> Tensor:
     """32-bit words -> standard normals via the exact 24-bit erfinv form."""
     x = ((bits >> 8).to(torch.float32) - 8388607.5) * (1.0 / 8388608.0)
     return torch.erfinv(x) * math.sqrt(2.0)
+
+
+_U64 = 0xFFFFFFFFFFFFFFFF
+
+
+def philox_keys(seed, device) -> Tensor:
+    """The kernels' Philox keys: a (B,) int64 tensor as it is (a batch's
+    ``state.seed``), or one int seed as a (1,) tensor on ``device``, filled
+    there without a host sync and kept for later calls with that seed (so
+    never modify it in place: clone it first)."""
+    if isinstance(seed, Tensor):
+        return seed
+    return _key_tensor(int(seed) & _U64, torch.device(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _key_tensor(seed: int, device: torch.device) -> Tensor:
+    signed = seed - (1 << 64) if seed >> 63 else seed  # the same 64 bits as int64
+    return torch.full((1,), signed, dtype=torch.int64, device=device)
+
+
+def key_list(seeds: Tensor) -> list:
+    """A key tensor's seeds as unsigned 64-bit host ints."""
+    return [int(x) & _U64 for x in seeds.reshape(-1).tolist()]
 
 
 def philox_normals(

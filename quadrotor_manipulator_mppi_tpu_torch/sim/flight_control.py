@@ -1,9 +1,11 @@
 """Inner-loop flight control of the octorotor plant.
 
 Port of the JAX package's ``sim/flight_control.py`` (the parts the
-whole-body loop runs): the adaptive backstepping law
-(:func:`backstepping_step`, with its optional safeguards) and the
-pseudo-inverse rotor allocation (:func:`allocate`).  Functions of tensors
+whole-body and drone loops run): the PID position + PD attitude law
+(:func:`pid_step`), the adaptive backstepping law
+(:func:`backstepping_step`, with its optional safeguards), the
+pseudo-inverse rotor allocation (:func:`allocate`), the gain presets and
+:func:`hover_setpoint`.  Functions of tensors
 with leading batch dims; the controller state is an explicit NamedTuple.
 The reference's quirks are kept as they are written, e.g. the pitch
 channel's ``-kp_pitch * (z4 - kd_pitch * z3)``.
@@ -44,6 +46,30 @@ class FlightGains:
     kd_yaw: float = 2.0
 
 
+# The reference's attitude gains (Kp=10, Kd=26) put the attitude loop's
+# slow pole below the position loop's bandwidth, so on an ideal rigid body
+# the cascade is unstable; this set speeds the attitude loop up and adds
+# mild lateral and vertical damping, for the in-framework plant.
+SIM_TUNED_GAINS = FlightGains(
+    kp_roll=100.0, kp_pitch=100.0, kd_roll=25.0, kd_pitch=25.0,
+    kd_x=1.5, kd_y=1.5, kp_z=6.0, kd_z=5.0, ki_z=1.0,
+)
+
+# Aggressive-trajectory preset: a mild lateral retune, used with the
+# backstepping safeguards of :func:`aggressive_safeguards` (and acc_ff).
+AGGRESSIVE_GAINS = FlightGains(kp_x=3.5, kp_y=3.5, kd_x=1.0, kd_y=1.0)
+
+
+def aggressive_safeguards(vehicle: MultirotorParams) -> dict:
+    """The backstepping safeguard kwargs validated with AGGRESSIVE_GAINS."""
+    return dict(
+        tilt_clip=0.45,
+        m_hat_range=(0.5 * vehicle.mass, 2.0 * vehicle.mass),
+        n_hat_clip=20.0,
+        int_clip=1.0,
+    )
+
+
 class FlightCtrlState(NamedTuple):
     """Cross-tick controller state."""
 
@@ -70,6 +96,16 @@ class FlightSetpoint(NamedTuple):
     yaw_rate: Tensor  # () desired yaw rate
 
 
+def hover_setpoint(pos, dtype=torch.float32, device=None) -> FlightSetpoint:
+    """Hold ``pos`` with zero velocity, yaw and yaw rate.  On ``device``
+    (default: ``pos``'s device for a tensor, else the CPU); a device tensor
+    ``pos`` is used as it is, so no host copy is made."""
+    p = torch.as_tensor(pos, dtype=dtype, device=device)
+    zero = torch.zeros((), dtype=dtype, device=p.device)
+    return FlightSetpoint(pos=p, vel=torch.zeros(3, dtype=dtype, device=p.device), yaw=zero,
+                          yaw_rate=zero)
+
+
 def _desired_tilt(ux: Tensor, uy: Tensor, yaw_des: Tensor) -> Tuple[Tensor, Tensor]:
     """(ux, uy) -> (roll_des, pitch_des)."""
     alpha, beta = torch.cos(yaw_des), torch.sin(yaw_des)
@@ -87,6 +123,56 @@ def _desired_tilt(ux: Tensor, uy: Tensor, yaw_des: Tensor) -> Tuple[Tensor, Tens
 def _trapezoid(err: Tensor, prev_err: Tensor, integ: Tensor, dt: float) -> Tensor:
     """The reference's ``integral()`` accumulator: 0.5*(e + e_prev)*dt."""
     return integ + 0.5 * (err + prev_err) * dt
+
+
+def pid_step(
+    gains: FlightGains,
+    vehicle: MultirotorParams,
+    ctrl: FlightCtrlState,
+    sp: FlightSetpoint,
+    pos: Tensor,
+    vel_world: Tensor,
+    rpy: Tensor,
+    omega_body: Tensor,
+    dt: float,
+    mass: Optional[float] = None,
+    tau_g: Optional[Tensor] = None,
+    yaw_mom: Optional[Tensor] = None,
+) -> Tuple[Tensor, FlightCtrlState]:
+    """PID position + PD attitude law -> (U [T, tau_x, tau_y, tau_z], new
+    controller state), with a fixed known mass; ``tau_g`` is the optional
+    arm gravity-torque feed-forward, ``yaw_mom`` the arm yaw reaction."""
+    m = float(vehicle.mass if mass is None else mass)
+    ixx, iyy, izz = vehicle.inertia
+    xlen, ylen = vehicle.xlen, vehicle.ylen
+
+    err = sp.pos - pos
+    integ = _trapezoid(err, ctrl.prev_err, ctrl.int_err, dt)
+
+    phi, theta, psi = rpy[..., 0], rpy[..., 1], rpy[..., 2]
+    p, q, r = omega_body[..., 0], omega_body[..., 1], omega_body[..., 2]
+
+    u1 = (m * (GRAVITY + gains.kp_z * err[..., 2] - gains.kd_z * vel_world[..., 2]
+               + gains.ki_z * integ[..., 2])
+          / (torch.cos(phi) * torch.cos(theta)))
+    ux = m / u1 * (gains.kp_x * err[..., 0] - gains.kd_x * vel_world[..., 0]
+                   + gains.ki_x * integ[..., 0])
+    uy = m / u1 * (gains.kp_y * err[..., 1] - gains.kd_y * vel_world[..., 1]
+                   + gains.ki_y * integ[..., 1])
+    roll_des, pitch_des = _desired_tilt(ux, uy, sp.yaw)
+
+    tau_g = torch.zeros_like(pos) if tau_g is None else tau_g
+    z_mom = torch.zeros_like(pos[..., 0]) if yaw_mom is None else yaw_mom
+
+    u2 = (ixx / xlen) * (gains.kp_roll * (roll_des - phi) + gains.kd_roll * (0.0 - p)) \
+        + (1.0 / xlen) * ((izz - iyy) * q * r) - tau_g[..., 0]
+    u3 = (iyy / ylen) * (gains.kp_pitch * (pitch_des - theta) + gains.kd_pitch * (0.0 - q)) \
+        + (1.0 / ylen) * ((ixx - izz) * p * r) - tau_g[..., 1]
+    u4 = izz * (gains.kp_yaw * (sp.yaw - psi) - gains.kd_yaw * r) \
+        + (iyy - ixx) * p * q - tau_g[..., 2] + z_mom
+
+    new_ctrl = FlightCtrlState(int_err=integ, prev_err=err, m_hat=ctrl.m_hat, n_hat=ctrl.n_hat)
+    return torch.stack([u1, u2, u3, u4], dim=-1), new_ctrl
 
 
 def backstepping_step(

@@ -21,11 +21,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..ops import sampling, weights as weights_ops
 from ..utils import savgol
+from ..utils.device import device_const, resolve_device
 
 Tensor = torch.Tensor
 
@@ -73,6 +75,16 @@ def _diag_sigma(config: MPPIConfig, dtype=torch.float32, device=None) -> Tensor:
     if config.adaptive_sigma:
         raise ValueError("adaptive_sigma requires scalar or diagonal sigma")
     return s
+
+
+def init_state(config: MPPIConfig, seed: int, dtype=torch.float32, device="cuda") -> MPPIState:
+    """Zero warm start (H, A), the configured sigma as the live sigma, the
+    Philox seed and solve index 0."""
+    dev = resolve_device(device)
+    return MPPIState(
+        u_prev=torch.zeros((config.n_horizon, config.n_action), dtype=dtype, device=dev),
+        sigma=_diag_sigma(config, dtype, dev), seed=int(seed), step=0,
+    )
 
 
 def action_bounds(config: MPPIConfig, dtype=torch.float32, device=None):
@@ -136,9 +148,22 @@ def make_step(
         raise ValueError("adaptive_sigma and sigma_scale_fn are exclusive")
     k, h, a = n_local_samples or config.n_samples, config.n_horizon, config.n_action
     k_off = 0 if group is None else dist.get_rank(group) * k
+    # Host constants of the tail, copied to the state's device once
+    # (device_const), so a step on the card never waits for a host copy.
+    smoother = (savgol.savgol_matrix(h, config.savgol_window, config.savgol_polyorder)
+                if config.savgol_window else None)
+    bounds = [None if b is None else np.broadcast_to(np.asarray(b, np.float64), (a,))
+              for b in (config.u_min, config.u_max)]
+    nominal = np.broadcast_to(np.asarray(
+        0.0 if config.nominal_action is None else config.nominal_action, np.float64), (h, a))
+    sigma_base = _diag_sigma(config, torch.float64).numpy() if config.adaptive_sigma else None
 
     def step(state: MPPIState, obs: Any, z=None) -> Tuple[Tensor, MPPIState]:
         dev, dtype = state.u_prev.device, state.u_prev.dtype
+
+        def const(x):
+            return None if x is None else device_const(x, state.u_prev)
+
         sigma_live = state.sigma
         if config.sigma_scale_fn is not None:
             sigma_live = sigma_live * config.sigma_scale_fn(obs)
@@ -154,22 +179,15 @@ def make_step(
         s = cost_fn(rollout_fn(v, obs), v, state.u_prev, obs)
         w = weights_ops.softmin_weights(s, config.lam, group)
         du = weights_ops.weighted_noise_average(w, noise, group)
-        smoother = None
-        if config.savgol_window:
-            smoother = torch.as_tensor(
-                savgol.savgol_matrix(h, config.savgol_window, config.savgol_polyorder),
-                dtype=dtype, device=dev,
-            )
-        lo, hi = action_bounds(config, dtype, dev)
-        u, warm = update_tail(config, state.u_prev, du, smoother, lo, hi,
-                              nominal_sequence(config, dtype, dev))
+        u, warm = update_tail(config, state.u_prev, du, const(smoother), const(bounds[0]),
+                              const(bounds[1]), const(nominal))
 
         sigma_next = state.sigma
         if config.adaptive_sigma:
             m2 = torch.einsum("k,kha->a", w, noise * noise) / h
             if group is not None:
                 dist.all_reduce(m2, op=dist.ReduceOp.SUM, group=group)
-            sigma_next = adapt_sigma(config, state.sigma, m2, _diag_sigma(config, dtype, dev))
+            sigma_next = adapt_sigma(config, state.sigma, m2, const(sigma_base))
         return u, MPPIState(u_prev=warm, sigma=sigma_next, seed=state.seed,
                             step=state.step + 1)
 

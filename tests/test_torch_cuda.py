@@ -10,12 +10,13 @@ import pytest
 import torch
 
 from quadrotor_manipulator_mppi_tpu_torch.ops import sampling
+from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import drone_kernel as dk
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import plant_kernel as pk
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import whole_body_kernel as wk
 from quadrotor_manipulator_mppi_tpu_torch.parallel.multihost import tree_map
 from quadrotor_manipulator_mppi_tpu_torch.sim import flight_control as fc
 from quadrotor_manipulator_mppi_tpu_torch.sim import whole_body_loop as wbl
-from quadrotor_manipulator_mppi_tpu_torch.solver import mppi, serving
+from quadrotor_manipulator_mppi_tpu_torch.solver import drone, mppi, serving
 from quadrotor_manipulator_mppi_tpu_torch.solver import whole_body as wb
 
 K, H = 512, 16
@@ -224,6 +225,53 @@ def test_batched_launch_matches_plain():
     assert s.shape == (3, K) and du.shape == (3, wk.A_TOTAL * H)
     assert _rel(s, s_p) <= 1e-4 and (eps - eps_p).abs().max().item() <= 1e-5
     assert _rel(du, du_p) <= 1e-5 and _rel(m2, m2_p) <= 1e-5
+
+
+DRONE_KERNELS = ("drone_cost", "drone_update", "drone_cost_noise", "drone_update_noise")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1000, 1024])
+@pytest.mark.parametrize("kernel", DRONE_KERNELS)
+def test_drone_kernel_matches_plain(kernel, k):
+    """Rows 9a-9d against their plain versions at the preset's H=32, each
+    launching its kernel once; pass 2 on the same weights."""
+    dev = _card()
+    h, a = 32, 3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(k)
+    u_prev = torch.randn((h, a), generator=gen, device=dev)
+    x0, v0 = torch.tensor([0.1, -0.2, 1.0], device=dev), torch.tensor([0.0, 0.3, 0.0], device=dev)
+    target = torch.tensor([1.0, 2.0, 3.4], device=dev)
+    keys = sampling.philox_keys(2**35 + k, dev)
+    noise = 30.0 * torch.randn((k, h, a), generator=gen, device=dev)
+    s = dk.drone_cost_noise_plain(u_prev, noise, x0, v0, target, 0.01, 100.0, 20.0)
+    w = torch.softmax((s.min() - s) / 0.1, dim=0)
+    args = {"drone_cost": (u_prev, x0, v0, target, keys, k, 0.01, 30.0, 100.0, 20.0),
+            "drone_update": (w, keys, h, a, 30.0),
+            "drone_cost_noise": (u_prev, noise, x0, v0, target, 0.01, 100.0, 20.0),
+            "drone_update_noise": (noise, w)}[kernel]
+    wrapper, plain = getattr(dk, kernel), getattr(dk, kernel + "_plain")
+    n0 = wrapper.launches
+    got, want = wrapper(*args), plain(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == n0 + 1 and got.shape == want.shape
+    if "cost" in kernel:  # recurrence vs cumsum: float32 rounding only
+        assert _rel(got, want) <= 1e-4
+    else:  # summation order only
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_drone_solve_equals_the_presets_first_step():
+    dev = _card()
+    step, init = drone.make_drone_solver(device=dev)
+    obs = drone.DroneObs(x=torch.zeros(3, device=dev), v=torch.zeros(3, device=dev),
+                         target=torch.tensor(drone.DEFAULT_TARGET, device=dev))
+    state = init(7)
+    out, _ = step(state, obs)
+    u = dk.solve_drone_cuda(state.u_prev, obs.x, obs.v, obs.target, 7, n_samples=1000)
+    assert _rel(u, out.u_seq) <= 2e-4
 
 
 @pytest.mark.cuda

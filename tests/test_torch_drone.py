@@ -1,0 +1,491 @@
+"""The port's drone MPPI path against the JAX package on the CPU.
+
+Inputs are made with numpy from a seed; the solvers' noise is shared by
+reproducing the JAX key chain (``torch_parity.shared_z``) or by handing both
+sides the same sigma-scaled noise.  Cases: the position costs and the
+point-mass step; ``make_drone_solver`` against the JAX preset; the kernel
+solve ``solve_drone_cuda`` (plain versions here) against
+``solve_drone_pallas`` in interpret mode and the XLA pipeline; its closed
+loop; the flight controllers; the drone episode ``make_episode``; the
+metrics; ``convert``; and the build hash over the shared CUDA header.
+"""
+
+import dataclasses
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from quadrotor_manipulator_mppi_tpu import config as jcfg
+from quadrotor_manipulator_mppi_tpu.evaluation import metrics as jmetrics
+from quadrotor_manipulator_mppi_tpu.models import multirotor as jmr
+from quadrotor_manipulator_mppi_tpu.models import point_mass as jpm
+from quadrotor_manipulator_mppi_tpu.ops import costs as jcosts
+from quadrotor_manipulator_mppi_tpu.ops import integrators as jint
+from quadrotor_manipulator_mppi_tpu.ops import weights as jweights
+from quadrotor_manipulator_mppi_tpu.ops.pallas import drone_kernel as jdk
+from quadrotor_manipulator_mppi_tpu.sim import closed_loop as jcl
+from quadrotor_manipulator_mppi_tpu.sim import flight_control as jfc
+from quadrotor_manipulator_mppi_tpu.solver import drone as jdrone
+from quadrotor_manipulator_mppi_tpu.solver import mppi as jmppi
+from quadrotor_manipulator_mppi_tpu.utils import savgol as jsavgol
+from quadrotor_manipulator_mppi_tpu_torch import convert
+from quadrotor_manipulator_mppi_tpu_torch.evaluation import metrics
+from quadrotor_manipulator_mppi_tpu_torch.models import multirotor as mr
+from quadrotor_manipulator_mppi_tpu_torch.models import point_mass as pm
+from quadrotor_manipulator_mppi_tpu_torch.ops import costs, sampling
+from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import build
+from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import drone_kernel as dk
+from quadrotor_manipulator_mppi_tpu_torch.sim import closed_loop as cl
+from quadrotor_manipulator_mppi_tpu_torch.sim import flight_control as fc
+from quadrotor_manipulator_mppi_tpu_torch.solver import drone, mppi
+
+from torch_parity import N, T, shared_z, torch_one_thread  # noqa: F401
+
+H, A = 32, 3
+X0, V0 = (0.1, -0.2, 1.0), (0.0, 0.3, 0.0)
+TOL_STEP = 2e-4      # the Pallas-vs-XLA tolerance of tests/test_pallas_kernel.py
+TOL_COST = 1e-4      # S relative to max(1, max|S|): cumsum vs triangular matmul
+TOL_UPDATE = 1e-5    # du relative to max|du| on the same weights: order only
+
+
+def _jax_params(k=256, **mppi_kw):
+    base = jdrone.DroneMPPIParams()
+    return dataclasses.replace(base, mppi=dataclasses.replace(base.mppi, n_samples=k, **mppi_kw))
+
+
+def _port_params(jp):
+    return convert.drone_params_from_dict(jcfg.to_dict(jp))
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+
+
+# ---------------------------------------------------------------------------
+# 1. Costs and the point-mass plant
+# ---------------------------------------------------------------------------
+
+def test_position_costs_and_point_mass_step_match_jax(rng):
+    traj = rng.normal(size=(5, 7, H, A)).astype(np.float32)
+    target = rng.normal(size=A).astype(np.float32)
+    for port_fn, jax_fn, w in ((costs.position_stage_cost, jcosts.position_stage_cost, 100.0),
+                               (costs.position_terminal_cost, jcosts.position_terminal_cost, 20.0)):
+        np.testing.assert_allclose(N(port_fn(T(traj), T(target), w)),
+                                   np.asarray(jax_fn(traj, target, w)), rtol=1e-6)
+    pos, vel, acc = (rng.normal(size=(4, A)).astype(np.float32) for _ in range(3))
+    got = pm.step(pm.PointMassState(T(pos), T(vel)), T(acc), 0.01)
+    want = jpm.step(jpm.PointMassState(pos, vel), acc, 0.01)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(N(g), np.asarray(w), rtol=1e-6, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# 2. The preset against the JAX preset
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_make_drone_solver_matches_jax(adaptive):
+    """Three steps with the JAX key chain's draws; the adaptive-sigma
+    configuration is ``tests/test_solver_golden.py``'s."""
+    jp = _jax_params(adaptive_sigma=True, adapt_beta=0.2) if adaptive else _jax_params()
+    jstep, jinit = jdrone.make_drone_solver(jp)
+    jstep = jax.jit(jstep)
+    step, init = drone.make_drone_solver(_port_params(jp), device="cpu")
+    target = np.asarray(drone.DEFAULT_TARGET, np.float32)
+    jobs = jdrone.DroneObs(x=jnp.asarray(X0), v=jnp.asarray(V0), target=jnp.asarray(target))
+    obs = drone.DroneObs(x=T(X0), v=T(V0), target=T(target))
+    js, st = jinit(jax.random.key(4)), init(4)
+    key = js.key
+    for _ in range(3):
+        key, z = shared_z(key, 256, H, a=A)
+        jout, js = jstep(js, jobs)
+        out, st = step(st, obs, z)
+        for got, want in ((out.u_seq, jout.u_seq), (st.u_prev, js.u_prev), (out.xdes, jout.xdes),
+                          (out.vdes, jout.vdes)):
+            np.testing.assert_allclose(N(got), np.asarray(want), rtol=TOL_STEP, atol=TOL_STEP)
+        np.testing.assert_allclose(N(st.sigma), np.asarray(js.sigma), rtol=2e-3, atol=2e-3)
+    if adaptive:
+        assert np.abs(N(st.sigma) - 30.0).max() > 1e-3  # it moved
+
+
+@pytest.mark.parametrize("sigma", [30.0, (1.0, 2.0, 3.0)])
+def test_init_state_matches_jax(sigma):
+    jcfg_ = jmppi.MPPIConfig(n_samples=64, n_horizon=H, n_action=A, sigma=sigma)
+    js = jmppi.init_state(jcfg_, jax.random.key(0))
+    st = mppi.init_state(mppi.MPPIConfig(n_samples=64, n_horizon=H, n_action=A, sigma=sigma),
+                         9, device="cpu")
+    np.testing.assert_allclose(N(st.u_prev), np.asarray(js.u_prev), rtol=1e-7)
+    np.testing.assert_allclose(N(st.sigma), np.asarray(js.sigma), rtol=1e-7)
+    assert (st.seed, st.step) == (9, 0)
+
+
+def test_drone_solver_rejects_a_scenario_axis():
+    with pytest.raises(ValueError, match="no scenario axis"):
+        drone.make_drone_solver(device="cpu", n_scenarios=4)
+
+
+# ---------------------------------------------------------------------------
+# 3-5. The kernel solve (plain versions on the CPU)
+# ---------------------------------------------------------------------------
+
+def _problem(rng, k=256):
+    u_prev = rng.normal(size=(H, A)).astype(np.float32)
+    noise = (rng.normal(size=(k, H, A)) * 30.0).astype(np.float32)
+    return u_prev, noise, np.asarray(X0, np.float32), np.asarray(V0, np.float32), \
+        np.asarray(drone.DEFAULT_TARGET, np.float32)
+
+
+def _xla_solve(u_prev, noise, x0, v0, target, dt=0.01, lam=0.1):
+    """The XLA pipeline of tests/test_pallas_kernel.py."""
+    v = u_prev[None] + noise
+    traj, _ = jint.double_integrate(v, x0, v0, dt)
+    s = jcosts.position_stage_cost(traj, target, 100.0)
+    s = s + jcosts.position_terminal_cost(traj, target, 20.0)
+    w = jweights.softmin_weights(s, lam)
+    du = jweights.weighted_noise_average(w, noise)
+    return u_prev + jsavgol.smooth(du, 5, 2)
+
+
+def _pallas_solve(u_prev, noise, x0, v0, target):
+    return jdk.solve_drone_pallas(jnp.asarray(u_prev), jnp.asarray(x0), jnp.asarray(v0),
+                                  jnp.asarray(target), jnp.asarray(0, jnp.int32),
+                                  noise=jnp.asarray(noise), n_samples=noise.shape[0],
+                                  n_horizon=H, n_action=A, interpret=True)
+
+
+def _port_solve(u_prev, noise, x0, v0, target):
+    return dk.solve_drone_cuda(T(u_prev), T(x0), T(v0), T(target), 0, noise=T(noise),
+                               n_samples=noise.shape[0])
+
+
+def test_kernel_solve_matches_pallas_and_xla(rng):
+    prob = _problem(rng)
+    got = N(_port_solve(*prob))
+    np.testing.assert_allclose(got, np.asarray(_pallas_solve(*prob)), rtol=TOL_STEP,
+                               atol=TOL_STEP)
+    np.testing.assert_allclose(got, np.asarray(_xla_solve(*prob)), rtol=TOL_STEP, atol=TOL_STEP)
+
+
+def test_plain_passes_match_the_pallas_math(rng):
+    """S of pass 1 against the Pallas kernels' ``_rollout_errsq`` summed
+    with the stage/terminal weights, and pass 2 against their weighted sum
+    over the samples, on the same weights."""
+    u_prev, noise, x0, v0, target = _problem(rng)
+    k = noise.shape[0]
+    lmat, lstrict = jdk._tri_matrices(H, A)
+    noise_t = noise.reshape(k, H * A).T
+    errsq = jdk._rollout_errsq(u_prev.reshape(H * A, 1), noise_t, lmat, lstrict,
+                               np.tile(x0, H).reshape(-1, 1), np.tile(v0, H).reshape(-1, 1),
+                               np.tile(target, H).reshape(-1, 1), 0.01, H, A)
+    wt = np.repeat(np.r_[np.full(H - 1, 100.0), 20.0], A).reshape(-1, 1)
+    s_jax = np.asarray(jnp.sum(errsq * wt, axis=0))
+    s = dk.drone_cost_noise(T(u_prev), T(noise), T(x0), T(v0), T(target), 0.01, 100.0, 20.0)
+    assert _rel(N(s), s_jax) <= TOL_COST
+    w = np.asarray(jweights.softmin_weights(jnp.asarray(s_jax), 0.1))
+    du = dk.drone_update_noise(T(noise), T(w))
+    du_jax = np.asarray(jnp.sum(noise_t * w, axis=1)).reshape(H, A)
+    assert np.abs(N(du) - du_jax).max() <= TOL_UPDATE * np.abs(du_jax).max()
+
+
+def test_kernel_solve_equals_the_presets_first_step():
+    """Without noise the kernel solve draws the preset's Philox stream: at
+    the reference size K=1000 (not a multiple of 128) it equals the first
+    step of make_drone_solver on the same seed."""
+    step, init = drone.make_drone_solver(device="cpu")
+    obs = drone.DroneObs(x=T(X0), v=T(V0), target=T(drone.DEFAULT_TARGET))
+    state = init(21)
+    out, _ = step(state, obs)
+    counts = [f.launches for f in dk.KERNEL_WRAPPERS]
+    u = dk.solve_drone_cuda(state.u_prev, obs.x, obs.v, obs.target, 21, n_samples=1000)
+    assert [f.launches for f in dk.KERNEL_WRAPPERS] == counts  # plain versions on the CPU
+    assert u.shape == (H, A)
+    assert _rel(N(u), N(out.u_seq)) <= 1e-5
+    # the seed as a (1,) int64 tensor draws the same
+    u_t = dk.solve_drone_cuda(state.u_prev, obs.x, obs.v, obs.target,
+                              torch.tensor([21], dtype=torch.int64), n_samples=1000)
+    assert torch.equal(u_t, u)
+
+
+def test_philox_passes_draw_the_plain_stream():
+    keys = sampling.philox_keys(2**40 + 7, "cpu")
+    noise = dk.philox_noise(keys, 96, H, A, 30.0)
+    z = sampling.philox_normals(2**40 + 7, 0, 96, H, A)
+    torch.testing.assert_close(noise, z.permute(2, 1, 0) * 30.0, rtol=0, atol=0)
+    u_prev, x0, v0, tgt = torch.zeros(H, A), T(X0), T(V0), T(drone.DEFAULT_TARGET)
+    s = dk.drone_cost(u_prev, x0, v0, tgt, keys, 96, 0.01, 30.0, 100.0, 20.0)
+    torch.testing.assert_close(s, dk.drone_cost_noise(u_prev, noise, x0, v0, tgt, 0.01, 100.0,
+                                                      20.0))
+    w = torch.softmax(-s / 0.1, dim=0)
+    torch.testing.assert_close(dk.drone_update(w, keys, H, A, 30.0),
+                               dk.drone_update_noise(noise, w))
+
+
+def test_kernel_wrappers_check_their_inputs():
+    u_prev, x0 = torch.zeros(H, A), torch.zeros(A)
+    with pytest.raises(ValueError, match="seeds"):
+        dk.drone_cost(u_prev, x0, x0, x0, torch.zeros(2, dtype=torch.int64), 8, 0.01, 30.0,
+                      100.0, 20.0)
+    with pytest.raises(ValueError, match="x0"):
+        dk.drone_cost_noise(u_prev, torch.zeros(8, H, A), torch.zeros(4), x0, x0, 0.01, 1.0, 1.0)
+    with pytest.raises(ValueError, match="noise"):
+        dk.drone_update_noise(torch.zeros(8, H * A), torch.zeros(8))
+    with pytest.raises(ValueError, match="n_horizon, n_action"):
+        dk.solve_drone_cuda(u_prev, x0, x0, x0, 0, n_horizon=16)
+    with pytest.raises(ValueError, match="n_samples, n_horizon, n_action"):
+        dk.solve_drone_cuda(u_prev, x0, x0, x0, 0, noise=torch.zeros(8, H, A), n_samples=16)
+
+
+def _point_mass_loop(solve, noises, target):
+    """Kernel-solve closed loop of tests/test_pallas_kernel.py: per step one
+    solve on the given noise, then the point-mass plant on u[0]."""
+    u = np.zeros((H, A), np.float32)
+    pos, vel = np.zeros(A, np.float32), np.zeros(A, np.float32)
+    states = []
+    for noise in noises:
+        u = np.asarray(solve(u, noise, pos, vel, target))
+        nxt = jpm.step(jpm.PointMassState(pos, vel), u[0], 0.01)
+        pos, vel = np.asarray(nxt.pos), np.asarray(nxt.vel)
+        states.append(np.concatenate([pos, vel]))
+    return np.stack(states)
+
+
+def test_kernel_solve_closed_loop_matches_pallas_loop(rng):
+    target = np.asarray(drone.DEFAULT_TARGET, np.float32)
+    noises = [(rng.normal(size=(256, H, A)) * 30.0).astype(np.float32) for _ in range(5)]
+    got = _point_mass_loop(lambda *a: N(_port_solve(*a)), noises, target)
+    want = _point_mass_loop(_pallas_solve, noises, target)
+    np.testing.assert_allclose(got, want, rtol=TOL_STEP, atol=TOL_STEP)
+
+
+def test_kernel_solve_closed_loop_reaches_waypoint():
+    """The gate of tests/test_pallas_kernel.py on the port alone: 80 steps
+    of the explicit-noise solve close 40% of the distance, with the plant
+    stepped by the port's point-mass model."""
+    gen = torch.Generator().manual_seed(3)
+    target = T(drone.DEFAULT_TARGET)
+    u, st, errs = torch.zeros(H, A), pm.PointMassState(torch.zeros(A), torch.zeros(A)), []
+    for _ in range(80):
+        noise = torch.randn((256, H, A), generator=gen) * 30.0
+        u = dk.solve_drone_cuda(u, st.pos, st.vel, target, 0, noise=noise, n_samples=256)
+        st = pm.step(st, u[0], 0.01)
+        errs.append(torch.linalg.norm(st.pos - target).item())
+    assert errs[-1] < 0.6 * errs[0], f"{errs[0]:.2f} -> {errs[-1]:.2f}"
+
+
+# ---------------------------------------------------------------------------
+# 6. Flight control
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("gains", ["sim_tuned", "reference"])
+def test_pid_step_and_hover_setpoint_match_jax(rng, gains):
+    jg, tg = {"sim_tuned": (jfc.SIM_TUNED_GAINS, fc.SIM_TUNED_GAINS),
+              "reference": (jfc.FlightGains(), fc.FlightGains())}[gains]
+    assert dataclasses.asdict(jg) == dataclasses.asdict(tg)
+    veh_j, veh_t = jmr.MultirotorParams(), mr.MultirotorParams()
+    sp_pos = np.asarray([0.3, -0.4, 2.2], np.float32)
+    jsp, tsp = jfc.hover_setpoint(sp_pos), fc.hover_setpoint(sp_pos, device="cpu")
+    for a, b in zip(jsp, tsp):
+        np.testing.assert_array_equal(N(b), np.asarray(a))
+    vals = {n: rng.normal(scale=s, size=3).astype(np.float32)
+            for n, s in (("pos", 0.2), ("vel", 0.3), ("rpy", 0.05), ("omega", 0.1),
+                         ("tau_g", 0.5), ("int", 0.05), ("prev", 0.05))}
+    vals["pos"] += np.asarray([0.0, 0.0, 2.0], np.float32)
+    yaw_mom = np.float32(0.2)
+    jctrl = jfc.init_ctrl_state(14.7)._replace(int_err=jnp.asarray(vals["int"]),
+                                               prev_err=jnp.asarray(vals["prev"]))
+    tctrl = fc.init_ctrl_state(14.7)._replace(int_err=T(vals["int"]), prev_err=T(vals["prev"]))
+    for kw_j, kw_t in (({}, {}), (dict(tau_g=vals["tau_g"], yaw_mom=yaw_mom, mass=15.2),
+                                  dict(tau_g=T(vals["tau_g"]), yaw_mom=T(yaw_mom), mass=15.2))):
+        uj, cj = jfc.pid_step(jg, veh_j, jctrl, jsp, vals["pos"], vals["vel"], vals["rpy"],
+                              vals["omega"], 0.001, **kw_j)
+        ut, ct = fc.pid_step(tg, veh_t, tctrl, tsp, T(vals["pos"]), T(vals["vel"]),
+                             T(vals["rpy"]), T(vals["omega"]), 0.001, **kw_t)
+        np.testing.assert_allclose(N(ut), np.asarray(uj), rtol=1e-5, atol=1e-5)
+        for a, b in zip(cj, ct):
+            np.testing.assert_allclose(N(b), np.asarray(a), rtol=1e-5, atol=1e-6)
+
+
+def test_gain_presets_and_safeguards_match_jax():
+    assert dataclasses.asdict(fc.AGGRESSIVE_GAINS) == dataclasses.asdict(jfc.AGGRESSIVE_GAINS)
+    assert fc.aggressive_safeguards(mr.MultirotorParams()) == \
+        jfc.aggressive_safeguards(jmr.MultirotorParams())
+
+
+# ---------------------------------------------------------------------------
+# 7-8. The drone episode
+# ---------------------------------------------------------------------------
+
+N_EPISODE, K_EPISODE = 20, 64
+EPISODES = {"pid": ("pid", "sim_tuned"), "backstepping": ("backstepping", "reference")}
+
+
+def _gains(name):
+    return {"sim_tuned": (jfc.SIM_TUNED_GAINS, fc.SIM_TUNED_GAINS),
+            "reference": (jfc.FlightGains(), fc.FlightGains())}[name]
+
+
+@pytest.fixture(scope="module", params=sorted(EPISODES))
+def episode(request):
+    """(JAX logs, port logs, JAX initial state, port initial state) of a
+    20-step drone waypoint episode from (0, 0, 2) with the solver's draws
+    shared."""
+    controller, gains = EPISODES[request.param]
+    jg, tg = _gains(gains)
+    jp = _jax_params(k=K_EPISODE)
+    target = np.asarray(drone.DEFAULT_TARGET, np.float32)
+    jcfg_loop = jcl.LoopConfig(controller=controller)
+    jstep, jinit = jdrone.make_drone_solver(jp)
+    jrun = jcl.make_episode(
+        jcfg_loop, jmr.MultirotorParams(), jg, solver_step=jstep,
+        make_obs=lambda plant: jdrone.DroneObs(x=plant.pos, v=plant.vel,
+                                               target=jnp.asarray(target)),
+        setpoint_of=lambda out, plant: jfc.hover_setpoint(out.xdes),
+        n_control_steps=N_EPISODE)
+    js0 = jcl.init_loop_state(jcfg_loop, jmr.MultirotorParams(), jinit(jax.random.key(0)),
+                              pos=(0.0, 0.0, 2.0))
+    _, jlogs = jax.jit(jrun)(js0)
+
+    key, zs = js0.solver.key, []
+    for _ in range(N_EPISODE):
+        key, z = shared_z(key, K_EPISODE, H, a=A)
+        zs.append(z)
+    cfg = cl.LoopConfig(controller=controller)
+    step, init = drone.make_drone_solver(_port_params(jp), device="cpu")
+    run = cl.make_episode(
+        cfg, mr.MultirotorParams(), tg, solver_step=step,
+        make_obs=lambda plant: drone.DroneObs(x=plant.pos, v=plant.vel, target=T(target)),
+        setpoint_of=lambda out, plant: fc.hover_setpoint(out.xdes),
+        n_control_steps=N_EPISODE)
+    ts0 = cl.init_loop_state(cfg, mr.MultirotorParams(), init(0), pos=(0.0, 0.0, 2.0),
+                             device="cpu")
+    final, logs = run(ts0, z=T(np.stack(zs)))
+    return request.param, jlogs, logs, js0, ts0, final
+
+
+def test_episode_matches_jax(episode):
+    name, jlogs, logs, _, _, final = episode
+    for label, got, want in zip(("pos", "rpy", "vel"), logs, jlogs):
+        assert got.shape == (N_EPISODE, 3)
+        np.testing.assert_allclose(N(got), np.asarray(want), atol=5e-3,
+                                   err_msg=f"{name}: {label}")
+    assert final.solver.step == N_EPISODE
+
+
+def test_init_loop_state_matches_jax(episode):
+    _, _, _, js0, ts0, _ = episode
+    for a, b in ((js0.plant, ts0.plant), (js0.ctrl, ts0.ctrl), (js0.setpoint, ts0.setpoint)):
+        for x, y in zip(a, b):
+            np.testing.assert_allclose(N(y), np.asarray(x), rtol=1e-7)
+
+
+def test_null_solver_hover_passes_hover_metrics():
+    """The inner loop alone holds a hover within the reference's thresholds
+    (400 control steps, as tests/test_sim.py)."""
+    cfg = cl.LoopConfig(controller="backstepping")
+    target = torch.tensor([0.0, 0.0, 2.0])
+    run = cl.make_episode(cfg, mr.MultirotorParams(), fc.FlightGains(),
+                          solver_step=lambda state, obs: (None, state),
+                          make_obs=lambda plant: None,
+                          setpoint_of=lambda out, plant: fc.hover_setpoint(target),
+                          n_control_steps=400)
+    _, (pos, _, _) = run(cl.init_loop_state(cfg, mr.MultirotorParams(), None,
+                                            pos=(0.0, 0.0, 2.0), device="cpu"))
+    m = metrics.hover_metrics(pos, torch.zeros_like(pos), target, dt=0.01)
+    assert bool(m.passed), f"pos_rms {float(m.pos_rms):.3f}"
+    assert float(m.pos_rms) < 0.05
+
+
+def test_make_episode_checks():
+    with pytest.raises(ValueError, match="unknown controller"):
+        cl.make_episode(cl.LoopConfig(controller="lqr"), mr.MultirotorParams(), fc.FlightGains(),
+                        None, None, None, 5)
+    cfg = cl.LoopConfig()
+    run = cl.make_episode(cfg, mr.MultirotorParams(), fc.FlightGains(), None, None, None, 5)
+    with pytest.raises(ValueError, match="z carries 3 steps, the episode 5"):
+        run(None, z=torch.zeros(3, 8, H, A))
+
+
+# ---------------------------------------------------------------------------
+# 9. Metrics
+# ---------------------------------------------------------------------------
+
+def test_metrics_match_jax(rng):
+    steps = rng.normal(scale=0.02, size=(2, 300, 3)).astype(np.float32)
+    pos = np.cumsum(steps, axis=1) + np.asarray([0.0, 0.0, 2.0], np.float32)
+    rate = rng.normal(scale=0.1, size=(2, 300, 3)).astype(np.float32)
+    target = np.asarray([0.05, -0.05, 2.0], np.float32)
+    pairs = [
+        (metrics.rms(T(rate)), jmetrics.rms(rate)),
+        (metrics.rms(T(rate), axis=-1), jmetrics.rms(rate, axis=-1)),
+        (metrics.position_rms_error(T(pos), T(target)), jmetrics.position_rms_error(pos, target)),
+        (metrics.tracking_rmse(T(pos), T(pos[::-1].copy())),
+         jmetrics.tracking_rmse(pos, pos[::-1])),
+    ]
+    for radius in (0.1, 0.3, 5.0):
+        pairs += [(metrics.settling_time(T(pos), T(target), 0.01, radius),
+                   jmetrics.settling_time(pos, target, 0.01, radius)),
+                  (metrics.waypoint_response(T(pos), T(target), 0.01, radius),
+                   jmetrics.waypoint_response(pos, target, 0.01, radius))]
+    pairs += list(zip(metrics.hover_metrics(T(pos), T(rate), T(target), 0.01),
+                      jmetrics.hover_metrics(pos, rate, target, 0.01)))
+    pairs += list(zip(metrics.hover_metrics(T(pos), T(rate * 0.1), T(target), 0.01, 0.25),
+                      jmetrics.hover_metrics(pos, rate * 0.1, target, 0.01, 0.25)))
+    for got, want in pairs:
+        np.testing.assert_allclose(N(got), np.asarray(want), rtol=1e-6, atol=1e-7)
+    assert (metrics.HOVER_POS_RMS_THRESHOLD, metrics.HOVER_ANG_RATE_THRESHOLD) == \
+        (jmetrics.HOVER_POS_RMS_THRESHOLD, jmetrics.HOVER_ANG_RATE_THRESHOLD)
+
+
+# ---------------------------------------------------------------------------
+# 10. convert, the build hash, and the card default
+# ---------------------------------------------------------------------------
+
+def test_drone_params_and_loop_config_cross_from_jax():
+    jp = jdrone.DroneMPPIParams(
+        mppi=jmppi.MPPIConfig(n_samples=512, n_horizon=24, n_action=3, dt=0.02, lam=0.3,
+                              sigma=np.asarray([10.0, 20.0, 5.0]), savgol_window=7,
+                              warm_start_decay=0.9, adaptive_sigma=True),
+        stage_weight=50.0, terminal_weight=35.0)
+    tp = convert.drone_params_from_dict(jcfg.to_dict(jp))
+    assert isinstance(tp, drone.DroneMPPIParams)
+    assert (tp.stage_weight, tp.terminal_weight) == (50.0, 35.0)
+    for f in dataclasses.fields(jp.mppi):
+        a, b = getattr(jp.mppi, f.name), getattr(tp.mppi, f.name)
+        np.testing.assert_array_equal(np.asarray(b), np.asarray(a), err_msg=f.name)
+    assert convert.drone_params_from_dict(jcfg.to_dict(jdrone.DroneMPPIParams())) == \
+        drone.DroneMPPIParams()
+    for loop in (jcl.LoopConfig(), jcl.LoopConfig(physics_dt=0.002, substeps=5,
+                                                  controller="backstepping", extra_mass=1.5)):
+        got = convert.config_from_dict(jcfg.to_dict(loop))
+        assert got == cl.LoopConfig(**dataclasses.asdict(loop))
+    with pytest.raises(ValueError, match="expected a DroneMPPIParams"):
+        convert.drone_params_from_dict(jcfg.to_dict(jcl.LoopConfig()))
+
+
+def test_build_hash_covers_the_shared_header(tmp_path, monkeypatch):
+    """Editing a byte of csrc/philox.cuh (in a copy) changes the build
+    directory of both kernels that include it."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {n: build._build_dir(n) for n in ("whole_body_kernel", "drone_kernel")}
+    assert before == {n: build._build_dir(n) for n in before}  # stable
+    header = csrc / "philox.cuh"
+    header.write_bytes(header.read_bytes() + b"\n")
+    after = {n: build._build_dir(n) for n in before}
+    assert all(after[n] != before[n] for n in before)
+    assert (csrc / "drone_kernel.cu").read_text().count('#include "philox.cuh"') == 1
+
+
+def test_drone_entry_points_default_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: drone.make_drone_solver(),
+                 lambda: mppi.init_state(drone.DroneMPPIParams().mppi, 0),
+                 lambda: cl.init_loop_state(cl.LoopConfig(), mr.MultirotorParams(), None)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()

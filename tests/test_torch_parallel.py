@@ -6,7 +6,8 @@ group through ``parallel.multihost.initialize`` and run the port once for
 every case below; this process computes the JAX side on a 2-device sample
 mesh of the virtual CPU devices and hands the workers each shard's noise,
 rebuilt from ``fold_in(sub, shard)`` as ``tests/test_parallel.py`` does.
-The workers import no JAX.
+The drone preset runs sample-sharded too, on each rank's half of the JAX
+unsharded preset's draws.  The workers import no JAX.
 """
 
 import dataclasses
@@ -17,6 +18,7 @@ import subprocess
 import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -25,16 +27,18 @@ import torch.distributed as dist
 from quadrotor_manipulator_mppi_tpu import config as jcfg
 from quadrotor_manipulator_mppi_tpu.parallel import mesh as jmesh
 from quadrotor_manipulator_mppi_tpu.parallel.sharded import make_sharded_solver as jsharded
+from quadrotor_manipulator_mppi_tpu.solver import drone as jdrone
 from quadrotor_manipulator_mppi_tpu.solver import whole_body as jwb
 from quadrotor_manipulator_mppi_tpu_torch.ops import weights as tweights
 from quadrotor_manipulator_mppi_tpu_torch.parallel import mesh as tmesh
 from quadrotor_manipulator_mppi_tpu_torch.parallel import multihost, sharded
 from quadrotor_manipulator_mppi_tpu_torch.solver import whole_body as twb
 
-from torch_parity import small, torch_one_thread  # noqa: F401
+from torch_parity import shared_z, small, torch_one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K, H, A, N_SHARDS, N_STEPS = 2 * 128, 12, 11, 2, 2
+DRONE_K = 64
 TOLS = (2e-3, 4e-3)  # first and second solve, as tests/test_parallel.py
 
 
@@ -85,6 +89,8 @@ def run(tmp_path_factory):
     for i, blocks in enumerate(zs):
         for r, z in enumerate(blocks):
             inp[f"z_rank{r}_step{i}"] = z
+    ref_drone, drone_inp = _jax_drone()
+    inp.update(drone_inp)
     np.savez(d / "in.npz", **inp)
 
     worker = os.path.join(REPO, "tests", "torch_multiproc_worker.py")
@@ -108,7 +114,31 @@ def run(tmp_path_factory):
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log[-3000:]
     res = [dict(np.load(d / f"rank{r}.npz")) for r in range(N_SHARDS)]
-    return {"xla": ref_xla, "pallas": ref_pallas}, res[0], res[1], coll
+    return {"xla": ref_xla, "pallas": ref_pallas, "drone": ref_drone}, res[0], res[1], coll
+
+
+def _jax_drone():
+    """(outputs per step, worker inputs) of the JAX drone preset at
+    K=DRONE_K unsharded: each rank gets its half of every step's draws."""
+    jp = jdrone.DroneMPPIParams()
+    jp = dataclasses.replace(jp, mppi=dataclasses.replace(jp.mppi, n_samples=DRONE_K))
+    step, init = jdrone.make_drone_solver(jp)
+    step = jax.jit(step)
+    x, v, target = (np.asarray(a, np.float32) for a in
+                    ((0.1, -0.2, 1.0), (0.0, 0.3, 0.0), jdrone.DEFAULT_TARGET))
+    obs = jdrone.DroneObs(x=jnp.asarray(x), v=jnp.asarray(v), target=jnp.asarray(target))
+    state = init(jax.random.key(8))
+    key, outs = state.key, []
+    inp = {"drone_params_json": json.dumps(jcfg.to_dict(jp)), "drone_x": x, "drone_v": v,
+           "drone_target": target}
+    half = DRONE_K // N_SHARDS
+    for i in range(N_STEPS):
+        key, z = shared_z(key, DRONE_K, 32, a=3)
+        for r in range(N_SHARDS):
+            inp[f"drone_z_rank{r}_step{i}"] = z[r * half:(r + 1) * half]
+        out, state = step(state, obs)
+        outs.append((np.asarray(out.u_seq), np.asarray(out.xdes)))
+    return outs, inp
 
 
 def test_initialize_joins_the_group_once(run):
@@ -172,6 +202,25 @@ def test_sharded_scenario_batch_equals_one_rank_batch(run, layout):
     for res in run[1:3]:
         assert int(res[f"batch_n_{layout}"]) == (1 if layout == "rows" else 2)
         assert float(res[f"batch_err_{layout}"]) <= 1e-5
+
+
+def test_sharded_drone_philox_solve_equals_the_one_rank_solve(run):
+    """make_drone_solver through make_sharded_solver (batch_scenarios=False),
+    K=64 as 2 x 32: three solves equal the one-rank solve on the same seed,
+    relative to the plan's largest entry (summation order only)."""
+    for res in run[1:3]:
+        assert float(res["drone_philox_err"]) <= 1e-6
+
+
+@pytest.mark.parametrize("field", ["u_seq", "xdes"])
+def test_sharded_drone_solve_matches_jax(run, field):
+    """The same sharded solve on each rank's half of the JAX draws against
+    the JAX unsharded drone preset, at the Pallas-vs-XLA tolerance."""
+    refs, r0, r1, _ = run
+    col = ("u_seq", "xdes").index(field)
+    for i, ref in enumerate(refs["drone"]):
+        for res in (r0, r1):
+            np.testing.assert_allclose(res[f"drone_{field}_{i}"], ref[col], rtol=2e-4, atol=2e-4)
 
 
 def test_weak_scaling_reports_the_jax_keys(run):

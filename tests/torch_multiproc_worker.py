@@ -2,7 +2,8 @@
 
 Each of two OS processes joins a ``gloo`` process group through
 ``parallel.multihost.initialize`` and runs the port's sample-sharded and
-scenario-sharded solves on the CPU.  Everything that needs JAX was computed
+scenario-sharded whole-body solves and its sample-sharded drone solve on
+the CPU.  Everything that needs JAX was computed
 by the parent test (``tests/test_torch_parallel.py``) and arrives as numpy
 arrays in ``in.npz``; this process imports PyTorch and the port only.  Each
 rank writes its results to ``<out_dir>/rank<r>.npz`` for the parent to hold
@@ -131,6 +132,29 @@ def main():
         want = multihost.host_local_scenarios(mesh, res_b.u_seq)
         out[f"batch_err_{name}"] = np.array((res.u_seq - want).abs().max().item())
         out[f"batch_n_{name}"] = np.array(res.u_seq.shape[0])
+
+    # The drone preset, sample-sharded: its Philox solve against the
+    # one-rank solve on the same seed over three solves, and its solve on
+    # this rank's block of the JAX draws (held against JAX by the parent).
+    from quadrotor_manipulator_mppi_tpu_torch.solver import drone
+
+    dparams = convert.drone_params_from_dict(json.loads(str(inp["drone_params_json"])))
+    dobs = drone.DroneObs(*(torch.tensor(inp[f"drone_{n}"]) for n in ("x", "v", "target")))
+    dstep, dinit = sharded.make_sharded_solver(drone.make_drone_solver, m, batch_scenarios=False,
+                                               params=dparams, device="cpu")
+    step1, init1 = drone.make_drone_solver(dparams, device="cpu")
+    st, st1, err = dinit(13), init1(13), 0.0
+    for _ in range(3):
+        res, st = dstep(st, dobs)
+        res1, st1 = step1(st1, dobs)
+        err = max(err, (res.u_seq - res1.u_seq).abs().max().item()
+                  / max(1.0, res1.u_seq.abs().max().item()))
+    out["drone_philox_err"] = np.array(err)
+    st = dinit(13)
+    for i in range(n_steps):
+        res, st = dstep(st, dobs, inp[f"drone_z_rank{rank}_step{i}"])
+        out[f"drone_u_seq_{i}"] = res.u_seq.numpy()
+        out[f"drone_xdes_{i}"] = res.xdes.numpy()
 
     # Weak scaling at a tiny size: the JAX function's keys, finite times.
     sc = scaling.measure_weak_scaling(k_per_device=64, h=8, iters=1, device="cpu")
