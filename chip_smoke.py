@@ -26,7 +26,8 @@ lines; any failure exits non-zero before the final ``ok`` line):
    no-spill pair (rows 4, 5) against its plain versions on all 256
    scenarios and the spill pair on 4, the batched step against 4
    unbatched steps, 1 + 1 launches per batched solve, ms per batched solve
-   at B=1, 16, 256, then the kernels alone at B=256;
+   at B=1, 16, 256, then the kernels alone at B=256 (pass 2 and
+   ``torch.bmm`` also by the profiler and by CUDA-graph replay);
 9. no spill against spill at K=4096 (du, u_seq, sigma), and each new
    kernel (rows 4-7) against its plain version at one scenario, K=4096,
    with timings and bounds;
@@ -46,9 +47,15 @@ lines; any failure exits non-zero before the final ``ok`` line):
    K=1024 (80 + 80 of rows 9c and 9d); (c) the drone waypoint episode,
    ``make_drone_solver`` at the preset through ``make_episode`` with
    backstepping, 2000 control steps; each with its gate;
+13. ``wb_update`` at every rows-per-block R the source is built for, at
+   its main paths' shapes (row 3 at B=1 and B=256, row 5 at B=256, rows 6
+   and 7 at K_local): the sums bit-equal for every R, CUDA-graph and
+   profiler ms per R, the R the launcher picks, the library call's;
 then one ``kernels`` JSON line (rows 4-5 at B=256, rows 6-7 at K_local,
 rows 9a-9b at K=1000 and 9c-9d at K=1024: the shapes of the runs that
-count their launches), the ``nvidia-smi`` line and the ``ok`` line.
+count their launches; each ``wb_update`` row with the R it used and its
+device time over the library call's), the ``nvidia-smi`` line and the
+``ok`` line.
 """
 
 import dataclasses
@@ -98,9 +105,11 @@ FP32_OPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
 # rpy quaternion + thrust/velocity/position (140), 7-joint FK (~580), cost
 # stack (~150).
 WB_COST_OPS_PER_SAMPLE_STEP = 11 * 100 + 11 * 35 + 70 + 140 + 580 + 150
-# wb_update per noise element: weight (exp, subtract, scale, divide ~16)
-# and the two weighted accumulations (4).
-WB_UPDATE_OPS_PER_ELEMENT = 20
+# wb_update per noise element: the two weighted accumulations (w e and
+# w e^2: two multiplies, two adds); per sample, once: the softmin weight
+# (subtract, scale, exp, divide ~20).
+WB_UPDATE_OPS_PER_ELEMENT = 4
+WB_WEIGHT_OPS_PER_SAMPLE = 20
 # wb_cost on explicit noise draws nothing: the same work less the 11
 # Philox draws, and it reads the 9.0 MB of noise where the Philox variant
 # writes it.
@@ -134,8 +143,10 @@ CHECK_SCENARIOS = (0, 85, 170, 255)
 TOL_BATCH = 1e-6     # batched vs unbatched step, relative to max|u|: float order only
 TOL_SPILL = 1e-6     # no spill vs spill: the same draws, relative
 # wb_update's REGEN variants per noise element: the second Philox draw
-# (~100), erfinv and scaling (~35), weight and accumulations (~20).
-WB_REGEN_OPS_PER_ELEMENT = 100 + 35 + 20
+# (~100), erfinv and scaling (~35), the accumulations (4); the weight is
+# counted per sample (WB_WEIGHT_OPS_PER_SAMPLE).  Every operation is
+# counted at the float32 rate, optimistic for Philox's integer multiplies.
+WB_REGEN_OPS_PER_ELEMENT = 100 + 35 + WB_UPDATE_OPS_PER_ELEMENT
 SHARD_RANKS = 2
 N_SHARD_SOLVES = 3
 SHARD_TIMEOUT_S = 300
@@ -210,6 +221,31 @@ def device_ms(fn, kernel: str, reps: int = 20):
             if e.device_type == DeviceType.CUDA and kernel in e.key]
     n = sum(e.count for e in hits)
     return sum(e.self_device_time_total for e in hits) / n / 1e3 if n else None
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time per call of ``fn`` with the host out of the way: ``reps``
+    calls captured in one CUDA graph, its replay timed with CUDA events
+    (median of 5 replays).  Unlike ``device_ms`` it never loses launches;
+    unlike ``event_ms`` it does not time the host's enqueue of small
+    kernels."""
+    fn()
+    sync()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    sync()
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        sync()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
 
 
 def fmt_ms(v) -> str:
@@ -442,13 +478,11 @@ def phase_timing(dev):
     noise_bytes = A * H * K * 4
     cost_bytes = (wk.SC_LEN + H * A + K + 2 * kc.n_blocks) * 4 + noise_bytes
     cost_ops = K * H * WB_COST_OPS_PER_SAMPLE_STEP
-    update_bytes = noise_bytes + (K + 2 * kc.n_blocks + 2 * A * H) * 4
-    update_ops = A * H * K * WB_UPDATE_OPS_PER_ELEMENT
     bounds = {}
     noise_ops = K * H * WB_COST_NOISE_OPS_PER_SAMPLE_STEP
     for name, nbytes, ops in (("wb_cost", cost_bytes, cost_ops),
                               ("wb_cost_noise", cost_bytes, noise_ops),
-                              ("wb_update", update_bytes, update_ops)):
+                              ("wb_update", *new_work(K)["wb_update"])):
         bounds[name] = bound(nbytes, ops)
     return t, bounds
 
@@ -810,13 +844,24 @@ def phase_batch(dev, errs):
          "wb_update_regen": event_ms(lambda: wk.wb_update_regen(kc, sc, s, m, e, seeds, 0),
                                      reps=5),
          "library_bmm": event_ms(lambda: torch.bmm(flat, w[..., None]), reps=5)}
+    # Device times of pass 2 and its yardstick (profiler, and CUDA-graph
+    # replay), so that kernel and library compare device time with device
+    # time.
+    pass2 = {"wb_update": (lambda: wk.wb_update(kc, eps, s, m, e), update_key("wb_update")),
+             "wb_update_regen": (lambda: wk.wb_update_regen(kc, sc, s, m, e, seeds, 0),
+                                 update_key("wb_update_regen")),
+             "library_bmm": (lambda: torch.bmm(flat, w[..., None]), "")}
     t.update({f"{k}_plain": v for k, v in plain_ms.items()})
+    for k, (fn, key) in pass2.items():
+        t[f"{k}_device"] = device_ms(fn, key, reps=5)
+        t[f"{k}_graph"] = graph_ms(fn, reps=5)
     work = new_work(K)
     bounds = {k: bound(B_BATCH * work[k][0], B_BATCH * work[k][1])
-              for k in ("wb_cost_nospill", "wb_update_regen")}
+              for k in ("wb_update", "wb_cost_nospill", "wb_update_regen")}
     b_cost = bound(B_BATCH * cost_bytes(K, True), B_BATCH * K * H * WB_COST_OPS_PER_SAMPLE_STEP)
     print(f"[8] kernels at B={B_BATCH} (ms per launch; per scenario): " + ", ".join(
-        f"{k} {v:.3f} ({v / B_BATCH * 1e3:.2f} us)" for k, v in t.items())
+        f"{k} {fmt_ms(v)} ({'-' if v is None else f'{v / B_BATCH * 1e3:.2f}'} us)"
+        for k, v in t.items())
         + f" | bounds: wb_cost {b_cost[0]:.3f} ms by {b_cost[1]}, "
         + ", ".join(f"{k} {v[0]:.3f} ms by {v[1]}" for k, v in bounds.items()), flush=True)
     return launches, t, rows, bounds
@@ -829,24 +874,32 @@ def cost_bytes(k: int, spill: bool) -> int:
 
 
 def new_work(k: int) -> dict:
-    """(bytes, float32 operations) of rows 4-7 for one scenario of k
+    """(bytes, float32 operations) of rows 3-7 for one scenario of k
     samples: pass 1 without the spill; pass 2 reads the costs and either
     the scalars (to draw the noise again) or the noise, the block partials
     or the given (rho, eta), and writes du and m2."""
     small = (k + wk.SC_LEN + 2 * A * H) * 4
-    regen_ops = A * H * k * WB_REGEN_OPS_PER_ELEMENT
-    return {"wb_cost_nospill": (cost_bytes(k, False), k * H * WB_COST_OPS_PER_SAMPLE_STEP),
+    weight_ops = k * WB_WEIGHT_OPS_PER_SAMPLE
+    regen_ops = A * H * k * WB_REGEN_OPS_PER_ELEMENT + weight_ops
+    read_ops = A * H * k * WB_UPDATE_OPS_PER_ELEMENT + weight_ops
+    return {"wb_update": (A * H * k * 4 + (k + 2 * (k // wk.BLOCK) + 2 * A * H) * 4, read_ops),
+            "wb_cost_nospill": (cost_bytes(k, False), k * H * WB_COST_OPS_PER_SAMPLE_STEP),
             "wb_update_regen": (small + 2 * (k // wk.BLOCK) * 4, regen_ops),
             "wb_update_shard_regen": (small + 2 * 4, regen_ops),
-            "wb_update_shard": (A * H * k * 4 + (k + 2 + 2 * A * H) * 4,
-                                A * H * k * WB_UPDATE_OPS_PER_ELEMENT)}
+            "wb_update_shard": (A * H * k * 4 + (k + 2 + 2 * A * H) * 4, read_ops)}
+
+
+def update_key(name: str, r=None) -> str:
+    """The profiler's name of the wb_update instantiation ``name`` launches
+    (any rows per block, or ``r``)."""
+    regen, given = "regen" in name, "shard" in name
+    return f"wb_update_kernel<{str(regen).lower()}, {str(given).lower()}, {r or ''}"
 
 
 # The instantiation each new wrapper launches, as the profiler names it.
 KERNEL_KEYS = {"wb_cost_nospill": "wb_cost_kernel<0, true, false>",
-               "wb_update_regen": "wb_update_kernel<true, false>",
-               "wb_update_shard_regen": "wb_update_kernel<true, true>",
-               "wb_update_shard": "wb_update_kernel<false, true>"}
+               **{n: update_key(n) for n in
+                  ("wb_update_regen", "wb_update_shard_regen", "wb_update_shard")}}
 
 
 def compare(kern, plain, args):
@@ -863,6 +916,7 @@ def compare(kern, plain, args):
 def time_kernel(name, kern, plain, args) -> dict:
     return {"ms": event_ms(lambda: kern(*args)),
             "device_ms": device_ms(lambda: kern(*args), KERNEL_KEYS[name]),
+            "graph_ms": graph_ms(lambda: kern(*args)),
             "plain_ms": event_ms(lambda: plain(*args), reps=5)}
 
 
@@ -870,7 +924,8 @@ def time_library(flat, w) -> dict:
     """torch.mv of the noise rows by the weights: one PyTorch call for what
     pass 2 computes (its du)."""
     return {"ms": event_ms(lambda: torch.mv(flat, w)),
-            "device_ms": device_ms(lambda: torch.mv(flat, w), "gemv")}  # cuBLAS gemv
+            "device_ms": device_ms(lambda: torch.mv(flat, w), "gemv"),  # cuBLAS gemv
+            "graph_ms": graph_ms(lambda: torch.mv(flat, w))}
 
 
 def phase_nospill(dev):
@@ -921,7 +976,8 @@ def phase_nospill(dev):
                             (kc, eps, s, se), TOL_UPDATE),
     }
     t = {"wb_update": {"device_ms": device_ms(lambda: wk.wb_update(kc, eps, s, m, e),
-                                              "wb_update_kernel<false, false>")}}
+                                              update_key("wb_update")),
+                       "graph_ms": graph_ms(lambda: wk.wb_update(kc, eps, s, m, e))}}
     for name, (kern, plain, args, tol) in cases.items():
         _, rel = compare(kern, plain, args)
         if not rel <= tol:
@@ -935,6 +991,72 @@ def phase_nospill(dev):
         + " | bounds (ms): " + ", ".join(f"{k} {v[0]:.2e} by {v[1]}" for k, v in bounds.items()),
         flush=True)
     return t
+
+
+# wb_update's main-path shapes: (PERF.md row, wrapper, scenarios, samples);
+# rows 6-7 at K_local with rank 1's sample offset.
+UPDATE_SHAPES = (("3", "wb_update", 1, K), ("3", "wb_update", B_BATCH, K),
+                 ("5", "wb_update_regen", B_BATCH, K),
+                 ("6", "wb_update_shard_regen", 1, K // SHARD_RANKS),
+                 ("7", "wb_update_shard", 1, K // SHARD_RANKS))
+
+
+def phase_update_rows(dev):
+    """wb_update at every rows-per-block R the source is built for, at each
+    main-path shape: (du, m2) bit-equal for every R (a row's reduction
+    order does not depend on R), CUDA-graph and profiler ms per R beside
+    the R the launcher picks and the library call's; at B=256 the
+    draw variant against the read variant on the same costs."""
+    params = wb.WholeBodyMPPIParams()
+    res = {}
+    for row, name, b, k in UPDATE_SHAPES:
+        kc = wk.make_kernel_config(params, k)
+        batch = b > 1
+        _, init = wb.make_whole_body_solver(params, device=dev, n_scenarios=b if batch else None)
+        state = init(0)
+        obs = scenario_obs(dev, b) if batch else wb.default_obs(device=dev)
+        sc = wk.pack_scalars(obs, state.sigma * params.mppi.sigma_scale_fn(obs))
+        seeds = wk.philox_keys(state.seed, dev)
+        k_off = K - k
+        s, m, e, eps = wk.wb_cost(kc, sc, state.u_prev.contiguous(), None, seeds, 0, k_off)
+        se = wk.softmin_normalizers(kc, m, e)
+
+        def launch(r, name=name):
+            kw = {"se": se} if "shard" in name else {"m_part": m, "e_part": e}
+            if "regen" in name:
+                kw.update(sc=sc, seeds=seeds, k_off=k_off)
+            else:
+                kw["eps"] = eps
+            return wk._launch_update(kc, name, s, rows_per_block=r, **kw)
+
+        outs = {r: launch(r) for r in wk.UPDATE_ROWS}
+        sync()
+        equal = all(torch.equal(outs[r][i], outs[1][i]) for r in outs for i in (0, 1))
+        ms = {r: graph_ms(lambda r=r: launch(r)) for r in wk.UPDATE_ROWS}
+        dev_ms = {r: device_ms(lambda r=r: launch(r), update_key(name, r)) for r in wk.UPDATE_ROWS}
+        flat = eps.view(s.shape[:-1] + (A * H, k))
+        w = torch.exp((se[..., :1] - s) * kc.inv_lam) / se[..., 1:]
+        lib = (lambda: torch.bmm(flat, w[..., None])) if batch else (lambda: torch.mv(flat, w))
+        lib_ms, lib_dev = graph_ms(lib), device_ms(lib, "")
+        chosen = wk.update_rows_per_block("regen" in name, b, A * H)
+        vs_read = None
+        if "regen" in name:  # the same costs and draws, read from the spill
+            read = wk._launch_update(kc, name, s, eps=eps, m_part=m, e_part=e,
+                                     rows_per_block=chosen)
+            sync()
+            vs_read = max((outs[chosen][i] - read[i]).abs().max().item() for i in (0, 1))
+        res[(row, b)] = {"name": name, "b": b, "k": k, "rows_per_block": chosen,
+                         "graph_ms": ms, "device_ms": dev_ms, "library_graph_ms": lib_ms,
+                         "library_device_ms": lib_dev}
+        print(f"[13] row {row} {name} B={b} K={k}: ms by R (graph / profiler) " + ", ".join(
+            f"R={r} {ms[r]:.4f}/{fmt_ms(dev_ms[r])}" for r in wk.UPDATE_ROWS)
+            + f" | launcher's R {chosen} | {'torch.bmm' if batch else 'torch.mv'} "
+            f"{lib_ms:.4f}/{fmt_ms(lib_dev)} | bit-equal across R {equal}"
+            + ("" if vs_read is None else f" | vs the read variant max|d| {vs_read:.2e}"),
+            flush=True)
+        if not equal:
+            fail(f"{name}: (du, m2) differ between rows-per-block choices")
+    return res
 
 
 def _counting(calls: list):
@@ -1404,8 +1526,28 @@ def main() -> None:
     errs.update(shard["kernel_err_all_ranks"])
     drone_sweep, drone_host = phase_drone_kernels(dev, errs)
     drone_launches, drone_loop_ms = phase_drone_loops(dev)
+    rows_sweep = phase_update_rows(dev)
     b256 = {(b, spill): e_ms for b, spill, _, e_ms, _, _, _ in batch_rows}
     shard_bounds = {k: bound(*v) for k, v in new_work(K // SHARD_RANKS).items()}
+
+    def vs_library(kern, lib, prefix=""):
+        """A pass-2 kernel's device ms beside the library call's, both from
+        this run (profiler, may be null; CUDA-graph replay), and their
+        ratio by the graph times."""
+        return {f"{prefix}device_ms": kern["device_ms"], f"{prefix}graph_ms": kern["graph_ms"],
+                f"{prefix}library_device_ms": lib["device_ms"],
+                f"{prefix}library_graph_ms": lib["graph_ms"],
+                f"{prefix}library_ratio": kern["graph_ms"] / lib["graph_ms"]}
+
+    def at_b256(name):
+        return {"device_ms": t_b256[f"{name}_device"], "graph_ms": t_b256[f"{name}_graph"]}
+
+    def rows_of(row, b, prefix=""):
+        """The R the launcher used at a wb_update shape and phase 13's
+        graph ms at every R there."""
+        sw = rows_sweep[(row, b)]
+        return {f"{prefix}rows_per_block": sw["rows_per_block"],
+                f"{prefix}rows_sweep_graph_ms": sw["graph_ms"]}
 
     def new_row(name, replaces, launches_n, ms, plain_ms, bound_ms, library_ms, **extra):
         """Rows 4-7: every number from the shape the main path gives the
@@ -1417,17 +1559,18 @@ def main() -> None:
                 "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms[0], "bound_by": bound_ms[1], "library_ms": library_ms,
                 **extra, "k4096_b1_ms": one["ms"], "k4096_b1_device_ms": one["device_ms"],
-                "k4096_b1_plain_ms": one["plain_ms"]}
+                "k4096_b1_graph_ms": one["graph_ms"], "k4096_b1_plain_ms": one["plain_ms"]}
 
-    def batch_row(name, replaces, library_ms):
+    def batch_row(name, replaces, library_ms, **extra):
         return new_row(name, replaces, batch_launches[name], t_b256[name],
-                       t_b256[name + "_plain"], b256_bounds[name], library_ms, b=B_BATCH)
+                       t_b256[name + "_plain"], b256_bounds[name], library_ms, b=B_BATCH,
+                       **extra)
 
-    def shard_row(name, replaces):
+    def shard_row(name, replaces, row):
         tm, lib = shard["timing"][name], shard["timing"]["library_mv"]
         return new_row(name, replaces, shard["launches"][name], tm["ms"], tm["plain_ms"],
                        shard_bounds[name], lib["ms"], k_local=K // SHARD_RANKS,
-                       device_ms=tm["device_ms"], library_device_ms=lib["device_ms"])
+                       **vs_library(tm, lib), **rows_of(row, 1))
 
     kernels = [
         {"name": "wb_cost", "route": "cuda", "source": KERNEL_SOURCE,
@@ -1446,8 +1589,10 @@ def main() -> None:
          "ms": t["wb_update"], "plain_ms": t["wb_update_plain"],
          "bound_ms": bounds["wb_update"][0], "bound_by": bounds["wb_update"][1],
          "library_ms": t["library_mv"], "episode_launches": episode_launches["wb_update"],
-         "b256_ms": t_b256["wb_update"], "device_ms": t_k4096["wb_update"]["device_ms"],
-         "library_device_ms": t_k4096["library_mv"]["device_ms"]},
+         **vs_library(t_k4096["wb_update"], t_k4096["library_mv"]), **rows_of("3", 1),
+         "b256_ms": t_b256["wb_update"], "b256_bound_ms": b256_bounds["wb_update"][0],
+         **vs_library(at_b256("wb_update"), at_b256("library_bmm"), "b256_"),
+         **rows_of("3", B_BATCH, "b256_")},
         {"name": "plant_tick", "route": "cuda", "source": PLANT_SOURCE,
          "replaces": f"{PLANT_TPU_KERNEL}:116 make_plant_tick_kernel (kernel :137)",
          "launches": episode_launches["plant_tick"], "max_abs_err": errs["plant_tick"],
@@ -1455,9 +1600,11 @@ def main() -> None:
          "bound_ms": plant_bound[0], "bound_by": plant_bound[1], "library_ms": None,
          "b1024_ms": t_plant["plant_tick_b1024"]},
         batch_row("wb_cost_nospill", "551 _cost_kernel", None),
-        batch_row("wb_update_regen", "647 _update_kernel_fused", t_b256["library_bmm"]),
-        shard_row("wb_update_shard_regen", "607 _update_kernel"),
-        shard_row("wb_update_shard", "616 _update_kernel_noise"),
+        batch_row("wb_update_regen", "647 _update_kernel_fused", t_b256["library_bmm"],
+                  **vs_library(at_b256("wb_update_regen"), at_b256("library_bmm")),
+                  **rows_of("5", B_BATCH)),
+        shard_row("wb_update_shard_regen", "607 _update_kernel", "6"),
+        shard_row("wb_update_shard", "616 _update_kernel_noise", "7"),
     ]
 
     def drone_row(name, k, launches_n):

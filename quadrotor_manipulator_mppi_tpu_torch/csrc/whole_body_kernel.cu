@@ -33,11 +33,13 @@
 //   only the spilled noise (K*H*11*4 B = 9.0 MB) out.  Its limit is
 //   parallelism: K=4096 samples give only 4096 threads, ~1/16 of what the
 //   H100's 132 SMs can hold, so the kernel is latency bound.
-//   wb_update reads the 9.0 MB of noise once (2.7 us at 3.35 TB/s) and is
-//   bound by bytes; the REGEN variants read no noise and are bound by the
-//   ~155 operations per element of the second draw (~5 us).  Batching B
-//   scenarios multiplies both bounds by B and gives wb_cost B * 4096
-//   threads, enough to fill the card.
+//   wb_update reading the noise is bound by bytes: it must read the 9.0 MB
+//   once (2.7 us at 3.35 TB/s; 0.69 ms for 256 scenarios), against 4
+//   operations per element (two multiply-adds) and ~20 per sample for the
+//   softmin weight.  The REGEN variants read no noise and are bound by the
+//   ~135 operations per element of the second draw (Philox ~100, the
+//   normal ~35).  Batching B scenarios multiplies both bounds by B and
+//   gives wb_cost B * 4096 threads, enough to fill the card.
 //
 // What the design does about it.
 //   wb_cost: one thread per sample; every horizon operator of the TPU
@@ -50,11 +52,23 @@
 //   update's loads are coalesced.  Per-config constants arrive by value in
 //   a POD struct (kernel parameter space, < 4 KB) — one build serves every
 //   configuration; the mode is a template parameter.
-//   wb_update: one block per (a, t) row of the noise, reducing over K in a
-//   fixed order (warp shuffles, then per-warp partials in a fixed order):
-//   deterministic, no float atomics, no cross-block step.  The softmin
-//   normalizers (rho, eta) are combined from wb_cost's per-block partials
-//   inside each block, so no K-wide op runs between the two kernels.
+//   wb_update: one block per R consecutive (a, t) rows of the noise (R =
+//   1, 2, 4 or 8, the launcher's choice, measured: 8 reading the noise; 4
+//   drawing it for a batch, 2 for one scenario, whose 550 rows must still
+//   give two blocks per SM).
+//   Each warp combines the softmin normalizers (rho, eta) from wb_cost's
+//   per-block partials with shuffle trees, so no K-wide op runs between
+//   the two kernels and no thread waits on a serial prologue.  A thread
+//   takes the same samples in each of its block's R rows, so it forms each
+//   of its samples' weights exp((rho - S_k)/lambda)/eta once, in
+//   registers, for R rows: one exp and one divide per R elements, any K,
+//   no shared memory, no barrier before the reduction.  The read variants
+//   start up to 16 loads of 16 bytes per thread before the prologue and
+//   stream the noise past L2; the draw variants spend per element only the
+//   draw and two multiply-adds.  Each row reduces over K in a fixed order
+//   (warp shuffles, then per-warp partials in a fixed order):
+//   deterministic, no float atomics, no cross-block step, and the same
+//   sums for any R.
 //
 // Randomness: Philox4x32-10 (Random123), key = the scenario's 64-bit seed,
 // counter = (solve index, global sample index, a*H + t, 0), output word 0;
@@ -67,6 +81,7 @@
 // drone_kernel.cu.
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 #include "philox.cuh"
@@ -462,75 +477,167 @@ wb_cost_kernel(const WbParams p, const float* __restrict__ sc,
   }
 }
 
-// Pass 2, one block per (row = a*H + t, scenario b).  REGEN: draw the row's
-// noise again (no eps read); else read row of eps.  GIVEN: (rho, eta) =
-// se[b] (global, from the host's collectives); else combined from the
-// scenario's n_part block partials.
-template <bool REGEN, bool GIVEN>
+// The softmin normalizers of scenario b, computed by each warp on its own
+// (every warp gets the same bits: the lanes' shares are combined by xor
+// butterflies, whose two operands at each step are the same pair in either
+// lane).  GIVEN: (rho, eta) = se[b] (global, from the host's collectives);
+// else rho = min_i m_i and eta = sum_i e_i exp((rho - m_i) / lambda) over
+// the scenario's n_part block partials.
+template <bool GIVEN>
+__device__ __forceinline__ void softmin_normalizers(const float* __restrict__ m_part,
+                                                    const float* __restrict__ e_part,
+                                                    const float* __restrict__ se, int b,
+                                                    int n_part, float inv_lam, float& rho,
+                                                    float& eta) {
+  if (GIVEN) {
+    rho = se[2 * b];
+    eta = se[2 * b + 1];
+    return;
+  }
+  const float* mp = m_part + (size_t)b * n_part;
+  const float* ep = e_part + (size_t)b * n_part;
+  const int lane = threadIdx.x & 31;
+  float m = CUDART_INF_F;
+  for (int i = lane; i < n_part; i += 32) m = fminf(m, mp[i]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  float e = 0.0f;
+  for (int i = lane; i < n_part; i += 32) e += ep[i] * expf((m - mp[i]) * inv_lam);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) e += __shfl_xor_sync(0xffffffffu, e, off);
+  rho = m;
+  eta = e;
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// The next U groups of a thread's samples in the read variant: for j =
+// j0, j0 + WB_UPDATE_THREADS, ... (U of them), the costs S[4j..4j+3] and
+// the R rows' noise there, 16 bytes a load; zeros past n4.  The noise is
+// read once: it streams past L2.
+template <int U, int R>
+__device__ __forceinline__ void load_group(float4 (&s4)[U], float4 (&e4)[U][R],
+                                           const float4* __restrict__ sb4,
+                                           const float4* const (&rowp)[R], int j0, int n4) {
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int j = j0 + u * WB_UPDATE_THREADS;
+    s4[u] = j < n4 ? sb4[j] : zero;
+#pragma unroll
+    for (int r = 0; r < R; ++r) e4[u][r] = j < n4 ? __ldcs(rowp[r] + j) : zero;
+  }
+}
+
+// Pass 2, one block per (R consecutive rows a*H + t, scenario b); the last
+// block of a scenario repeats its last row in the places past the end and
+// writes only its own rows.  Thread i takes the samples 4j..4j+3 of every
+// row of its block for j = i, i + WB_UPDATE_THREADS, ..., in that order,
+// in both variants, so the read and the regenerating variant add the same
+// terms in the same order.  It forms the softmin weight of each of its
+// samples once, in registers, and uses it for all R rows: no other thread
+// needs it, so the weights need no shared memory and no barrier.  REGEN:
+// draw the rows' noise again (no eps read).  Else read it as 16-byte
+// vectors, the first U groups requested before the normalizers are formed,
+// so the prologue runs under the loads' latency.
+template <bool REGEN, bool GIVEN, int R>
 __global__ void __launch_bounds__(WB_UPDATE_THREADS)
 wb_update_kernel(const float* __restrict__ eps, const float* __restrict__ s,
                  const float* __restrict__ m_part, const float* __restrict__ e_part,
                  const float* __restrict__ se, const float* __restrict__ sc,
                  const unsigned long long* __restrict__ seeds, uint32_t step, int k_off,
-                 int n_part, int K, int H, float inv_lam,
+                 int n_part, int K, int H, int rows, float inv_lam,
                  float* __restrict__ du, float* __restrict__ m2) {
-  const int b = blockIdx.y, row = blockIdx.x, rows = gridDim.x;
-  __shared__ float rho_eta[2];
-  __shared__ float red[2][WB_UPDATE_THREADS / 32];
-  if (threadIdx.x == 0) {
-    if (GIVEN) {
-      rho_eta[0] = se[2 * b];
-      rho_eta[1] = se[2 * b + 1];
-    } else {
-      // rho = min_i m_i; eta = sum_i e_i exp((rho - m_i) / lambda)
-      const float* mp = m_part + (size_t)b * n_part;
-      const float* ep = e_part + (size_t)b * n_part;
-      float rho = mp[0];
-      for (int i = 1; i < n_part; ++i) rho = fminf(rho, mp[i]);
-      float eta = 0.0f;
-      for (int i = 0; i < n_part; ++i) eta += ep[i] * expf((rho - mp[i]) * inv_lam);
-      rho_eta[0] = rho;
-      rho_eta[1] = eta;
+  constexpr int U = R >= 4 ? 16 / R : 4;  // read variant: groups per load step
+  __shared__ float red[2][R][WB_UPDATE_THREADS / 32];
+  const int b = blockIdx.y, row0 = blockIdx.x * R, n4 = K / 4;
+  const float4* sb4 = reinterpret_cast<const float4*>(s + (size_t)b * K);
+
+  int row[R];
+  const float4* rowp[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    row[r] = min(row0 + r, rows - 1);
+    rowp[r] = REGEN ? nullptr
+                    : reinterpret_cast<const float4*>(eps + ((size_t)b * rows + row[r]) * K);
+  }
+  float4 s4[U], e4[U][R];
+  if (!REGEN) load_group<U, R>(s4, e4, sb4, rowp, threadIdx.x, n4);
+
+  float rho, eta;
+  softmin_normalizers<GIVEN>(m_part, e_part, se, b, n_part, inv_lam, rho, eta);
+  float acc[R], acc2[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = acc2[r] = 0.0f;
+
+  if (REGEN) {
+    uint32_t key0, key1;
+    philox_key(seeds, b, key0, key1);
+    float sigma[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) sigma[r] = sc[(size_t)b * SC_LEN + SC_SIGMA + row[r] / H];
+    for (int j = threadIdx.x; j < n4; j += WB_UPDATE_THREADS) {
+      const float4 sv = sb4[j];
+      const uint32_t kg = (uint32_t)(k_off + 4 * j);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float w = expf((rho - lane_of(sv, q)) * inv_lam) / eta;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float e = draw_eps(step, kg + q, (uint32_t)row[r], sigma[r], key0, key1);
+          acc[r] += w * e;
+          acc2[r] += w * e * e;
+        }
+      }
+    }
+  } else {
+    for (int j0 = threadIdx.x; j0 < n4; j0 += U * WB_UPDATE_THREADS) {
+      if (j0 != (int)threadIdx.x) load_group<U, R>(s4, e4, sb4, rowp, j0, n4);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (j0 + u * WB_UPDATE_THREADS < n4) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float w = expf((rho - lane_of(s4[u], q)) * inv_lam) / eta;
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              const float e = lane_of(e4[u][r], q);
+              acc[r] += w * e;
+              acc2[r] += w * e * e;
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // Per row: a shuffle tree within each warp, then the warps' partials in
+  // a fixed order (deterministic, no atomics).
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      acc[r] += __shfl_down_sync(0xffffffffu, acc[r], off);
+      acc2[r] += __shfl_down_sync(0xffffffffu, acc2[r], off);
+    }
+    if (lane == 0) {
+      red[0][r][warp] = acc[r];
+      red[1][r][warp] = acc2[r];
     }
   }
   __syncthreads();
-  const float rho = rho_eta[0], eta = rho_eta[1];
-  const float* sb = s + (size_t)b * K;
-  const float* rowp = REGEN ? nullptr : eps + ((size_t)b * rows + row) * K;
-  uint32_t key0 = 0u, key1 = 0u;
-  float sigma = 0.0f;
-  if (REGEN) {
-    philox_key(seeds, b, key0, key1);
-    sigma = sc[(size_t)b * SC_LEN + SC_SIGMA + row / H];
-  }
-  float acc = 0.0f, acc2 = 0.0f;
-  for (int k = threadIdx.x; k < K; k += WB_UPDATE_THREADS) {
-    const float w = expf((rho - sb[k]) * inv_lam) / eta;
-    const float e = REGEN ? draw_eps(step, (uint32_t)(k_off + k), (uint32_t)row, sigma,
-                                     key0, key1)
-                          : rowp[k];
-    acc += w * e;
-    acc2 += w * e * e;
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
-    acc2 += __shfl_down_sync(0xffffffffu, acc2, off);
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    red[0][warp] = acc;
-    red[1][warp] = acc2;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
+  if (threadIdx.x < R && row0 + threadIdx.x < rows) {
+    const int r = threadIdx.x;
     float a = 0.0f, c = 0.0f;
     for (int i = 0; i < WB_UPDATE_THREADS / 32; ++i) {
-      a += red[0][i];
-      c += red[1][i];
+      a += red[0][r][i];
+      c += red[1][r][i];
     }
-    du[(size_t)b * rows + row] = a;
-    m2[(size_t)b * rows + row] = c;
+    du[(size_t)b * rows + row0 + r] = a;
+    m2[(size_t)b * rows + row0 + r] = c;
   }
 }
 
@@ -577,29 +684,44 @@ int wb_cost_launch(const WbParams* p, const float* sc, const float* u_prev, floa
   return (int)cudaGetLastError();
 }
 
-// Pass 2 over n_scen scenarios, one block per (row, scenario), rows = A*H.
-// regen != 0: draw the noise again from (seeds, step, k_off) and the
-// sigma in sc; else read eps.  se != NULL: the given (rho, eta) per
-// scenario; else combine the n_part partials per scenario.
+// Pass 2 over n_scen scenarios, rows = A*H, rows_per_block (R) of them per
+// block: ceil(rows / R) blocks per scenario.  regen != 0: draw the noise
+// again from (seeds, step, k_off) and the sigma in sc; else read eps (16-
+// byte aligned).  se != NULL: the given (rho, eta) per scenario; else
+// combine the n_part partials per scenario.  R is 1, 2, 4 or 8.
 int wb_update_launch(const float* eps, const float* s, const float* m_part,
                      const float* e_part, const float* se, const float* sc,
                      const unsigned long long* seeds, unsigned int step, int k_off,
-                     int n_part, int k, int h, int n_scen,
-                     float inv_lam, int regen, float* du, float* m2, void* stream) {
-  const dim3 grid(WB_A * h, n_scen);
+                     int n_part, int k, int h, int n_scen, float inv_lam, int regen,
+                     int rows_per_block, float* du, float* m2, void* stream) {
+  const int rows = WB_A * h;
+  const dim3 grid((rows + rows_per_block - 1) / rows_per_block, n_scen);
   cudaStream_t st = (cudaStream_t)stream;
-  if (regen && se)
-    wb_update_kernel<true, true><<<grid, WB_UPDATE_THREADS, 0, st>>>(
-        eps, s, m_part, e_part, se, sc, seeds, step, k_off, n_part, k, h, inv_lam, du, m2);
-  else if (regen)
-    wb_update_kernel<true, false><<<grid, WB_UPDATE_THREADS, 0, st>>>(
-        eps, s, m_part, e_part, se, sc, seeds, step, k_off, n_part, k, h, inv_lam, du, m2);
-  else if (se)
-    wb_update_kernel<false, true><<<grid, WB_UPDATE_THREADS, 0, st>>>(
-        eps, s, m_part, e_part, se, sc, seeds, step, k_off, n_part, k, h, inv_lam, du, m2);
-  else
-    wb_update_kernel<false, false><<<grid, WB_UPDATE_THREADS, 0, st>>>(
-        eps, s, m_part, e_part, se, sc, seeds, step, k_off, n_part, k, h, inv_lam, du, m2);
+#define WB_UPDATE_CASE(RG, GV, R)                                                             \
+  case R:                                                                                     \
+    wb_update_kernel<RG, GV, R><<<grid, WB_UPDATE_THREADS, 0, st>>>(                          \
+        eps, s, m_part, e_part, se, sc, seeds, step, k_off, n_part, k, h, rows, inv_lam, du, \
+        m2);                                                                                  \
+    break;
+#define WB_UPDATE_VARIANT(RG, GV)                   \
+  switch (rows_per_block) {                         \
+    WB_UPDATE_CASE(RG, GV, 1)                       \
+    WB_UPDATE_CASE(RG, GV, 2)                       \
+    WB_UPDATE_CASE(RG, GV, 4)                       \
+    WB_UPDATE_CASE(RG, GV, 8)                       \
+    default: return (int)cudaErrorInvalidValue;     \
+  }
+  if (regen && se) {
+    WB_UPDATE_VARIANT(true, true)
+  } else if (regen) {
+    WB_UPDATE_VARIANT(true, false)
+  } else if (se) {
+    WB_UPDATE_VARIANT(false, true)
+  } else {
+    WB_UPDATE_VARIANT(false, false)
+  }
+#undef WB_UPDATE_VARIANT
+#undef WB_UPDATE_CASE
   return (int)cudaGetLastError();
 }
 

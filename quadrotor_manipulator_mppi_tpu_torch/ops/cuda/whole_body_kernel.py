@@ -79,6 +79,15 @@ BLOCK = 64                     # samples per wb_cost block (WB_BLOCK)
 MAX_OBSTACLES = 16             # WB_MAX_OBS
 MODES = {"attitude": 0, "position": 1, "wrench": 2}
 _SMEM_LIMIT = 48 * 1024        # default dynamic shared memory per block
+UPDATE_THREADS = 256           # threads per wb_update block (WB_UPDATE_THREADS)
+UPDATE_ROWS = (1, 2, 4, 8)     # rows per wb_update block the source is built for
+# The launcher's R by variant (regen), from timings of every R at the main
+# paths' shapes on the H100 (chip_smoke.py phase 13).  Reading the noise,
+# R=8 is the fastest or within noise of it, at one scenario and at 256.
+# Drawing it again, R=8 loses to R=4 (103 registers against 72), and one
+# scenario's 550 rows run best as 275 blocks: at least two per SM.
+UPDATE_MAX_ROWS = {False: 8, True: 4}
+UPDATE_MIN_BLOCKS = {False: 1, True: 2 * 132}
 
 # Scalar-pack layout (SC_* in the CUDA source).
 SC_Q0, SC_QD0, SC_POS0, SC_VEL0 = 0, 7, 14, 17
@@ -266,7 +275,7 @@ def _lib() -> ctypes.CDLL:
                                    ctypes.c_uint32, ci, ci, ci, vp]
     lib.wb_cost_launch.restype = ci
     lib.wb_update_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, ctypes.c_uint32, ci, ci,
-                                     ci, ci, ci, ctypes.c_float, ci, vp, vp, vp]
+                                     ci, ci, ci, ctypes.c_float, ci, ci, vp, vp, vp]
     lib.wb_update_launch.restype = ci
     return lib
 
@@ -322,11 +331,27 @@ def _launch_cost(kc: WbKernelConfig, name: str, sc: Tensor, u_prev: Tensor,
     return s, m_part, e_part, eps
 
 
+def update_blocks(rows: int, rows_per_block: int) -> int:
+    """Blocks per scenario of a wb_update launch: ceil(rows / R)."""
+    return -(-rows // rows_per_block)
+
+
+def update_rows_per_block(regen: bool, n_scen: int, rows: int) -> int:
+    """R, the (action, step) rows of one wb_update block: the most of
+    :data:`UPDATE_ROWS`, up to :data:`UPDATE_MAX_ROWS`, that still gives the
+    launch :data:`UPDATE_MIN_BLOCKS` blocks, else 1."""
+    need, most = UPDATE_MIN_BLOCKS[regen], UPDATE_MAX_ROWS[regen]
+    return max([r for r in UPDATE_ROWS
+                if r <= most and n_scen * update_blocks(rows, r) >= need], default=1)
+
+
 def _launch_update(kc: WbKernelConfig, name: str, s: Tensor, eps: Optional[Tensor] = None,
                    m_part: Optional[Tensor] = None, e_part: Optional[Tensor] = None,
                    se: Optional[Tensor] = None, sc: Optional[Tensor] = None,
-                   seeds: Optional[Tensor] = None, step: int = 0,
-                   k_off: int = 0) -> Tuple[Tensor, Tensor]:
+                   seeds: Optional[Tensor] = None, step: int = 0, k_off: int = 0,
+                   rows_per_block: Optional[int] = None) -> Tuple[Tensor, Tensor]:
+    """One wb_update launch; ``rows_per_block`` overrides
+    :func:`update_rows_per_block` (for timing each R)."""
     k, h, dev = kc.n_samples, kc.n_horizon, s.device
     lead = tuple(s.shape[:-1])
     rows = A_TOTAL * h
@@ -340,14 +365,20 @@ def _launch_update(kc: WbKernelConfig, name: str, s: Tensor, eps: Optional[Tenso
     else:
         _check(m_part, lead + (kc.n_blocks,), dev, "m_part")
         _check(e_part, lead + (kc.n_blocks,), dev, "e_part")
+    if s.data_ptr() % 16 or (eps is not None and eps.data_ptr() % 16):
+        raise ValueError("s, eps: wb_update reads 16-byte vectors; pass 16-byte aligned tensors")
     regen = eps is None
     keys = _key_ptr(seeds, lead, dev) if regen else None
+    n_scen = _n_scen(lead)
+    r = rows_per_block or update_rows_per_block(regen, n_scen, rows)
+    if r not in UPDATE_ROWS:
+        raise ValueError(f"rows_per_block must be one of {UPDATE_ROWS}, got {r}")
     du = torch.empty(lead + (rows,), dtype=torch.float32, device=dev)
     m2 = torch.empty(lead + (rows,), dtype=torch.float32, device=dev)
     rc = _lib().wb_update_launch(
         _ptr(eps), s.data_ptr(), _ptr(m_part), _ptr(e_part), _ptr(se), _ptr(sc), keys,
-        int(step) & _U32, int(k_off), kc.n_blocks, k, h, _n_scen(lead), kc.inv_lam,
-        int(regen), du.data_ptr(), m2.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        int(step) & _U32, int(k_off), kc.n_blocks, k, h, n_scen, kc.inv_lam, int(regen), r,
+        du.data_ptr(), m2.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, name)
     return du, m2

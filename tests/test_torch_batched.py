@@ -263,11 +263,12 @@ def test_c_interface_matches_the_cuda_source():
         wk.build.load_library = orig
         wk._lib.cache_clear()
     assert len(lib.wb_cost_launch.argtypes) == _c_params(src, "wb_cost_launch") == 13
-    assert len(lib.wb_update_launch.argtypes) == _c_params(src, "wb_update_launch") == 18
+    assert len(lib.wb_update_launch.argtypes) == _c_params(src, "wb_update_launch") == 19
     cases = re.findall(r"WB_COST_CASE\((MODE_\w+), (\d), (true|false), (true|false)\)", src)
     assert sorted((m, int(v)) for m, v, _, _ in cases) == sorted(
         (m, v) for m in ("MODE_ATTITUDE", "MODE_POSITION", "MODE_WRENCH") for v in range(3))
     assert {(v, d, s) for _, v, d, s in cases} == {
         ("0", "false", "false"), ("1", "true", "true"), ("2", "true", "false")}
-    updates = set(re.findall(r"wb_update_kernel<(true|false), (true|false)><<<", src))
+    updates = set(re.findall(r"WB_UPDATE_VARIANT\((true|false), (true|false)\)", src))
     assert updates == {(a, b) for a in ("true", "false") for b in ("true", "false")}
+    assert "wb_update_kernel<RG, GV, R><<<" in src

@@ -202,6 +202,87 @@ def test_new_variants_match_plain(row):
         assert torch.equal(got[0], s)
 
 
+def _three_scenarios(dev):
+    """Three observations apart in every field but the (unit) target
+    quaternion."""
+    obs = tree_map(lambda x: x if x.shape[-1] == 4 else torch.stack([x, x + 0.02, x - 0.03]),
+                   wb.default_obs(device=dev))
+    return obs._replace(ee_target=obs.ee_target._replace(
+        quat=obs.ee_target.quat.expand(3, 4).contiguous()))
+
+
+# wb_update's four variants by PERF.md row: (wrapper, plain version).
+UPDATES = {3: (wk.wb_update, wk.wb_update_plain), 5: (wk.wb_update_regen, wk.wb_update_regen_plain),
+           6: (wk.wb_update_shard_regen, wk.wb_update_shard_regen_plain),
+           7: (wk.wb_update_shard, wk.wb_update_shard_plain)}
+# (K, H, B): one load step per thread; several (8 samples per thread and
+# row); fewer samples than threads; a tail block at R = 4 and 8 (550 rows)
+# in a batch of 3; 176 rows; 143 rows, a tail block at every R > 1.
+UPDATE_CASES = [(512, 16, 1), (8192, 16, 1), (64, 50, 1), (512, 50, 3), (512, 13, 1)]
+
+
+def _update_inputs(dev, k, h, b, step=3, k_off=64):
+    """Pass 1's spilled noise, costs and partials at (K, H, B) with a
+    sample offset, the global (rho, eta), and each variant's arguments."""
+    params = wb.position_mode_params(n_samples=k, n_horizon=h)
+    kc = wk.make_kernel_config(params)
+    _, init = wb.make_whole_body_solver(params, device=dev, low_k_guard="off",
+                                        n_scenarios=None if b == 1 else b)
+    state = init(9)
+    obs = wb.default_obs(device=dev) if b == 1 else _three_scenarios(dev)
+    sc = wk.pack_scalars(obs, state.sigma)
+    seeds = wk.philox_keys(state.seed, dev)
+    s, m, e, eps = wk.wb_cost(kc, sc, state.u_prev, None, seeds, step, k_off)
+    se = wk.softmin_normalizers(kc, m, e).contiguous()
+    args = {3: (kc, eps, s, m, e), 5: (kc, sc, s, m, e, seeds, step, k_off),
+            6: (kc, sc, s, se, seeds, step, k_off), 7: (kc, eps, s, se)}
+    launch = {3: dict(eps=eps, m_part=m, e_part=e),
+              5: dict(m_part=m, e_part=e, sc=sc, seeds=seeds, step=step, k_off=k_off),
+              6: dict(se=se, sc=sc, seeds=seeds, step=step, k_off=k_off),
+              7: dict(eps=eps, se=se)}
+    return kc, s, args, launch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,h,b", UPDATE_CASES)
+@pytest.mark.parametrize("row", sorted(UPDATES))
+def test_wb_update_variant_matches_plain_and_reruns_bit_equal(row, k, h, b):
+    """Each wb_update variant against its plain version (du and m2 within
+    1e-5 of the largest entry: summation order only), one launch per call,
+    bit-equal on a rerun and at every rows-per-block R."""
+    dev = _card()
+    kc, s, args, launch = _update_inputs(dev, k, h, b)
+    wrapper, plain = UPDATES[row]
+    n0 = wrapper.launches
+    got, want = wrapper(*args[row]), plain(*args[row])
+    again = wrapper(*args[row])
+    torch.cuda.synchronize()
+    assert wrapper.launches == n0 + 2
+    assert got[0].shape == s.shape[:-1] + (wk.A_TOTAL * h,)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= 1e-5 * w.abs().max().item()
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    for r in wk.UPDATE_ROWS:
+        other = wk._launch_update(kc, wrapper.__name__, s, rows_per_block=r, **launch[row])
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, o) for g, o in zip(got, other)), r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,h,b", [(8192, 16, 1), (512, 50, 3)])
+def test_wb_update_regen_equals_read(k, h, b):
+    """Row 5 on the noise drawn again against row 3 on its spill, on the
+    same costs: each thread adds the same terms in the same order."""
+    dev = _card()
+    _, _, args, _ = _update_inputs(dev, k, h, b)
+    du3, m2_3 = wk.wb_update(*args[3])
+    du5, m2_5 = wk.wb_update_regen(*args[5])
+    torch.cuda.synchronize()
+    assert (du5 - du3).abs().max().item() <= 1e-6 * du3.abs().max().item()
+    assert (m2_5 - m2_3).abs().max().item() <= 1e-6 * m2_3.abs().max().item()
+
+
 @pytest.mark.cuda
 def test_batched_launch_matches_plain():
     dev = _card()
@@ -209,11 +290,7 @@ def test_batched_launch_matches_plain():
     kc = wk.make_kernel_config(params)
     _, init = wb.make_whole_body_solver(params, device=dev, n_scenarios=3)
     state = init(5)
-    # three scenarios apart in every field but the (unit) target quaternion
-    obs = tree_map(lambda x: x if x.shape[-1] == 4 else torch.stack([x, x + 0.02, x - 0.03]),
-                   wb.default_obs(device=dev))
-    obs = obs._replace(ee_target=obs.ee_target._replace(
-        quat=obs.ee_target.quat.expand(3, 4).contiguous()))
+    obs = _three_scenarios(dev)
     sc = wk.pack_scalars(obs, state.sigma)
     n_cost, n_upd = wk.wb_cost.launches, wk.wb_update.launches
     s, m, e, eps = wk.wb_cost(kc, sc, state.u_prev, None, state.seed, 1)

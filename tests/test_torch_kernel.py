@@ -176,6 +176,55 @@ def test_scalar_layout_and_constants_match_the_cuda_source():
     assert int(defines["WB_A"]) == wk.A_TOTAL
 
 
+def test_update_constants_match_the_cuda_source():
+    src = CU_SOURCE.read_text()
+    defines = dict(re.findall(r"#define (\w+) (\d+)", src))
+    assert int(defines["WB_UPDATE_THREADS"]) == wk.UPDATE_THREADS
+    # the rows-per-block instantiations the launcher dispatches to
+    cases = re.findall(r"WB_UPDATE_CASE\(RG, GV, (\d+)\)", src)
+    assert tuple(int(r) for r in cases) == wk.UPDATE_ROWS
+
+
+@pytest.mark.parametrize("h,r,blocks", [
+    (50, 1, 550), (50, 2, 275), (50, 4, 138), (50, 8, 69),
+    (16, 1, 176), (16, 2, 88), (16, 4, 44), (16, 8, 22),
+])
+def test_update_blocks_per_scenario(h, r, blocks):
+    rows = wk.A_TOTAL * h
+    assert wk.update_blocks(rows, r) == blocks
+    # every row has one block; the last block holds 1..R rows
+    assert 0 < rows - (blocks - 1) * r <= r
+
+
+@pytest.mark.parametrize("regen,n_scen,h,want", [
+    (False, 1, 50, 8),      # row 3, the serving solve; row 7 at K_local
+    (False, 256, 50, 8),    # row 3, the scenario batch
+    (True, 256, 50, 4),     # row 5, the scenario batch
+    (True, 1, 50, 2),       # row 6 at K_local: >= 264 blocks
+    (False, 1, 16, 8),
+    (True, 3, 16, 2),       # 3 x 88 = 264 blocks
+    (True, 1, 16, 1),       # fewer rows than the blocks wanted: one per block
+])
+def test_update_rows_per_block_rule(regen, n_scen, h, want):
+    rows = wk.A_TOTAL * h
+    r = wk.update_rows_per_block(regen, n_scen, rows)
+    assert r == want and r in wk.UPDATE_ROWS and r <= wk.UPDATE_MAX_ROWS[regen]
+    more = [x for x in wk.UPDATE_ROWS if r < x <= wk.UPDATE_MAX_ROWS[regen]]
+    need = wk.UPDATE_MIN_BLOCKS[regen]
+    assert n_scen * wk.update_blocks(rows, r) >= need or r == 1
+    assert all(n_scen * wk.update_blocks(rows, x) < need for x in more)
+
+
+def test_update_launch_refuses_bad_rows_and_misaligned_noise():
+    params, kc, obs, sc, u_prev = _setup()
+    s, m, e, eps = wk.wb_cost(kc, sc, u_prev, None, wk.philox_keys(5, "cpu"), step=0)
+    with pytest.raises(ValueError, match="rows_per_block"):
+        wk._launch_update(kc, "wb_update", s, eps=eps, m_part=m, e_part=e, rows_per_block=3)
+    shifted = torch.empty(eps.numel() + 1)[1:].view(eps.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        wk._launch_update(kc, "wb_update", s, eps=shifted, m_part=m, e_part=e)
+
+
 def test_kernel_config_struct_values():
     params = twb.wrench_mode_params()
     kc = wk.make_kernel_config(params)
