@@ -51,11 +51,18 @@ lines; any failure exits non-zero before the final ``ok`` line):
    its main paths' shapes (row 3 at B=1 and B=256, row 5 at B=256, rows 6
    and 7 at K_local): the sums bit-equal for every R, CUDA-graph and
    profiler ms per R, the R the launcher picks, the library call's;
+14. ``wb_cost`` in both layouts the source builds (a warp per sample with
+   the horizon across the lanes; a thread per sample), in the three modes
+   and the three variants (spill, no spill, explicit noise), at B=1, 4, 8,
+   16, 256 and at K_local=2048 with a sample offset: S against the plain
+   version and between the layouts, the spill bit-equal to ``philox_eps``
+   and between the layouts, bit-equal reruns, CUDA-graph and profiler ms,
+   the layout the launcher picks;
 then one ``kernels`` JSON line (rows 4-5 at B=256, rows 6-7 at K_local,
 rows 9a-9b at K=1000 and 9c-9d at K=1024: the shapes of the runs that
 count their launches; each ``wb_update`` row with the R it used and its
-device time over the library call's), the ``nvidia-smi`` line and the
-``ok`` line.
+device time over the library call's; rows 1, 2, 4, 9a and 9c with their
+layout), the ``nvidia-smi`` line and the ``ok`` line.
 """
 
 import dataclasses
@@ -458,11 +465,18 @@ def phase_timing(dev):
     flat = eps.view(A * H, K)
 
     eps_in = eps.clone()
+    layout = wk.cost_layout(1, K)
     t = {
         "wb_cost": event_ms(lambda: wk.wb_cost(kc, sc, u_prev, None, keys, 0)),
+        "wb_cost_graph": graph_ms(lambda: wk.wb_cost(kc, sc, u_prev, None, keys, 0)),
+        "wb_cost_device": device_ms(lambda: wk.wb_cost(kc, sc, u_prev, None, keys, 0),
+                                    cost_key(layout, 1)),
         "wb_cost_plain": event_ms(lambda: wk.wb_cost_plain(kc, sc, u_prev, None, keys, 0),
                                   reps=5),
         "wb_cost_noise": event_ms(lambda: wk.wb_cost(kc, sc, u_prev, eps_in)),
+        "wb_cost_noise_graph": graph_ms(lambda: wk.wb_cost(kc, sc, u_prev, eps_in)),
+        "wb_cost_noise_device": device_ms(lambda: wk.wb_cost(kc, sc, u_prev, eps_in),
+                                          cost_key(layout, 0)),
         "wb_cost_noise_plain": event_ms(lambda: wk.wb_cost_plain(kc, sc, u_prev, eps_in),
                                         reps=5),
         "wb_update": event_ms(lambda: wk.wb_update(kc, eps, s, m, e)),
@@ -473,7 +487,8 @@ def phase_timing(dev):
     step_k = wk.make_whole_body_cuda_step(params, dev)
     t["plain_step"] = host_ms(lambda: step_p(state, obs))
     t["kernel_step"] = host_ms(lambda: step_k(state, obs))
-    print("[4] timings (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in t.items()), flush=True)
+    print(f"[4] timings (ms; wb_cost in the {layout} layout): "
+          + ", ".join(f"{k} {fmt_ms(v)}" for k, v in t.items()), flush=True)
 
     noise_bytes = A * H * K * 4
     cost_bytes = (wk.SC_LEN + H * A + K + 2 * kc.n_blocks) * 4 + noise_bytes
@@ -896,8 +911,16 @@ def update_key(name: str, r=None) -> str:
     return f"wb_update_kernel<{str(regen).lower()}, {str(given).lower()}, {r or ''}"
 
 
-# The instantiation each new wrapper launches, as the profiler names it.
-KERNEL_KEYS = {"wb_cost_nospill": "wb_cost_kernel<0, true, false>",
+def cost_key(layout: str, variant: int, mode: int = 0) -> str:
+    """The profiler's name of the wb_cost instantiation of ``layout`` for
+    wb_cost_launch's ``variant`` (0 explicit noise, 1 spill, 2 no spill)."""
+    draw, store = str(variant != 0).lower(), str(variant == 1).lower()
+    return f"wb_cost_{layout}_kernel<{mode}, {draw}, {store}>"
+
+
+# The instantiation each new wrapper launches at one scenario, K=4096, as
+# the profiler names it.
+KERNEL_KEYS = {"wb_cost_nospill": cost_key(wk.cost_layout(1, K), 2),
                **{n: update_key(n) for n in
                   ("wb_update_regen", "wb_update_shard_regen", "wb_update_shard")}}
 
@@ -1056,6 +1079,104 @@ def phase_update_rows(dev):
             flush=True)
         if not equal:
             fail(f"{name}: (du, m2) differ between rows-per-block choices")
+    return res
+
+
+# wb_cost's main-path shapes: (label, scenarios, samples, sample offset):
+# the serving solve and episode, the scenario batch at 4 and 8 (either side
+# of the layouts' crossover), 16 and 256, and one rank's share of the
+# sharded solve (rank 1's offset).
+COST_SHAPES = (("B=1", 1, K, 0), ("B=4", 4, K, 0), ("B=8", 8, K, 0), ("B=16", 16, K, 0),
+               ("B=256", B_BATCH, K, 0), ("K_local", 1, K // SHARD_RANKS, K - K // SHARD_RANKS))
+COST_VARIANTS = {1: "spill", 2: "no spill", 0: "explicit noise"}  # wb_cost_launch's codes
+
+
+def cost_work(b: int, k: int, variant: int):
+    """(bytes, float32 operations) of one wb_cost launch of b scenarios of
+    k samples: the spill written or the explicit noise read (none without
+    the spill), the draws counted where the kernel draws."""
+    ops = WB_COST_OPS_PER_SAMPLE_STEP if variant else WB_COST_NOISE_OPS_PER_SAMPLE_STEP
+    return b * cost_bytes(k, variant != 2), b * k * H * ops
+
+
+def phase_cost_layouts(dev):
+    """wb_cost in both layouts, three modes, three variants, at each shape
+    of COST_SHAPES: S against the plain version (all scenarios, or the
+    CHECK_SCENARIOS of 256) and between the layouts, the spill bit-equal to
+    philox_eps and between the layouts, each launch bit-equal on a rerun,
+    CUDA-graph and profiler ms, the layout the launcher picks."""
+    res = {}
+    for label, b, k, k_off in COST_SHAPES:
+        batch = b > 1
+        reps = 3 if b == B_BATCH else 20
+        checked = CHECK_SCENARIOS if b == B_BATCH else range(b)
+        chosen = wk.cost_layout(b, k)
+        for mode_i, (mode, params) in enumerate(presets().items()):
+            kc = wk.make_kernel_config(params, k)
+            _, init = wb.make_whole_body_solver(params, device=dev,
+                                                n_scenarios=b if batch else None)
+            state = init(0)
+            obs = scenario_obs(dev, b) if batch else wb.default_obs(device=dev)
+            sigma = state.sigma
+            if params.mppi.sigma_scale_fn is not None:
+                sigma = sigma * params.mppi.sigma_scale_fn(obs)
+            sc = wk.pack_scalars(obs, sigma)
+            u_prev, seeds = state.u_prev.contiguous(), wk.philox_keys(state.seed, dev)
+
+            def one(x, i):
+                return x[i] if batch else x
+
+            plain = {i: wk.wb_cost_plain(kc, one(sc, i), one(u_prev, i),
+                                         None, seeds[i:i + 1], 0, k_off) for i in checked}
+            costs, spills = {}, {}
+            for layout in wk.COST_LAYOUTS:
+                for variant in COST_VARIANTS:  # the spill first: the explicit noise reads it
+                    def launch(variant=variant, layout=layout):
+                        return wk._launch_cost(kc, "wb_cost", sc, u_prev,
+                                               spills.get(layout) if variant == 0 else None,
+                                               seeds if variant else None, 0, k_off, variant,
+                                               layout)
+
+                    first, again = launch(), launch()
+                    sync()
+                    if variant == 1:
+                        spills[layout] = first[3]
+                    costs[(layout, variant)] = first[0]
+                    rerun = all(torch.equal(x, y) for x, y in zip(first[:3], again[:3])) and (
+                        variant != 1 or torch.equal(first[3], again[3]))
+                    del again
+                    rel_plain = max(rel_err(one(first[0], i), plain[i][0]) for i in checked)
+                    spill_eq = None if variant != 1 else all(
+                        torch.equal(one(first[3], i), plain[i][3]) for i in checked)
+                    del first
+                    res[(label, mode, layout, variant)] = {
+                        "rel_plain": rel_plain, "rerun": rerun, "spill_eq_philox": spill_eq,
+                        "graph_ms": graph_ms(launch, reps),
+                        "device_ms": device_ms(launch, cost_key(layout, variant, mode_i), reps)}
+            for variant, vname in COST_VARIANTS.items():
+                r = {lay: res[(label, mode, lay, variant)] for lay in wk.COST_LAYOUTS}
+                between = rel_err(costs[("lanes", variant)], costs[("thread", variant)])
+                spill_between = None if variant != 1 else torch.equal(spills["lanes"],
+                                                                      spills["thread"])
+                bnd = bound(*cost_work(b, k, variant))
+                for lay in r:
+                    r[lay].update(layouts_rel=between, spill_eq_layouts=spill_between,
+                                  bound_ms=bnd[0], bound_by=bnd[1], chosen=chosen)
+                print(f"[14] {label} K={k} k_off={k_off} {mode:8s} {vname:14s}: " + " | ".join(
+                    f"{lay} graph/prof {v['graph_ms']:.4f}/{fmt_ms(v['device_ms'])} ms, "
+                    f"vs plain {v['rel_plain']:.2e}, reruns bit-equal {v['rerun']}"
+                    + ("" if variant != 1 else f", spill == philox_eps {v['spill_eq_philox']}")
+                    for lay, v in r.items())
+                    + f" | layouts rel {between:.2e}"
+                    + ("" if variant != 1 else f", spills bit-equal {spill_between}")
+                    + f" | launcher {chosen} | bound {bnd[0]:.4f} ms by {bnd[1]}", flush=True)
+                bad = [lay for lay, v in r.items()
+                       if not (v["rel_plain"] <= TOL_COST and v["rerun"]
+                               and v["spill_eq_philox"] in (None, True))]
+                if bad or between > TOL_COST or spill_between is False:
+                    fail(f"wb_cost {vname} at {label}, {mode}: layouts {bad} disagree with the "
+                         "plain version, with each other, or between reruns")
+            del costs, spills, plain
     return res
 
 
@@ -1338,14 +1459,15 @@ def phase_drone_kernels(dev, errs):
             sweep[(name, k, h)] = {
                 "k": k, "h": h, "ms": event_ms(lambda: kern(*args)),
                 "device_ms": device_ms(lambda: kern(*args), DRONE_KEYS[name]),
+                "graph_ms": graph_ms(lambda: kern(*args)) if "cost" in name else None,
                 "plain_ms": event_ms(lambda: plain(*args), reps=5), "bound_ms": b[0],
                 "bound_by": b[1],
                 "library_ms": lib["ms"] if "update" in name else None,
                 "library_device_ms": lib["device_ms"] if "update" in name else None}
         print(f"[11] K={k} H={h}: vs plain " + ", ".join(f"{n} {r:.2e}" for n, r in rels.items())
-              + " | ms (events / device / plain / bound): " + ", ".join(
-                  f"{n} {fmt_ms(s['ms'])}/{fmt_ms(s['device_ms'])}/{s['plain_ms']:.3f}/"
-                  f"{s['bound_ms']:.2e} by {s['bound_by']}"
+              + " | ms (events / device / graph / plain / bound): " + ", ".join(
+                  f"{n} {fmt_ms(s['ms'])}/{fmt_ms(s['device_ms'])}/{fmt_ms(s['graph_ms'])}/"
+                  f"{s['plain_ms']:.3f}/{s['bound_ms']:.2e} by {s['bound_by']}"
                   for (n, kk, hh), s in sweep.items() if (kk, hh) == (k, h))
               + f" | torch.mv {lib['ms']:.4f}/{fmt_ms(lib['device_ms'])}", flush=True)
 
@@ -1527,6 +1649,7 @@ def main() -> None:
     drone_sweep, drone_host = phase_drone_kernels(dev, errs)
     drone_launches, drone_loop_ms = phase_drone_loops(dev)
     rows_sweep = phase_update_rows(dev)
+    cost_sweep = phase_cost_layouts(dev)
     b256 = {(b, spill): e_ms for b, spill, _, e_ms, _, _, _ in batch_rows}
     shard_bounds = {k: bound(*v) for k, v in new_work(K // SHARD_RANKS).items()}
 
@@ -1561,6 +1684,14 @@ def main() -> None:
                 **extra, "k4096_b1_ms": one["ms"], "k4096_b1_device_ms": one["device_ms"],
                 "k4096_b1_graph_ms": one["graph_ms"], "k4096_b1_plain_ms": one["plain_ms"]}
 
+    def layouts_of(variant, prefix=""):
+        """Phase 14's attitude-mode graph ms of both layouts at every shape for
+        wb_cost_launch's ``variant``, and the launcher's layout at each."""
+        return {f"{prefix}layout_sweep_graph_ms": {
+            label: {lay: cost_sweep[(label, "attitude", lay, variant)]["graph_ms"]
+                    for lay in wk.COST_LAYOUTS} | {"launcher": wk.cost_layout(b, k)}
+            for label, b, k, _ in COST_SHAPES}}
+
     def batch_row(name, replaces, library_ms, **extra):
         return new_row(name, replaces, batch_launches[name], t_b256[name],
                        t_b256[name + "_plain"], b256_bounds[name], library_ms, b=B_BATCH,
@@ -1582,7 +1713,12 @@ def main() -> None:
          "noise_ms": t["wb_cost_noise"], "noise_plain_ms": t["wb_cost_noise_plain"],
          "noise_bound_ms": bounds["wb_cost_noise"][0],
          "noise_bound_by": bounds["wb_cost_noise"][1],
-         "episode_launches": episode_launches["wb_cost"], "b256_ms": t_b256["wb_cost"]},
+         "episode_launches": episode_launches["wb_cost"], "b256_ms": t_b256["wb_cost"],
+         "layout": wk.cost_layout(1, K), "noise_layout": wk.cost_layout(1, K),
+         "b256_layout": wk.cost_layout(B_BATCH, K),
+         "graph_ms": t["wb_cost_graph"], "device_ms": t["wb_cost_device"],
+         "noise_graph_ms": t["wb_cost_noise_graph"], "noise_device_ms": t["wb_cost_noise_device"],
+         **layouts_of(1), **layouts_of(0, "noise_")},
         {"name": "wb_update", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": f"{TPU_KERNEL}:655 _update_kernel_fused_noise (_fused_update_body :624)",
          "launches": launches["wb_update"], "max_abs_err": errs["wb_update"],
@@ -1599,7 +1735,12 @@ def main() -> None:
          "ms": t_plant["plant_tick"], "plain_ms": t_plant["plant_tick_plain"],
          "bound_ms": plant_bound[0], "bound_by": plant_bound[1], "library_ms": None,
          "b1024_ms": t_plant["plant_tick_b1024"]},
-        batch_row("wb_cost_nospill", "551 _cost_kernel", None),
+        batch_row("wb_cost_nospill", "551 _cost_kernel", None,
+                  layout=wk.cost_layout(B_BATCH, K), k4096_b1_layout=wk.cost_layout(1, K),
+                  k_local_layout=wk.cost_layout(1, K // SHARD_RANKS),
+                  k_local_graph_ms=cost_sweep[("K_local", "attitude",
+                                               wk.cost_layout(1, K // SHARD_RANKS), 2)]["graph_ms"],
+                  **layouts_of(2)),
         batch_row("wb_update_regen", "647 _update_kernel_fused", t_b256["library_bmm"],
                   **vs_library(at_b256("wb_update_regen"), at_b256("library_bmm")),
                   **rows_of("5", B_BATCH)),
@@ -1618,6 +1759,7 @@ def main() -> None:
                 "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
                 "library_ms": s["library_ms"], "device_ms": s["device_ms"],
                 "library_device_ms": s["library_device_ms"], "k": k, "h": DRONE_H,
+                **({"layout": "lanes", "graph_ms": s["graph_ms"]} if "cost" in name else {}),
                 "sweep": [v for (n, _, _), v in drone_sweep.items() if n == name]}
 
     kernels += [drone_row("drone_cost", DRONE_K, drone_launches["a"]["drone_cost"]),

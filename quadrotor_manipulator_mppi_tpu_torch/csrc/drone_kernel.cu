@@ -27,18 +27,21 @@
 // S.  Pass 2 on the drawn noise is the same draw again plus a multiply-add.
 // On explicit noise both read 12 B per sample and step (0.38 MB at the
 // preset, 0.1 us).  So both are operation bound on paper; in practice
-// K=1000 samples are 1000 threads, a fraction of one wave of the 132 SMs,
-// and each thread's 96 dependent draws make the kernel latency bound.
+// launch and dependent latency dominate: one thread walking a sample's
+// horizon is a chain of H*A = 96 draws (~19 us at any K up to 16384).
 //
 // What the design does about it (simple first).  The Pallas layout is
 // Mosaic's workaround and is not carried over: no 128-lane tiles (any
-// K >= 1 runs; the ragged block is masked), no Kronecker (H*A, H*A)
-// triangular matmuls (the integration is the recurrence, in registers), no
-// per-tile du partials summed on the host, no 24-bit masking.
-//   drone_cost: one thread per sample, DRONE_COST_THREADS a block; the
-//   warm start and the three 3-vectors in shared memory; per action the
-//   velocity and position prefix sums in registers, in the order the plain
-//   version's cumsums add.
+// K >= 1 runs; a warp past K exits), no Kronecker (H*A, H*A) triangular
+// matmuls, no per-tile du partials summed on the host, no 24-bit masking.
+//   drone_cost: one warp per sample, DRONE_COST_WARPS samples a block, the
+//   horizon across the lanes in chunks of 32 steps (the TPU kernel's time
+//   parallelism: its triangular matmuls become warp scans).  Per action a
+//   lane draws (or reads) its step's noise, two prefix sums (warp_scan.cuh)
+//   give the velocity and the position, the chunk's last lane carries both
+//   into the next chunk; the lanes' squared errors meet in a fixed-order
+//   warp sum.  The chain per lane is A draws per chunk, not H*A.  On
+//   explicit noise a warp reads its sample's contiguous H*A floats.
 //   drone_update: one block per (t, a) row, H*A blocks; threads stride over
 //   k and reduce in a fixed order (warp shuffles, then the warps' partials
 //   in order): deterministic, no atomics, du (H, A) written directly.
@@ -49,14 +52,16 @@
 #include <stdint.h>
 
 #include "philox.cuh"
+#include "warp_scan.cuh"
 
-#define DRONE_COST_THREADS 128
+#define DRONE_COST_WARPS 4   // samples (one warp each) per drone_cost block
 #define DRONE_UPDATE_THREADS 256
 
 // Pass 1.  u_prev (H, A); x0, v0, target (A,); noise (K, H, A) (!DRAW);
-// seeds (1,) (DRAW); s (K,) out.
+// seeds (1,) (DRAW); s (K,) out.  Warp w of block g takes sample
+// k = g * DRONE_COST_WARPS + w; lane = horizon step within a chunk.
 template <bool DRAW>
-__global__ void __launch_bounds__(DRONE_COST_THREADS)
+__global__ void __launch_bounds__(DRONE_COST_WARPS * WARP_LANES)
 drone_cost_kernel(const float* __restrict__ u_prev, const float* __restrict__ x0,
                   const float* __restrict__ v0, const float* __restrict__ target,
                   const float* __restrict__ noise, const unsigned long long* __restrict__ seeds,
@@ -74,32 +79,46 @@ drone_cost_kernel(const float* __restrict__ u_prev, const float* __restrict__ x0
     tg_sm[i] = target[i];
   }
   __syncthreads();
-  const int k = blockIdx.x * DRONE_COST_THREADS + threadIdx.x;
-  if (k >= K) return;
+  const int lane = threadIdx.x & (WARP_LANES - 1);
+  const int k = blockIdx.x * DRONE_COST_WARPS + threadIdx.x / WARP_LANES;
+  if (k >= K) return;  // the whole warp
 
   uint32_t key0 = 0u, key1 = 0u;
   if (DRAW) philox_key(seeds, 0, key0, key1);
-  float stage = 0.0f, term = 0.0f;
+  float stage = 0.0f, term = 0.0f;  // this lane's squared errors
   for (int a = 0; a < A; ++a) {
     const float q0 = x0_sm[a], vel0 = v0_sm[a], tg = tg_sm[a];
-    float cv = 0.0f;     // sum of acc * dt
-    float cq = 0.0f;     // sum of v_prev * dt + 0.5 * acc * dt * dt
-    float v_prev = vel0;
-    for (int t = 0; t < H; ++t) {
-      const float e = DRAW ? draw_eps(0u, (uint32_t)k, (uint32_t)(a * H + t), sigma, key0, key1)
-                           : noise[((size_t)k * H + t) * A + a];
-      const float acc = u_sm[t * A + a] + e;
-      cq += v_prev * dt + 0.5f * acc * dt * dt;
-      cv += acc * dt;
-      v_prev = cv + vel0;
+    float cvc = 0.0f;  // carry-in: sum of acc * dt
+    float cqc = 0.0f;  // carry-in: sum of v_prev * dt + 0.5 * acc * dt * dt
+    for (int t0 = 0; t0 < H; t0 += WARP_LANES) {
+      const int t = t0 + lane;
+      const bool active = t < H;
+      float e = 0.0f;
+      if (active)
+        e = DRAW ? draw_eps(0u, (uint32_t)k, (uint32_t)(a * H + t), sigma, key0, key1)
+                 : noise[((size_t)k * H + t) * A + a];
+      const float acc = u_sm[(active ? t : H - 1) * A + a] + e;
+      const float cv = scan_add(lane == 0 ? cvc + acc * dt : acc * dt, lane);
+      float cv_prev = __shfl_up_sync(FULL_MASK, cv, 1);
+      if (lane == 0) cv_prev = cvc;
+      const float inc = (cv_prev + vel0) * dt + 0.5f * acc * dt * dt;
+      const float cq = scan_add(lane == 0 ? cqc + inc : inc, lane);
       const float err = (cq + q0) - tg;
-      if (t < H - 1)
-        stage += err * err;
-      else
-        term += err * err;
+      if (active) {
+        if (t < H - 1)
+          stage += err * err;
+        else
+          term += err * err;
+      }
+      if (t0 + WARP_LANES < H) {
+        cvc = from_last(cv);
+        cqc = from_last(cq);
+      }
     }
   }
-  s[k] = stage_w * stage + term_w * term;
+  stage = warp_sum(stage);
+  term = warp_sum(term);
+  if (lane == 0) s[k] = stage_w * stage + term_w * term;
 }
 
 // Pass 2, one block per row = a*H + t.  w (K,); noise (K, H, A) (!DRAW);
@@ -143,12 +162,13 @@ int drone_cost_launch(const float* u_prev, const float* x0, const float* v0,
                       float sigma, float stage_w, float term_w, float* s, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const size_t smem = (size_t)(h * a + 3 * a) * sizeof(float);
-  const int blocks = (k + DRONE_COST_THREADS - 1) / DRONE_COST_THREADS;
+  const int blocks = (k + DRONE_COST_WARPS - 1) / DRONE_COST_WARPS;
+  const int threads = DRONE_COST_WARPS * WARP_LANES;
   if (noise)
-    drone_cost_kernel<false><<<blocks, DRONE_COST_THREADS, smem, st>>>(
+    drone_cost_kernel<false><<<blocks, threads, smem, st>>>(
         u_prev, x0, v0, target, noise, seeds, k, h, a, dt, sigma, stage_w, term_w, s);
   else
-    drone_cost_kernel<true><<<blocks, DRONE_COST_THREADS, smem, st>>>(
+    drone_cost_kernel<true><<<blocks, threads, smem, st>>>(
         u_prev, x0, v0, target, noise, seeds, k, h, a, dt, sigma, stage_w, term_w, s);
   return (int)cudaGetLastError();
 }

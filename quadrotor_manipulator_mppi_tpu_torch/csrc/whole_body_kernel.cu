@@ -3,7 +3,7 @@
 // Replaces the TPU kernels of
 // quadrotor_manipulator_mppi_tpu/ops/pallas/whole_body_kernel.py:
 //   wb_cost<MODE, DRAW, STORE>, pass 1: noise draw, rollout, 7-joint FK,
-//     the whole cost stack, per-block softmin partials (_softmin_partials).
+//     the whole cost stack, per-group softmin partials (_softmin_partials).
 //       DRAW, STORE   <- _cost_kernel_store (in-kernel PRNG, noise spilled)
 //       DRAW, !STORE  <- _cost_kernel (in-kernel PRNG, no spill)
 //       !DRAW         <- _cost_kernel_noise (explicit noise)
@@ -15,7 +15,7 @@
 //       !REGEN, GIVEN  <- _update_kernel_noise (sharded; reads the noise)
 //     GIVEN: the global (rho, eta) arrive from the host's collectives (the
 //     sample-sharded solve); otherwise they are combined from this solve's
-//     per-block partials.  The per-tile du/m2 partials of the sharded TPU
+//     per-group partials.  The per-tile du/m2 partials of the sharded TPU
 //     kernels exist only for Mosaic; here each rank writes one row per
 //     (a, t) and the host all-reduces it.
 //
@@ -26,38 +26,57 @@
 // of 256 scenarios at K=4096, H=50 is 577 M floats).
 //
 // What bounds them on this card.
-//   wb_cost is bound by dependent arithmetic, not by bytes: per sample it
-//   runs H sequential steps, each ~11 Philox draws + erfinv, a 7-joint
-//   quaternion FK (7 sincos), an atan2 and the cost terms — about 2-3
-//   kFLOP per step, ~0.5 GFLOP per solve at K=4096, H=50 — while it moves
-//   only the spilled noise (K*H*11*4 B = 9.0 MB) out.  Its limit is
-//   parallelism: K=4096 samples give only 4096 threads, ~1/16 of what the
-//   H100's 132 SMs can hold, so the kernel is latency bound.
+//   wb_cost is bound by arithmetic, not by bytes: per sample and step ~11
+//   Philox draws + erfinv, a 7-joint quaternion FK (7 sincos), an atan2 and
+//   the cost terms, about 2.4 k operations (~0.5 GFLOP per solve at K=4096,
+//   H=50), while it moves only the noise (K*H*11*4 B = 9.0 MB).  Each
+//   horizon recurrence (double integration, rotor lag, axis response, drag,
+//   position, rate damping, the wrench attitude) chains step t to t - 1, so
+//   a thread that walks one sample's horizon is a long dependent chain, and
+//   one scenario's 4096 samples are too few threads to hide it.
 //   wb_update reading the noise is bound by bytes: it must read the 9.0 MB
 //   once (2.7 us at 3.35 TB/s; 0.69 ms for 256 scenarios), against 4
 //   operations per element (two multiply-adds) and ~20 per sample for the
 //   softmin weight.  The REGEN variants read no noise and are bound by the
 //   ~135 operations per element of the second draw (Philox ~100, the
-//   normal ~35).  Batching B scenarios multiplies both bounds by B and
-//   gives wb_cost B * 4096 threads, enough to fill the card.
+//   normal ~35).  Batching B scenarios multiplies both bounds by B.
 //
 // What the design does about it.
-//   wb_cost: one thread per sample; every horizon operator of the TPU
-//   kernel (the (H, H) MXU matmuls: double integration, rotor lag, PD or
-//   identified axis response, drag-decay and rate-damping recurrences, the
-//   Hillis-Steele quaternion scan) becomes its linear recurrence, carried
-//   in registers step by step — O(H) instead of O(H^2) work, no matrices.
-//   Small blocks (WB_BLOCK = 64 threads) spread 4096 samples over 64 SMs.
-//   Noise is stored (A, H, K), sample index fastest, so the spill and the
-//   update's loads are coalesced.  Per-config constants arrive by value in
-//   a POD struct (kernel parameter space, < 4 KB) — one build serves every
+//   wb_cost has two layouts of one body; the launcher picks one by shape
+//   (ops/cuda/whole_body_kernel.cost_layout):
+//   LAYOUT_LANES puts the horizon across the lanes, as the TPU kernel is
+//   parallel in time: one warp per sample walks the horizon in chunks of 32
+//   steps, one step per lane.  A lane draws its step's 11 normals and runs
+//   the step's nonlinear work (attitude quaternion, 7-joint FK, atan2,
+//   costs).  Every linear recurrence is a warp scan (warp_scan.cuh): prefix
+//   sums for the double integrations and the position, and for the
+//   constant-coefficient maps (rotor lag, the 2x2 axis responses, drag,
+//   rate damping) the step map's powers c^(2^i), A^(2^i), computed on the
+//   host (the O(log H) form of the TPU kernel's (H, H) operators,
+//   _host_matrices).  The wrench attitude is a Hillis-Steele quaternion
+//   prefix product, earlier factors on the left (_quat_prefix_scan).  Each
+//   recurrence's value at a chunk's last lane enters the next chunk through
+//   lane 0's input: any H runs, and registers do not grow with H.  S_k is a
+//   fixed-order warp sum.  A block is WB_BLOCK warps, one softmin partial
+//   group.  The noise keeps its (A, H, K) layout, sample fastest (wb_update
+//   reads it as 16-byte vectors): the block stages a chunk's 11 x 32 x
+//   WB_BLOCK values in shared memory (rows padded to WB_BLOCK + 1 floats:
+//   no bank conflicts) and moves them as runs of WB_BLOCK consecutive
+//   samples (64 B), the spill and the explicit-noise read alike.
+//   LAYOUT_THREAD runs one sample per thread, WB_THREAD_BLOCK threads a
+//   block (K a multiple of it), each recurrence carried in registers step
+//   by step: no scan work and no idle lanes in a partial last chunk.  It
+//   is the faster layout once a batch of scenarios alone fills the card.
+//   Both layouts write the softmin partials per group of WB_BLOCK
+//   consecutive samples.  Per-config constants arrive by value in a POD
+//   struct (kernel parameter space, < 4 KB): one build serves every
 //   configuration; the mode is a template parameter.
 //   wb_update: one block per R consecutive (a, t) rows of the noise (R =
 //   1, 2, 4 or 8, the launcher's choice, measured: 8 reading the noise; 4
 //   drawing it for a batch, 2 for one scenario, whose 550 rows must still
 //   give two blocks per SM).
 //   Each warp combines the softmin normalizers (rho, eta) from wb_cost's
-//   per-block partials with shuffle trees, so no K-wide op runs between
+//   per-group partials with shuffle trees, so no K-wide op runs between
 //   the two kernels and no thread waits on a serial prologue.  A thread
 //   takes the same samples in each of its block's R rows, so it forms each
 //   of its samples' weights exp((rho - S_k)/lambda)/eta once, in
@@ -76,21 +95,26 @@
 // float32 and finite.  The global sample index is k_off + k, so a shard of
 // the sample axis draws exactly its slice of the one-rank noise set.  Pass 2
 // draws again through the same draw_eps as pass 1, so regenerated noise is
-// bit-identical to the spilled noise.  ops/sampling.py holds the same
-// stream in plain PyTorch; philox.cuh holds the draw, shared with
-// drone_kernel.cu.
+// bit-identical to the spilled noise in either layout.  ops/sampling.py
+// holds the same stream in plain PyTorch; philox.cuh holds the draw, shared
+// with drone_kernel.cu.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 #include "philox.cuh"
+#include "warp_scan.cuh"
 
-#define WB_A 11          // 4 base + 7 arm actions
-#define WB_J 7           // arm joints
-#define WB_BLOCK 64      // samples per block of wb_cost
-#define WB_MAX_OBS 16    // sphere obstacles carried in the parameter struct
+#define WB_A 11              // 4 base + 7 arm actions
+#define WB_J 7               // arm joints
+#define WB_BLOCK 16          // samples per softmin partial = warps per lane-layout block
+#define WB_THREAD_BLOCK 64   // samples (threads) per thread-layout block
+#define WB_MAX_OBS 16        // sphere obstacles carried in the parameter struct
+#define WB_SCAN 5            // scan powers per step map in the parameter struct
 #define WB_UPDATE_THREADS 256
+
+static_assert(WB_SCAN == WARP_SCAN, "one power per warp-scan step");
 
 // Scalar-pack layout — must match ops/cuda/whole_body_kernel.py (SC_*).
 #define SC_Q0 0
@@ -108,6 +132,7 @@
 #define SC_LEN 54
 
 enum { MODE_ATTITUDE = 0, MODE_POSITION = 1, MODE_WRENCH = 2 };
+enum { LAYOUT_THREAD = 0, LAYOUT_LANES = 1 };
 
 // Per-configuration constants.  Field order and types must match the
 // ctypes Structure WbParams in ops/cuda/whole_body_kernel.py; every field
@@ -128,6 +153,9 @@ struct WbParams {
   float w_base, w_att, w_omega, w_vel, w_action, w_jl, gamma;
   float w_obs, w_stop, stop_horizon;
   float obs[WB_MAX_OBS][4];  // (x, y, z, radius)
+  // The lane layout's scans: the step maps raised to 2^i, i < WB_SCAN.
+  float ax_pow[3][WB_SCAN][4];  // per axis, A^(2^i) row-major
+  float lag_pow[WB_SCAN], drag_pow[WB_SCAN], rate_pow[WB_SCAN];
 };
 
 struct Quat {
@@ -180,10 +208,144 @@ __device__ __forceinline__ Quat quat_from_rotvec(float rx, float ry, float rz) {
   return Quat{cosf(half), rx * k, ry * k, rz * k};
 }
 
+// Wrench mode: the arm's gravity moment about the base origin (base frame)
+// at the initial attitude's gravity g_b, sum_j m_j (com_j(q) x g_b), added
+// to tau.
+__device__ __forceinline__ void add_arm_moment(const WbParams& p, const float* sc,
+                                               const float* qfk, float* tau) {
+  const float gx = sc[SC_GB], gy = sc[SC_GB + 1], gz = sc[SC_GB + 2];
+  Quat tq{1.f, 0.f, 0.f, 0.f};
+  float tp[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < WB_J; ++j) {
+    float r[3];
+    qrot(tq, p.ot[j], r);
+    tp[0] += r[0];
+    tp[1] += r[1];
+    tp[2] += r[2];
+    tq = qmul(tq, joint_quat(p.oq[j], qfk[j]));
+    float c[3];
+    qrot(tq, p.com[j], c);
+    const float px = tp[0] + c[0], py = tp[1] + c[1], pz = tp[2] + c[2];
+    const float m = p.link_mass[j];
+    tau[0] += m * (py * gz - pz * gy);
+    tau[1] += m * (pz * gx - px * gz);
+    tau[2] += m * (px * gy - py * gx);
+  }
+}
+
+// One step's 7-joint FK from the base pose (bq, pos) and its cost: the
+// stage terms, or the terminal ones at the last step.  v: the step's
+// actions; q: the raw joint angles (limit costs); qfk: the clamped ones;
+// gam: gamma^t; inv_h: 1 / H, formed once by the caller.
+__device__ __forceinline__ float step_cost(const WbParams& p, const float* sc, const float* v,
+                                           const float* q, const float* qfk, const Quat& bq,
+                                           const float* pos, const float* vel, const float* om,
+                                           float gam, bool last, float inv_h) {
+  Quat tq = bq;
+  float tp[3] = {pos[0], pos[1], pos[2]};
+#pragma unroll
+  for (int j = 0; j < WB_J; ++j) {
+    float r[3];
+    qrot(tq, p.ot[j], r);
+    tp[0] += r[0];
+    tp[1] += r[1];
+    tp[2] += r[2];
+    tq = qmul(tq, joint_quat(p.oq[j], qfk[j]));
+  }
+
+  const float ex = tp[0] - sc[SC_TPOS], ey = tp[1] - sc[SC_TPOS + 1],
+              ez = tp[2] - sc[SC_TPOS + 2];
+  const float dp = sqrtf(ex * ex + ey * ey + ez * ez);
+  // err = conj(tq) * target; geodesic angle 2 atan2(|vec|, |w|)
+  const float gw = sc[SC_TQUAT], gx = sc[SC_TQUAT + 1], gy = sc[SC_TQUAT + 2],
+              gz = sc[SC_TQUAT + 3];
+  const float ew = tq.w * gw + tq.x * gx + tq.y * gy + tq.z * gz;
+  const float evx = tq.w * gx - tq.x * gw - tq.y * gz + tq.z * gy;
+  const float evy = tq.w * gy + tq.x * gz - tq.y * gw - tq.z * gx;
+  const float evz = tq.w * gz - tq.x * gy + tq.y * gx - tq.z * gw;
+  const float dori = 2.0f * atan2f(sqrtf(evx * evx + evy * evy + evz * evz), fabsf(ew));
+  float c = (last ? p.w_pos_term : p.w_pos_stage) * dp +
+            (last ? p.w_ori_term : p.w_ori_stage) * dori;
+
+  if (p.w_base != 0.0f && !last) {
+    const float bx = pos[0] - sc[SC_BTGT], by = pos[1] - sc[SC_BTGT + 1],
+                bz = pos[2] - sc[SC_BTGT + 2];
+    c += p.w_base * inv_h * (bx * bx + by * by + bz * bz);
+  }
+  if (p.w_att != 0.0f) {
+    const float r02 = 2.0f * (bq.x * bq.z + bq.w * bq.y);
+    const float r12 = 2.0f * (bq.y * bq.z - bq.w * bq.x);
+    c += p.w_att * inv_h * (r02 * r02 + r12 * r12);
+  }
+  if (p.w_omega != 0.0f)
+    c += p.w_omega * inv_h * (om[0] * om[0] + om[1] * om[1] + om[2] * om[2]);
+  if (p.w_vel != 0.0f)
+    c += p.w_vel * inv_h * (vel[0] * vel[0] + vel[1] * vel[1] + vel[2] * vel[2]);
+  if (p.w_action != 0.0f) {
+    float act = 0.0f;
+#pragma unroll
+    for (int a = 0; a < WB_A; ++a) act += v[a] * v[a];
+    c += p.w_action * gam * act;
+  }
+  if (p.w_jl != 0.0f) {
+    if (p.jl_soft) {
+      float vsq = 0.0f;
+#pragma unroll
+      for (int j = 0; j < WB_J; ++j) {
+        const float vj = fmaxf(p.q_lo[j] - q[j], 0.0f) + fmaxf(q[j] - p.q_hi[j], 0.0f);
+        vsq += vj * vj;
+      }
+      c += p.w_jl * 1e3f * gam * vsq;
+    } else {
+      bool out = false;
+#pragma unroll
+      for (int j = 0; j < WB_J; ++j) out = out || (q[j] < p.q_lo[j]) || (q[j] > p.q_hi[j]);
+      if (out) c += p.w_jl * 1e10f * gam;
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < WB_MAX_OBS; ++o) {
+    if (o >= p.n_obs) break;
+    const float dx = tp[0] - p.obs[o][0], dy = tp[1] - p.obs[o][1],
+                dz = tp[2] - p.obs[o][2];
+    const float pen = fmaxf(p.obs[o][3] - sqrtf(dx * dx + dy * dy + dz * dz), 0.0f);
+    c += p.w_obs * pen * pen;
+  }
+  return c;
+}
+
+// The terminal stopping-distance term on the final base position and
+// velocity.
+__device__ __forceinline__ float stop_cost(const WbParams& p, const float* sc, const float* pos,
+                                           const float* vel) {
+  if (p.w_stop == 0.0f) return 0.0f;
+  const float sx = pos[0] + p.stop_horizon * vel[0] - sc[SC_BTGT];
+  const float sy = pos[1] + p.stop_horizon * vel[1] - sc[SC_BTGT + 1];
+  const float sz = pos[2] + p.stop_horizon * vel[2] - sc[SC_BTGT + 2];
+  return p.w_stop * (sx * sx + sy * sy + sz * sz);
+}
+
+// Softmin partials of one group of WB_BLOCK consecutive samples' costs sg:
+// m = min S, e = sum exp((m - S) / lambda), in sample order (both layouts).
+__device__ __forceinline__ void group_partials(const float* sg, float inv_lam, float* m_out,
+                                               float* e_out) {
+  float m = sg[0];
+  for (int i = 1; i < WB_BLOCK; ++i) m = fminf(m, sg[i]);
+  float e = 0.0f;
+  for (int i = 0; i < WB_BLOCK; ++i) e += expf((m - sg[i]) * inv_lam);
+  *m_out = m;
+  *e_out = e;
+}
+
+// ---------------------------------------------------------------------------
+// LAYOUT_THREAD: one thread per sample
+// ---------------------------------------------------------------------------
+
 // Per-sample rollout + cost: the whole of pass 1 for sample k (global index
-// k_off + k).  With DRAW the sample's noise is drawn from Philox, and with
-// STORE also spilled to eps; without DRAW it is read from eps.  eps is
-// (A, H, K).
+// k_off + k), every recurrence carried in registers step by step.  With
+// DRAW the sample's noise is drawn from Philox, and with STORE also spilled
+// to eps; without DRAW it is read from eps.  eps is (A, H, K).
 template <int MODE, bool DRAW, bool STORE>
 __device__ __forceinline__ float sample_cost(const WbParams& p, const float* sc,
                              const float* u_prev, float* eps, int k, int k_off,
@@ -300,29 +462,7 @@ __device__ __forceinline__ float sample_cost(const WbParams& p, const float* sc,
         }
         thrust = w4[0];
         float tau[3] = {w4[1], w4[2], w4[3]};
-        if (p.couple) {
-          // Arm gravity moment about the base origin (base frame) at the
-          // initial attitude's gravity g_b: sum_j m_j (com_j(q) x g_b).
-          const float gx = sc[SC_GB], gy = sc[SC_GB + 1], gz = sc[SC_GB + 2];
-          Quat tq{1.f, 0.f, 0.f, 0.f};
-          float tp[3] = {0.f, 0.f, 0.f};
-#pragma unroll
-          for (int j = 0; j < WB_J; ++j) {
-            float r[3];
-            qrot(tq, p.ot[j], r);
-            tp[0] += r[0];
-            tp[1] += r[1];
-            tp[2] += r[2];
-            tq = qmul(tq, joint_quat(p.oq[j], qfk[j]));
-            float c[3];
-            qrot(tq, p.com[j], c);
-            const float px = tp[0] + c[0], py = tp[1] + c[1], pz = tp[2] + c[2];
-            const float m = p.link_mass[j];
-            tau[0] += m * (py * gz - pz * gy);
-            tau[1] += m * (pz * gx - px * gz);
-            tau[2] += m * (px * gy - py * gx);
-          }
-        }
+        if (p.couple) add_arm_moment(p, sc, qfk, tau);
 #pragma unroll
         for (int i = 0; i < 3; ++i) {
           xb[i] = p.rate_alpha * xb[i] + dt * tau[i] / p.inertia[i];
@@ -345,108 +485,29 @@ __device__ __forceinline__ float sample_cost(const WbParams& p, const float* sc,
       }
     }
 
-    // 7-joint quaternion FK from the base pose.
-    Quat tq = bq;
-    float tp[3] = {pos[0], pos[1], pos[2]};
-#pragma unroll
-    for (int j = 0; j < WB_J; ++j) {
-      float r[3];
-      qrot(tq, p.ot[j], r);
-      tp[0] += r[0];
-      tp[1] += r[1];
-      tp[2] += r[2];
-      tq = qmul(tq, joint_quat(p.oq[j], qfk[j]));
-    }
-
-    // ----- cost stack -----
-    const bool last = (t == H - 1);
-    const float ex = tp[0] - sc[SC_TPOS], ey = tp[1] - sc[SC_TPOS + 1],
-                ez = tp[2] - sc[SC_TPOS + 2];
-    const float dp = sqrtf(ex * ex + ey * ey + ez * ez);
-    // err = conj(tq) * target; geodesic angle 2 atan2(|vec|, |w|)
-    const float gw = sc[SC_TQUAT], gx = sc[SC_TQUAT + 1], gy = sc[SC_TQUAT + 2],
-                gz = sc[SC_TQUAT + 3];
-    const float ew = tq.w * gw + tq.x * gx + tq.y * gy + tq.z * gz;
-    const float evx = tq.w * gx - tq.x * gw - tq.y * gz + tq.z * gy;
-    const float evy = tq.w * gy + tq.x * gz - tq.y * gw - tq.z * gx;
-    const float evz = tq.w * gz - tq.x * gy + tq.y * gx - tq.z * gw;
-    const float dori = 2.0f * atan2f(sqrtf(evx * evx + evy * evy + evz * evz), fabsf(ew));
-    float c = (last ? p.w_pos_term : p.w_pos_stage) * dp +
-              (last ? p.w_ori_term : p.w_ori_stage) * dori;
-
-    if (p.w_base != 0.0f && !last) {
-      const float bx = pos[0] - sc[SC_BTGT], by = pos[1] - sc[SC_BTGT + 1],
-                  bz = pos[2] - sc[SC_BTGT + 2];
-      c += p.w_base * inv_h * (bx * bx + by * by + bz * bz);
-    }
-    if (p.w_att != 0.0f) {
-      const float r02 = 2.0f * (bq.x * bq.z + bq.w * bq.y);
-      const float r12 = 2.0f * (bq.y * bq.z - bq.w * bq.x);
-      c += p.w_att * inv_h * (r02 * r02 + r12 * r12);
-    }
-    if (p.w_omega != 0.0f)
-      c += p.w_omega * inv_h * (om[0] * om[0] + om[1] * om[1] + om[2] * om[2]);
-    if (p.w_vel != 0.0f)
-      c += p.w_vel * inv_h * (vel[0] * vel[0] + vel[1] * vel[1] + vel[2] * vel[2]);
-    if (p.w_action != 0.0f) {
-      float act = 0.0f;
-#pragma unroll
-      for (int a = 0; a < WB_A; ++a) act += v[a] * v[a];
-      c += p.w_action * gam * act;
-    }
-    if (p.w_jl != 0.0f) {
-      if (p.jl_soft) {
-        float vsq = 0.0f;
-#pragma unroll
-        for (int j = 0; j < WB_J; ++j) {
-          const float vj = fmaxf(p.q_lo[j] - q[j], 0.0f) + fmaxf(q[j] - p.q_hi[j], 0.0f);
-          vsq += vj * vj;
-        }
-        c += p.w_jl * 1e3f * gam * vsq;
-      } else {
-        bool out = false;
-#pragma unroll
-        for (int j = 0; j < WB_J; ++j) out = out || (q[j] < p.q_lo[j]) || (q[j] > p.q_hi[j]);
-        if (out) c += p.w_jl * 1e10f * gam;
-      }
-    }
-#pragma unroll
-    for (int o = 0; o < WB_MAX_OBS; ++o) {
-      if (o >= p.n_obs) break;
-      const float dx = tp[0] - p.obs[o][0], dy = tp[1] - p.obs[o][1],
-                  dz = tp[2] - p.obs[o][2];
-      const float pen = fmaxf(p.obs[o][3] - sqrtf(dx * dx + dy * dy + dz * dz), 0.0f);
-      c += p.w_obs * pen * pen;
-    }
-    total += c;
+    total += step_cost(p, sc, v, q, qfk, bq, pos, vel, om, gam, t == H - 1, inv_h);
     gam *= p.gamma;
   }
-  if (p.w_stop != 0.0f) {
-    const float sx = pos[0] + p.stop_horizon * vel[0] - sc[SC_BTGT];
-    const float sy = pos[1] + p.stop_horizon * vel[1] - sc[SC_BTGT + 1];
-    const float sz = pos[2] + p.stop_horizon * vel[2] - sc[SC_BTGT + 2];
-    total += p.w_stop * (sx * sx + sy * sy + sz * sz);
-  }
-  return total;
+  return total + stop_cost(p, sc, pos, vel);
 }
 
 template <int MODE, bool DRAW, bool STORE>
-__global__ void __launch_bounds__(WB_BLOCK)
-wb_cost_kernel(const WbParams p, const float* __restrict__ sc,
-               const float* __restrict__ u_prev, float* __restrict__ eps,
-               float* __restrict__ s, float* __restrict__ m_part,
-               float* __restrict__ e_part, const unsigned long long* __restrict__ seeds,
-               uint32_t step, int k_off) {
+__global__ void __launch_bounds__(WB_THREAD_BLOCK)
+wb_cost_thread_kernel(const WbParams p, const float* __restrict__ sc,
+                      const float* __restrict__ u_prev, float* __restrict__ eps,
+                      float* __restrict__ s, float* __restrict__ m_part,
+                      float* __restrict__ e_part, const unsigned long long* __restrict__ seeds,
+                      uint32_t step, int k_off) {
   // Scenario b's slabs: sc (SC_LEN), u_prev (H, A), eps (A, H, K), s (K),
-  // partials (n_blocks).
+  // partials (K / WB_BLOCK).
   const int b = blockIdx.y;
-  const int n_blocks = gridDim.x;
+  const int n_groups = p.k / WB_BLOCK;
   sc += (size_t)b * SC_LEN;
   u_prev += (size_t)b * p.h * WB_A;
   if (eps) eps += (size_t)b * WB_A * p.h * p.k;
   s += (size_t)b * p.k;
-  m_part += (size_t)b * n_blocks;
-  e_part += (size_t)b * n_blocks;
+  m_part += (size_t)b * n_groups;
+  e_part += (size_t)b * n_groups;
 
   extern __shared__ float smem[];  // [SC_LEN scalars | H * A warm start]
   float* sc_sm = smem;
@@ -457,24 +518,281 @@ wb_cost_kernel(const WbParams p, const float* __restrict__ sc,
 
   uint32_t key0 = 0u, key1 = 0u;
   if (DRAW) philox_key(seeds, b, key0, key1);
-  const int k = blockIdx.x * WB_BLOCK + threadIdx.x;
-  const float cost =
-      sample_cost<MODE, DRAW, STORE>(p, sc_sm, u_sm, eps, k, k_off, key0, key1, step);
+  // K is a multiple of WB_THREAD_BLOCK here, so no bounds test wraps the
+  // body: on the H100 one cost 28 registers (96 -> 124) and 4% of the
+  // time at 256 scenarios.
+  const int k = blockIdx.x * WB_THREAD_BLOCK + threadIdx.x;
+  __shared__ float s_blk[WB_THREAD_BLOCK];
+  const float cost = sample_cost<MODE, DRAW, STORE>(p, sc_sm, u_sm, eps, k, k_off, key0, key1,
+                                                    step);
   s[k] = cost;
-
-  // Per-block softmin partials: m = min S, e = sum exp((m - S) / lambda),
-  // reduced in a fixed order (deterministic).
-  __shared__ float s_blk[WB_BLOCK];
   s_blk[threadIdx.x] = cost;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float m = s_blk[0];
-    for (int i = 1; i < WB_BLOCK; ++i) m = fminf(m, s_blk[i]);
-    float e = 0.0f;
-    for (int i = 0; i < WB_BLOCK; ++i) e += expf((m - s_blk[i]) * p.inv_lam);
-    m_part[blockIdx.x] = m;
-    e_part[blockIdx.x] = e;
+  if (threadIdx.x < WB_THREAD_BLOCK / WB_BLOCK) {
+    const int g = blockIdx.x * (WB_THREAD_BLOCK / WB_BLOCK) + threadIdx.x;
+    group_partials(s_blk + threadIdx.x * WB_BLOCK, p.inv_lam, m_part + g, e_part + g);
   }
+}
+
+// ---------------------------------------------------------------------------
+// LAYOUT_LANES: one warp per sample, the horizon across its lanes
+// ---------------------------------------------------------------------------
+
+// x_t = A x_{t-1} + y_t for a 2-state linear system, ap[i] = A^(2^i): the
+// 2x2 form of scan_affine.
+__device__ __forceinline__ void scan_affine2(float& y0, float& y1, const float (*ap)[4],
+                                             int lane) {
+#pragma unroll
+  for (int i = 0; i < WARP_SCAN; ++i) {
+    const float o0 = __shfl_up_sync(FULL_MASK, y0, 1 << i);
+    const float o1 = __shfl_up_sync(FULL_MASK, y1, 1 << i);
+    if (lane >= (1 << i)) {
+      y0 += ap[i][0] * o0 + ap[i][1] * o1;
+      y1 += ap[i][2] * o0 + ap[i][3] * o1;
+    }
+  }
+}
+
+// The prefix product q_0 q_1 ... q_t over the lanes, earlier factors on
+// the left (Hillis-Steele, the TPU kernel's _quat_prefix_scan).
+__device__ __forceinline__ Quat scan_qmul(Quat q, int lane) {
+#pragma unroll
+  for (int i = 0; i < WARP_SCAN; ++i) {
+    const Quat o{__shfl_up_sync(FULL_MASK, q.w, 1 << i), __shfl_up_sync(FULL_MASK, q.x, 1 << i),
+                 __shfl_up_sync(FULL_MASK, q.y, 1 << i), __shfl_up_sync(FULL_MASK, q.z, 1 << i)};
+    if (lane >= (1 << i)) q = qmul(o, q);
+  }
+  return q;
+}
+
+// One 2-state axis response over a chunk: y = B u per lane, the carry-in
+// A x entering at lane 0; x = (xa, xb) becomes the chunk's last state.
+__device__ __forceinline__ void axis_scan(const WbParams& p, int i, float u, int lane,
+                                          float& xa, float& xb, float& ya, float& yb) {
+  ya = p.ax_b[i][0] * u;
+  yb = p.ax_b[i][1] * u;
+  if (lane == 0) {
+    ya += p.ax_a[i][0] * xa + p.ax_a[i][1] * xb;
+    yb += p.ax_a[i][2] * xa + p.ax_a[i][3] * xb;
+  }
+  scan_affine2(ya, yb, p.ax_pow[i], lane);
+  xa = from_last(ya);
+  xb = from_last(yb);
+}
+
+// Rotor lag x_t = alpha x_{t-1} + (1 - alpha) u_t over a chunk, the lag
+// starting at the first command (carry = u_0 before the first chunk).
+__device__ __forceinline__ float lag_scan(const WbParams& p, float u, int lane, int t0,
+                                          float& carry) {
+  if (t0 == 0) carry = __shfl_sync(FULL_MASK, u, 0);
+  float y = (1.0f - p.lag_alpha) * u;
+  if (lane == 0) y += p.lag_alpha * carry;
+  y = scan_affine(y, p.lag_pow, lane);
+  carry = from_last(y);
+  return y;
+}
+
+// Pass 1 with one warp per sample: block = WB_BLOCK warps = WB_BLOCK
+// consecutive samples = one softmin partial group.  Warp w of block g
+// takes sample k = g * WB_BLOCK + w (global index k_off + k) and walks its
+// horizon in chunks of WARP_LANES steps, lane = step within the chunk.
+// Two blocks per SM (64 registers, a few spills) hide the shuffles' and
+// draws' latency better than one block at ~105-120 registers (faster on
+// the H100 at one scenario in every variant).
+template <int MODE, bool DRAW, bool STORE>
+__global__ void __launch_bounds__(WB_BLOCK * WARP_LANES, 2)
+wb_cost_lanes_kernel(const WbParams p, const float* __restrict__ sc,
+                     const float* __restrict__ u_prev, float* __restrict__ eps,
+                     float* __restrict__ s, float* __restrict__ m_part,
+                     float* __restrict__ e_part, const unsigned long long* __restrict__ seeds,
+                     uint32_t step, int k_off) {
+  constexpr int LD = WB_BLOCK + 1;  // stage row pitch (a column read is conflict-free)
+  const int b = blockIdx.y, n_groups = gridDim.x;
+  const int H = p.h, K = p.k;
+  sc += (size_t)b * SC_LEN;
+  u_prev += (size_t)b * H * WB_A;
+  if (eps) eps += (size_t)b * WB_A * H * K;
+  s += (size_t)b * K;
+  m_part += (size_t)b * n_groups;
+  e_part += (size_t)b * n_groups;
+
+  // [SC_LEN scalars | H * A warm start | the chunk's noise, A * 32 rows of
+  // LD (spill or explicit noise only)]
+  extern __shared__ float smem[];
+  float* sc_sm = smem;
+  float* u_sm = smem + SC_LEN;
+  float* stage = u_sm + H * WB_A;
+  __shared__ float s_grp[WB_BLOCK];
+  for (int i = threadIdx.x; i < SC_LEN; i += blockDim.x) sc_sm[i] = sc[i];
+  for (int i = threadIdx.x; i < H * WB_A; i += blockDim.x) u_sm[i] = u_prev[i];
+  __syncthreads();
+
+  const int lane = threadIdx.x & (WARP_LANES - 1), w = threadIdx.x / WARP_LANES;
+  const int k0 = blockIdx.x * WB_BLOCK, k = k0 + w;
+  uint32_t key0 = 0u, key1 = 0u;
+  if (DRAW) philox_key(seeds, b, key0, key1);
+  const float dt = p.dt, inv_h = 1.0f / (float)H;
+
+  // Each recurrence's state at the end of the previous chunk (the same in
+  // every lane; lane 0 takes it in).
+  float qc[WB_J], qdc[WB_J];
+#pragma unroll
+  for (int j = 0; j < WB_J; ++j) {
+    qc[j] = sc_sm[SC_Q0 + j];
+    qdc[j] = sc_sm[SC_QD0 + j];
+  }
+  float xa[3], xb[3];  // axis responses: (rpy, omega) / (p, v); wrench: xb = rates
+  float wv[3], pc[3];  // velocity / dt (the drag-decayed acceleration sum), position
+  float prev_rpy[3];   // position mode: the previous step's rpy
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    pc[i] = sc_sm[SC_POS0 + i];
+    wv[i] = sc_sm[SC_VEL0 + i] / dt;
+    prev_rpy[i] = 0.0f;
+    xa[i] = MODE == MODE_ATTITUDE ? sc_sm[SC_RPY0 + i] : sc_sm[SC_POS0 + i];
+    xb[i] = MODE == MODE_POSITION ? sc_sm[SC_VEL0 + i] : sc_sm[SC_OM0 + i];
+  }
+  Quat bqc{sc_sm[SC_BQ0], sc_sm[SC_BQ0 + 1], sc_sm[SC_BQ0 + 2], sc_sm[SC_BQ0 + 3]};
+  float lagc[4] = {0.f, 0.f, 0.f, 0.f};
+  float gl = 1.0f;  // gamma^lane, by the thread layout's repeated product
+  for (int i = 0; i < lane; ++i) gl *= p.gamma;
+  const float g32 = from_last(gl) * p.gamma;
+  float gamc = 1.0f;  // gamma^t0
+  float total = 0.0f;
+
+  for (int t0 = 0; t0 < H; t0 += WARP_LANES) {
+    const int t = t0 + lane, nt = min(WARP_LANES, H - t0);
+    const bool active = t < H;
+    // The idle lanes of a partial chunk run step H - 1 again: no branch
+    // splits the lanes' draws or scans (the 11 draws interleave), and what
+    // they compute reaches no busy lane.
+    const int tt = active ? t : H - 1;
+
+    if (!DRAW) {  // the block's explicit noise for this chunk, as runs of WB_BLOCK samples
+      for (int i = threadIdx.x; i < WB_A * nt * WB_BLOCK; i += blockDim.x) {
+        const int g = i % WB_BLOCK, r = i / WB_BLOCK, a = r / nt, tl = r - a * nt;
+        stage[(a * WARP_LANES + tl) * LD + g] = eps[(size_t)(a * H + t0 + tl) * K + k0 + g];
+      }
+      __syncthreads();
+    }
+    float v[WB_A];
+#pragma unroll
+    for (int a = 0; a < WB_A; ++a) {
+      float e;
+      if (DRAW) {
+        e = draw_eps(step, (uint32_t)(k_off + k), (uint32_t)(a * H + tt), sc_sm[SC_SIGMA + a],
+                     key0, key1);
+        if (STORE && active) stage[(a * WARP_LANES + lane) * LD + w] = e;
+      } else {
+        e = active ? stage[(a * WARP_LANES + lane) * LD + w] : 0.0f;
+      }
+      v[a] = u_sm[tt * WB_A + a] + e;
+    }
+    if (STORE || !DRAW) __syncthreads();  // stage full (spill) or read (explicit noise)
+    if (STORE) {  // the chunk's spill, as runs of WB_BLOCK samples
+      for (int i = threadIdx.x; i < WB_A * nt * WB_BLOCK; i += blockDim.x) {
+        const int g = i % WB_BLOCK, r = i / WB_BLOCK, a = r / nt, tl = r - a * nt;
+        eps[(size_t)(a * H + t0 + tl) * K + k0 + g] = stage[(a * WARP_LANES + tl) * LD + g];
+      }
+      __syncthreads();  // the next chunk rewrites stage
+    }
+
+    // Arm: double integration of qddot (two prefix sums), clamped copy.
+    float q[WB_J], qfk[WB_J];
+#pragma unroll
+    for (int j = 0; j < WB_J; ++j) {
+      const float acc = v[4 + j];
+      const float qd = scan_add(lane == 0 ? qdc[j] + acc * dt : acc * dt, lane);
+      float qd_prev = __shfl_up_sync(FULL_MASK, qd, 1);
+      if (lane == 0) qd_prev = qdc[j];
+      const float inc = qd_prev * dt + 0.5f * acc * dt * dt;
+      q[j] = scan_add(lane == 0 ? qc[j] + inc : inc, lane);
+      qfk[j] = fminf(fmaxf(q[j], p.q_lo[j]), p.q_hi[j]);
+      qdc[j] = from_last(qd);
+      qc[j] = from_last(q[j]);
+    }
+
+    float om[3], pos[3], vel[3], thrust = 0.0f;
+    Quat bq;
+    if (MODE == MODE_POSITION) {
+      float acc[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const float sp = sc_sm[SC_POS0 + i] + v[i];  // absolute setpoint
+        axis_scan(p, i, sp, lane, xa[i], xb[i], pos[i], vel[i]);
+        acc[i] = p.ax_kp[i] * (sp - pos[i]) - p.ax_kd[i] * vel[i];
+      }
+      const float inv_g = 0.1019367991845056f;  // 1 / 9.81
+      const float rpy[3] = {-acc[1] * inv_g, acc[0] * inv_g, v[3]};
+      bq = quat_from_rpy(rpy[0], rpy[1], rpy[2]);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        float pr = __shfl_up_sync(FULL_MASK, rpy[i], 1);
+        if (lane == 0) pr = prev_rpy[i];
+        om[i] = t == 0 ? 0.0f : (rpy[i] - pr) / dt;
+        prev_rpy[i] = from_last(rpy[i]);
+      }
+    } else {
+      if (MODE == MODE_ATTITUDE) {
+        thrust = p.rotor_lag ? lag_scan(p, v[0], lane, t0, lagc[0]) : v[0];
+        float rpy[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) axis_scan(p, i, v[1 + i], lane, xa[i], xb[i], rpy[i], om[i]);
+        bq = quat_from_rpy(rpy[0], rpy[1], rpy[2]);
+      } else {  // MODE_WRENCH
+        float w4[4] = {v[0], v[1], v[2], v[3]};
+        if (p.rotor_lag) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) w4[i] = lag_scan(p, v[i], lane, t0, lagc[i]);
+        }
+        thrust = w4[0];
+        float tau[3] = {w4[1], w4[2], w4[3]};
+        if (p.couple) add_arm_moment(p, sc_sm, qfk, tau);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {  // rate damping
+          float y = dt * tau[i] / p.inertia[i];
+          if (lane == 0) y += p.rate_alpha * xb[i];
+          om[i] = scan_affine(y, p.rate_pow, lane);
+          xb[i] = from_last(om[i]);
+        }
+        Quat r = quat_from_rotvec(om[0] * dt, om[1] * dt, om[2] * dt);
+        if (lane == 0) r = qmul(bqc, r);
+        bq = scan_qmul(r, lane);
+        bqc = Quat{from_last(bq.w), from_last(bq.x), from_last(bq.y), from_last(bq.z)};
+      }
+      // Thrust along body z -> acceleration -> drag-decayed velocity
+      // vel_t = dt w_t, w_t = drag w_{t-1} + acc_t (w = v0 / dt before the
+      // first step) -> position, a prefix sum of dt vel.
+      const float zx = 2.0f * (bq.x * bq.z + bq.w * bq.y);
+      const float zy = 2.0f * (bq.y * bq.z - bq.w * bq.x);
+      const float zz = 1.0f - 2.0f * (bq.x * bq.x + bq.y * bq.y);
+      const float acc[3] = {zx * thrust / p.mass, zy * thrust / p.mass,
+                            zz * thrust / p.mass - 9.81f};
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const float wi = scan_affine(lane == 0 ? acc[i] + p.drag_alpha * wv[i] : acc[i],
+                                     p.drag_pow, lane);
+        vel[i] = dt * wi;
+        pos[i] = scan_add(lane == 0 ? pc[i] + dt * vel[i] : dt * vel[i], lane);
+        wv[i] = from_last(wi);
+        pc[i] = from_last(pos[i]);
+      }
+    }
+
+    const bool last = t == H - 1;
+    float c = step_cost(p, sc_sm, v, q, qfk, bq, pos, vel, om, gamc * gl, last, inv_h);
+    if (last) c += stop_cost(p, sc_sm, pos, vel);
+    if (active) total += c;
+    gamc *= g32;
+  }
+
+  total = warp_sum(total);
+  if (lane == 0) {
+    s[k] = total;
+    s_grp[w] = total;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) group_partials(s_grp, p.inv_lam, m_part + blockIdx.x, e_part + blockIdx.x);
 }
 
 // The softmin normalizers of scenario b, computed by each warp on its own
@@ -642,14 +960,22 @@ wb_update_kernel(const float* __restrict__ eps, const float* __restrict__ s,
 }
 
 template <int MODE, bool DRAW, bool STORE>
-static void launch_cost(const WbParams& p, int n_scen, const float* sc, const float* u_prev,
-                        float* eps, float* s, float* m_part, float* e_part,
+static void launch_cost(const WbParams& p, int layout, int n_scen, const float* sc,
+                        const float* u_prev, float* eps, float* s, float* m_part, float* e_part,
                         const unsigned long long* seeds, uint32_t step, int k_off,
                         cudaStream_t stream) {
-  const size_t smem = (size_t)(SC_LEN + p.h * WB_A) * sizeof(float);
-  const dim3 grid(p.k / WB_BLOCK, n_scen);
-  wb_cost_kernel<MODE, DRAW, STORE><<<grid, WB_BLOCK, smem, stream>>>(
-      p, sc, u_prev, eps, s, m_part, e_part, seeds, step, k_off);
+  const size_t warm = (size_t)(SC_LEN + p.h * WB_A) * sizeof(float);
+  if (layout == LAYOUT_LANES) {
+    const size_t stage =
+        STORE || !DRAW ? (size_t)WB_A * WARP_LANES * (WB_BLOCK + 1) * sizeof(float) : 0;
+    const dim3 grid(p.k / WB_BLOCK, n_scen);
+    wb_cost_lanes_kernel<MODE, DRAW, STORE><<<grid, WB_BLOCK * WARP_LANES, warm + stage, stream>>>(
+        p, sc, u_prev, eps, s, m_part, e_part, seeds, step, k_off);
+  } else {
+    const dim3 grid(p.k / WB_THREAD_BLOCK, n_scen);
+    wb_cost_thread_kernel<MODE, DRAW, STORE><<<grid, WB_THREAD_BLOCK, warm, stream>>>(
+        p, sc, u_prev, eps, s, m_part, e_part, seeds, step, k_off);
+  }
 }
 
 extern "C" {
@@ -657,16 +983,20 @@ extern "C" {
 // Pass 1 over n_scen scenarios.  variant 0: eps is read (explicit noise);
 // 1: Philox noise, spilled to eps (out); 2: Philox noise, not stored (eps
 // may be NULL).  seeds: the n_scen scenarios' keys (unused by variant 0).
-// Returns cudaGetLastError() after the launch.
+// layout: LAYOUT_LANES (K a multiple of WB_BLOCK) or LAYOUT_THREAD (K a
+// multiple of WB_THREAD_BLOCK).  Returns cudaGetLastError() after the
+// launch.
 int wb_cost_launch(const WbParams* p, const float* sc, const float* u_prev, float* eps,
                    float* s, float* m_part, float* e_part,
                    const unsigned long long* seeds, unsigned int step, int k_off,
-                   int variant, int n_scen, void* stream) {
+                   int variant, int n_scen, int layout, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define WB_COST_CASE(M, V, D, S)                                                      \
-  case (M) * 3 + (V):                                                                 \
-    launch_cost<M, D, S>(*p, n_scen, sc, u_prev, eps, s, m_part, e_part, seeds, step, \
-                         k_off, st);                                                  \
+  if (layout != LAYOUT_LANES && (layout != LAYOUT_THREAD || p->k % WB_THREAD_BLOCK))
+    return (int)cudaErrorInvalidValue;
+#define WB_COST_CASE(M, V, D, S)                                                            \
+  case (M) * 3 + (V):                                                                       \
+    launch_cost<M, D, S>(*p, layout, n_scen, sc, u_prev, eps, s, m_part, e_part, seeds,     \
+                         step, k_off, st);                                                  \
     break;
   switch (p->mode * 3 + variant) {
     WB_COST_CASE(MODE_ATTITUDE, 0, false, false)
@@ -683,6 +1013,7 @@ int wb_cost_launch(const WbParams* p, const float* sc, const float* u_prev, floa
 #undef WB_COST_CASE
   return (int)cudaGetLastError();
 }
+
 
 // Pass 2 over n_scen scenarios, rows = A*H, rows_per_block (R) of them per
 // block: ceil(rows / R) blocks per scenario.  regen != 0: draw the noise

@@ -6,7 +6,8 @@ two-pass solve :func:`solve_drone_cuda`, the counterpart of
 
 * pass 1 draws the noise in the kernel (Philox) or reads explicit
   sigma-scaled noise (K, H, A), double-integrates u_prev + eps per sample
-  and writes the per-sample cost S (K,);
+  and writes the per-sample cost S (K,): one warp per sample, the horizon
+  across its lanes, the integrations as warp scans;
 * between the passes PyTorch forms the softmin weights w (K,);
 * pass 2 reduces du = sum_k w_k eps_k (H, A), drawing the same noise again
   or reading it;
@@ -56,6 +57,9 @@ from . import build
 Tensor = torch.Tensor
 
 _SMEM_LIMIT = 48 * 1024   # default dynamic shared memory per block
+COST_WARPS = 4            # samples (one warp each) per drone_cost block (DRONE_COST_WARPS)
+WARP_LANES = 32           # horizon steps per drone_cost chunk (WARP_LANES)
+UPDATE_THREADS = 256      # threads per drone_update block (DRONE_UPDATE_THREADS)
 
 
 @functools.lru_cache(maxsize=None)

@@ -6,9 +6,12 @@ batched paths.  Per solve, two launches of ``csrc/whole_body_kernel.cu``:
 
 * pass 1 draws the noise (Philox) or reads explicit noise, rolls out base
   + arm, runs the 7-joint FK and the whole cost stack, and writes the
-  per-sample cost S and per-block softmin partials (min, sum exp):
-  :func:`wb_cost` spills the drawn noise to device memory as (A, H, K),
-  :func:`wb_cost_nospill` keeps it in registers only;
+  per-sample cost S and the softmin partials (min, sum exp) per group of
+  :data:`BLOCK` consecutive samples: :func:`wb_cost` spills the drawn noise
+  to device memory as (A, H, K), :func:`wb_cost_nospill` keeps it in
+  registers only.  It has two layouts, one warp per sample with the
+  horizon across the lanes ("lanes") and one thread per sample
+  ("thread"); :func:`cost_layout` picks one by shape;
 * pass 2 forms the softmin weights and reduces the weighted noise sum du
   and the weighted second moment per (action, step) row: :func:`wb_update`
   reads the spilled noise and :func:`wb_update_regen` draws it again, both
@@ -75,7 +78,23 @@ from . import build
 Tensor = torch.Tensor
 
 A_TOTAL = 4 + kinova.N_JOINTS  # 11
-BLOCK = 64                     # samples per wb_cost block (WB_BLOCK)
+BLOCK = 16                     # samples per softmin partial = warps per lane-layout block (WB_BLOCK)
+THREAD_BLOCK = 64              # samples per thread-layout block (WB_THREAD_BLOCK)
+WARP_LANES = 32                # horizon steps per lane-layout chunk (WARP_LANES)
+SCAN_STEPS = 5                 # shuffle steps of a warp scan (WARP_SCAN, WB_SCAN)
+# wb_cost's layouts (LAYOUT_* in the CUDA source).  The lane layout puts a
+# sample's horizon across a warp; the thread layout runs a sample per
+# thread.  The launcher takes the lane layout up to COST_LANE_MAX_SAMPLES
+# samples per launch (scenarios x K), from timings of both layouts on the
+# H100 (chip_smoke.py phase 14): with the draws (the main paths' variants)
+# the lane layout is the faster one at K=4096 up to 4 scenarios and the
+# slower one from 8 (1.7x at 16, 1.9x at 256).  One limit for every variant
+# keeps a batch of up to 4 scenarios on the layout of an unbatched solve,
+# so their costs agree bit for bit.
+COST_LAYOUTS = {"thread": 0, "lanes": 1}
+COST_LANE_MAX_SAMPLES = 4 * 4096
+# The lane layout's shared-memory noise stage: A x 32 rows of BLOCK + 1 floats.
+_LANE_STAGE_BYTES = A_TOTAL * WARP_LANES * (BLOCK + 1) * 4
 MAX_OBSTACLES = 16             # WB_MAX_OBS
 MODES = {"attitude": 0, "position": 1, "wrench": 2}
 _SMEM_LIMIT = 48 * 1024        # default dynamic shared memory per block
@@ -123,6 +142,8 @@ class WbParams(ctypes.Structure):
            "w_base", "w_att", "w_omega", "w_vel", "w_action", "w_jl", "gamma",
            "w_obs", "w_stop", "stop_horizon")],
         ("obs", (_F * 4) * MAX_OBSTACLES),
+        ("ax_pow", ((_F * 4) * SCAN_STEPS) * 3),
+        *[(n, _F * SCAN_STEPS) for n in ("lag_pow", "drag_pow", "rate_pow")],
     ]
 
 
@@ -142,6 +163,15 @@ class WbKernelConfig:
 def _fill(arr, values) -> None:
     for i, v in enumerate(values):
         arr[i] = float(v)
+
+
+def scan_powers(m) -> list:
+    """m^(2^i) for i < SCAN_STEPS, by repeated squaring in float64: the step
+    maps of the lane layout's warp scans (a scalar or a square matrix)."""
+    out = [np.asarray(m, dtype=np.float64)]
+    for _ in range(SCAN_STEPS - 1):
+        out.append(out[-1] @ out[-1] if out[-1].ndim else out[-1] * out[-1])
+    return out
 
 
 def make_kernel_config(params, n_local_samples: Optional[int] = None) -> WbKernelConfig:
@@ -176,7 +206,7 @@ def make_kernel_config(params, n_local_samples: Optional[int] = None) -> WbKerne
         raise ValueError("fused kernel expects revolute +z joints and an identity tip")
     if len(cp.obstacle_centers) > MAX_OBSTACLES:
         raise ValueError(f"fused kernel carries at most {MAX_OBSTACLES} obstacles")
-    if (SC_LEN + h * A_TOTAL) * 4 > _SMEM_LIMIT:
+    if (SC_LEN + h * A_TOTAL) * 4 + _LANE_STAGE_BYTES > _SMEM_LIMIT:
         raise ValueError("horizon too long for the kernel's shared-memory warm start")
 
     s = WbParams()
@@ -201,6 +231,11 @@ def make_kernel_config(params, n_local_samples: Optional[int] = None) -> WbKerne
         _fill(s.ax_a[i], a.ravel())
         _fill(s.ax_b[i], b)
         s.ax_kp[i], s.ax_kd[i] = kp, kd
+        for j, m in enumerate(scan_powers(np.reshape(s.ax_a[i], (2, 2)))):
+            _fill(s.ax_pow[i][j], m.ravel())
+    for name, c in (("lag_pow", s.lag_alpha), ("drag_pow", s.drag_alpha),
+                    ("rate_pow", s.rate_alpha)):
+        _fill(getattr(s, name), scan_powers(c))
     _fill(s.q_lo, spec.lower)
     _fill(s.q_hi, spec.upper)
     inertials = mp.inertials()
@@ -272,7 +307,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load_library("whole_body_kernel")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.wb_cost_launch.argtypes = [ctypes.POINTER(WbParams), vp, vp, vp, vp, vp, vp, vp,
-                                   ctypes.c_uint32, ci, ci, ci, vp]
+                                   ctypes.c_uint32, ci, ci, ci, ci, vp]
     lib.wb_cost_launch.restype = ci
     lib.wb_update_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, ctypes.c_uint32, ci, ci,
                                      ci, ci, ci, ctypes.c_float, ci, ci, vp, vp, vp]
@@ -307,11 +342,29 @@ def _n_scen(lead) -> int:
     return lead[0] if lead else 1
 
 
+def cost_layout(n_scen: int, n_samples: int) -> str:
+    """wb_cost's layout for a launch of ``n_scen`` scenarios of
+    ``n_samples`` samples: "lanes" up to :data:`COST_LANE_MAX_SAMPLES`
+    samples in all, where one warp per sample still leaves the card short of
+    work for the thread layout, and for any K the thread layout does not
+    take (not a multiple of :data:`THREAD_BLOCK`); "thread" otherwise."""
+    if n_scen * n_samples <= COST_LANE_MAX_SAMPLES or n_samples % THREAD_BLOCK:
+        return "lanes"
+    return "thread"
+
+
 def _launch_cost(kc: WbKernelConfig, name: str, sc: Tensor, u_prev: Tensor,
                  eps: Optional[Tensor], seeds: Optional[Tensor], step: int, k_off: int,
-                 variant: int):
+                 variant: int, layout: Optional[str] = None):
+    """One wb_cost launch; ``layout`` overrides :func:`cost_layout` (for
+    timing each layout)."""
     k, h, dev = kc.n_samples, kc.n_horizon, sc.device
     lead = tuple(sc.shape[:-1])
+    layout = layout or cost_layout(_n_scen(lead), k)
+    if layout not in COST_LAYOUTS:
+        raise ValueError(f"layout must be one of {sorted(COST_LAYOUTS)}, got {layout!r}")
+    if layout == "thread" and k % THREAD_BLOCK:
+        raise ValueError(f"the thread layout takes K a multiple of {THREAD_BLOCK}, got {k}")
     _check(sc, lead + (SC_LEN,), dev, "sc")
     _check(u_prev, lead + (h, A_TOTAL), dev, "u_prev")
     if variant == 1:
@@ -325,7 +378,7 @@ def _launch_cost(kc: WbKernelConfig, name: str, sc: Tensor, u_prev: Tensor,
     rc = _lib().wb_cost_launch(
         ctypes.byref(kc.struct), sc.data_ptr(), u_prev.data_ptr(), _ptr(eps), s.data_ptr(),
         m_part.data_ptr(), e_part.data_ptr(), keys, int(step) & _U32, int(k_off), variant,
-        _n_scen(lead), torch.cuda.current_stream(dev).cuda_stream,
+        _n_scen(lead), COST_LAYOUTS[layout], torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, name)
     return s, m_part, e_part, eps
@@ -387,8 +440,8 @@ def _launch_update(kc: WbKernelConfig, name: str, s: Tensor, eps: Optional[Tenso
 def wb_cost(kc: WbKernelConfig, sc: Tensor, u_prev: Tensor, eps: Optional[Tensor] = None,
             seeds: Optional[Tensor] = None, step: int = 0,
             k_off: int = 0) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Pass 1 (rows 1 and 2).  Returns (S (K,), block minima (n_blocks,),
-    block sums of exp((m - S)/lambda) (n_blocks,), eps (A, H, K)), each
+    """Pass 1 (rows 1 and 2).  Returns (S (K,), group minima (n_blocks,),
+    group sums of exp((m - S)/lambda) (n_blocks,), eps (A, H, K)), each
     with the batch's leading axis.  With ``eps=None`` the noise is the
     Philox stream of (seeds, step) at global samples k_off + k, scaled by
     the packed sigma, and is returned; otherwise ``eps`` is read."""
@@ -406,7 +459,7 @@ wb_cost.launches = 0
 def wb_cost_nospill(kc: WbKernelConfig, sc: Tensor, u_prev: Tensor, seeds: Tensor,
                     step: int = 0, k_off: int = 0) -> Tuple[Tensor, Tensor, Tensor]:
     """Pass 1 without the noise spill (row 4): :func:`wb_cost`'s Philox
-    variant, returning (S, block minima, block sums) and writing no noise;
+    variant, returning (S, group minima, group sums) and writing no noise;
     pass 2 draws it again (:func:`wb_update_regen`,
     :func:`wb_update_shard_regen`)."""
     if sc.device.type == "cpu":
@@ -423,7 +476,7 @@ wb_cost_nospill.launches = 0
 def wb_update(kc: WbKernelConfig, eps: Tensor, s: Tensor, m_part: Tensor,
               e_part: Tensor) -> Tuple[Tensor, Tensor]:
     """Pass 2 (row 3).  Softmin weights w = exp((rho - S)/lambda)/eta from
-    the block partials; returns (du, m2), each (A*H,) over the rows (a, t)
+    the group partials; returns (du, m2), each (A*H,) over the rows (a, t)
     of eps: du = sum_k w_k eps_k and m2 = sum_k w_k eps_k^2."""
     if eps.device.type == "cpu":
         return wb_update_plain(kc, eps, s, m_part, e_part)
@@ -504,8 +557,8 @@ def wb_cost_plain(kc: WbKernelConfig, sc: Tensor, u_prev: Tensor,
                   eps: Optional[Tensor] = None, seeds: Optional[Tensor] = None,
                   step: int = 0, k_off: int = 0) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Plain version of :func:`wb_cost`: the operator-form rollout and cost
-    stack of ``solver/whole_body`` on v = u_prev + eps, then the per-block
-    softmin partials; one scenario at a time."""
+    stack of ``solver/whole_body`` on v = u_prev + eps, then the softmin
+    partials per group of :data:`BLOCK` samples; one scenario at a time."""
     from ...solver.whole_body import rollout_cost_fns
 
     if eps is None:
@@ -531,7 +584,7 @@ def wb_cost_nospill_plain(kc: WbKernelConfig, sc: Tensor, u_prev: Tensor, seeds:
 
 def softmin_normalizers(kc: WbKernelConfig, m_part: Tensor, e_part: Tensor,
                         group=None) -> Tensor:
-    """(rho, eta) (2,) per scenario from the block partials:
+    """(rho, eta) (2,) per scenario from the group partials:
     rho = min_i m_i, eta = sum_i e_i exp((rho - m_i)/lambda).  With a
     ``torch.distributed`` sample ``group``, over every rank's partials in
     the JAX order: all-reduce MIN of rho, then SUM of eta (which needs the

@@ -362,3 +362,116 @@ def test_nospill_step_equals_spill_step(mode):
         step = wk.make_whole_body_cuda_step(params, dev, noise_spill=spill)
         u[spill], _ = step(state, obs)
     assert _rel(u[False], u[True]) <= 1e-6
+
+
+# wb_cost's two layouts at chunk edges and partial chunks of the lane
+# layout (H of 1, 7, 32, 33, 50, 100), every K of the main paths' kind
+# (64; K_local=2048 at a sample offset; 4096) and B of 1 and 3:
+# (H, K, k_off, B).
+COST_CASES = [(1, 64, 0, 1), (7, 64, 0, 3), (32, 2048, 64, 1), (33, 64, 0, 3),
+              (50, 4096, 0, 1), (50, 2048, 2048, 3), (100, 64, 0, 1)]
+COST_VARIANTS = (1, 2, 0)  # wb_cost_launch: spill, no spill, explicit noise (reads the spill)
+
+
+def _cost_inputs(dev, mode, h, k, b):
+    p = PRESETS[mode]()
+    import dataclasses
+
+    params = dataclasses.replace(p, mppi=dataclasses.replace(
+        p.mppi, n_samples=k, n_horizon=h, savgol_window=p.mppi.savgol_window if h >= 9 else 0))
+    kc = wk.make_kernel_config(params)
+    _, init = wb.make_whole_body_solver(params, device=dev, low_k_guard="off",
+                                        n_scenarios=None if b == 1 else b)
+    state = init(4)
+    obs = wb.default_obs(device=dev) if b == 1 else _three_scenarios(dev)
+    sigma = state.sigma
+    if params.mppi.sigma_scale_fn is not None:
+        sigma = sigma * params.mppi.sigma_scale_fn(obs)
+    return kc, wk.pack_scalars(obs, sigma), state.u_prev, wk.philox_keys(state.seed, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,k,k_off,b", COST_CASES)
+@pytest.mark.parametrize("mode", sorted(PRESETS))
+def test_wb_cost_layouts_match_plain_and_rerun_bit_equal(mode, h, k, k_off, b):
+    """Each layout and variant of wb_cost against the plain version (S
+    within 1e-4: recurrence or scan against the operator form), the spill
+    bit-equal to philox_eps and between the layouts, the no-spill and
+    explicit-noise costs bit-equal to the spill variant's, every launch
+    bit-equal on a rerun; the wrappers launch once each."""
+    dev = _card()
+    kc, sc, u_prev, seeds = _cost_inputs(dev, mode, h, k, b)
+    step = 7
+    s_p, m_p, _, eps_p = wk.wb_cost_plain(kc, sc, u_prev, None, seeds, step, k_off)
+    spills, costs = {}, {}
+    for layout in wk.COST_LAYOUTS:
+        for variant in COST_VARIANTS:
+            def launch():
+                return wk._launch_cost(kc, "wb_cost", sc, u_prev,
+                                       spills[layout] if variant == 0 else None,
+                                       seeds if variant else None, step, k_off, variant, layout)
+
+            got, again = launch(), launch()
+            torch.cuda.synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(got[:3], again[:3])), (layout, variant)
+            assert _rel(got[0], s_p) <= 1e-4 and _rel(got[1], m_p) <= 1e-4, (layout, variant)
+            if variant == 1:
+                assert torch.equal(got[3], eps_p) and torch.equal(again[3], got[3]), layout
+                spills[layout] = got[3]
+            costs[(layout, variant)] = got[0]
+        # the same draws in registers, or read back: the same bits
+        assert torch.equal(costs[(layout, 2)], costs[(layout, 1)])
+        assert torch.equal(costs[(layout, 0)], costs[(layout, 1)])
+    assert torch.equal(spills["lanes"], spills["thread"])
+    assert _rel(costs[("lanes", 1)], costs[("thread", 1)]) <= 1e-4
+    n0, n4 = wk.wb_cost.launches, wk.wb_cost_nospill.launches
+    s, _, _, eps = wk.wb_cost(kc, sc, u_prev, None, seeds, step, k_off)
+    s4, _, _ = wk.wb_cost_nospill(kc, sc, u_prev, seeds, step, k_off)
+    assert (wk.wb_cost.launches - n0, wk.wb_cost_nospill.launches - n4) == (1, 1)
+    chosen = wk.cost_layout(b, k)
+    assert torch.equal(s, costs[(chosen, 1)]) and torch.equal(s4, s) and torch.equal(eps, eps_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["lanes", "thread"])
+def test_pass2_regenerates_each_layouts_spill_bit_for_bit(layout):
+    """Rows 5 and 6 draw the noise again: on the same costs they equal rows
+    3 and 7 on the spill of either layout, bit for bit."""
+    dev = _card()
+    kc, sc, u_prev, seeds = _cost_inputs(dev, "attitude", 50, 2048, 1)
+    step, k_off = 2, 2048
+    s, m, e, eps = wk._launch_cost(kc, "wb_cost", sc, u_prev, None, seeds, step, k_off, 1, layout)
+    se = wk.softmin_normalizers(kc, m, e).contiguous()
+    row3 = wk.wb_update(kc, eps, s, m, e)
+    row5 = wk.wb_update_regen(kc, sc, s, m, e, seeds, step, k_off)
+    row7 = wk.wb_update_shard(kc, eps, s, se)
+    row6 = wk.wb_update_shard_regen(kc, sc, s, se, seeds, step, k_off)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(row3, row5))
+    assert all(torch.equal(a, b) for a, b in zip(row7, row6))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [1, 5, 32, 33, 100])
+@pytest.mark.parametrize("k", [1, 1000, 1024])
+def test_drone_cost_across_chunks_matches_plain(k, h):
+    """Rows 9a and 9c (a warp per sample, the horizon across its lanes in
+    chunks of 32) against their plain versions at one chunk, a partial
+    chunk and several, any K; bit-equal on a rerun; one launch each."""
+    dev = _card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10 * k + h)
+    u_prev = torch.randn((h, 3), generator=gen, device=dev)
+    x0, v0 = torch.tensor([0.1, -0.2, 1.0], device=dev), torch.tensor([0.0, 0.3, 0.0], device=dev)
+    target = torch.tensor([1.0, 2.0, 3.4], device=dev)
+    keys = sampling.philox_keys(2**34 + k + h, dev)
+    noise = 30.0 * torch.randn((k, h, 3), generator=gen, device=dev)
+    for name, args in (("drone_cost", (u_prev, x0, v0, target, keys, k, 0.01, 30.0, 100.0, 20.0)),
+                       ("drone_cost_noise", (u_prev, noise, x0, v0, target, 0.01, 100.0, 20.0))):
+        wrapper, plain = getattr(dk, name), getattr(dk, name + "_plain")
+        n0 = wrapper.launches
+        got, again, want = wrapper(*args), wrapper(*args), plain(*args)
+        torch.cuda.synchronize()
+        assert wrapper.launches == n0 + 2 and got.shape == (k,)
+        assert torch.equal(got, again)
+        assert _rel(got, want) <= 1e-4, name

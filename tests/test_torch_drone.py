@@ -482,6 +482,58 @@ def test_build_hash_covers_the_shared_header(tmp_path, monkeypatch):
     assert (csrc / "drone_kernel.cu").read_text().count('#include "philox.cuh"') == 1
 
 
+@pytest.mark.parametrize("define,attr", [
+    ("DRONE_COST_WARPS", "COST_WARPS"), ("WARP_LANES", "WARP_LANES"),
+    ("DRONE_UPDATE_THREADS", "UPDATE_THREADS"),
+])
+def test_drone_constants_match_the_cuda_source(define, attr):
+    """drone_cost's warps per block and chunk length, and drone_update's
+    block, in the source or the scan header it includes, against the
+    wrapper's."""
+    import re
+
+    text = (build.CSRC / "drone_kernel.cu").read_text() + (build.CSRC / "warp_scan.cuh").read_text()
+    defines = {k: int(v) for k, v in re.findall(r"#define (\w+) (\d+)", text)}
+    assert defines[define] == getattr(dk, attr)
+
+
+def test_build_hash_covers_the_scan_header(tmp_path, monkeypatch):
+    """Editing a byte of csrc/warp_scan.cuh (in a copy) changes the build
+    directory of both kernels that include it."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {n: build._build_dir(n) for n in ("whole_body_kernel", "drone_kernel")}
+    path = csrc / "warp_scan.cuh"
+    path.write_bytes(path.read_bytes() + b"\n")
+    assert all(build._build_dir(n) != before[n] for n in before)
+    assert all((csrc / f"{n}.cu").read_text().count('#include "warp_scan.cuh"') == 1
+               for n in before)
+
+
+@pytest.mark.parametrize("h", [1, 33, 100])
+def test_drone_cost_plain_across_chunk_edges(h):
+    """The plain pass 1 the kernel is held to, at one step, a partial second
+    chunk and four chunks: explicit noise reproduces the drawn stream's
+    costs, and each S is the weighted squared error of the double
+    integration."""
+    keys = sampling.philox_keys(11 + h, "cpu")
+    gen = torch.Generator().manual_seed(h)
+    u_prev = torch.randn(h, A, generator=gen)
+    x0, v0, tgt = T(X0), T(V0), T(drone.DEFAULT_TARGET)
+    s = dk.drone_cost(u_prev, x0, v0, tgt, keys, 5, 0.01, 30.0, 100.0, 20.0)
+    noise = dk.philox_noise(keys, 5, h, A, 30.0)
+    torch.testing.assert_close(s, dk.drone_cost_noise(u_prev, noise, x0, v0, tgt, 0.01, 100.0,
+                                                      20.0), rtol=0, atol=0)
+    acc = (u_prev[None] + noise).double()
+    vel = v0.double() + torch.cumsum(acc * 0.01, dim=1)
+    v_prev = torch.cat([v0.double().expand(5, 1, A), vel[:, :-1]], dim=1)
+    pos = x0.double() + torch.cumsum(v_prev * 0.01 + 0.5 * acc * 0.01 ** 2, dim=1)
+    err = ((pos - tgt.double()) ** 2).sum(-1)
+    want = 100.0 * err[:, :-1].sum(-1) + 20.0 * err[:, -1]
+    assert _rel(N(s), N(want)) <= TOL_COST
+
+
 def test_drone_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (lambda: drone.make_drone_solver(),

@@ -176,6 +176,89 @@ def test_scalar_layout_and_constants_match_the_cuda_source():
     assert int(defines["WB_A"]) == wk.A_TOTAL
 
 
+SCAN_HEADER = CU_SOURCE.parent / "warp_scan.cuh"
+
+
+def _defines(*paths):
+    return {k: int(v) for path in paths
+            for k, v in re.findall(r"#define (\w+) (\d+)", path.read_text())}
+
+
+@pytest.mark.parametrize("define,attr", [
+    ("WB_BLOCK", "BLOCK"), ("WB_THREAD_BLOCK", "THREAD_BLOCK"), ("WARP_LANES", "WARP_LANES"),
+    ("WARP_SCAN", "SCAN_STEPS"), ("WB_SCAN", "SCAN_STEPS"),
+])
+def test_cost_constants_match_the_cuda_source(define, attr):
+    """wb_cost's block and scan constants, in the kernel source or the scan
+    header it includes, against the wrapper's."""
+    assert _defines(CU_SOURCE, SCAN_HEADER)[define] == getattr(wk, attr)
+
+
+def test_cost_layouts_match_the_cuda_source():
+    src = CU_SOURCE.read_text()
+    enum = dict(re.findall(r"LAYOUT_(\w+) = (\d+)", src))
+    assert {k.lower(): int(v) for k, v in enum.items()} == wk.COST_LAYOUTS
+    assert src.count('#include "warp_scan.cuh"') == 1
+    assert 2 ** wk.SCAN_STEPS == wk.WARP_LANES
+    # a partial group never straddles a block of either layout
+    assert wk.THREAD_BLOCK % wk.BLOCK == 0 and wk.BLOCK * wk.WARP_LANES <= 1024
+
+
+@pytest.mark.parametrize("n_scen,k,want", [
+    (1, 4096, "lanes"),      # the serving solve and episode
+    (4, 4096, "lanes"),      # phase 8's batch of 4 against 4 unbatched solves
+    (5, 4096, "thread"),
+    (16, 4096, "thread"),
+    (256, 4096, "thread"),   # the scenario batch
+    (1, 2048, "lanes"),      # one rank's share of the sharded solve
+    (8, 2048, "lanes"),
+    (9, 2048, "thread"),
+    (256, 4112, "lanes"),    # K not a multiple of the thread layout's block
+])
+def test_cost_layout_rule(n_scen, k, want):
+    assert wk.cost_layout(n_scen, k) == want
+    fits = n_scen * k <= wk.COST_LANE_MAX_SAMPLES or k % wk.THREAD_BLOCK
+    assert bool(fits) == (want == "lanes")
+
+
+@pytest.mark.parametrize("k,layout,match", [
+    (256, "warps", "layout must be one of"),
+    (272, "thread", "multiple of 64"),
+])
+def test_cost_launch_refuses_what_no_layout_takes(k, layout, match):
+    _, kc, _, sc, u_prev = _setup(lambda: twb.position_mode_params(n_samples=k, n_horizon=12))
+    with pytest.raises(ValueError, match=match):
+        wk._launch_cost(kc, "wb_cost", sc, u_prev, None, wk.philox_keys(1, "cpu"), 0, 0, 1,
+                        layout)
+
+
+@pytest.mark.parametrize("make,match", [
+    (lambda: twb.position_mode_params(n_samples=4104, n_horizon=12), "multiple of 16"),
+    (lambda: twb.position_mode_params(n_samples=256, n_horizon=600), "horizon too long"),
+])
+def test_kernel_config_refuses_what_the_layouts_cannot_run(make, match):
+    with pytest.raises(ValueError, match=match):
+        wk.make_kernel_config(make())
+
+
+@pytest.mark.parametrize("make", [twb.WholeBodyMPPIParams, twb.position_mode_params,
+                                  twb.wrench_mode_params])
+def test_scan_powers_are_the_step_maps_powers(make):
+    """The lane layout's scans take each constant step map raised to 2^i:
+    the 2x2 axis responses and the rotor-lag, drag and rate factors of the
+    struct (float32), squared in float64."""
+    s = wk.make_kernel_config(make()).struct
+    for i in range(3):
+        a = np.reshape(np.array(s.ax_a[i], np.float64), (2, 2))
+        for j in range(wk.SCAN_STEPS):
+            np.testing.assert_allclose(np.reshape(s.ax_pow[i][j], (2, 2)),
+                                       np.linalg.matrix_power(a, 2 ** j), rtol=1e-6, atol=1e-7)
+    for name, c in (("lag_pow", s.lag_alpha), ("drag_pow", s.drag_alpha),
+                    ("rate_pow", s.rate_alpha)):
+        np.testing.assert_allclose(list(getattr(s, name)),
+                                   [c ** (2 ** j) for j in range(wk.SCAN_STEPS)], rtol=1e-6)
+
+
 def test_update_constants_match_the_cuda_source():
     src = CU_SOURCE.read_text()
     defines = dict(re.findall(r"#define (\w+) (\d+)", src))
