@@ -24,8 +24,9 @@ lines; any failure exits non-zero before the final ``ok`` line):
    scored with ``episode_quality``; each must converge and hold;
 8. the scenario batch, B=256 x K=4096 x H=50 in the attitude preset: the
    no-spill pair (rows 4, 5) against its plain versions on all 256
-   scenarios and the spill pair on 4, the batched step against 4
-   unbatched steps, 1 + 1 launches per batched solve, ms per batched solve
+   scenarios and the spill pair on 4, the batched step against unbatched
+   steps (batches of 4 and 8, and 4 scenarios of the B=256 batch), 1 + 1
+   launches per batched solve, ms per batched solve
    at B=1, 16, 256, then the kernels alone at B=256 (pass 2 and
    ``torch.bmm`` also by the profiler and by CUDA-graph replay);
 9. no spill against spill at K=4096 (du, u_seq, sigma), and each new
@@ -51,13 +52,12 @@ lines; any failure exits non-zero before the final ``ok`` line):
    its main paths' shapes (row 3 at B=1 and B=256, row 5 at B=256, rows 6
    and 7 at K_local): the sums bit-equal for every R, CUDA-graph and
    profiler ms per R, the R the launcher picks, the library call's;
-14. ``wb_cost`` in both layouts the source builds (a warp per sample with
-   the horizon across the lanes; a thread per sample), in the three modes
-   and the three variants (spill, no spill, explicit noise), at B=1, 4, 8,
-   16, 256 and at K_local=2048 with a sample offset: S against the plain
-   version and between the layouts, the spill bit-equal to ``philox_eps``
-   and between the layouts, bit-equal reruns, CUDA-graph and profiler ms,
-   the layout the launcher picks;
+14. ``wb_cost`` (a warp per sample, the horizon across its lanes) in the
+   three modes and the three variants (spill, no spill, explicit noise), at
+   B=1, 16, 256 and at K_local=2048 with a sample offset: S against the
+   plain version, each scenario of a batch bit-equal to its unbatched
+   launch, the spill bit-equal to ``philox_eps``, bit-equal reruns,
+   CUDA-graph and profiler ms;
 then one ``kernels`` JSON line (rows 4-5 at B=256, rows 6-7 at K_local,
 rows 9a-9b at K=1000 and 9c-9d at K=1024: the shapes of the runs that
 count their launches; each ``wb_update`` row with the R it used and its
@@ -465,18 +465,17 @@ def phase_timing(dev):
     flat = eps.view(A * H, K)
 
     eps_in = eps.clone()
-    layout = wk.cost_layout(1, K)
     t = {
         "wb_cost": event_ms(lambda: wk.wb_cost(kc, sc, u_prev, None, keys, 0)),
         "wb_cost_graph": graph_ms(lambda: wk.wb_cost(kc, sc, u_prev, None, keys, 0)),
         "wb_cost_device": device_ms(lambda: wk.wb_cost(kc, sc, u_prev, None, keys, 0),
-                                    cost_key(layout, 1)),
+                                    cost_key(1)),
         "wb_cost_plain": event_ms(lambda: wk.wb_cost_plain(kc, sc, u_prev, None, keys, 0),
                                   reps=5),
         "wb_cost_noise": event_ms(lambda: wk.wb_cost(kc, sc, u_prev, eps_in)),
         "wb_cost_noise_graph": graph_ms(lambda: wk.wb_cost(kc, sc, u_prev, eps_in)),
         "wb_cost_noise_device": device_ms(lambda: wk.wb_cost(kc, sc, u_prev, eps_in),
-                                          cost_key(layout, 0)),
+                                          cost_key(0)),
         "wb_cost_noise_plain": event_ms(lambda: wk.wb_cost_plain(kc, sc, u_prev, eps_in),
                                         reps=5),
         "wb_update": event_ms(lambda: wk.wb_update(kc, eps, s, m, e)),
@@ -487,7 +486,7 @@ def phase_timing(dev):
     step_k = wk.make_whole_body_cuda_step(params, dev)
     t["plain_step"] = host_ms(lambda: step_p(state, obs))
     t["kernel_step"] = host_ms(lambda: step_k(state, obs))
-    print(f"[4] timings (ms; wb_cost in the {layout} layout): "
+    print(f"[4] timings (ms): "
           + ", ".join(f"{k} {fmt_ms(v)}" for k, v in t.items()), flush=True)
 
     noise_bytes = A * H * K * 4
@@ -790,30 +789,33 @@ def phase_batch(dev, errs):
         fail("a batched kernel disagrees with its plain version")
     del s, m, e, eps, du, m2, s4, m4, e4, du5, m2_5, s_p, m_p, du5_p, m2_5p
 
-    # The batched step against unbatched steps on the same seeds and z.
-    nb = len(CHECK_SCENARIOS)
-    obs4 = tree_map(lambda x: x[:nb], obs)
+    # The batched step against unbatched steps on the same seeds and z, in
+    # batches of 4, 8 and 256 (4 of its scenarios checked).
     gen = torch.Generator(device=dev)
     gen.manual_seed(77)
-    z = torch.randn((nb, K, H, A), generator=gen, device=dev)
-    step_err = 0.0
-    for spill in (True, False):
-        step_b, init_b = wb.make_whole_body_solver(params, device=dev, n_scenarios=nb,
-                                                   noise_spill=spill)
-        step_1, init_1 = wb.make_whole_body_solver(params, device=dev, noise_spill=spill)
-        st_b = init_b(3)
-        for zz in (None, z):
-            out_b, st_nb = step_b(st_b, obs4, zz)
-            for b, seed_b in enumerate(st_b.seed.tolist()):
-                out_1, st_n1 = step_1(init_1(seed_b), tree_map(lambda x: x[b], obs4),
-                                      None if zz is None else zz[b])
-                step_err = max(step_err, rel_err(out_b.u_seq[b], out_1.u_seq),
-                               rel_err(st_nb.u_prev[b], st_n1.u_prev))
-    sync()
-    print(f"[8] batched step vs {nb} unbatched steps (Philox and z, spill and no spill): "
-          f"max rel {step_err:.2e}", flush=True)
-    if not step_err <= TOL_BATCH:
-        fail("the batched step disagrees with the unbatched steps")
+    for nb, picked in ((4, range(4)), (8, range(8)), (B_BATCH, CHECK_SCENARIOS)):
+        obs_b = tree_map(lambda x: x[:nb], obs)
+        z = torch.randn((nb, K, H, A), generator=gen, device=dev)
+        step_err = 0.0
+        for spill in (True, False):
+            step_b, init_b = wb.make_whole_body_solver(params, device=dev, n_scenarios=nb,
+                                                       noise_spill=spill)
+            step_1, init_1 = wb.make_whole_body_solver(params, device=dev, noise_spill=spill)
+            st_b = init_b(3)
+            seeds_b = st_b.seed.tolist()
+            for zz in (None, z):
+                out_b, st_nb = step_b(st_b, obs_b, zz)
+                for b in picked:
+                    out_1, st_n1 = step_1(init_1(seeds_b[b]), tree_map(lambda x: x[b], obs_b),
+                                          None if zz is None else zz[b])
+                    step_err = max(step_err, rel_err(out_b.u_seq[b], out_1.u_seq),
+                                   rel_err(st_nb.u_prev[b], st_n1.u_prev))
+        sync()
+        del z
+        print(f"[8] batched step (B={nb}) vs {len(picked)} unbatched steps (Philox and z, "
+              f"spill and no spill): max rel {step_err:.2e}", flush=True)
+        if not step_err <= TOL_BATCH:
+            fail(f"the batched step at B={nb} disagrees with the unbatched steps")
 
     # Launches per batched solve, then ms per solve at B = 1, 16, 256.
     rows, launches = [], {}
@@ -911,16 +913,16 @@ def update_key(name: str, r=None) -> str:
     return f"wb_update_kernel<{str(regen).lower()}, {str(given).lower()}, {r or ''}"
 
 
-def cost_key(layout: str, variant: int, mode: int = 0) -> str:
-    """The profiler's name of the wb_cost instantiation of ``layout`` for
-    wb_cost_launch's ``variant`` (0 explicit noise, 1 spill, 2 no spill)."""
+def cost_key(variant: int, mode: int = 0) -> str:
+    """The profiler's name of the wb_cost instantiation for wb_cost_launch's
+    ``variant`` (0 explicit noise, 1 spill, 2 no spill)."""
     draw, store = str(variant != 0).lower(), str(variant == 1).lower()
-    return f"wb_cost_{layout}_kernel<{mode}, {draw}, {store}>"
+    return f"wb_cost_kernel<{mode}, {draw}, {store}>"
 
 
 # The instantiation each new wrapper launches at one scenario, K=4096, as
 # the profiler names it.
-KERNEL_KEYS = {"wb_cost_nospill": cost_key(wk.cost_layout(1, K), 2),
+KERNEL_KEYS = {"wb_cost_nospill": cost_key(2),
                **{n: update_key(n) for n in
                   ("wb_update_regen", "wb_update_shard_regen", "wb_update_shard")}}
 
@@ -1083,12 +1085,13 @@ def phase_update_rows(dev):
 
 
 # wb_cost's main-path shapes: (label, scenarios, samples, sample offset):
-# the serving solve and episode, the scenario batch at 4 and 8 (either side
-# of the layouts' crossover), 16 and 256, and one rank's share of the
-# sharded solve (rank 1's offset).
-COST_SHAPES = (("B=1", 1, K, 0), ("B=4", 4, K, 0), ("B=8", 8, K, 0), ("B=16", 16, K, 0),
-               ("B=256", B_BATCH, K, 0), ("K_local", 1, K // SHARD_RANKS, K - K // SHARD_RANKS))
+# the serving solve and episode, the scenario batch at 16 and 256, and one
+# rank's share of the sharded solve (rank 1's offset).
+COST_SHAPES = (("B=1", 1, K, 0), ("B=16", 16, K, 0), ("B=256", B_BATCH, K, 0),
+               ("K_local", 1, K // SHARD_RANKS, K - K // SHARD_RANKS))
 COST_VARIANTS = {1: "spill", 2: "no spill", 0: "explicit noise"}  # wb_cost_launch's codes
+# The pass-1 kernels' layout (wb_cost and drone_cost), named in the kernels line.
+COST_LAYOUT = "a warp per sample, the horizon across its lanes"
 
 
 def cost_work(b: int, k: int, variant: int):
@@ -1099,18 +1102,17 @@ def cost_work(b: int, k: int, variant: int):
     return b * cost_bytes(k, variant != 2), b * k * H * ops
 
 
-def phase_cost_layouts(dev):
-    """wb_cost in both layouts, three modes, three variants, at each shape
-    of COST_SHAPES: S against the plain version (all scenarios, or the
-    CHECK_SCENARIOS of 256) and between the layouts, the spill bit-equal to
-    philox_eps and between the layouts, each launch bit-equal on a rerun,
-    CUDA-graph and profiler ms, the layout the launcher picks."""
+def phase_cost_shapes(dev):
+    """wb_cost in three modes and three variants at each shape of
+    COST_SHAPES: S against the plain version and each scenario of a batch
+    against its unbatched launch (all scenarios, or the CHECK_SCENARIOS of
+    256), the spill bit-equal to philox_eps, each launch bit-equal on a
+    rerun, CUDA-graph and profiler ms."""
     res = {}
     for label, b, k, k_off in COST_SHAPES:
         batch = b > 1
         reps = 3 if b == B_BATCH else 20
         checked = CHECK_SCENARIOS if b == B_BATCH else range(b)
-        chosen = wk.cost_layout(b, k)
         for mode_i, (mode, params) in enumerate(presets().items()):
             kc = wk.make_kernel_config(params, k)
             _, init = wb.make_whole_body_solver(params, device=dev,
@@ -1128,55 +1130,46 @@ def phase_cost_layouts(dev):
 
             plain = {i: wk.wb_cost_plain(kc, one(sc, i), one(u_prev, i),
                                          None, seeds[i:i + 1], 0, k_off) for i in checked}
-            costs, spills = {}, {}
-            for layout in wk.COST_LAYOUTS:
-                for variant in COST_VARIANTS:  # the spill first: the explicit noise reads it
-                    def launch(variant=variant, layout=layout):
-                        return wk._launch_cost(kc, "wb_cost", sc, u_prev,
-                                               spills.get(layout) if variant == 0 else None,
-                                               seeds if variant else None, 0, k_off, variant,
-                                               layout)
+            spill = None
+            for variant, vname in COST_VARIANTS.items():  # the spill first: noise reads it
+                def launch(variant=variant):
+                    return wk._launch_cost(kc, "wb_cost", sc, u_prev,
+                                           spill if variant == 0 else None,
+                                           seeds if variant else None, 0, k_off, variant)
 
-                    first, again = launch(), launch()
-                    sync()
-                    if variant == 1:
-                        spills[layout] = first[3]
-                    costs[(layout, variant)] = first[0]
-                    rerun = all(torch.equal(x, y) for x, y in zip(first[:3], again[:3])) and (
-                        variant != 1 or torch.equal(first[3], again[3]))
-                    del again
-                    rel_plain = max(rel_err(one(first[0], i), plain[i][0]) for i in checked)
-                    spill_eq = None if variant != 1 else all(
-                        torch.equal(one(first[3], i), plain[i][3]) for i in checked)
-                    del first
-                    res[(label, mode, layout, variant)] = {
-                        "rel_plain": rel_plain, "rerun": rerun, "spill_eq_philox": spill_eq,
-                        "graph_ms": graph_ms(launch, reps),
-                        "device_ms": device_ms(launch, cost_key(layout, variant, mode_i), reps)}
-            for variant, vname in COST_VARIANTS.items():
-                r = {lay: res[(label, mode, lay, variant)] for lay in wk.COST_LAYOUTS}
-                between = rel_err(costs[("lanes", variant)], costs[("thread", variant)])
-                spill_between = None if variant != 1 else torch.equal(spills["lanes"],
-                                                                      spills["thread"])
+                first, again = launch(), launch()
+                sync()
+                if variant == 1:
+                    spill = first[3]
+                rerun = all(torch.equal(x, y) for x, y in zip(first[:3], again[:3])) and (
+                    variant != 1 or torch.equal(first[3], again[3]))
+                del again
+                rel_plain = max(rel_err(one(first[0], i), plain[i][0]) for i in checked)
+                spill_eq = None if variant != 1 else all(
+                    torch.equal(one(first[3], i), plain[i][3]) for i in checked)
+                unbatched_eq = None if not batch else all(
+                    all(torch.equal(x[i], y) for x, y in zip(first[:3], wk._launch_cost(
+                        kc, "wb_cost", sc[i], u_prev[i], spill[i] if variant == 0 else None,
+                        seeds[i:i + 1] if variant else None, 0, k_off, variant)[:3]))
+                    for i in checked)
+                del first
                 bnd = bound(*cost_work(b, k, variant))
-                for lay in r:
-                    r[lay].update(layouts_rel=between, spill_eq_layouts=spill_between,
-                                  bound_ms=bnd[0], bound_by=bnd[1], chosen=chosen)
-                print(f"[14] {label} K={k} k_off={k_off} {mode:8s} {vname:14s}: " + " | ".join(
-                    f"{lay} graph/prof {v['graph_ms']:.4f}/{fmt_ms(v['device_ms'])} ms, "
-                    f"vs plain {v['rel_plain']:.2e}, reruns bit-equal {v['rerun']}"
-                    + ("" if variant != 1 else f", spill == philox_eps {v['spill_eq_philox']}")
-                    for lay, v in r.items())
-                    + f" | layouts rel {between:.2e}"
-                    + ("" if variant != 1 else f", spills bit-equal {spill_between}")
-                    + f" | launcher {chosen} | bound {bnd[0]:.4f} ms by {bnd[1]}", flush=True)
-                bad = [lay for lay, v in r.items()
-                       if not (v["rel_plain"] <= TOL_COST and v["rerun"]
-                               and v["spill_eq_philox"] in (None, True))]
-                if bad or between > TOL_COST or spill_between is False:
-                    fail(f"wb_cost {vname} at {label}, {mode}: layouts {bad} disagree with the "
-                         "plain version, with each other, or between reruns")
-            del costs, spills, plain
+                r = res[(label, mode, variant)] = {
+                    "rel_plain": rel_plain, "rerun": rerun, "spill_eq_philox": spill_eq,
+                    "unbatched_eq": unbatched_eq, "graph_ms": graph_ms(launch, reps),
+                    "device_ms": device_ms(launch, cost_key(variant, mode_i), reps),
+                    "bound_ms": bnd[0], "bound_by": bnd[1]}
+                print(f"[14] {label} K={k} k_off={k_off} {mode:8s} {vname:14s}: graph/prof "
+                      f"{r['graph_ms']:.4f}/{fmt_ms(r['device_ms'])} ms, vs plain "
+                      f"{rel_plain:.2e}, reruns bit-equal {rerun}"
+                      + ("" if variant != 1 else f", spill == philox_eps {spill_eq}")
+                      + ("" if not batch else f", == unbatched {unbatched_eq}")
+                      + f" | bound {bnd[0]:.4f} ms by {bnd[1]}", flush=True)
+                if not (rel_plain <= TOL_COST and rerun and spill_eq in (None, True)
+                        and unbatched_eq in (None, True)):
+                    fail(f"wb_cost {vname} at {label}, {mode} disagrees with the plain version, "
+                         "its unbatched launches or its rerun")
+            del spill, plain
     return res
 
 
@@ -1649,7 +1642,7 @@ def main() -> None:
     drone_sweep, drone_host = phase_drone_kernels(dev, errs)
     drone_launches, drone_loop_ms = phase_drone_loops(dev)
     rows_sweep = phase_update_rows(dev)
-    cost_sweep = phase_cost_layouts(dev)
+    cost_sweep = phase_cost_shapes(dev)
     b256 = {(b, spill): e_ms for b, spill, _, e_ms, _, _, _ in batch_rows}
     shard_bounds = {k: bound(*v) for k, v in new_work(K // SHARD_RANKS).items()}
 
@@ -1684,13 +1677,12 @@ def main() -> None:
                 **extra, "k4096_b1_ms": one["ms"], "k4096_b1_device_ms": one["device_ms"],
                 "k4096_b1_graph_ms": one["graph_ms"], "k4096_b1_plain_ms": one["plain_ms"]}
 
-    def layouts_of(variant, prefix=""):
-        """Phase 14's attitude-mode graph ms of both layouts at every shape for
-        wb_cost_launch's ``variant``, and the launcher's layout at each."""
-        return {f"{prefix}layout_sweep_graph_ms": {
-            label: {lay: cost_sweep[(label, "attitude", lay, variant)]["graph_ms"]
-                    for lay in wk.COST_LAYOUTS} | {"launcher": wk.cost_layout(b, k)}
-            for label, b, k, _ in COST_SHAPES}}
+    def shapes_of(variant, prefix=""):
+        """Phase 14's attitude-mode graph ms at every shape for
+        wb_cost_launch's ``variant``."""
+        return {f"{prefix}shape_sweep_graph_ms": {
+            label: cost_sweep[(label, "attitude", variant)]["graph_ms"]
+            for label, _, _, _ in COST_SHAPES}}
 
     def batch_row(name, replaces, library_ms, **extra):
         return new_row(name, replaces, batch_launches[name], t_b256[name],
@@ -1714,11 +1706,10 @@ def main() -> None:
          "noise_bound_ms": bounds["wb_cost_noise"][0],
          "noise_bound_by": bounds["wb_cost_noise"][1],
          "episode_launches": episode_launches["wb_cost"], "b256_ms": t_b256["wb_cost"],
-         "layout": wk.cost_layout(1, K), "noise_layout": wk.cost_layout(1, K),
-         "b256_layout": wk.cost_layout(B_BATCH, K),
+         "layout": COST_LAYOUT, "noise_layout": COST_LAYOUT,
          "graph_ms": t["wb_cost_graph"], "device_ms": t["wb_cost_device"],
          "noise_graph_ms": t["wb_cost_noise_graph"], "noise_device_ms": t["wb_cost_noise_device"],
-         **layouts_of(1), **layouts_of(0, "noise_")},
+         **shapes_of(1), **shapes_of(0, "noise_")},
         {"name": "wb_update", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": f"{TPU_KERNEL}:655 _update_kernel_fused_noise (_fused_update_body :624)",
          "launches": launches["wb_update"], "max_abs_err": errs["wb_update"],
@@ -1736,11 +1727,9 @@ def main() -> None:
          "bound_ms": plant_bound[0], "bound_by": plant_bound[1], "library_ms": None,
          "b1024_ms": t_plant["plant_tick_b1024"]},
         batch_row("wb_cost_nospill", "551 _cost_kernel", None,
-                  layout=wk.cost_layout(B_BATCH, K), k4096_b1_layout=wk.cost_layout(1, K),
-                  k_local_layout=wk.cost_layout(1, K // SHARD_RANKS),
-                  k_local_graph_ms=cost_sweep[("K_local", "attitude",
-                                               wk.cost_layout(1, K // SHARD_RANKS), 2)]["graph_ms"],
-                  **layouts_of(2)),
+                  layout=COST_LAYOUT,
+                  k_local_graph_ms=cost_sweep[("K_local", "attitude", 2)]["graph_ms"],
+                  **shapes_of(2)),
         batch_row("wb_update_regen", "647 _update_kernel_fused", t_b256["library_bmm"],
                   **vs_library(at_b256("wb_update_regen"), at_b256("library_bmm")),
                   **rows_of("5", B_BATCH)),
@@ -1759,7 +1748,7 @@ def main() -> None:
                 "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
                 "library_ms": s["library_ms"], "device_ms": s["device_ms"],
                 "library_device_ms": s["library_device_ms"], "k": k, "h": DRONE_H,
-                **({"layout": "lanes", "graph_ms": s["graph_ms"]} if "cost" in name else {}),
+                **({"layout": COST_LAYOUT, "graph_ms": s["graph_ms"]} if "cost" in name else {}),
                 "sweep": [v for (n, _, _), v in drone_sweep.items() if n == name]}
 
     kernels += [drone_row("drone_cost", DRONE_K, drone_launches["a"]["drone_cost"]),

@@ -33,7 +33,11 @@
 //   horizon recurrence (double integration, rotor lag, axis response, drag,
 //   position, rate damping, the wrench attitude) chains step t to t - 1, so
 //   a thread that walks one sample's horizon is a long dependent chain, and
-//   one scenario's 4096 samples are too few threads to hide it.
+//   one scenario's 4096 samples are too few threads to hide it.  Across
+//   the lanes, the recurrences cost scan work and a partial last chunk
+//   idles lanes: overhead that shows once a batch of scenarios fills the
+//   card (a thread per sample is 1.9x faster at 256 scenarios, but sums
+//   in another order, and a batched solve must equal unbatched solves).
 //   wb_update reading the noise is bound by bytes: it must read the 9.0 MB
 //   once (2.7 us at 3.35 TB/s; 0.69 ms for 256 scenarios), against 4
 //   operations per element (two multiply-adds) and ~20 per sample for the
@@ -42,9 +46,7 @@
 //   normal ~35).  Batching B scenarios multiplies both bounds by B.
 //
 // What the design does about it.
-//   wb_cost has two layouts of one body; the launcher picks one by shape
-//   (ops/cuda/whole_body_kernel.cost_layout):
-//   LAYOUT_LANES puts the horizon across the lanes, as the TPU kernel is
+//   wb_cost puts the horizon across the lanes, as the TPU kernel is
 //   parallel in time: one warp per sample walks the horizon in chunks of 32
 //   steps, one step per lane.  A lane draws its step's 11 normals and runs
 //   the step's nonlinear work (attitude quaternion, 7-joint FK, atan2,
@@ -62,13 +64,9 @@
 //   reads it as 16-byte vectors): the block stages a chunk's 11 x 32 x
 //   WB_BLOCK values in shared memory (rows padded to WB_BLOCK + 1 floats:
 //   no bank conflicts) and moves them as runs of WB_BLOCK consecutive
-//   samples (64 B), the spill and the explicit-noise read alike.
-//   LAYOUT_THREAD runs one sample per thread, WB_THREAD_BLOCK threads a
-//   block (K a multiple of it), each recurrence carried in registers step
-//   by step: no scan work and no idle lanes in a partial last chunk.  It
-//   is the faster layout once a batch of scenarios alone fills the card.
-//   Both layouts write the softmin partials per group of WB_BLOCK
-//   consecutive samples.  Per-config constants arrive by value in a POD
+//   samples (64 B), the spill and the explicit-noise read alike.  One body
+//   serves every batch size, so a scenario's costs do not depend on the
+//   batch it is solved in.  Per-config constants arrive by value in a POD
 //   struct (kernel parameter space, < 4 KB): one build serves every
 //   configuration; the mode is a template parameter.
 //   wb_update: one block per R consecutive (a, t) rows of the noise (R =
@@ -95,9 +93,9 @@
 // float32 and finite.  The global sample index is k_off + k, so a shard of
 // the sample axis draws exactly its slice of the one-rank noise set.  Pass 2
 // draws again through the same draw_eps as pass 1, so regenerated noise is
-// bit-identical to the spilled noise in either layout.  ops/sampling.py
-// holds the same stream in plain PyTorch; philox.cuh holds the draw, shared
-// with drone_kernel.cu.
+// bit-identical to the spilled noise.  ops/sampling.py holds the same
+// stream in plain PyTorch; philox.cuh holds the draw, shared with
+// drone_kernel.cu.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -108,8 +106,7 @@
 
 #define WB_A 11              // 4 base + 7 arm actions
 #define WB_J 7               // arm joints
-#define WB_BLOCK 16          // samples per softmin partial = warps per lane-layout block
-#define WB_THREAD_BLOCK 64   // samples (threads) per thread-layout block
+#define WB_BLOCK 16          // samples per softmin partial = warps per wb_cost block
 #define WB_MAX_OBS 16        // sphere obstacles carried in the parameter struct
 #define WB_SCAN 5            // scan powers per step map in the parameter struct
 #define WB_UPDATE_THREADS 256
@@ -132,7 +129,6 @@ static_assert(WB_SCAN == WARP_SCAN, "one power per warp-scan step");
 #define SC_LEN 54
 
 enum { MODE_ATTITUDE = 0, MODE_POSITION = 1, MODE_WRENCH = 2 };
-enum { LAYOUT_THREAD = 0, LAYOUT_LANES = 1 };
 
 // Per-configuration constants.  Field order and types must match the
 // ctypes Structure WbParams in ops/cuda/whole_body_kernel.py; every field
@@ -153,7 +149,7 @@ struct WbParams {
   float w_base, w_att, w_omega, w_vel, w_action, w_jl, gamma;
   float w_obs, w_stop, stop_horizon;
   float obs[WB_MAX_OBS][4];  // (x, y, z, radius)
-  // The lane layout's scans: the step maps raised to 2^i, i < WB_SCAN.
+  // wb_cost's scans: the step maps raised to 2^i, i < WB_SCAN.
   float ax_pow[3][WB_SCAN][4];  // per axis, A^(2^i) row-major
   float lag_pow[WB_SCAN], drag_pow[WB_SCAN], rate_pow[WB_SCAN];
 };
@@ -327,7 +323,7 @@ __device__ __forceinline__ float stop_cost(const WbParams& p, const float* sc, c
 }
 
 // Softmin partials of one group of WB_BLOCK consecutive samples' costs sg:
-// m = min S, e = sum exp((m - S) / lambda), in sample order (both layouts).
+// m = min S, e = sum exp((m - S) / lambda), in sample order.
 __device__ __forceinline__ void group_partials(const float* sg, float inv_lam, float* m_out,
                                                float* e_out) {
   float m = sg[0];
@@ -339,203 +335,7 @@ __device__ __forceinline__ void group_partials(const float* sg, float inv_lam, f
 }
 
 // ---------------------------------------------------------------------------
-// LAYOUT_THREAD: one thread per sample
-// ---------------------------------------------------------------------------
-
-// Per-sample rollout + cost: the whole of pass 1 for sample k (global index
-// k_off + k), every recurrence carried in registers step by step.  With
-// DRAW the sample's noise is drawn from Philox, and with STORE also spilled
-// to eps; without DRAW it is read from eps.  eps is (A, H, K).
-template <int MODE, bool DRAW, bool STORE>
-__device__ __forceinline__ float sample_cost(const WbParams& p, const float* sc,
-                             const float* u_prev, float* eps, int k, int k_off,
-                             uint32_t key0, uint32_t key1, uint32_t step) {
-  const int H = p.h, K = p.k;
-  const float dt = p.dt;
-  const float inv_h = 1.0f / (float)H;
-
-  float q[WB_J], qd[WB_J];
-#pragma unroll
-  for (int j = 0; j < WB_J; ++j) {
-    q[j] = sc[SC_Q0 + j];
-    qd[j] = sc[SC_QD0 + j];
-  }
-  float pos[3], vel[3], cv[3] = {0.f, 0.f, 0.f}, v0[3];
-  float xa[3], xb[3];  // per-axis response state (phi, omega) / (p, v)
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    pos[i] = sc[SC_POS0 + i];
-    vel[i] = v0[i] = sc[SC_VEL0 + i];
-    if (MODE == MODE_ATTITUDE) {
-      xa[i] = sc[SC_RPY0 + i];
-      xb[i] = sc[SC_OM0 + i];
-    } else if (MODE == MODE_POSITION) {
-      xa[i] = pos[i];
-      xb[i] = v0[i];
-    } else {
-      xb[i] = sc[SC_OM0 + i];  // body rates
-    }
-  }
-  Quat bq{sc[SC_BQ0], sc[SC_BQ0 + 1], sc[SC_BQ0 + 2], sc[SC_BQ0 + 3]};
-  float lag[4] = {0.f, 0.f, 0.f, 0.f};
-  float prev_rpy[3] = {0.f, 0.f, 0.f};
-  float vdecay = 1.0f;  // drag_alpha^(t+1)
-  float gam = 1.0f;     // gamma^t
-  float total = 0.0f;
-
-  for (int t = 0; t < H; ++t) {
-    float v[WB_A];
-#pragma unroll
-    for (int a = 0; a < WB_A; ++a) {
-      const size_t idx = ((size_t)(a * H + t)) * K + k;
-      float e;
-      if (DRAW) {
-        e = draw_eps(step, (uint32_t)(k_off + k), (uint32_t)(a * H + t), sc[SC_SIGMA + a],
-                     key0, key1);
-        if (STORE) eps[idx] = e;
-      } else {
-        e = eps[idx];
-      }
-      v[a] = u_prev[t * WB_A + a] + e;
-    }
-
-    // Arm: raw double integration (limit costs), clamped copy (FK).
-    float qfk[WB_J];
-#pragma unroll
-    for (int j = 0; j < WB_J; ++j) {
-      const float acc = v[4 + j];
-      const float qd_prev = qd[j];
-      qd[j] = qd[j] + acc * dt;
-      q[j] = q[j] + qd_prev * dt + 0.5f * acc * dt * dt;
-      qfk[j] = fminf(fmaxf(q[j], p.q_lo[j]), p.q_hi[j]);
-    }
-
-    float om[3], thrust = 0.0f;
-    if (MODE == MODE_POSITION) {
-      float acc[3];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        const float sp = sc[SC_POS0 + i] + v[i];  // absolute setpoint
-        const float na = p.ax_a[i][0] * xa[i] + p.ax_a[i][1] * xb[i] + p.ax_b[i][0] * sp;
-        const float nb = p.ax_a[i][2] * xa[i] + p.ax_a[i][3] * xb[i] + p.ax_b[i][1] * sp;
-        xa[i] = na;
-        xb[i] = nb;
-        pos[i] = na;
-        vel[i] = nb;
-        acc[i] = p.ax_kp[i] * (sp - na) - p.ax_kd[i] * nb;
-      }
-      const float inv_g = 0.1019367991845056f;  // 1 / 9.81
-      const float rpy[3] = {-acc[1] * inv_g, acc[0] * inv_g, v[3]};
-      bq = quat_from_rpy(rpy[0], rpy[1], rpy[2]);
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        om[i] = t == 0 ? 0.0f : (rpy[i] - prev_rpy[i]) / dt;
-        prev_rpy[i] = rpy[i];
-      }
-    } else {
-      if (MODE == MODE_ATTITUDE) {
-        thrust = v[0];
-        if (p.rotor_lag) {
-          if (t == 0) lag[0] = v[0];
-          lag[0] = p.lag_alpha * lag[0] + (1.0f - p.lag_alpha) * v[0];
-          thrust = lag[0];
-        }
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          const float u = v[1 + i];
-          const float na = p.ax_a[i][0] * xa[i] + p.ax_a[i][1] * xb[i] + p.ax_b[i][0] * u;
-          const float nb = p.ax_a[i][2] * xa[i] + p.ax_a[i][3] * xb[i] + p.ax_b[i][1] * u;
-          xa[i] = na;
-          xb[i] = nb;
-          om[i] = nb;
-        }
-        bq = quat_from_rpy(xa[0], xa[1], xa[2]);
-      } else {  // MODE_WRENCH
-        float w4[4] = {v[0], v[1], v[2], v[3]};
-        if (p.rotor_lag) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            if (t == 0) lag[i] = v[i];
-            lag[i] = p.lag_alpha * lag[i] + (1.0f - p.lag_alpha) * v[i];
-            w4[i] = lag[i];
-          }
-        }
-        thrust = w4[0];
-        float tau[3] = {w4[1], w4[2], w4[3]};
-        if (p.couple) add_arm_moment(p, sc, qfk, tau);
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          xb[i] = p.rate_alpha * xb[i] + dt * tau[i] / p.inertia[i];
-          om[i] = xb[i];
-        }
-        bq = qmul(bq, quat_from_rotvec(om[0] * dt, om[1] * dt, om[2] * dt));
-      }
-      // Thrust along body z -> acceleration -> drag-decayed velocity -> pos.
-      const float zx = 2.0f * (bq.x * bq.z + bq.w * bq.y);
-      const float zy = 2.0f * (bq.y * bq.z - bq.w * bq.x);
-      const float zz = 1.0f - 2.0f * (bq.x * bq.x + bq.y * bq.y);
-      const float acc[3] = {zx * thrust / p.mass, zy * thrust / p.mass,
-                            zz * thrust / p.mass - 9.81f};
-      vdecay *= p.drag_alpha;
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        cv[i] = p.drag_alpha * cv[i] + acc[i];
-        vel[i] = vdecay * v0[i] + dt * cv[i];
-        pos[i] += dt * vel[i];
-      }
-    }
-
-    total += step_cost(p, sc, v, q, qfk, bq, pos, vel, om, gam, t == H - 1, inv_h);
-    gam *= p.gamma;
-  }
-  return total + stop_cost(p, sc, pos, vel);
-}
-
-template <int MODE, bool DRAW, bool STORE>
-__global__ void __launch_bounds__(WB_THREAD_BLOCK)
-wb_cost_thread_kernel(const WbParams p, const float* __restrict__ sc,
-                      const float* __restrict__ u_prev, float* __restrict__ eps,
-                      float* __restrict__ s, float* __restrict__ m_part,
-                      float* __restrict__ e_part, const unsigned long long* __restrict__ seeds,
-                      uint32_t step, int k_off) {
-  // Scenario b's slabs: sc (SC_LEN), u_prev (H, A), eps (A, H, K), s (K),
-  // partials (K / WB_BLOCK).
-  const int b = blockIdx.y;
-  const int n_groups = p.k / WB_BLOCK;
-  sc += (size_t)b * SC_LEN;
-  u_prev += (size_t)b * p.h * WB_A;
-  if (eps) eps += (size_t)b * WB_A * p.h * p.k;
-  s += (size_t)b * p.k;
-  m_part += (size_t)b * n_groups;
-  e_part += (size_t)b * n_groups;
-
-  extern __shared__ float smem[];  // [SC_LEN scalars | H * A warm start]
-  float* sc_sm = smem;
-  float* u_sm = smem + SC_LEN;
-  for (int i = threadIdx.x; i < SC_LEN; i += blockDim.x) sc_sm[i] = sc[i];
-  for (int i = threadIdx.x; i < p.h * WB_A; i += blockDim.x) u_sm[i] = u_prev[i];
-  __syncthreads();
-
-  uint32_t key0 = 0u, key1 = 0u;
-  if (DRAW) philox_key(seeds, b, key0, key1);
-  // K is a multiple of WB_THREAD_BLOCK here, so no bounds test wraps the
-  // body: on the H100 one cost 28 registers (96 -> 124) and 4% of the
-  // time at 256 scenarios.
-  const int k = blockIdx.x * WB_THREAD_BLOCK + threadIdx.x;
-  __shared__ float s_blk[WB_THREAD_BLOCK];
-  const float cost = sample_cost<MODE, DRAW, STORE>(p, sc_sm, u_sm, eps, k, k_off, key0, key1,
-                                                    step);
-  s[k] = cost;
-  s_blk[threadIdx.x] = cost;
-  __syncthreads();
-  if (threadIdx.x < WB_THREAD_BLOCK / WB_BLOCK) {
-    const int g = blockIdx.x * (WB_THREAD_BLOCK / WB_BLOCK) + threadIdx.x;
-    group_partials(s_blk + threadIdx.x * WB_BLOCK, p.inv_lam, m_part + g, e_part + g);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// LAYOUT_LANES: one warp per sample, the horizon across its lanes
+// wb_cost: one warp per sample, the horizon across its lanes
 // ---------------------------------------------------------------------------
 
 // x_t = A x_{t-1} + y_t for a 2-state linear system, ap[i] = A^(2^i): the
@@ -601,11 +401,11 @@ __device__ __forceinline__ float lag_scan(const WbParams& p, float u, int lane, 
 // the H100 at one scenario in every variant).
 template <int MODE, bool DRAW, bool STORE>
 __global__ void __launch_bounds__(WB_BLOCK * WARP_LANES, 2)
-wb_cost_lanes_kernel(const WbParams p, const float* __restrict__ sc,
-                     const float* __restrict__ u_prev, float* __restrict__ eps,
-                     float* __restrict__ s, float* __restrict__ m_part,
-                     float* __restrict__ e_part, const unsigned long long* __restrict__ seeds,
-                     uint32_t step, int k_off) {
+wb_cost_kernel(const WbParams p, const float* __restrict__ sc,
+               const float* __restrict__ u_prev, float* __restrict__ eps,
+               float* __restrict__ s, float* __restrict__ m_part,
+               float* __restrict__ e_part, const unsigned long long* __restrict__ seeds,
+               uint32_t step, int k_off) {
   constexpr int LD = WB_BLOCK + 1;  // stage row pitch (a column read is conflict-free)
   const int b = blockIdx.y, n_groups = gridDim.x;
   const int H = p.h, K = p.k;
@@ -654,7 +454,7 @@ wb_cost_lanes_kernel(const WbParams p, const float* __restrict__ sc,
   }
   Quat bqc{sc_sm[SC_BQ0], sc_sm[SC_BQ0 + 1], sc_sm[SC_BQ0 + 2], sc_sm[SC_BQ0 + 3]};
   float lagc[4] = {0.f, 0.f, 0.f, 0.f};
-  float gl = 1.0f;  // gamma^lane, by the thread layout's repeated product
+  float gl = 1.0f;  // gamma^lane, by repeated product
   for (int i = 0; i < lane; ++i) gl *= p.gamma;
   const float g32 = from_last(gl) * p.gamma;
   float gamc = 1.0f;  // gamma^t0
@@ -959,44 +759,45 @@ wb_update_kernel(const float* __restrict__ eps, const float* __restrict__ s,
   }
 }
 
+// Dynamic shared memory above the default 48 KB must be opted into, per
+// kernel: a long horizon's warm start (up to 227 KB a block on the H100,
+// less the kernel's static share).  A failure shows in the launch's error.
+template <typename Kernel>
+static void allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 template <int MODE, bool DRAW, bool STORE>
-static void launch_cost(const WbParams& p, int layout, int n_scen, const float* sc,
-                        const float* u_prev, float* eps, float* s, float* m_part, float* e_part,
+static void launch_cost(const WbParams& p, int n_scen, const float* sc, const float* u_prev,
+                        float* eps, float* s, float* m_part, float* e_part,
                         const unsigned long long* seeds, uint32_t step, int k_off,
                         cudaStream_t stream) {
   const size_t warm = (size_t)(SC_LEN + p.h * WB_A) * sizeof(float);
-  if (layout == LAYOUT_LANES) {
-    const size_t stage =
-        STORE || !DRAW ? (size_t)WB_A * WARP_LANES * (WB_BLOCK + 1) * sizeof(float) : 0;
-    const dim3 grid(p.k / WB_BLOCK, n_scen);
-    wb_cost_lanes_kernel<MODE, DRAW, STORE><<<grid, WB_BLOCK * WARP_LANES, warm + stage, stream>>>(
-        p, sc, u_prev, eps, s, m_part, e_part, seeds, step, k_off);
-  } else {
-    const dim3 grid(p.k / WB_THREAD_BLOCK, n_scen);
-    wb_cost_thread_kernel<MODE, DRAW, STORE><<<grid, WB_THREAD_BLOCK, warm, stream>>>(
-        p, sc, u_prev, eps, s, m_part, e_part, seeds, step, k_off);
-  }
+  const size_t stage =
+      STORE || !DRAW ? (size_t)WB_A * WARP_LANES * (WB_BLOCK + 1) * sizeof(float) : 0;
+  const dim3 grid(p.k / WB_BLOCK, n_scen);
+  allow_smem(wb_cost_kernel<MODE, DRAW, STORE>, warm + stage);
+  wb_cost_kernel<MODE, DRAW, STORE><<<grid, WB_BLOCK * WARP_LANES, warm + stage, stream>>>(
+      p, sc, u_prev, eps, s, m_part, e_part, seeds, step, k_off);
 }
 
 extern "C" {
 
-// Pass 1 over n_scen scenarios.  variant 0: eps is read (explicit noise);
-// 1: Philox noise, spilled to eps (out); 2: Philox noise, not stored (eps
-// may be NULL).  seeds: the n_scen scenarios' keys (unused by variant 0).
-// layout: LAYOUT_LANES (K a multiple of WB_BLOCK) or LAYOUT_THREAD (K a
-// multiple of WB_THREAD_BLOCK).  Returns cudaGetLastError() after the
-// launch.
+// Pass 1 over n_scen scenarios (K a multiple of WB_BLOCK).  variant 0: eps
+// is read (explicit noise); 1: Philox noise, spilled to eps (out); 2:
+// Philox noise, not stored (eps may be NULL).  seeds: the n_scen
+// scenarios' keys (unused by variant 0).  Returns cudaGetLastError() after
+// the launch.
 int wb_cost_launch(const WbParams* p, const float* sc, const float* u_prev, float* eps,
                    float* s, float* m_part, float* e_part,
                    const unsigned long long* seeds, unsigned int step, int k_off,
-                   int variant, int n_scen, int layout, void* stream) {
+                   int variant, int n_scen, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (layout != LAYOUT_LANES && (layout != LAYOUT_THREAD || p->k % WB_THREAD_BLOCK))
-    return (int)cudaErrorInvalidValue;
 #define WB_COST_CASE(M, V, D, S)                                                            \
   case (M) * 3 + (V):                                                                       \
-    launch_cost<M, D, S>(*p, layout, n_scen, sc, u_prev, eps, s, m_part, e_part, seeds,     \
-                         step, k_off, st);                                                  \
+    launch_cost<M, D, S>(*p, n_scen, sc, u_prev, eps, s, m_part, e_part, seeds, step, k_off, \
+                         st);                                                               \
     break;
   switch (p->mode * 3 + variant) {
     WB_COST_CASE(MODE_ATTITUDE, 0, false, false)

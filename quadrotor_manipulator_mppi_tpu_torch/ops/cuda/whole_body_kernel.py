@@ -9,9 +9,8 @@ batched paths.  Per solve, two launches of ``csrc/whole_body_kernel.cu``:
   per-sample cost S and the softmin partials (min, sum exp) per group of
   :data:`BLOCK` consecutive samples: :func:`wb_cost` spills the drawn noise
   to device memory as (A, H, K), :func:`wb_cost_nospill` keeps it in
-  registers only.  It has two layouts, one warp per sample with the
-  horizon across the lanes ("lanes") and one thread per sample
-  ("thread"); :func:`cost_layout` picks one by shape;
+  registers only.  One warp works each sample, its horizon across the
+  lanes;
 * pass 2 forms the softmin weights and reduces the weighted noise sum du
   and the weighted second moment per (action, step) row: :func:`wb_update`
   reads the spilled noise and :func:`wb_update_regen` draws it again, both
@@ -78,26 +77,16 @@ from . import build
 Tensor = torch.Tensor
 
 A_TOTAL = 4 + kinova.N_JOINTS  # 11
-BLOCK = 16                     # samples per softmin partial = warps per lane-layout block (WB_BLOCK)
-THREAD_BLOCK = 64              # samples per thread-layout block (WB_THREAD_BLOCK)
-WARP_LANES = 32                # horizon steps per lane-layout chunk (WARP_LANES)
+BLOCK = 16                     # samples per softmin partial = warps per wb_cost block (WB_BLOCK)
+WARP_LANES = 32                # horizon steps per wb_cost chunk (WARP_LANES)
 SCAN_STEPS = 5                 # shuffle steps of a warp scan (WARP_SCAN, WB_SCAN)
-# wb_cost's layouts (LAYOUT_* in the CUDA source).  The lane layout puts a
-# sample's horizon across a warp; the thread layout runs a sample per
-# thread.  The launcher takes the lane layout up to COST_LANE_MAX_SAMPLES
-# samples per launch (scenarios x K), from timings of both layouts on the
-# H100 (chip_smoke.py phase 14): with the draws (the main paths' variants)
-# the lane layout is the faster one at K=4096 up to 4 scenarios and the
-# slower one from 8 (1.7x at 16, 1.9x at 256).  One limit for every variant
-# keeps a batch of up to 4 scenarios on the layout of an unbatched solve,
-# so their costs agree bit for bit.
-COST_LAYOUTS = {"thread": 0, "lanes": 1}
-COST_LANE_MAX_SAMPLES = 4 * 4096
-# The lane layout's shared-memory noise stage: A x 32 rows of BLOCK + 1 floats.
-_LANE_STAGE_BYTES = A_TOTAL * WARP_LANES * (BLOCK + 1) * 4
+# wb_cost's shared-memory noise stage: A x 32 rows of BLOCK + 1 floats.
+_STAGE_BYTES = A_TOTAL * WARP_LANES * (BLOCK + 1) * 4
 MAX_OBSTACLES = 16             # WB_MAX_OBS
 MODES = {"attitude": 0, "position": 1, "wrench": 2}
-_SMEM_LIMIT = 48 * 1024        # default dynamic shared memory per block
+# Shared memory per block that a kernel may opt into on the H100 (dynamic
+# and static together); the launcher opts in above the default 48 KB.
+SMEM_OPTIN = 227 * 1024
 UPDATE_THREADS = 256           # threads per wb_update block (WB_UPDATE_THREADS)
 UPDATE_ROWS = (1, 2, 4, 8)     # rows per wb_update block the source is built for
 # The launcher's R by variant (regen), from timings of every R at the main
@@ -165,9 +154,23 @@ def _fill(arr, values) -> None:
         arr[i] = float(v)
 
 
+def cost_smem_bytes(h: int, variant: int) -> int:
+    """Shared memory of one wb_cost block at horizon ``h``: the scalars and
+    the warm start, the noise stage (spill and explicit noise: ``variant``
+    1 and 0), and the static share (one cost per warp)."""
+    stage = _STAGE_BYTES if variant != 2 else 0
+    return (SC_LEN + h * A_TOTAL) * 4 + stage + BLOCK * 4
+
+
+def max_horizon() -> int:
+    """The longest horizon at which every wb_cost variant fits
+    :data:`SMEM_OPTIN` (each step adds A floats)."""
+    return (SMEM_OPTIN - max(cost_smem_bytes(0, v) for v in range(3))) // (4 * A_TOTAL)
+
+
 def scan_powers(m) -> list:
     """m^(2^i) for i < SCAN_STEPS, by repeated squaring in float64: the step
-    maps of the lane layout's warp scans (a scalar or a square matrix)."""
+    maps of wb_cost's warp scans (a scalar or a square matrix)."""
     out = [np.asarray(m, dtype=np.float64)]
     for _ in range(SCAN_STEPS - 1):
         out.append(out[-1] @ out[-1] if out[-1].ndim else out[-1] * out[-1])
@@ -206,7 +209,7 @@ def make_kernel_config(params, n_local_samples: Optional[int] = None) -> WbKerne
         raise ValueError("fused kernel expects revolute +z joints and an identity tip")
     if len(cp.obstacle_centers) > MAX_OBSTACLES:
         raise ValueError(f"fused kernel carries at most {MAX_OBSTACLES} obstacles")
-    if (SC_LEN + h * A_TOTAL) * 4 + _LANE_STAGE_BYTES > _SMEM_LIMIT:
+    if h > max_horizon():
         raise ValueError("horizon too long for the kernel's shared-memory warm start")
 
     s = WbParams()
@@ -307,7 +310,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load_library("whole_body_kernel")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.wb_cost_launch.argtypes = [ctypes.POINTER(WbParams), vp, vp, vp, vp, vp, vp, vp,
-                                   ctypes.c_uint32, ci, ci, ci, ci, vp]
+                                   ctypes.c_uint32, ci, ci, ci, vp]
     lib.wb_cost_launch.restype = ci
     lib.wb_update_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, ctypes.c_uint32, ci, ci,
                                      ci, ci, ci, ctypes.c_float, ci, ci, vp, vp, vp]
@@ -342,29 +345,13 @@ def _n_scen(lead) -> int:
     return lead[0] if lead else 1
 
 
-def cost_layout(n_scen: int, n_samples: int) -> str:
-    """wb_cost's layout for a launch of ``n_scen`` scenarios of
-    ``n_samples`` samples: "lanes" up to :data:`COST_LANE_MAX_SAMPLES`
-    samples in all, where one warp per sample still leaves the card short of
-    work for the thread layout, and for any K the thread layout does not
-    take (not a multiple of :data:`THREAD_BLOCK`); "thread" otherwise."""
-    if n_scen * n_samples <= COST_LANE_MAX_SAMPLES or n_samples % THREAD_BLOCK:
-        return "lanes"
-    return "thread"
-
-
 def _launch_cost(kc: WbKernelConfig, name: str, sc: Tensor, u_prev: Tensor,
                  eps: Optional[Tensor], seeds: Optional[Tensor], step: int, k_off: int,
-                 variant: int, layout: Optional[str] = None):
-    """One wb_cost launch; ``layout`` overrides :func:`cost_layout` (for
-    timing each layout)."""
+                 variant: int):
+    """One wb_cost launch of ``variant`` (0: read ``eps``; 1: draw and
+    spill; 2: draw, no spill)."""
     k, h, dev = kc.n_samples, kc.n_horizon, sc.device
     lead = tuple(sc.shape[:-1])
-    layout = layout or cost_layout(_n_scen(lead), k)
-    if layout not in COST_LAYOUTS:
-        raise ValueError(f"layout must be one of {sorted(COST_LAYOUTS)}, got {layout!r}")
-    if layout == "thread" and k % THREAD_BLOCK:
-        raise ValueError(f"the thread layout takes K a multiple of {THREAD_BLOCK}, got {k}")
     _check(sc, lead + (SC_LEN,), dev, "sc")
     _check(u_prev, lead + (h, A_TOTAL), dev, "u_prev")
     if variant == 1:
@@ -378,7 +365,7 @@ def _launch_cost(kc: WbKernelConfig, name: str, sc: Tensor, u_prev: Tensor,
     rc = _lib().wb_cost_launch(
         ctypes.byref(kc.struct), sc.data_ptr(), u_prev.data_ptr(), _ptr(eps), s.data_ptr(),
         m_part.data_ptr(), e_part.data_ptr(), keys, int(step) & _U32, int(k_off), variant,
-        _n_scen(lead), COST_LAYOUTS[layout], torch.cuda.current_stream(dev).cuda_stream,
+        _n_scen(lead), torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, name)
     return s, m_part, e_part, eps

@@ -244,7 +244,7 @@ def _c_params(src: str, fn: str) -> int:
 def test_c_interface_matches_the_cuda_source():
     """Argument counts of the two C entry points against their ctypes
     declarations, and every kernel variant instantiated: 3 modes x 3
-    pass-1 variants in both layouts, 4 pass-2 variants."""
+    pass-1 variants, 4 pass-2 variants."""
     src = CU_SOURCE.read_text()
 
     class Fake:
@@ -262,7 +262,7 @@ def test_c_interface_matches_the_cuda_source():
     finally:
         wk.build.load_library = orig
         wk._lib.cache_clear()
-    assert len(lib.wb_cost_launch.argtypes) == _c_params(src, "wb_cost_launch") == 14
+    assert len(lib.wb_cost_launch.argtypes) == _c_params(src, "wb_cost_launch") == 13
     assert len(lib.wb_update_launch.argtypes) == _c_params(src, "wb_update_launch") == 19
     cases = re.findall(r"WB_COST_CASE\((MODE_\w+), (\d), (true|false), (true|false)\)", src)
     assert sorted((m, int(v)) for m, v, _, _ in cases) == sorted(
@@ -272,5 +272,3 @@ def test_c_interface_matches_the_cuda_source():
     updates = set(re.findall(r"WB_UPDATE_VARIANT\((true|false), (true|false)\)", src))
     assert updates == {(a, b) for a in ("true", "false") for b in ("true", "false")}
     assert "wb_update_kernel<RG, GV, R><<<" in src
-    for layout in ("lanes", "thread"):
-        assert f"wb_cost_{layout}_kernel<MODE, DRAW, STORE><<<" in src

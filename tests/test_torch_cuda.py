@@ -364,10 +364,9 @@ def test_nospill_step_equals_spill_step(mode):
     assert _rel(u[False], u[True]) <= 1e-6
 
 
-# wb_cost's two layouts at chunk edges and partial chunks of the lane
-# layout (H of 1, 7, 32, 33, 50, 100), every K of the main paths' kind
-# (64; K_local=2048 at a sample offset; 4096) and B of 1 and 3:
-# (H, K, k_off, B).
+# wb_cost at chunk edges and partial chunks (H of 1, 7, 32, 33, 50, 100),
+# every K of the main paths' kind (64; K_local=2048 at a sample offset;
+# 4096) and B of 1 and 3: (H, K, k_off, B).
 COST_CASES = [(1, 64, 0, 1), (7, 64, 0, 3), (32, 2048, 64, 1), (33, 64, 0, 3),
               (50, 4096, 0, 1), (50, 2048, 2048, 3), (100, 64, 0, 1)]
 COST_VARIANTS = (1, 2, 0)  # wb_cost_launch: spill, no spill, explicit noise (reads the spill)
@@ -393,54 +392,75 @@ def _cost_inputs(dev, mode, h, k, b):
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,k,k_off,b", COST_CASES)
 @pytest.mark.parametrize("mode", sorted(PRESETS))
-def test_wb_cost_layouts_match_plain_and_rerun_bit_equal(mode, h, k, k_off, b):
-    """Each layout and variant of wb_cost against the plain version (S
-    within 1e-4: recurrence or scan against the operator form), the spill
-    bit-equal to philox_eps and between the layouts, the no-spill and
-    explicit-noise costs bit-equal to the spill variant's, every launch
-    bit-equal on a rerun; the wrappers launch once each."""
+def test_wb_cost_matches_plain_and_reruns_bit_equal(mode, h, k, k_off, b):
+    """Each variant of wb_cost against the plain version (S within 1e-4:
+    scans against the operator form), the spill bit-equal to philox_eps,
+    the no-spill and explicit-noise costs bit-equal to the spill variant's,
+    every launch bit-equal on a rerun, each scenario of a batch bit-equal
+    to its unbatched launch; the wrappers launch once each."""
     dev = _card()
     kc, sc, u_prev, seeds = _cost_inputs(dev, mode, h, k, b)
     step = 7
     s_p, m_p, _, eps_p = wk.wb_cost_plain(kc, sc, u_prev, None, seeds, step, k_off)
-    spills, costs = {}, {}
-    for layout in wk.COST_LAYOUTS:
-        for variant in COST_VARIANTS:
-            def launch():
-                return wk._launch_cost(kc, "wb_cost", sc, u_prev,
-                                       spills[layout] if variant == 0 else None,
-                                       seeds if variant else None, step, k_off, variant, layout)
+    costs, spill = {}, None
+    for variant in COST_VARIANTS:
+        def launch():
+            return wk._launch_cost(kc, "wb_cost", sc, u_prev, spill if variant == 0 else None,
+                                   seeds if variant else None, step, k_off, variant)
 
-            got, again = launch(), launch()
-            torch.cuda.synchronize()
-            assert all(torch.equal(x, y) for x, y in zip(got[:3], again[:3])), (layout, variant)
-            assert _rel(got[0], s_p) <= 1e-4 and _rel(got[1], m_p) <= 1e-4, (layout, variant)
-            if variant == 1:
-                assert torch.equal(got[3], eps_p) and torch.equal(again[3], got[3]), layout
-                spills[layout] = got[3]
-            costs[(layout, variant)] = got[0]
-        # the same draws in registers, or read back: the same bits
-        assert torch.equal(costs[(layout, 2)], costs[(layout, 1)])
-        assert torch.equal(costs[(layout, 0)], costs[(layout, 1)])
-    assert torch.equal(spills["lanes"], spills["thread"])
-    assert _rel(costs[("lanes", 1)], costs[("thread", 1)]) <= 1e-4
+        got, again = launch(), launch()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got[:3], again[:3])), variant
+        assert _rel(got[0], s_p) <= 1e-4 and _rel(got[1], m_p) <= 1e-4, variant
+        if variant == 1:
+            assert torch.equal(got[3], eps_p) and torch.equal(again[3], got[3])
+            spill = got[3]
+        costs[variant] = got
+    # the same draws in registers, or read back: the same bits
+    assert torch.equal(costs[2][0], costs[1][0]) and torch.equal(costs[0][0], costs[1][0])
+    if b > 1:
+        for i in range(b):
+            one = wk._launch_cost(kc, "wb_cost", sc[i], u_prev[i], None, seeds[i:i + 1], step,
+                                  k_off, 1)
+            assert all(torch.equal(x, y[i]) for x, y in zip(one, costs[1])), i
     n0, n4 = wk.wb_cost.launches, wk.wb_cost_nospill.launches
     s, _, _, eps = wk.wb_cost(kc, sc, u_prev, None, seeds, step, k_off)
     s4, _, _ = wk.wb_cost_nospill(kc, sc, u_prev, seeds, step, k_off)
     assert (wk.wb_cost.launches - n0, wk.wb_cost_nospill.launches - n4) == (1, 1)
-    chosen = wk.cost_layout(b, k)
-    assert torch.equal(s, costs[(chosen, 1)]) and torch.equal(s4, s) and torch.equal(eps, eps_p)
+    assert torch.equal(s, costs[1][0]) and torch.equal(s4, s) and torch.equal(eps, eps_p)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["lanes", "thread"])
-def test_pass2_regenerates_each_layouts_spill_bit_for_bit(layout):
-    """Rows 5 and 6 draw the noise again: on the same costs they equal rows
-    3 and 7 on the spill of either layout, bit for bit."""
+@pytest.mark.parametrize("k", [16, 64])
+def test_wb_cost_launches_at_the_longest_horizon(k):
+    """At wk.max_horizon() each variant needs shared memory above the
+    default 48 KB (the launcher opts in) and launches: S within 1e-4 of the
+    plain version, the spill bit-equal to philox_eps."""
     dev = _card()
-    kc, sc, u_prev, seeds = _cost_inputs(dev, "attitude", 50, 2048, 1)
+    h = wk.max_horizon()
+    kc, sc, u_prev, seeds = _cost_inputs(dev, "attitude", h, k, 1)
+    s_p, m_p, _, eps_p = wk.wb_cost_plain(kc, sc, u_prev, None, seeds, 3, 0)
+    spill = None
+    for variant in COST_VARIANTS:
+        s, m, _, eps = wk._launch_cost(kc, "wb_cost", sc, u_prev, spill if variant == 0 else None,
+                                       seeds if variant else None, 3, 0, variant)
+        torch.cuda.synchronize()
+        assert wk.cost_smem_bytes(h, variant) > 48 * 1024
+        assert _rel(s, s_p) <= 1e-4 and _rel(m, m_p) <= 1e-4, variant
+        if variant == 1:
+            assert torch.equal(eps, eps_p)
+            spill = eps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3])
+def test_pass2_regenerates_the_spill_bit_for_bit(b):
+    """Rows 5 and 6 draw the noise again: on the same costs they equal rows
+    3 and 7 on wb_cost's spill, bit for bit, for one scenario and a batch."""
+    dev = _card()
+    kc, sc, u_prev, seeds = _cost_inputs(dev, "attitude", 50, 2048, b)
     step, k_off = 2, 2048
-    s, m, e, eps = wk._launch_cost(kc, "wb_cost", sc, u_prev, None, seeds, step, k_off, 1, layout)
+    s, m, e, eps = wk._launch_cost(kc, "wb_cost", sc, u_prev, None, seeds, step, k_off, 1)
     se = wk.softmin_normalizers(kc, m, e).contiguous()
     row3 = wk.wb_update(kc, eps, s, m, e)
     row5 = wk.wb_update_regen(kc, sc, s, m, e, seeds, step, k_off)

@@ -185,7 +185,7 @@ def _defines(*paths):
 
 
 @pytest.mark.parametrize("define,attr", [
-    ("WB_BLOCK", "BLOCK"), ("WB_THREAD_BLOCK", "THREAD_BLOCK"), ("WARP_LANES", "WARP_LANES"),
+    ("WB_BLOCK", "BLOCK"), ("WARP_LANES", "WARP_LANES"),
     ("WARP_SCAN", "SCAN_STEPS"), ("WB_SCAN", "SCAN_STEPS"),
 ])
 def test_cost_constants_match_the_cuda_source(define, attr):
@@ -195,56 +195,76 @@ def test_cost_constants_match_the_cuda_source(define, attr):
 
 
 def test_cost_layouts_match_the_cuda_source():
+    """One block of BLOCK warps (a softmin partial group, one sample per
+    warp) whose scans cover a chunk of WARP_LANES steps."""
     src = CU_SOURCE.read_text()
-    enum = dict(re.findall(r"LAYOUT_(\w+) = (\d+)", src))
-    assert {k.lower(): int(v) for k, v in enum.items()} == wk.COST_LAYOUTS
     assert src.count('#include "warp_scan.cuh"') == 1
     assert 2 ** wk.SCAN_STEPS == wk.WARP_LANES
-    # a partial group never straddles a block of either layout
-    assert wk.THREAD_BLOCK % wk.BLOCK == 0 and wk.BLOCK * wk.WARP_LANES <= 1024
+    assert wk.BLOCK * wk.WARP_LANES <= 1024
+    assert "wb_cost_kernel<MODE, DRAW, STORE><<<grid, WB_BLOCK * WARP_LANES," in src
+    assert "const dim3 grid(p.k / WB_BLOCK, n_scen);" in src
 
 
-@pytest.mark.parametrize("n_scen,k,want", [
-    (1, 4096, "lanes"),      # the serving solve and episode
-    (4, 4096, "lanes"),      # phase 8's batch of 4 against 4 unbatched solves
-    (5, 4096, "thread"),
-    (16, 4096, "thread"),
-    (256, 4096, "thread"),   # the scenario batch
-    (1, 2048, "lanes"),      # one rank's share of the sharded solve
-    (8, 2048, "lanes"),
-    (9, 2048, "thread"),
-    (256, 4112, "lanes"),    # K not a multiple of the thread layout's block
+@pytest.mark.parametrize("arg,bad,match", [
+    ("sc", lambda sc, u, e: sc[:-1], "sc: expected"),
+    ("u_prev", lambda sc, u, e: u[:-1], "u_prev: expected"),
+    ("eps", lambda sc, u, e: e[:, :, :-16], "eps: expected"),
+    ("eps", lambda sc, u, e: e.transpose(1, 2).contiguous().transpose(1, 2), "eps: expected"),
+    ("seeds", lambda sc, u, e: torch.zeros(1, dtype=torch.int32), "seeds: expected"),
 ])
-def test_cost_layout_rule(n_scen, k, want):
-    assert wk.cost_layout(n_scen, k) == want
-    fits = n_scen * k <= wk.COST_LANE_MAX_SAMPLES or k % wk.THREAD_BLOCK
-    assert bool(fits) == (want == "lanes")
-
-
-@pytest.mark.parametrize("k,layout,match", [
-    (256, "warps", "layout must be one of"),
-    (272, "thread", "multiple of 64"),
-])
-def test_cost_launch_refuses_what_no_layout_takes(k, layout, match):
-    _, kc, _, sc, u_prev = _setup(lambda: twb.position_mode_params(n_samples=k, n_horizon=12))
+def test_cost_launch_refuses_malformed_inputs(arg, bad, match):
+    """The launcher checks shape, dtype and contiguity before any launch."""
+    _, kc, _, sc, u_prev = _setup()
+    eps = torch.zeros((wk.A_TOTAL, kc.n_horizon, kc.n_samples))
+    args = {"sc": sc, "u_prev": u_prev, "eps": eps, "seeds": wk.philox_keys(1, "cpu")}
+    args[arg] = bad(sc, u_prev, eps)
+    variant = 0 if arg == "eps" else 1
     with pytest.raises(ValueError, match=match):
-        wk._launch_cost(kc, "wb_cost", sc, u_prev, None, wk.philox_keys(1, "cpu"), 0, 0, 1,
-                        layout)
+        wk._launch_cost(kc, "wb_cost", args["sc"], args["u_prev"],
+                        args["eps"] if variant == 0 else None,
+                        args["seeds"] if variant else None, 0, 0, variant)
 
 
 @pytest.mark.parametrize("make,match", [
     (lambda: twb.position_mode_params(n_samples=4104, n_horizon=12), "multiple of 16"),
-    (lambda: twb.position_mode_params(n_samples=256, n_horizon=600), "horizon too long"),
+    (lambda: twb.position_mode_params(n_samples=256, n_horizon=wk.max_horizon() + 1),
+     "horizon too long"),
 ])
 def test_kernel_config_refuses_what_the_layouts_cannot_run(make, match):
     with pytest.raises(ValueError, match=match):
         wk.make_kernel_config(make())
 
 
+@pytest.mark.parametrize("h", [600, 1112, "max"])
+def test_kernel_config_takes_horizons_up_to_the_opted_in_shared_memory(h):
+    """Long horizons run: the launcher opts into shared memory above 48 KB,
+    and the check counts the noise stage (spill and explicit noise only)
+    and the static share."""
+    h = wk.max_horizon() if h == "max" else h
+    kc = wk.make_kernel_config(twb.position_mode_params(n_samples=256, n_horizon=h))
+    assert kc.n_horizon == h
+    need = [wk.cost_smem_bytes(h, v) for v in range(3)]
+    assert max(need) <= wk.SMEM_OPTIN and need[2] < need[1] == need[0]
+    assert max(wk.cost_smem_bytes(wk.max_horizon() + 1, v) for v in range(3)) > wk.SMEM_OPTIN
+
+
+@pytest.mark.parametrize("pattern", [
+    r"__shared__ float s_grp\[WB_BLOCK\];",  # the static share
+    r"STORE \|\| !DRAW \? \(size_t\)WB_A \* WARP_LANES \* \(WB_BLOCK \+ 1\) \* sizeof\(float\)",
+    r"const size_t warm = \(size_t\)\(SC_LEN \+ p\.h \* WB_A\) \* sizeof\(float\);",
+    r"allow_smem\(wb_cost_kernel<MODE, DRAW, STORE>, warm \+ stage\);",
+])
+def test_shared_memory_accounting_matches_the_cuda_source(pattern):
+    """What :func:`cost_smem_bytes` counts is what the source declares and
+    launches with (the stage only where the kernel spills or reads noise),
+    and the launcher opts in to it."""
+    assert re.search(pattern, CU_SOURCE.read_text())
+
+
 @pytest.mark.parametrize("make", [twb.WholeBodyMPPIParams, twb.position_mode_params,
                                   twb.wrench_mode_params])
 def test_scan_powers_are_the_step_maps_powers(make):
-    """The lane layout's scans take each constant step map raised to 2^i:
+    """wb_cost's scans take each constant step map raised to 2^i:
     the 2x2 axis responses and the rotor-lag, drag and rate factors of the
     struct (float32), squared in float64."""
     s = wk.make_kernel_config(make()).struct
