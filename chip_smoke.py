@@ -15,8 +15,10 @@ lines; any failure exits non-zero before the final ``ok`` line):
 3. the Philox path: the kernel's spilled noise against the plain Philox;
 4. the serving path: 50 packed solves of the flagship configuration through
    ``make_packed_step``, counting kernel launches, then timings;
-5. the plant tick against its plain version at B=1 and B=1024, its
-   timings and its registers;
+5. the plant tick (eight lanes per vehicle row) against its plain version
+   at B=1 and B=1024, bit-equal reruns and rows equal to their one-row
+   launches, its CUDA-event and CUDA-graph timings beside its bound and
+   the launch floor (an empty kernel's graph replay), and its registers;
 6. the serving episode: 200 control steps of the position-mode closed loop
    at K=4096, H=50 with the plant-tick kernel, counting launches, with a
    profiler breakdown;
@@ -39,7 +41,10 @@ lines; any failure exits non-zero before the final ``ok`` line):
    against its plain version, and its timings at K_local = 2048;
 11. the drone kernels (rows 9a-9d) against their plain versions at the
    preset K=1000, H=32, at K=1024, 4096, 16384 (H=32) and at K=16384,
-   H=100, with timings, bounds and the ``torch.mv`` yardstick of pass 2;
+   H=100, with CUDA-event, profiler and CUDA-graph timings, bounds, the
+   launch floor and the ``torch.mv`` yardstick of pass 2 (column blocks:
+   one column and all K at small K, 32-column tiles with K split across
+   blocks at large K);
    the kernel solve against the first step of ``make_drone_solver`` on the
    same seed; host ms per solve of both at K=1024, with profiles;
 12. the drone's closed loops: (a) the kernel solve in the point-mass loop,
@@ -47,7 +52,10 @@ lines; any failure exits non-zero before the final ``ok`` line):
    launches of rows 9a and 9b); (b) the explicit-noise loop, 80 steps at
    K=1024 (80 + 80 of rows 9c and 9d); (c) the drone waypoint episode,
    ``make_drone_solver`` at the preset through ``make_episode`` with
-   backstepping, 2000 control steps; each with its gate;
+   backstepping, 2000 control steps; each with its gate; (d) the batched
+   drone preset, ``make_drone_solver(n_scenarios=256)`` at K=1000, H=32 on
+   the Philox stream: four of its scenarios against their unbatched solves
+   over three steps (1e-6), host ms per batched solve;
 13. ``wb_update`` at every rows-per-block R the source is built for, at
    its main paths' shapes (row 3 at B=1 and B=256, row 5 at B=256, rows 6
    and 7 at K_local): the sums bit-equal for every R, CUDA-graph and
@@ -81,7 +89,7 @@ from quadrotor_manipulator_mppi_tpu_torch.evaluation.metrics import episode_qual
 from quadrotor_manipulator_mppi_tpu_torch.models import multirotor as mr
 from quadrotor_manipulator_mppi_tpu_torch.models import point_mass as pm
 from quadrotor_manipulator_mppi_tpu_torch.models import rigid_body as rb
-from quadrotor_manipulator_mppi_tpu_torch.ops import sampling, weights
+from quadrotor_manipulator_mppi_tpu_torch.ops import sampling
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import build
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import drone_kernel as dk
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import plant_kernel as pk
@@ -176,6 +184,8 @@ TOL_DRONE_STEP = 2e-4          # |a - b| <= TOL (1 + |b|): tests/test_pallas_ker
 N_DRONE_LOOP = 800             # phase 12a: tests/test_solver_golden.py's loop
 N_DRONE_NOISE_LOOP = 80        # phase 12b: tests/test_pallas_kernel.py's loop
 N_DRONE_EPISODE = 2000         # phase 12c: tests/test_sim.py's waypoint episode
+B_DRONE = 256                  # phase 12d: the batched drone preset's scenarios
+N_DRONE_BATCH_STEPS = 3
 # The instantiation each drone wrapper launches, as the profiler names it.
 DRONE_KEYS = {"drone_cost": "drone_cost_kernel<true>", "drone_update": "drone_update_kernel<true>",
               "drone_cost_noise": "drone_cost_kernel<false>",
@@ -253,6 +263,12 @@ def graph_ms(fn, reps: int = 20) -> float:
         sync()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def launch_floor_ms() -> float:
+    """The CUDA-graph replay time of an empty kernel (``torch.cuda._sleep``
+    of 0 cycles): what any one launch costs on this card, beside a bound."""
+    return graph_ms(lambda: torch.cuda._sleep(0))
 
 
 def fmt_ms(v) -> str:
@@ -549,31 +565,42 @@ def phase_plant(dev, errs):
              1024: pk.sample_rows(m.vehicle, m.chain(), m.inertials(), 1024, seed=0, device=dev)}
     for rows, args in cases.items():
         got = pk.plant_tick(pc, *args)
+        again = pk.plant_tick(pc, *args)
         want = pk.plant_tick_plain(pc, *args)
         sync()
         diff = (got - want).abs().max(dim=0).values
         per_field = {name: diff[a:b].max().item() for name, a, b in PLANT_FIELDS}
         worst = max(per_field.values())
+        alone = all(torch.equal(pk.plant_tick(pc, *(x[b] for x in args)), got[b])
+                    for b in sorted({0, rows // 3, rows - 1}))
         print(f"[5] plant_tick B={rows} max|d| per field: "
-              + ", ".join(f"{k} {v:.2e}" for k, v in per_field.items()), flush=True)
+              + ", ".join(f"{k} {v:.2e}" for k, v in per_field.items())
+              + f" | rerun bit-equal {torch.equal(got, again)} | rows equal their one-row "
+              f"launches {alone}", flush=True)
         if not (worst <= TOL_PLANT and bool(torch.isfinite(got).all())):
             fail(f"plant_tick disagrees with its plain version at B={rows}")
+        if not (torch.equal(got, again) and alone):
+            fail(f"plant_tick is not deterministic per row at B={rows}")
         errs["plant_tick"] = max(errs["plant_tick"], worst)
     t = {"plant_tick": event_ms(lambda: pk.plant_tick(pc, *cases[1]), reps=200),
+         "plant_tick_graph": graph_ms(lambda: pk.plant_tick(pc, *cases[1])),
          "plant_tick_plain": event_ms(lambda: pk.plant_tick_plain(pc, *cases[1]), reps=5),
          "plant_tick_b1024": event_ms(lambda: pk.plant_tick(pc, *cases[1024]), reps=200),
+         "plant_tick_b1024_graph": graph_ms(lambda: pk.plant_tick(pc, *cases[1024])),
          "plant_tick_plain_b1024": event_ms(lambda: pk.plant_tick_plain(pc, *cases[1024]),
-                                            reps=5)}
+                                            reps=5),
+         "launch_floor": launch_floor_ms()}
     ops = pc.substeps * PLANT_OPS_PER_SUBSTEP
     b1 = bound(PLANT_FLOATS_PER_ROW * 4, ops)
     b1024 = bound(1024 * PLANT_FLOATS_PER_ROW * 4, 1024 * ops)
-    print(f"[5] plant_tick timings (ms): B=1 {t['plant_tick']:.4f} (plain "
-          f"{t['plant_tick_plain']:.3f}, bound {b1[0]:.2e} by {b1[1]}) | B=1024 "
-          f"{t['plant_tick_b1024']:.4f} = {t['plant_tick_b1024'] / 1024 * 1e3:.3f} us/row "
-          f"(plain {t['plant_tick_plain_b1024']:.3f}, bound {b1024[0]:.2e} by {b1024[1]}) | "
-          f"{ops} ops/row", flush=True)
+    print(f"[5] plant_tick timings (ms, events / graph): B=1 {t['plant_tick']:.4f} / "
+          f"{t['plant_tick_graph']:.4f} (plain {t['plant_tick_plain']:.3f}, bound {b1[0]:.2e} "
+          f"by {b1[1]}) | B=1024 {t['plant_tick_b1024']:.4f} / {t['plant_tick_b1024_graph']:.4f}"
+          f" = {t['plant_tick_b1024_graph'] / 1024 * 1e3:.4f} us/row (plain "
+          f"{t['plant_tick_plain_b1024']:.3f}, bound {b1024[0]:.2e} by {b1024[1]}) | launch "
+          f"floor {t['launch_floor']:.4f} | {ops} ops/row", flush=True)
     print_ptxas("plant_kernel")
-    return t, b1
+    return t, b1, b1024
 
 
 def serving_episode(params, dev, n_steps):
@@ -1092,6 +1119,10 @@ COST_SHAPES = (("B=1", 1, K, 0), ("B=16", 16, K, 0), ("B=256", B_BATCH, K, 0),
 COST_VARIANTS = {1: "spill", 2: "no spill", 0: "explicit noise"}  # wb_cost_launch's codes
 # The pass-1 kernels' layout (wb_cost and drone_cost), named in the kernels line.
 COST_LAYOUT = "a warp per sample, the horizon across its lanes"
+# The layouts of plant_tick and drone_update, named in the kernels line.
+PLANT_LAYOUT = "eight lanes per vehicle row, four rows per warp"
+UPDATE_LAYOUT = ("column blocks of the (K, H*A) noise: one column and all K at small K, "
+                 "32-column tiles with K split across blocks at large K")
 
 
 def cost_work(b: int, k: int, variant: int):
@@ -1371,8 +1402,10 @@ def phase_sharded(dev):
 def drone_case(dev, k: int, h: int):
     """Arguments of each drone wrapper at K=k, H=h, made on the card from a
     seed: a warm start, the state, the target, a key, sigma-scaled
-    explicit noise; pass 2's weights are the softmin of the plain pass 1
-    on the same noise (drawn or explicit), as the solve forms them."""
+    explicit noise, and pass 2's weights.  The solve's own softmin of pass
+    1 is one-hot at lambda = 0.1 (the two lowest costs lie ~136 apart), so
+    du would be one sample's noise; these weights (a softmax of normals of
+    scale 3) spread over every sample, so pass 2's whole sum is checked."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(1000 * k + h)
     u_prev = torch.randn((h, DRONE_A), generator=gen, device=dev)
@@ -1383,10 +1416,9 @@ def drone_case(dev, k: int, h: int):
     noise = 30.0 * torch.randn((k, h, DRONE_A), generator=gen, device=dev)
     cost = (u_prev, x0, v0, target, keys, k, 0.01, 30.0, 100.0, 20.0)
     cost_noise = (u_prev, noise, x0, v0, target, 0.01, 100.0, 20.0)
-    w_draw = weights.softmin_weights(dk.drone_cost_plain(*cost), 0.1)
-    w_noise = weights.softmin_weights(dk.drone_cost_noise_plain(*cost_noise), 0.1)
-    return {"drone_cost": cost, "drone_update": (w_draw, keys, h, DRONE_A, 30.0),
-            "drone_cost_noise": cost_noise, "drone_update_noise": (noise, w_noise)}
+    w = torch.softmax(3.0 * torch.randn(k, generator=gen, device=dev), dim=0)
+    return {"drone_cost": cost, "drone_update": (w, keys, h, DRONE_A, 30.0),
+            "drone_cost_noise": cost_noise, "drone_update_noise": (noise, w)}
 
 
 def drone_work(name: str, k: int, h: int):
@@ -1433,6 +1465,8 @@ def phase_drone_kernels(dev, errs):
     solve against the preset's first step; host ms per solve of both at
     K=1024."""
     sweep = {}
+    floor = launch_floor_ms()
+    print(f"[11] launch floor (an empty kernel, graph replay): {floor:.4f} ms", flush=True)
     for k, h in DRONE_SIZES:
         case = drone_case(dev, k, h)
         rels = {}
@@ -1445,24 +1479,31 @@ def phase_drone_kernels(dev, errs):
         noise, w = case["drone_update_noise"]
         flat = noise.view(k, h * DRONE_A).t()
         lib = {"ms": event_ms(lambda: torch.mv(flat, w)),
-               "device_ms": device_ms(lambda: torch.mv(flat, w), "gemv")}
+               "device_ms": device_ms(lambda: torch.mv(flat, w), "gemv"),
+               "graph_ms": graph_ms(lambda: torch.mv(flat, w))}
         for name, args in case.items():
             kern, plain = getattr(dk, name), getattr(dk, name + "_plain")
             b = bound(*drone_work(name, k, h))
             sweep[(name, k, h)] = {
                 "k": k, "h": h, "ms": event_ms(lambda: kern(*args)),
                 "device_ms": device_ms(lambda: kern(*args), DRONE_KEYS[name]),
-                "graph_ms": graph_ms(lambda: kern(*args)) if "cost" in name else None,
+                "graph_ms": graph_ms(lambda: kern(*args)),
                 "plain_ms": event_ms(lambda: plain(*args), reps=5), "bound_ms": b[0],
                 "bound_by": b[1],
                 "library_ms": lib["ms"] if "update" in name else None,
-                "library_device_ms": lib["device_ms"] if "update" in name else None}
+                "library_device_ms": lib["device_ms"] if "update" in name else None,
+                "library_graph_ms": lib["graph_ms"] if "update" in name else None,
+                **({"split": dict(zip(("tile", "column_blocks", "chunks", "k_chunk"),
+                                      dk.update_split(k, h, DRONE_A)))}
+                   if "update" in name else {})}
         print(f"[11] K={k} H={h}: vs plain " + ", ".join(f"{n} {r:.2e}" for n, r in rels.items())
               + " | ms (events / device / graph / plain / bound): " + ", ".join(
                   f"{n} {fmt_ms(s['ms'])}/{fmt_ms(s['device_ms'])}/{fmt_ms(s['graph_ms'])}/"
                   f"{s['plain_ms']:.3f}/{s['bound_ms']:.2e} by {s['bound_by']}"
                   for (n, kk, hh), s in sweep.items() if (kk, hh) == (k, h))
-              + f" | torch.mv {lib['ms']:.4f}/{fmt_ms(lib['device_ms'])}", flush=True)
+              + f" | torch.mv {lib['ms']:.4f}/{fmt_ms(lib['device_ms'])}/"
+              f"{lib['graph_ms']:.4f} | drone_update (tile, column blocks, K-chunks, "
+              f"samples per chunk) {dk.update_split(k, h, DRONE_A)}", flush=True)
 
     # The kernel solve against the preset's first step on the same seed.
     step, state, obs = drone_solve_inputs(dev)
@@ -1500,7 +1541,7 @@ def phase_drone_kernels(dev, errs):
         f"{n} {v:.4f}" for n, v in host.items()), flush=True)
     profile_solves("[11] kernel solve", kernel_solve, 20, host["kernel_solve"])
     profile_solves("[11] make_drone_solver step", plain_step, 20, host["make_drone_solver_step"])
-    return sweep, host
+    return sweep, host, floor
 
 
 def drone_point_mass_loop(target, n_steps: int, k: int, gen=None, seed: int = 0):
@@ -1620,6 +1661,43 @@ def phase_drone_loops(dev):
     return launches, {"a": ms_a, "b": ms_b, "c": ms_c}
 
 
+def phase_drone_batch(dev):
+    """(d) The batched drone preset: ``make_drone_solver(n_scenarios=256)``
+    at K=1000, H=32 on the Philox stream, each scenario with its own
+    position and velocity; four scenarios against their unbatched solves
+    under their keys over three steps; host ms per batched solve."""
+    params = drone_params(DRONE_K)
+    step, init = drone.make_drone_solver(params, device=dev, n_scenarios=B_DRONE)
+    step1, init1 = drone.make_drone_solver(params, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    x = torch.tensor([0.1, -0.2, 1.0], device=dev) + 0.3 * torch.randn(
+        (B_DRONE, DRONE_A), generator=gen, device=dev)
+    v = 0.2 * torch.randn((B_DRONE, DRONE_A), generator=gen, device=dev)
+    target = torch.tensor(drone.DEFAULT_TARGET, device=dev).expand(B_DRONE, DRONE_A).contiguous()
+    obs = drone.DroneObs(x=x, v=v, target=target)
+    state = init(12)
+    keys = sampling.key_list(state.seed)
+    singles = {b: init1(keys[b]) for b in CHECK_SCENARIOS}
+    err = 0.0
+    for _ in range(N_DRONE_BATCH_STEPS):
+        out, state = step(state, obs)
+        for b in CHECK_SCENARIOS:
+            one, singles[b] = step1(singles[b], drone.DroneObs(x=x[b], v=v[b], target=target[b]))
+            err = max(err, rel_err(out.u_seq[b], one.u_seq), rel_err(out.xdes[b], one.xdes))
+    finite = bool(torch.isfinite(out.u_seq).all())
+    ms = host_ms(lambda: step(state, obs), reps=10)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"[12d] batched drone preset, B={B_DRONE} x K={DRONE_K} x H={DRONE_H}: scenarios "
+          f"{CHECK_SCENARIOS} vs their unbatched solves over {N_DRONE_BATCH_STEPS} steps, max rel "
+          f"{err:.2e} (limit {TOL_BATCH:g}) | finite {finite} | u_seq {tuple(out.u_seq.shape)} | "
+          f"{ms:.3f} ms per batched solve (host) = {B_DRONE / ms * 1e3:.0f} solves/s | peak "
+          f"{peak:.2f} GiB since start", flush=True)
+    if not (finite and err <= TOL_BATCH):
+        fail("the batched drone preset disagrees with its unbatched solves")
+    return ms
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1632,15 +1710,16 @@ def main() -> None:
     launches, solve_ms, serve = phase_serving(dev)
     t, bounds = phase_timing(dev)
     phase_profile(serve, solve_ms)
-    t_plant, plant_bound = phase_plant(dev, errs)
+    t_plant, plant_bound, plant_bound_b1024 = phase_plant(dev, errs)
     episode_launches, step_ms = phase_episode(dev)
     phase_reach(dev)
     batch_launches, t_b256, batch_rows, b256_bounds = phase_batch(dev, errs)
     t_k4096 = phase_nospill(dev)
     shard = phase_sharded(dev)
     errs.update(shard["kernel_err_all_ranks"])
-    drone_sweep, drone_host = phase_drone_kernels(dev, errs)
+    drone_sweep, drone_host, drone_floor = phase_drone_kernels(dev, errs)
     drone_launches, drone_loop_ms = phase_drone_loops(dev)
+    drone_batch_ms = phase_drone_batch(dev)
     rows_sweep = phase_update_rows(dev)
     cost_sweep = phase_cost_shapes(dev)
     b256 = {(b, spill): e_ms for b, spill, _, e_ms, _, _, _ in batch_rows}
@@ -1725,7 +1804,12 @@ def main() -> None:
          "launches": episode_launches["plant_tick"], "max_abs_err": errs["plant_tick"],
          "ms": t_plant["plant_tick"], "plain_ms": t_plant["plant_tick_plain"],
          "bound_ms": plant_bound[0], "bound_by": plant_bound[1], "library_ms": None,
-         "b1024_ms": t_plant["plant_tick_b1024"]},
+         "layout": PLANT_LAYOUT, "graph_ms": t_plant["plant_tick_graph"],
+         "launch_floor_ms": t_plant["launch_floor"],
+         "b1024_ms": t_plant["plant_tick_b1024"],
+         "b1024_graph_ms": t_plant["plant_tick_b1024_graph"],
+         "b1024_plain_ms": t_plant["plant_tick_plain_b1024"],
+         "b1024_bound_ms": plant_bound_b1024[0], "b1024_bound_by": plant_bound_b1024[1]},
         batch_row("wb_cost_nospill", "551 _cost_kernel", None,
                   layout=COST_LAYOUT,
                   k_local_graph_ms=cost_sweep[("K_local", "attitude", 2)]["graph_ms"],
@@ -1748,7 +1832,10 @@ def main() -> None:
                 "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
                 "library_ms": s["library_ms"], "device_ms": s["device_ms"],
                 "library_device_ms": s["library_device_ms"], "k": k, "h": DRONE_H,
-                **({"layout": COST_LAYOUT, "graph_ms": s["graph_ms"]} if "cost" in name else {}),
+                "graph_ms": s["graph_ms"], "launch_floor_ms": drone_floor,
+                "layout": COST_LAYOUT if "cost" in name else UPDATE_LAYOUT,
+                **({"library_graph_ms": s["library_graph_ms"], "split": s["split"]}
+                   if "update" in name else {}),
                 "sweep": [v for (n, _, _), v in drone_sweep.items() if n == name]}
 
     kernels += [drone_row("drone_cost", DRONE_K, drone_launches["a"]["drone_cost"]),
@@ -1763,7 +1850,8 @@ def main() -> None:
           f"{b256[(B_BATCH, False)]:.3f} ms (no spill), sharded solve "
           f"{shard['ms']['spill']:.3f} ms, drone kernel solve {drone_host['kernel_solve']:.4f} ms "
           f"/ preset step {drone_host['make_drone_solver_step']:.4f} ms at K={DRONE_NOISE_K}, "
-          f"drone episode {drone_loop_ms['c']:.3f} ms/control step on {smi}")
+          f"drone episode {drone_loop_ms['c']:.3f} ms/control step, batched drone preset at "
+          f"B={B_DRONE} {drone_batch_ms:.3f} ms on {smi}")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

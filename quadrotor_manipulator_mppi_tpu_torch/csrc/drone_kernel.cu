@@ -27,8 +27,9 @@
 // S.  Pass 2 on the drawn noise is the same draw again plus a multiply-add.
 // On explicit noise both read 12 B per sample and step (0.38 MB at the
 // preset, 0.1 us).  So both are operation bound on paper; in practice
-// launch and dependent latency dominate: one thread walking a sample's
-// horizon is a chain of H*A = 96 draws (~19 us at any K up to 16384).
+// launch and dependent latency dominate at the preset.  At K=16384,
+// H=100 pass 2 on explicit noise moves 19.7 MB (5.9 us) and on drawn noise
+// does 0.67 G operations (10 us at the float32 rate).
 //
 // What the design does about it (simple first).  The Pallas layout is
 // Mosaic's workaround and is not carried over: no 128-lane tiles (any
@@ -42,11 +43,27 @@
 //   into the next chunk; the lanes' squared errors meet in a fixed-order
 //   warp sum.  The chain per lane is A draws per chunk, not H*A.  On
 //   explicit noise a warp reads its sample's contiguous H*A floats.
-//   drone_update: one block per (t, a) row, H*A blocks; threads stride over
-//   k and reduce in a fixed order (warp shuffles, then the warps' partials
-//   in order): deterministic, no atomics, du (H, A) written directly.
-//   The explicit-noise read of pass 2 strides H*A floats between
-//   neighbouring threads (uncoalesced; kept for now).
+//   drone_update: column blocks.  The noise is a row-major (K, C) matrix,
+//   C = H*A, column c = t*A + a.  Where K is large a block takes a tile of
+//   DRONE_UPDATE_TILE = 32 consecutive columns (lane = column) and one
+//   chunk of samples (warp w takes the chunk's samples w, w + 8, ...), so
+//   each warp reads 128 contiguous bytes per sample; the tiles alone would
+//   leave the card idle, so K is split into chunks across blocks, each
+//   block writes its 32 column partials, and the last block of a tile to
+//   finish (an integer ticket per tile, reset by that block) sums the
+//   chunks' partials: its warp w a fixed range of chunks in order, then
+//   the warps in order.  Where K is small (the preset's K=1000) the
+//   fence, the ticket and the read-back of that cross-block sum cost more
+//   than the whole reduction, so a block takes one column and all K (the
+//   32 lanes of a warp on 32 samples, met in a fixed butterfly) and C
+//   blocks fill the card.  The tile width and the chunks are one rule of
+//   (K, H, A) (update_split in ops/cuda/drone_kernel.py), measured on the
+//   H100.  Every sum runs in a fixed order (a thread's samples in order,
+//   the butterfly, the warps in order, the chunk ranges in order), with no
+//   float atomics: du is bit-equal on reruns.  The draw variant shares the
+//   body, the rule and the order, drawing element (k, c) at counter
+//   (0, k, a*H + t, 0), so its du is bit-equal to the read variant's on
+//   the noise it draws.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,8 +71,10 @@
 #include "philox.cuh"
 #include "warp_scan.cuh"
 
-#define DRONE_COST_WARPS 4   // samples (one warp each) per drone_cost block
-#define DRONE_UPDATE_THREADS 256
+#define DRONE_COST_WARPS 4     // samples (one warp each) per drone_cost block
+#define DRONE_UPDATE_TILE 32   // columns of a wide drone_update block, one per lane
+#define DRONE_UPDATE_WARPS 8   // warps per drone_update block
+#define DRONE_UPDATE_LOADS 8   // partials a warp of a tile's last block loads at once
 
 // Pass 1.  u_prev (H, A); x0, v0, target (A,); noise (K, H, A) (!DRAW);
 // seeds (1,) (DRAW); s (K,) out.  Warp w of block g takes sample
@@ -121,34 +140,94 @@ drone_cost_kernel(const float* __restrict__ u_prev, const float* __restrict__ x0
   if (lane == 0) s[k] = stage_w * stage + term_w * term;
 }
 
-// Pass 2, one block per row = a*H + t.  w (K,); noise (K, H, A) (!DRAW);
-// seeds (1,) (DRAW); du (H, A) out.
+// Pass 2.  w (K,); noise (K, H, A) (!DRAW); seeds (1,) (DRAW); du (H, A)
+// out.  Block (b, chunk) sums columns b*tile .. b*tile + tile - 1 over the
+// samples chunk*k_chunk .. chunk*k_chunk + k_chunk - 1; tile is 1 or
+// DRONE_UPDATE_TILE.  Lane l takes column l % tile and, of the 32 / tile
+// samples its warp reads at once, sample l / tile.  With more than one
+// chunk, partials (n_chunks, C) and tickets (one per column block, zero on
+// entry and left zero) carry the cross-block sum.
 template <bool DRAW>
-__global__ void __launch_bounds__(DRONE_UPDATE_THREADS)
+__global__ void __launch_bounds__(DRONE_UPDATE_WARPS * WARP_LANES)
 drone_update_kernel(const float* __restrict__ w, const float* __restrict__ noise,
                     const unsigned long long* __restrict__ seeds, int K, int H, int A,
-                    float sigma, float* __restrict__ du) {
-  __shared__ float red[DRONE_UPDATE_THREADS / 32];
-  const int row = blockIdx.x;
-  const int a = row / H, t = row - a * H;
+                    float sigma, int tile, int k_chunk, float* __restrict__ partials,
+                    unsigned int* __restrict__ tickets, float* __restrict__ du) {
+  __shared__ float red[DRONE_UPDATE_WARPS][WARP_LANES];
+  __shared__ bool last;
+  const int lane = threadIdx.x & (WARP_LANES - 1), warp = threadIdx.x / WARP_LANES;
+  const int C = H * A;
+  const int rows = WARP_LANES / tile;  // samples a warp reads at once
+  const int c = blockIdx.x * tile + (lane & (tile - 1));
+  const bool live = c < C;
+  const bool writer = live && lane < tile;  // the column's first lane
+  const int t = c / A, a = c - t * A;
+  const uint32_t row = (uint32_t)(a * H + t);
+  const int chunk = blockIdx.y, n_chunks = gridDim.y;
+  const int k_end = min(K, (chunk + 1) * k_chunk);
   uint32_t key0 = 0u, key1 = 0u;
   if (DRAW) philox_key(seeds, 0, key0, key1);
+
+  // A thread's samples in order.  Reads are unrolled (loads in flight);
+  // draws are not: with a few draws a thread, an unrolled body and its
+  // remainder loop would split a warp and run both, one after the other.
   float acc = 0.0f;
-  for (int k = threadIdx.x; k < K; k += DRONE_UPDATE_THREADS) {
-    const float e = DRAW ? draw_eps(0u, (uint32_t)k, (uint32_t)row, sigma, key0, key1)
-                         : noise[((size_t)k * H + t) * A + a];
-    acc += w[k] * e;
+  const int k0 = chunk * k_chunk + warp * rows + lane / tile, dk = DRONE_UPDATE_WARPS * rows;
+  if (DRAW) {
+#pragma unroll 1
+    for (int k = k0; k < k_end; k += dk)
+      acc += w[k] * (live ? draw_eps(0u, (uint32_t)k, row, sigma, key0, key1) : 0.0f);
+  } else {
+#pragma unroll 4
+    for (int k = k0; k < k_end; k += dk) acc += w[k] * (live ? noise[(size_t)k * C + c] : 0.0f);
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) red[warp] = acc;
+  // A column's lanes meet in a fixed butterfly (every lane gets the same
+  // bits), then warp 0 sums the warps in order.
+  for (int off = WARP_LANES / 2; off >= tile; off >>= 1)
+    acc += __shfl_xor_sync(FULL_MASK, acc, off);
+  red[warp][lane] = acc;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float sum = 0.0f;
-    for (int i = 0; i < DRONE_UPDATE_THREADS / 32; ++i) sum += red[i];
-    du[t * A + a] = sum;
+  if (warp == 0) {
+    float sum = red[0][lane];
+#pragma unroll
+    for (int i = 1; i < DRONE_UPDATE_WARPS; ++i) sum += red[i][lane];
+    if (n_chunks == 1) {
+      if (writer) du[c] = sum;
+    } else {
+      if (writer) partials[(size_t)chunk * C + c] = sum;
+      __threadfence();  // this block's partials reach the device before its ticket
+      __syncwarp();
+      if (lane == 0) last = atomicAdd(&tickets[blockIdx.x], 1u) == (unsigned int)(n_chunks - 1);
+    }
   }
+  if (n_chunks == 1) return;
+  __syncthreads();
+  if (!last) return;
+
+  // The column block's last block: warp w sums its fixed range of chunks in
+  // order, DRONE_UPDATE_LOADS loads in flight, then warp 0 sums the warps in
+  // order.
+  __threadfence();
+  const int per = (n_chunks + DRONE_UPDATE_WARPS - 1) / DRONE_UPDATE_WARPS;
+  const int i_end = min(n_chunks, (warp + 1) * per);
+  float part = 0.0f;
+  for (int i0 = warp * per; i0 < i_end; i0 += DRONE_UPDATE_LOADS) {
+    float v[DRONE_UPDATE_LOADS];
+#pragma unroll
+    for (int j = 0; j < DRONE_UPDATE_LOADS; ++j)
+      v[j] = (writer && i0 + j < i_end) ? __ldcg(partials + (size_t)(i0 + j) * C + c) : 0.0f;
+#pragma unroll
+    for (int j = 0; j < DRONE_UPDATE_LOADS; ++j)
+      if (i0 + j < i_end) part += v[j];
+  }
+  red[warp][lane] = part;
+  __syncthreads();
+  if (warp != 0) return;
+  float total = red[0][lane];
+#pragma unroll
+  for (int i = 1; i < DRONE_UPDATE_WARPS; ++i) total += red[i][lane];
+  if (writer) du[c] = total;
+  if (lane == 0) tickets[blockIdx.x] = 0u;  // every block of this column block has arrived
 }
 
 extern "C" {
@@ -173,17 +252,25 @@ int drone_cost_launch(const float* u_prev, const float* x0, const float* v0,
   return (int)cudaGetLastError();
 }
 
-// Pass 2, H*A blocks.  noise == NULL: draw the noise again as pass 1 did;
-// else read it.
+// Pass 2 over ceil(h*a / tile) column blocks x ceil(k / k_chunk) sample
+// chunks; tile is 1 or DRONE_UPDATE_TILE.  noise == NULL: draw the noise
+// again as pass 1 did; else read it.  With more than one chunk, partials
+// holds (chunks, h*a) floats and tickets one zeroed unsigned int per
+// column block (the kernel leaves them zero).
 int drone_update_launch(const float* w, const float* noise, const unsigned long long* seeds,
-                        int k, int h, int a, float sigma, float* du, void* stream) {
+                        int k, int h, int a, float sigma, int tile, int k_chunk, float* partials,
+                        unsigned int* tickets, float* du, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (k <= 0 || k_chunk <= 0 || (tile != 1 && tile != DRONE_UPDATE_TILE))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((h * a + tile - 1) / tile, (k + k_chunk - 1) / k_chunk);
+  const int threads = DRONE_UPDATE_WARPS * WARP_LANES;
   if (noise)
-    drone_update_kernel<false><<<h * a, DRONE_UPDATE_THREADS, 0, st>>>(w, noise, seeds, k, h,
-                                                                         a, sigma, du);
+    drone_update_kernel<false><<<grid, threads, 0, st>>>(w, noise, seeds, k, h, a, sigma, tile,
+                                                         k_chunk, partials, tickets, du);
   else
-    drone_update_kernel<true><<<h * a, DRONE_UPDATE_THREADS, 0, st>>>(w, noise, seeds, k, h,
-                                                                        a, sigma, du);
+    drone_update_kernel<true><<<grid, threads, 0, st>>>(w, noise, seeds, k, h, a, sigma, tile,
+                                                        k_chunk, partials, tickets, du);
   return (int)cudaGetLastError();
 }
 

@@ -14,22 +14,36 @@
 //
 // What bounds it on this card.  Per vehicle row it reads 479 floats
 // (state 46, coefficients 422, command 4, torque 7) and writes 46, and does
-// ~17k float32 operations over 10 substeps (~1.7k per substep, 770 of them
-// the Coriolis contraction): 8 operations per byte, under the H100's ~20
-// float32 operations per byte, so a full card of rows would be bound by
-// bytes.  The serving loop runs ONE row (B = 1): the work is a few
-// nanoseconds, and the kernel's time is its launch and the dependent chain
-// of ~1.7k operations per substep on one thread.
+// ~15.6k float32 operations over 10 substeps (~1.56k per substep, 777 of
+// them the frozen Coriolis contraction): 8 operations per byte, under the
+// H100's ~20 float32 operations per byte, so a full card of rows would be
+// bound by bytes.  The serving loop runs ONE row (B = 1): the work is a few
+// nanoseconds, and the kernel's time is its launch and the chain of
+// dependent instructions a warp issues over the 10 substeps.
 //
-// What the design does about it.  One thread per vehicle row, the 46 state
-// scalars in registers across all substeps (every per-row array is indexed
-// with compile-time indices after unrolling); the 422 coefficients are read
-// through the read-only data cache (__ldg) where they are used, so a row's
-// Coriolis tensor (1.4 KB) stays in L1 across the substeps.  Per-
-// configuration constants arrive by value in a POD struct (PlantParams).
-// The batch dimension costs nothing at B = 1 and lets a fleet of vehicles
-// share one launch.  Inverse trig uses atan2f/asinf (the TPU kernel's
-// polynomial has no counterpart here); no fast-math flags.
+// What the design does about it.  Eight lanes per vehicle row
+// (PT_LANES), four rows per warp, PT_BLOCK threads a block; shuffles have
+// width 8.  Before the substep loop each lane loads, once, the
+// coefficients it uses into registers: lane i < 7 its row i of the
+// Coriolis tensor (49), of M^-1 (7) and of g_tau (3), and its joint's
+// stops; lane r its rotor's pseudo-inverse row; every lane g_n (9).  In a
+// substep lane i forms Coriolis row i, rhs_i, then M^-1 rhs row i from
+// the rhs_j of the other lanes (shuffles), and joint i's integration and
+// stop; lane r runs the allocation and the asymmetric lag of rotor r.
+// Everything else -- the attitude, the backstepping law, the wrench sums
+// in rotor order r = 0..7 over the shuffled rotor speeds, the rigid-body
+// step -- every lane computes alike, so no value of the base state has to
+// be broadcast and no branch diverges inside a row.  The 777-operation
+// contraction is issued as 111 warp instructions, and no coefficient is
+// read again inside the loop.  Every lane keeps the single-thread
+// kernel's arithmetic order (j, then k, in a Coriolis row; j in M^-1 rhs;
+// r = 0..7 in every rotor sum), and the source is built with
+// --fmad=false, so each output is the same float32 expression as before.
+// A row past the batch (the rest of the last warp) repeats the last row's
+// work and writes nothing, so every lane reaches every shuffle.  One body
+// for every batch size.  Per-configuration constants arrive by value in a
+// POD struct (PlantParams).  Inverse trig uses atan2f/asinf (the TPU
+// kernel's polynomial has no counterpart here); no fast-math flags.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,11 +52,15 @@
 #define PT_DYN 422    // minv 49 | g_tau 21 | g_n 9 | c_tau 343
 #define PT_J 7        // arm joints
 #define PT_R 8        // rotors
-#define PT_BLOCK 64   // rows per block
+#define PT_LANES 8    // lanes per vehicle row (shuffle width)
+#define PT_BLOCK 64   // threads per block: 8 rows
+#define PT_FULL 0xffffffffu
 
 // Per-configuration constants.  Field order and types must match the
 // ctypes Structure PlantParams in ops/cuda/plant_kernel.py; every field is
-// 4 bytes, so both sides lay it out without padding.
+// 4 bytes, so both sides lay it out without padding.  The kernel takes it
+// as a __grid_constant__ parameter, so a lane's row of it (a joint's
+// stops, a rotor's pseudo-inverse row) is read in place, not copied.
 struct PlantParams {
   int substeps, pad_;
   float dt, mass, ixx, iyy, izz, xlen, ylen;
@@ -55,11 +73,14 @@ struct PlantParams {
 };
 
 __global__ void __launch_bounds__(PT_BLOCK)
-plant_tick_kernel(const PlantParams p, const float* __restrict__ state,
+plant_tick_kernel(const __grid_constant__ PlantParams p, const float* __restrict__ state,
                   const float* __restrict__ dyn, const float* __restrict__ cmd,
                   const float* __restrict__ tau, float* __restrict__ out, int n) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= n) return;
+  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = gid & (PT_LANES - 1);  // joint i = lane (lane 7 repeats 6); rotor r = lane
+  const int row = gid / PT_LANES;
+  const int b = row < n ? row : n - 1;    // a row past the batch repeats the last
+  const int ji = lane < PT_J ? lane : PT_J - 1;
   const float* s0 = state + (size_t)b * PT_STATE;
   const float* minv = dyn + (size_t)b * PT_DYN;
   const float* g_tau = minv + 49;
@@ -67,18 +88,29 @@ plant_tick_kernel(const PlantParams p, const float* __restrict__ state,
   const float* c_tau = g_n + 9;
   const float dt = p.dt;
 
+  // This lane's coefficients, loaded once.
+  float crow[PT_J][PT_J], mrow[PT_J], gtr[3], gn[9];
+#pragma unroll
+  for (int j = 0; j < PT_J; ++j) {
+#pragma unroll
+    for (int k = 0; k < PT_J; ++k) crow[j][k] = __ldg(c_tau + (ji * PT_J + j) * PT_J + k);
+    mrow[j] = __ldg(minv + ji * PT_J + j);
+  }
+#pragma unroll
+  for (int m = 0; m < 3; ++m) gtr[m] = __ldg(g_tau + 3 * ji + m);
+#pragma unroll
+  for (int m = 0; m < 9; ++m) gn[m] = __ldg(g_n + m);
+  const float q_lo = p.q_lo[ji], q_hi = p.q_hi[ji];
+  const float pinv0 = p.pinv[lane][0], pinv1 = p.pinv[lane][1];
+  const float pinv2 = p.pinv[lane][2], pinv3 = p.pinv[lane][3];
+
   float px = s0[0], py = s0[1], pz = s0[2];
   float qw = s0[3], qx = s0[4], qy = s0[5], qz = s0[6];
   float vx = s0[7], vy = s0[8], vz = s0[9];
   float wr = s0[10], wp = s0[11], wy = s0[12];
-  float rotor[PT_R], q[PT_J], qd[PT_J], ie[3], pe[3], mh[3], nh[2];
-#pragma unroll
-  for (int r = 0; r < PT_R; ++r) rotor[r] = s0[13 + r];
-#pragma unroll
-  for (int j = 0; j < PT_J; ++j) {
-    q[j] = s0[21 + j];
-    qd[j] = s0[28 + j];
-  }
+  float rot = s0[13 + lane];              // rotor r = lane
+  float qj = s0[21 + ji], qdj_ = s0[28 + ji];  // joint i = lane
+  float ie[3], pe[3], mh[3], nh[2];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     ie[i] = s0[35 + i];
@@ -89,49 +121,42 @@ plant_tick_kernel(const PlantParams p, const float* __restrict__ state,
   nh[1] = s0[45];
   const float spx = __ldg(cmd + 4 * b), spy = __ldg(cmd + 4 * b + 1);
   const float spz = __ldg(cmd + 4 * b + 2), yaw_des = __ldg(cmd + 4 * b + 3);
-  float tau_arm[PT_J];
-#pragma unroll
-  for (int j = 0; j < PT_J; ++j) tau_arm[j] = __ldg(tau + PT_J * b + j);
+  const float tau_i = __ldg(tau + PT_J * b + ji);
   const float alpha_y = cosf(yaw_des), beta_y = sinf(yaw_des);
 
 #pragma unroll 1
   for (int it = 0; it < p.substeps; ++it) {
-    // --- frozen arm dynamics -------------------------------------------
+    // --- frozen arm dynamics: row i on lane i ----------------------------
+    float qd[PT_J];
+#pragma unroll
+    for (int k = 0; k < PT_J; ++k) qd[k] = __shfl_sync(PT_FULL, qdj_, k, PT_LANES);
     const float a0[3] = {9.81f * (2.0f * (qx * qz - qw * qy)),
                          9.81f * (2.0f * (qy * qz + qw * qx)),
                          9.81f * (1.0f - 2.0f * (qx * qx + qy * qy))};
-    float rhs[PT_J];
+    float acc = gtr[0] * a0[0] + gtr[1] * a0[1] + gtr[2] * a0[2];
 #pragma unroll
-    for (int i = 0; i < PT_J; ++i) {
-      float acc = __ldg(g_tau + 3 * i) * a0[0] + __ldg(g_tau + 3 * i + 1) * a0[1] +
-                  __ldg(g_tau + 3 * i + 2) * a0[2];
+    for (int j = 0; j < PT_J; ++j) {
+      float inner = 0.0f;
 #pragma unroll
-      for (int j = 0; j < PT_J; ++j) {
-        const float* row = c_tau + (i * PT_J + j) * PT_J;
-        float inner = 0.0f;
-#pragma unroll
-        for (int k = 0; k < PT_J; ++k) inner += __ldg(row + k) * qd[k];
-        acc += qd[j] * inner;
-      }
-      rhs[i] = tau_arm[i] - acc;
+      for (int k = 0; k < PT_J; ++k) inner += crow[j][k] * qd[k];
+      acc += qd[j] * inner;
     }
+    const float rhs = tau_i - acc;
+    float qdd = 0.0f;
 #pragma unroll
-    for (int i = 0; i < PT_J; ++i) {
-      float qdd = 0.0f;
-#pragma unroll
-      for (int j = 0; j < PT_J; ++j) qdd += __ldg(minv + i * PT_J + j) * rhs[j];
-      const float qdj = qd[i] + qdd * dt;
-      const float qraw = q[i] + qdj * dt;
+    for (int j = 0; j < PT_J; ++j) qdd += mrow[j] * __shfl_sync(PT_FULL, rhs, j, PT_LANES);
+    {
+      const float qdj = qdj_ + qdd * dt;
+      const float qraw = qj + qdj * dt;
       // The stop test reads the unclamped position.
-      const bool at_stop = qraw < p.q_lo[i] || qraw > p.q_hi[i];
-      q[i] = fminf(fmaxf(qraw, p.q_lo[i]), p.q_hi[i]);
-      qd[i] = at_stop ? 0.0f : qdj;
+      const bool at_stop = qraw < q_lo || qraw > q_hi;
+      qj = fminf(fmaxf(qraw, q_lo), q_hi);
+      qdj_ = at_stop ? 0.0f : qdj;
     }
     float tg[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i)
-      tg[i] = -(__ldg(g_n + 3 * i) * a0[0] + __ldg(g_n + 3 * i + 1) * a0[1] +
-                __ldg(g_n + 3 * i + 2) * a0[2]);
+      tg[i] = -(gn[3 * i] * a0[0] + gn[3 * i + 1] * a0[1] + gn[3 * i + 2] * a0[2]);
 
     // --- attitude: ZYX angles of the quaternion's rotation ---------------
     const float m00 = 1.0f - 2.0f * (qy * qy + qz * qz);
@@ -197,28 +222,26 @@ plant_tick_kernel(const PlantParams p, const float* __restrict__ state,
                               tg[2] / p.izz) +
                      (p.iyy - p.ixx) * wr * wp;
 
-    // --- allocation + asymmetric rotor lag ------------------------------
-    const float taut[4] = {u2, u3, u4, u1};
-#pragma unroll
-    for (int r = 0; r < PT_R; ++r) {
-      const float w2 = p.pinv[r][0] * taut[0] + p.pinv[r][1] * taut[1] +
-                       p.pinv[r][2] * taut[2] + p.pinv[r][3] * taut[3];
+    // --- allocation + asymmetric rotor lag: rotor r on lane r -----------
+    {
+      const float w2 = pinv0 * u2 + pinv1 * u3 + pinv2 * u4 + pinv3 * u1;
       float wcmd = sqrtf(fmaxf(w2, 0.0f));
       wcmd = fminf(fmaxf(wcmd, 0.0f), p.w_max);
-      const float al = wcmd > rotor[r] ? p.a_up : p.a_dn;
-      rotor[r] = al * rotor[r] + (1.0f - al) * wcmd;
+      const float al = wcmd > rot ? p.a_up : p.a_dn;
+      rot = al * rot + (1.0f - al) * wcmd;
     }
 
-    // --- rotor wrench ---------------------------------------------------
+    // --- rotor wrench, summed in rotor order on every lane ---------------
     float t_r = 0.0f, t_p = 0.0f, t_y = 0.0f, thrust = 0.0f, absw = 0.0f;
 #pragma unroll
     for (int r = 0; r < PT_R; ++r) {
-      const float w2 = rotor[r] * rotor[r];
+      const float wr_ = __shfl_sync(PT_FULL, rot, r, PT_LANES);
+      const float w2 = wr_ * wr_;
       t_r += p.alloc[0][r] * w2;
       t_p += p.alloc[1][r] * w2;
       t_y += p.alloc[2][r] * w2;
       thrust += p.alloc[3][r] * w2;
-      absw += fabsf(rotor[r]);
+      absw += fabsf(wr_);
     }
     // body-frame airspeed R^T v, its z component dropped for the drag
     const float vbx = m00 * vx + m10 * vy + m20 * vz;
@@ -284,18 +307,18 @@ plant_tick_kernel(const PlantParams p, const float* __restrict__ state,
     nh[1] = ny;
   }
 
+  if (row >= n) return;
   float* o = out + (size_t)b * PT_STATE;
+  o[13 + lane] = rot;
+  if (lane < PT_J) {
+    o[21 + lane] = qj;
+    o[28 + lane] = qdj_;
+  }
+  if (lane != 0) return;
   o[0] = px; o[1] = py; o[2] = pz;
   o[3] = qw; o[4] = qx; o[5] = qy; o[6] = qz;
   o[7] = vx; o[8] = vy; o[9] = vz;
   o[10] = wr; o[11] = wp; o[12] = wy;
-#pragma unroll
-  for (int r = 0; r < PT_R; ++r) o[13 + r] = rotor[r];
-#pragma unroll
-  for (int j = 0; j < PT_J; ++j) {
-    o[21 + j] = q[j];
-    o[28 + j] = qd[j];
-  }
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     o[35 + i] = ie[i];
@@ -314,8 +337,9 @@ int plant_tick_launch(const PlantParams* p, const float* state, const float* dyn
                       const float* cmd, const float* tau, float* out, int n,
                       void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  plant_tick_kernel<<<(n + PT_BLOCK - 1) / PT_BLOCK, PT_BLOCK, 0, (cudaStream_t)stream>>>(
-      *p, state, dyn, cmd, tau, out, n);
+  const int rows_per_block = PT_BLOCK / PT_LANES;
+  plant_tick_kernel<<<(n + rows_per_block - 1) / rows_per_block, PT_BLOCK, 0,
+                      (cudaStream_t)stream>>>(*p, state, dyn, cmd, tau, out, n);
   return (int)cudaGetLastError();
 }
 

@@ -10,7 +10,9 @@ two-pass solve :func:`solve_drone_cuda`, the counterpart of
   across its lanes, the integrations as warp scans;
 * between the passes PyTorch forms the softmin weights w (K,);
 * pass 2 reduces du = sum_k w_k eps_k (H, A), drawing the same noise again
-  or reading it;
+  or reading it: a block per column of the (K, H*A) noise at small K, per
+  tile of 32 columns and chunk of samples at large K, the chunks' partials
+  summed in a fixed order by the tile's last block (:func:`update_split`);
 * after the passes, du is smoothed (SavGol, one (H, H) matmul) and added to
   u_prev.
 
@@ -59,7 +61,49 @@ Tensor = torch.Tensor
 _SMEM_LIMIT = 48 * 1024   # default dynamic shared memory per block
 COST_WARPS = 4            # samples (one warp each) per drone_cost block (DRONE_COST_WARPS)
 WARP_LANES = 32           # horizon steps per drone_cost chunk (WARP_LANES)
-UPDATE_THREADS = 256      # threads per drone_update block (DRONE_UPDATE_THREADS)
+UPDATE_TILE = 32          # columns of a wide drone_update block (DRONE_UPDATE_TILE)
+UPDATE_WARPS = 8          # warps per drone_update block (DRONE_UPDATE_WARPS)
+# The split rule, from chip_smoke's drone sweep on the H100.  Up to
+# UPDATE_NARROW_MAX_K samples (16 a thread), with at least
+# UPDATE_NARROW_MIN_COLUMNS columns (blocks for half the SMs), a block
+# takes one column and all K: no cross-block sum.  Else a block takes 32
+# columns, and K is split across blocks until the tiles fill the card (8
+# resident blocks of 256 threads on each of the 132 SMs), at most one chunk
+# per 4 samples a warp.
+UPDATE_NARROW_MAX_K = 16 * UPDATE_WARPS * WARP_LANES
+UPDATE_NARROW_MIN_COLUMNS = 64
+UPDATE_BLOCKS = 8 * 132
+UPDATE_MIN_CHUNK = 4 * UPDATE_WARPS
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def update_split(k: int, h: int, a: int):
+    """(columns per block, column blocks, sample chunks, samples per chunk)
+    of a drone_update launch over a (k, h*a) noise matrix.  A chunk holds a
+    multiple of ``UPDATE_WARPS`` samples; the last may hold fewer."""
+    c = h * a
+    if k <= UPDATE_NARROW_MAX_K and c >= UPDATE_NARROW_MIN_COLUMNS:
+        return 1, c, 1, _ceil_div(k, UPDATE_WARPS) * UPDATE_WARPS
+    tiles = _ceil_div(c, UPDATE_TILE)
+    chunks = max(1, min(_ceil_div(k, UPDATE_MIN_CHUNK), _ceil_div(UPDATE_BLOCKS, tiles)))
+    k_chunk = _ceil_div(_ceil_div(k, chunks), UPDATE_WARPS) * UPDATE_WARPS
+    return UPDATE_TILE, tiles, _ceil_div(k, k_chunk), k_chunk
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(dev, blocks: int) -> Tensor:
+    """The zeroed per-column-block tickets of the cross-chunk sum on
+    ``dev`` (the kernel leaves them zero), allocated once per device and
+    size."""
+    t = _TICKETS.get(dev)
+    if t is None or t.numel() < blocks:
+        t = _TICKETS[dev] = torch.zeros(max(blocks, 64), dtype=torch.int32, device=dev)
+    return t
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,7 +112,7 @@ def _lib() -> ctypes.CDLL:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.drone_cost_launch.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, cf, cf, cf, cf, vp, vp]
     lib.drone_cost_launch.restype = ci
-    lib.drone_update_launch.argtypes = [vp, vp, vp, ci, ci, ci, cf, vp, vp]
+    lib.drone_update_launch.argtypes = [vp, vp, vp, ci, ci, ci, cf, ci, ci, vp, vp, vp, vp]
     lib.drone_update_launch.restype = ci
     return lib
 
@@ -118,11 +162,16 @@ def _launch_cost(name: str, u_prev: Tensor, x0: Tensor, v0: Tensor, target: Tens
 def _launch_update(name: str, w: Tensor, noise: Optional[Tensor], seeds: Optional[Tensor],
                    h: int, a: int, sigma: float) -> Tensor:
     dev = w.device
+    k = w.shape[0]
+    tile, blocks, chunks, k_chunk = update_split(k, h, a)
     du = torch.empty((h, a), dtype=torch.float32, device=dev)
+    partials = torch.empty((chunks, h * a), dtype=torch.float32, device=dev) if chunks > 1 \
+        else None
     rc = _lib().drone_update_launch(
         w.data_ptr(), None if noise is None else noise.data_ptr(),
-        None if seeds is None else seeds.data_ptr(), w.shape[0], h, a, sigma, du.data_ptr(),
-        _stream(dev))
+        None if seeds is None else seeds.data_ptr(), k, h, a, sigma, tile, k_chunk,
+        None if partials is None else partials.data_ptr(),
+        _tickets(dev, blocks).data_ptr() if chunks > 1 else None, du.data_ptr(), _stream(dev))
     _raise_on(rc, name)
     return du
 

@@ -3,8 +3,8 @@
 Port of the JAX package's ``ops/pallas/plant_kernel.py``.  The serving
 configuration of ``sim/whole_body_loop`` (position mode, frozen arm
 coefficients, free flight) runs its ``substeps`` 1 kHz physics steps in one
-launch of :func:`plant_tick` (``csrc/plant_kernel.cu``), one thread per
-vehicle row.  Its plain version, :func:`plant_tick_plain`, replays the same
+launch of :func:`plant_tick` (``csrc/plant_kernel.cu``), eight lanes of a
+warp per vehicle row.  Its plain version, :func:`plant_tick_plain`, replays the same
 substeps through ``sim/whole_body_loop.physics_tick`` (the ported
 rigid-body, flight-control and multirotor functions); the CPU tests use it
 and the on-card checks hold the kernel against it.
@@ -45,7 +45,8 @@ N_J = 7
 N_R = 8
 STATE_SIZE = 46
 DYN_SIZE = 49 + 21 + 9 + 343
-BLOCK = 64  # PT_BLOCK
+LANES = 8   # lanes per vehicle row (PT_LANES)
+BLOCK = 64  # threads per block (PT_BLOCK)
 
 _F = ctypes.c_float
 _GAIN_NAMES = ("kp_x", "kp_y", "kp_z", "kd_x", "kd_y", "kd_z", "ki_x", "ki_y", "ki_z",

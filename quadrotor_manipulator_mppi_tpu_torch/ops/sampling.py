@@ -33,17 +33,23 @@ _W0, _W1 = 0x9E3779B9, 0xBB67AE85   # Weyl key increments
 _MASK = 0xFFFFFFFF
 
 
-def sample_noise(z: Tensor, sigma: Tensor) -> Tensor:
+def sample_noise(z: Tensor, sigma: Tensor, batched: bool = False) -> Tensor:
     """Shape standard normals z (K, H, A) into eps = z @ Sigma; scalar or
-    (A,) sigma take the elementwise path."""
-    if sigma.ndim <= 1:
-        return z * sigma
-    return torch.einsum("kha,ab->khb", z, sigma)
+    (A,) sigma take the elementwise path.  ``batched``: z (B, K, H, A) and
+    sigma (B, A) or (B, A, A), one per scenario."""
+    if not batched:
+        if sigma.ndim <= 1:
+            return z * sigma
+        return torch.einsum("kha,ab->khb", z, sigma)
+    if sigma.ndim <= 2:
+        return z * sigma[:, None, None, :]
+    return torch.einsum("bkha,bac->bkhc", z, sigma)
 
 
 def zero_mean_trick(noise: Tensor) -> Tensor:
-    """Subtract the sample mean so the noise population is exactly zero-mean."""
-    return noise - torch.mean(noise, dim=0, keepdim=True)
+    """Subtract the sample mean so the noise population is exactly zero-mean
+    (the sample axis of (..., K, H, A))."""
+    return noise - torch.mean(noise, dim=-3, keepdim=True)
 
 
 def _mulhilo(m: int, c: Tensor):
@@ -58,10 +64,12 @@ def _mulhilo(m: int, c: Tensor):
 def philox4x32_10(ctr, key):
     """Philox4x32-10 (Salmon et al., SC'11; the Random123 reference).
 
-    ctr: four int64 tensors (or ints) holding 32-bit words; key: two ints.
-    Returns the four output words as int64 tensors in [0, 2^32)."""
+    ctr: four int64 tensors (or ints) holding 32-bit words; key: two ints,
+    or two int64 tensors that broadcast against the counters (a key per
+    problem, split on the device).  Returns the four output words as int64
+    tensors in [0, 2^32)."""
     c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in ctr)
-    k0, k1 = int(key[0]) & _MASK, int(key[1]) & _MASK
+    k0, k1 = ((k & _MASK) if isinstance(k, Tensor) else int(k) & _MASK for k in key)
     for r in range(10):
         if r:
             k0, k1 = (k0 + _W0) & _MASK, (k1 + _W1) & _MASK
@@ -102,12 +110,16 @@ def key_list(seeds: Tensor) -> list:
 
 
 def philox_normals(
-    seed: int, step: int, n_samples: int, n_horizon: int, n_action: int,
+    seed, step: int, n_samples: int, n_horizon: int, n_action: int,
     device=None, sample_offset: int = 0,
 ) -> Tensor:
     """Standard normals of solve ``step`` under ``seed`` for the global
     samples ``sample_offset .. sample_offset + n_samples - 1``, laid out
-    (A, H, K) — sample index fastest, the layout the cost kernel spills."""
+    (A, H, K) — sample index fastest, the layout the cost kernel spills.
+
+    ``seed`` is an int, or a (B,) int64 key tensor (``philox_keys``): then
+    the result is (B, A, H, K), scenario b drawn under key b.  The keys are
+    split into their two 32-bit words on the device, with no host sync."""
     k = torch.arange(sample_offset, sample_offset + n_samples, dtype=torch.int64,
                      device=device)
     row = torch.arange(n_action * n_horizon, dtype=torch.int64, device=device)
@@ -115,5 +127,10 @@ def philox_normals(
     c2 = row.view(n_action, n_horizon, 1).expand(n_action, n_horizon, n_samples)
     c0 = torch.full_like(c1, int(step) & _MASK)
     c3 = torch.zeros_like(c1)
-    bits, _, _, _ = philox4x32_10((c0, c1, c2, c3), (seed & _MASK, seed >> 32))
+    if isinstance(seed, Tensor):
+        keys = seed.to(torch.int64).view(-1, 1, 1, 1)
+        key = (keys, keys >> 32)  # the low word, and the high word (masked in philox4x32_10)
+    else:
+        key = (seed & _MASK, seed >> 32)
+    bits, _, _, _ = philox4x32_10((c0, c1, c2, c3), key)
     return bits_to_normal(bits)

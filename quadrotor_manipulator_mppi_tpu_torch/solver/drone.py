@@ -36,15 +36,15 @@ DEFAULT_TARGET = (1.0, 2.0, 3.4)
 
 
 class DroneObs(NamedTuple):
-    x: Tensor       # (3,) position
+    x: Tensor       # (3,) position; (B, 3) for a batch
     v: Tensor       # (3,) velocity
     target: Tensor  # (3,) goal position
 
 
 class DroneOutput(NamedTuple):
-    xdes: Tensor    # (3,) next position setpoint
+    xdes: Tensor    # (3,) next position setpoint; (B, 3) for a batch
     vdes: Tensor    # (3,) next velocity setpoint
-    u_seq: Tensor   # (H, 3) updated acceleration plan
+    u_seq: Tensor   # (H, 3) updated acceleration plan; (B, H, 3)
 
 
 @dataclass(frozen=True)
@@ -73,32 +73,37 @@ def make_drone_solver(
 
     ``group`` and ``n_local_samples`` (the JAX builder's ``axis_name`` and
     ``n_local_samples``) make it a sample-sharded solve, so the preset plugs
-    into ``parallel/sharded.make_sharded_solver`` with
-    ``batch_scenarios=False``.  The plain pipeline has no scenario axis:
-    ``n_scenarios`` other than None raises."""
-    if n_scenarios is not None:
-        raise ValueError("the drone solver has no scenario axis (n_scenarios must be None)")
+    into ``parallel/sharded.make_sharded_solver``.  ``n_scenarios=B`` solves
+    B problems per call, as ``jax.vmap`` of the JAX step: every state,
+    observation and output field with a leading B, ``z`` (B, K, H, 3), and
+    ``init(seed)`` takes one seed (spread over the scenarios with
+    ``parallel.sharded.scenario_seeds``) or B seeds."""
     dev = resolve_device(device)
     cfg = params.mppi
+    # Per-scenario (B, 3) observations meet the (B, K, H, 3) samples with a
+    # sample axis (and, for the stage terms, a step axis) inserted.
+    lift = (lambda x, n: x.reshape(x.shape[:1] + (1,) * n + x.shape[1:])) \
+        if n_scenarios is not None else (lambda x, n: x)
 
     def rollout(v: Tensor, obs: DroneObs) -> Tensor:
-        traj, _ = integrators.double_integrate(v, obs.x, obs.v, cfg.dt)
+        traj, _ = integrators.double_integrate(v, lift(obs.x, 1), lift(obs.v, 1), cfg.dt)
         return traj
 
     def cost(traj: Tensor, v: Tensor, u_prev: Tensor, obs: DroneObs) -> Tensor:
-        s = costs_mod.position_stage_cost(traj, obs.target, params.stage_weight)
-        return s + costs_mod.position_terminal_cost(traj, obs.target, params.terminal_weight)
+        s = costs_mod.position_stage_cost(traj, lift(obs.target, 2), params.stage_weight)
+        return s + costs_mod.position_terminal_cost(traj, lift(obs.target, 1),
+                                                    params.terminal_weight)
 
-    inner = make_step(cfg, rollout, cost, group, n_local_samples)
+    inner = make_step(cfg, rollout, cost, group, n_local_samples, n_scenarios)
 
     def step(state: MPPIState, obs: DroneObs, z=None) -> Tuple[DroneOutput, MPPIState]:
         u_seq, new_state = inner(state, obs, z)
-        u0 = u_seq[0]
+        u0 = u_seq[..., 0, :]
         vdes = obs.v + cfg.dt * u0
         xdes = obs.x + obs.v * cfg.dt + 0.5 * u0 * cfg.dt * cfg.dt
         return DroneOutput(xdes=xdes, vdes=vdes, u_seq=u_seq), new_state
 
-    def init(seed: int, dtype=torch.float32) -> MPPIState:
-        return init_state(cfg, seed, dtype, dev)
+    def init(seed, dtype=torch.float32) -> MPPIState:
+        return init_state(cfg, seed, dtype, dev, n_scenarios)
 
     return step, init

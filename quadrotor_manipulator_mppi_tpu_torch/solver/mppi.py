@@ -14,6 +14,11 @@ supplies it, else the Philox stream of ``(state.seed, state.step)``
 (``ops/sampling.py``), which the CUDA kernels draw too.  The solver state
 carries the seed and the solve index as host integers, so advancing it costs
 no device work.
+
+A step built with ``n_scenarios=B`` solves B independent problems at once,
+as ``jax.vmap`` of the JAX step does: every state field, ``z`` and the
+outputs carry a leading B, the keys are a (B,) int64 device tensor, and
+each scenario's weights, du and adaptive sigma are its own.
 """
 
 from __future__ import annotations
@@ -77,13 +82,36 @@ def _diag_sigma(config: MPPIConfig, dtype=torch.float32, device=None) -> Tensor:
     return s
 
 
-def init_state(config: MPPIConfig, seed: int, dtype=torch.float32, device="cuda") -> MPPIState:
+def init_state(config: MPPIConfig, seed, dtype=torch.float32, device="cuda",
+               n_scenarios: Optional[int] = None) -> MPPIState:
     """Zero warm start (H, A), the configured sigma as the live sigma, the
-    Philox seed and solve index 0."""
+    Philox seed and solve index 0.  With ``n_scenarios=B``: every field with
+    a leading B, and ``seed`` one int (spread over the scenarios with
+    ``parallel.sharded.scenario_seeds``) or B seeds, kept as a (B,) int64
+    key tensor on ``device``."""
     dev = resolve_device(device)
+    u_prev = torch.zeros((config.n_horizon, config.n_action), dtype=dtype, device=dev)
+    sigma = _diag_sigma(config, dtype, dev)
+    if n_scenarios is None:
+        return MPPIState(u_prev=u_prev, sigma=sigma, seed=int(seed), step=0)
+    return scenario_state(u_prev, sigma, seed, n_scenarios)
+
+
+def scenario_state(u_prev: Tensor, sigma: Tensor, seed, n_scenarios: int) -> MPPIState:
+    """The state of ``n_scenarios`` problems that all start from ``u_prev``
+    and ``sigma``: both repeated along a leading axis, and ``seed`` one int
+    (spread over the scenarios with ``parallel.sharded.scenario_seeds``) or
+    B seeds, as a (B,) int64 key tensor on ``u_prev``'s device."""
+    from ..parallel.sharded import scenario_seeds
+
+    seeds = (scenario_seeds(seed, n_scenarios) if isinstance(seed, (int, np.integer))
+             else [int(x) for x in seed])
+    if len(seeds) != n_scenarios:
+        raise ValueError(f"{len(seeds)} seeds for {n_scenarios} scenarios")
     return MPPIState(
-        u_prev=torch.zeros((config.n_horizon, config.n_action), dtype=dtype, device=dev),
-        sigma=_diag_sigma(config, dtype, dev), seed=int(seed), step=0,
+        u_prev=u_prev.expand(n_scenarios, *u_prev.shape).clone(),
+        sigma=sigma.expand(n_scenarios, *sigma.shape).clone(),
+        seed=torch.tensor(seeds, dtype=torch.int64, device=u_prev.device), step=0,
     )
 
 
@@ -134,6 +162,7 @@ def adapt_sigma(config: MPPIConfig, sigma: Tensor, m2: Tensor, base: Tensor) -> 
 def make_step(
     config: MPPIConfig, rollout_fn: Callable, cost_fn: Callable,
     group: Optional[Any] = None, n_local_samples: Optional[int] = None,
+    n_scenarios: Optional[int] = None,
 ) -> Callable[..., Tuple[Tensor, MPPIState]]:
     """Build the plain solve step (any device; no kernels).
 
@@ -143,10 +172,18 @@ def make_step(
     at global sample offset (group rank) * n_local_samples, and the
     reductions become the group's collectives (``ops/weights``, plus the
     SUM of m2 with adaptive sigma).  A ``z`` passed in is then this rank's
-    (n_local_samples, H, A) block."""
+    (n_local_samples, H, A) block.
+
+    ``n_scenarios=B`` batches B problems: ``state.u_prev`` (B, H, A),
+    ``state.sigma`` (B, A) (or (B, A, A)), ``state.seed`` a (B,) int64 key
+    tensor, ``z`` (B, K, H, A); ``rollout_fn`` and ``cost_fn`` get v
+    (B, K, H, A) and the batched ``obs`` and return per-sample costs
+    (B, K).  The collectives run on the batched tensors, so a solve makes
+    as many as one unbatched solve."""
     if config.adaptive_sigma and config.sigma_scale_fn is not None:
         raise ValueError("adaptive_sigma and sigma_scale_fn are exclusive")
     k, h, a = n_local_samples or config.n_samples, config.n_horizon, config.n_action
+    batched = n_scenarios is not None
     k_off = 0 if group is None else dist.get_rank(group) * k
     # Host constants of the tail, copied to the state's device once
     # (device_const), so a step on the card never waits for a host copy.
@@ -158,8 +195,20 @@ def make_step(
         0.0 if config.nominal_action is None else config.nominal_action, np.float64), (h, a))
     sigma_base = _diag_sigma(config, torch.float64).numpy() if config.adaptive_sigma else None
 
+    def check(state: MPPIState) -> None:
+        want = (n_scenarios, h, a)
+        if tuple(state.u_prev.shape) != want or not isinstance(state.seed, Tensor) \
+                or tuple(state.seed.shape) != (n_scenarios,) or state.sigma.shape[0] != n_scenarios:
+            raise ValueError(
+                f"a step built for {n_scenarios} scenarios takes u_prev {want}, sigma with a "
+                f"leading {n_scenarios} and a ({n_scenarios},) key tensor; got u_prev "
+                f"{tuple(state.u_prev.shape)}, sigma {tuple(state.sigma.shape)}, seed "
+                f"{tuple(state.seed.shape) if isinstance(state.seed, Tensor) else state.seed!r}")
+
     def step(state: MPPIState, obs: Any, z=None) -> Tuple[Tensor, MPPIState]:
         dev, dtype = state.u_prev.device, state.u_prev.dtype
+        if batched:
+            check(state)
 
         def const(x):
             return None if x is None else device_const(x, state.u_prev)
@@ -169,13 +218,14 @@ def make_step(
             sigma_live = sigma_live * config.sigma_scale_fn(obs)
         if z is None:
             z = sampling.philox_normals(state.seed, state.step, k, h, a, dev,
-                                        sample_offset=k_off).permute(2, 1, 0)
+                                        sample_offset=k_off)
+            z = z.permute(0, 3, 2, 1) if batched else z.permute(2, 1, 0)
         z = torch.as_tensor(z, dtype=dtype, device=dev)
-        noise = sampling.sample_noise(z, sigma_live)
+        noise = sampling.sample_noise(z, sigma_live, batched)
         if config.zero_mean_noise:
             noise = sampling.zero_mean_trick(noise)
 
-        v = state.u_prev[None] + noise
+        v = state.u_prev[..., None, :, :] + noise
         s = cost_fn(rollout_fn(v, obs), v, state.u_prev, obs)
         w = weights_ops.softmin_weights(s, config.lam, group)
         du = weights_ops.weighted_noise_average(w, noise, group)
@@ -184,7 +234,7 @@ def make_step(
 
         sigma_next = state.sigma
         if config.adaptive_sigma:
-            m2 = torch.einsum("k,kha->a", w, noise * noise) / h
+            m2 = torch.einsum("bk,bkha->ba" if batched else "k,kha->a", w, noise * noise) / h
             if group is not None:
                 dist.all_reduce(m2, op=dist.ReduceOp.SUM, group=group)
             sigma_next = adapt_sigma(config, state.sigma, m2, const(sigma_base))

@@ -33,10 +33,9 @@ from ..models.whole_body import (
     rollout,
 )
 from ..ops import costs as costs_mod
-from ..parallel.sharded import scenario_seeds
 from ..utils.device import resolve_device
 from ..utils.pose import Pose
-from .mppi import MPPIConfig, MPPIState, _diag_sigma, make_step
+from .mppi import MPPIConfig, MPPIState, _diag_sigma, make_step, scenario_state
 
 Tensor = torch.Tensor
 
@@ -344,15 +343,7 @@ def make_whole_body_solver(
         sigma = _diag_sigma(cfg, dtype, dev)
         if n_scenarios is None:
             return MPPIState(u_prev=u0, sigma=sigma, seed=int(seed), step=0)
-        seeds = (scenario_seeds(seed, n_scenarios) if isinstance(seed, (int, np.integer))
-                 else [int(x) for x in seed])
-        if len(seeds) != n_scenarios:
-            raise ValueError(f"{len(seeds)} seeds for {n_scenarios} scenarios")
-        return MPPIState(
-            u_prev=u0.expand(n_scenarios, *u0.shape).clone(),
-            sigma=sigma.expand(n_scenarios, *sigma.shape).clone(),
-            seed=torch.tensor(seeds, dtype=torch.int64, device=dev), step=0,
-        )
+        return scenario_state(u0, sigma, seed, n_scenarios)
 
     return step, init
 

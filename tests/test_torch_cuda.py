@@ -125,8 +125,11 @@ def test_packed_serving_launches_both_kernels():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [1, 1024])
+@pytest.mark.parametrize("rows", [1, 3, 5, 64, 1024])
 def test_plant_tick_matches_plain(rows):
+    """Eight lanes per row, four rows per warp: one row, a part-filled
+    warp (3, 5), whole blocks (64) and the fleet size (1024); bit-equal on
+    a rerun, each row equal to its own one-row launch."""
     dev = _card()
     model = wb.position_mode_params().model
     pc = pk.make_plant_config(model.vehicle, fc.FlightGains(), model.chain(),
@@ -135,11 +138,18 @@ def test_plant_tick_matches_plain(rows):
                                           seed=rows, device=dev)
     n0 = pk.plant_tick.launches
     got = pk.plant_tick(pc, state, dyn, cmd, tau)
+    again = pk.plant_tick(pc, state, dyn, cmd, tau)
     want = pk.plant_tick_plain(pc, state, dyn, cmd, tau)
-    assert pk.plant_tick.launches == n0 + 1
+    torch.cuda.synchronize()
+    assert pk.plant_tick.launches == n0 + 2
     assert got.shape == (rows, pk.STATE_SIZE)
+    assert torch.equal(got, again)
     # atan2f/asinf against torch.atan2/asin on the same card; float32 rounding only
     assert (got - want).abs().max().item() <= 1e-4
+    for b in {0, rows // 2, rows - 1}:
+        one = pk.plant_tick(pc, state[b].contiguous(), dyn[b].contiguous(),
+                            cmd[b].contiguous(), tau[b].contiguous())
+        assert torch.equal(one, got[b])
 
 
 @pytest.mark.cuda
@@ -495,3 +505,56 @@ def test_drone_cost_across_chunks_matches_plain(k, h):
         assert wrapper.launches == n0 + 2 and got.shape == (k,)
         assert torch.equal(got, again)
         assert _rel(got, want) <= 1e-4, name
+
+
+# drone_update's shapes: chip_smoke's sweep (DRONE_SIZES), then edges: one
+# sample, a K that leaves the last chunk part-filled (33, 1000, 5000), H*A
+# not a multiple of 32 (H = 5, 33), one 32-column tile (H = 5) with 2, 32
+# and 157 chunks; one column per block at the preset's K and H = 33.
+DRONE_UPDATE_CASES = [(1000, 32), (1024, 32), (4096, 32), (16384, 32), (16384, 100),
+                      (1, 32), (33, 5), (33, 33), (1000, 5), (1000, 33), (5000, 5)]
+
+
+def _drone_update_inputs(dev, k, h):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7 * k + h)
+    noise = 30.0 * torch.randn((k, h, 3), generator=gen, device=dev)
+    w = torch.softmax(torch.randn(k, generator=gen, device=dev) * 3.0, dim=0)
+    return noise, w, sampling.philox_keys(2**33 + 5 * k + h, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,h", DRONE_UPDATE_CASES)
+def test_drone_update_tiles_match_plain_and_rerun_bit_equal(k, h):
+    """Rows 9b and 9d (column blocks by ``update_split``: one column and
+    all K at small K, 32-column tiles with K split across blocks at large
+    K) against their plain versions within 1e-5 of max|du| (summation
+    order only), bit-equal on a rerun, one launch a call."""
+    dev = _card()
+    noise, w, keys = _drone_update_inputs(dev, k, h)
+    for name, args in (("drone_update", (w, keys, h, 3, 30.0)),
+                       ("drone_update_noise", (noise, w))):
+        wrapper, plain = getattr(dk, name), getattr(dk, name + "_plain")
+        n0 = wrapper.launches
+        got, again, want = wrapper(*args), wrapper(*args), plain(*args)
+        torch.cuda.synchronize()
+        assert wrapper.launches == n0 + 2 and got.shape == (h, 3)
+        assert torch.equal(got, again), name
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,h", [(40, 5), (200, 5), (33, 33), (96, 32)])
+def test_drone_update_draw_equals_read_bit_for_bit(k, h):
+    """The draw variant's du equals the read variant's on the noise it
+    draws, bit for bit.  That noise is read back from the draw variant
+    itself: with one-hot weights du is one sample's draws exactly."""
+    dev = _card()
+    _, w, keys = _drone_update_inputs(dev, k, h)
+    eye = torch.eye(k, device=dev)
+    drawn = torch.stack([dk.drone_update(eye[i].contiguous(), keys, h, 3, 30.0)
+                         for i in range(k)])
+    torch.testing.assert_close(drawn, dk.philox_noise(keys, k, h, 3, 30.0), rtol=1e-5,
+                               atol=1e-4)
+    assert torch.equal(dk.drone_update(w, keys, h, 3, 30.0),
+                       dk.drone_update_noise(drawn.contiguous(), w))

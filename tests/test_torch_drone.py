@@ -39,6 +39,7 @@ from quadrotor_manipulator_mppi_tpu_torch.models import point_mass as pm
 from quadrotor_manipulator_mppi_tpu_torch.ops import costs, sampling
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import build
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import drone_kernel as dk
+from quadrotor_manipulator_mppi_tpu_torch.parallel import sharded
 from quadrotor_manipulator_mppi_tpu_torch.sim import closed_loop as cl
 from quadrotor_manipulator_mppi_tpu_torch.sim import flight_control as fc
 from quadrotor_manipulator_mppi_tpu_torch.solver import drone, mppi
@@ -124,9 +125,109 @@ def test_init_state_matches_jax(sigma):
     assert (st.seed, st.step) == (9, 0)
 
 
-def test_drone_solver_rejects_a_scenario_axis():
-    with pytest.raises(ValueError, match="no scenario axis"):
-        drone.make_drone_solver(device="cpu", n_scenarios=4)
+# ---------------------------------------------------------------------------
+# 2b. The scenario axis: B problems per call, as jax.vmap of the JAX step
+# ---------------------------------------------------------------------------
+
+B = 3
+
+
+def _scenario_obs(rng):
+    x = (np.asarray(X0, np.float32) + rng.normal(scale=0.3, size=(B, A))).astype(np.float32)
+    v = (np.asarray(V0, np.float32) + rng.normal(scale=0.2, size=(B, A))).astype(np.float32)
+    target = np.tile(np.asarray(drone.DEFAULT_TARGET, np.float32), (B, 1))
+    target[1] += 0.5
+    return x, v, target
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_batched_drone_solver_matches_jax_vmap(rng, adaptive):
+    """B=3 scenarios with their own observations and key chains, three
+    steps, each scenario's normals from its own JAX key (``shared_z``)."""
+    jp = _jax_params(adaptive_sigma=True, adapt_beta=0.2) if adaptive else _jax_params()
+    jstep, jinit = jdrone.make_drone_solver(jp)
+    jstep = jax.jit(jax.vmap(jstep))
+    step, init = drone.make_drone_solver(_port_params(jp), device="cpu", n_scenarios=B)
+    x, v, target = _scenario_obs(rng)
+    jobs = jdrone.DroneObs(x=jnp.asarray(x), v=jnp.asarray(v), target=jnp.asarray(target))
+    obs = drone.DroneObs(x=T(x), v=T(v), target=T(target))
+    js = jax.vmap(jinit)(jax.random.split(jax.random.key(6), B))
+    st = init(6)
+    assert st.u_prev.shape == (B, H, A) and st.seed.shape == (B,)
+    keys = [js.key[b] for b in range(B)]
+    for _ in range(3):
+        zs = []
+        for b in range(B):
+            keys[b], z = shared_z(keys[b], 256, H, a=A)
+            zs.append(z)
+        jout, js = jstep(js, jobs)
+        out, st = step(st, obs, np.stack(zs))
+        for got, want in ((out.u_seq, jout.u_seq), (st.u_prev, js.u_prev), (out.xdes, jout.xdes),
+                          (out.vdes, jout.vdes)):
+            assert got.shape == want.shape
+            np.testing.assert_allclose(N(got), np.asarray(want), rtol=TOL_STEP, atol=TOL_STEP)
+        np.testing.assert_allclose(N(st.sigma), np.asarray(js.sigma), rtol=2e-3, atol=2e-3)
+    assert st.step == 3
+    if adaptive:
+        assert np.abs(N(st.sigma) - 30.0).max() > 1e-3  # it moved
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_batched_philox_solve_equals_unbatched_solves(rng, adaptive):
+    """Each scenario of a batched solve on the Philox stream equals the
+    unbatched solve under its key, over three steps, to 1e-6 relative."""
+    jp = _jax_params(k=128, adaptive_sigma=adaptive)
+    params = _port_params(jp)
+    step, init = drone.make_drone_solver(params, device="cpu", n_scenarios=B)
+    step1, init1 = drone.make_drone_solver(params, device="cpu")
+    x, v, target = _scenario_obs(rng)
+    st = init(17)
+    singles = [init1(seed) for seed in sampling.key_list(st.seed)]
+    for _ in range(3):
+        out, st = step(st, drone.DroneObs(x=T(x), v=T(v), target=T(target)))
+        for b in range(B):
+            one, singles[b] = step1(singles[b], drone.DroneObs(x=T(x[b]), v=T(v[b]),
+                                                                 target=T(target[b])))
+            assert _rel(N(out.u_seq[b]), N(one.u_seq)) <= 1e-6
+            assert _rel(N(out.xdes[b]), N(one.xdes)) <= 1e-6
+            assert _rel(N(st.sigma[b]), N(singles[b].sigma)) <= 1e-6
+
+
+def test_batched_philox_draw_equals_unbatched_draws():
+    """philox_normals under a (B,) key tensor: scenario b is bit-equal to
+    the draw under key b as an int, at a global sample offset too; keys
+    with the top bit set included."""
+    seeds = [3, 2**40 + 7, 2**63 + 11, 2**64 - 1]
+    keys = torch.tensor([s - 2**64 if s >> 63 else s for s in seeds], dtype=torch.int64)
+    assert sampling.key_list(keys) == seeds
+    z = sampling.philox_normals(keys, 5, 40, 7, A, sample_offset=96)
+    assert z.shape == (len(seeds), A, 7, 40)
+    for b, seed in enumerate(seeds):
+        assert torch.equal(z[b], sampling.philox_normals(seed, 5, 40, 7, A, sample_offset=96))
+
+
+def test_batched_init_spreads_scenario_seeds():
+    step, init = drone.make_drone_solver(device="cpu", n_scenarios=B)
+    st = init(4)
+    assert sampling.key_list(st.seed) == sharded.scenario_seeds(4, B)
+    assert st.sigma.shape == (B, A) and st.step == 0
+    assert sampling.key_list(init([5, 6, 7]).seed) == [5, 6, 7]
+    with pytest.raises(ValueError, match="2 seeds for 3 scenarios"):
+        init([5, 6])
+
+
+@pytest.mark.parametrize("case", ["unbatched state", "other batch", "int seed"])
+def test_batched_drone_solver_refuses_a_state_of_another_batch(case):
+    """A step built for B scenarios refuses a state whose leading axis is
+    not B (an unbatched state, another batch size, an int key)."""
+    step, init = drone.make_drone_solver(device="cpu", n_scenarios=B)
+    obs = drone.DroneObs(x=torch.zeros(B, A), v=torch.zeros(B, A),
+                         target=torch.zeros(B, A))
+    state = {"unbatched state": drone.make_drone_solver(device="cpu")[1](0),
+             "other batch": drone.make_drone_solver(device="cpu", n_scenarios=B + 1)[1](0),
+             "int seed": init(0)._replace(seed=3)}[case]
+    with pytest.raises(ValueError, match=f"a step built for {B} scenarios"):
+        step(state, obs)
 
 
 # ---------------------------------------------------------------------------
@@ -484,17 +585,79 @@ def test_build_hash_covers_the_shared_header(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("define,attr", [
     ("DRONE_COST_WARPS", "COST_WARPS"), ("WARP_LANES", "WARP_LANES"),
-    ("DRONE_UPDATE_THREADS", "UPDATE_THREADS"),
+    ("DRONE_UPDATE_TILE", "UPDATE_TILE"), ("DRONE_UPDATE_WARPS", "UPDATE_WARPS"),
 ])
 def test_drone_constants_match_the_cuda_source(define, attr):
     """drone_cost's warps per block and chunk length, and drone_update's
-    block, in the source or the scan header it includes, against the
-    wrapper's."""
+    tile width and warps per block, in the source or the scan header it
+    includes, against the wrapper's."""
     import re
 
     text = (build.CSRC / "drone_kernel.cu").read_text() + (build.CSRC / "warp_scan.cuh").read_text()
     defines = {k: int(v) for k, v in re.findall(r"#define (\w+) (\d+)", text)}
     assert defines[define] == getattr(dk, attr)
+
+
+@pytest.mark.parametrize("k,h", [(1000, 32), (1024, 32), (4096, 32), (16384, 32),
+                                 (16384, 100), (1, 32), (33, 5), (1000, 33), (10**6, 1)])
+def test_update_split_covers_every_column_and_sample(k, h):
+    """The split rule: one column per block (all K, no chunks) up to
+    UPDATE_NARROW_MAX_K samples when the columns give UPDATE_NARROW_MIN_COLUMNS
+    blocks; else tiles of 32 columns cover H*A and the chunks cover K, each
+    a multiple of the block's warps, the last one non-empty, at most one
+    chunk per UPDATE_MIN_CHUNK samples, the launch within UPDATE_BLOCKS
+    blocks (one tile's worth over, at most)."""
+    tile, blocks, chunks, k_chunk = dk.update_split(k, h, A)
+    c = h * A
+    assert tile in (1, dk.UPDATE_TILE) and blocks == -(-c // tile)
+    assert k_chunk % dk.UPDATE_WARPS == 0 and (chunks - 1) * k_chunk < k <= chunks * k_chunk
+    narrow = k <= dk.UPDATE_NARROW_MAX_K and c >= dk.UPDATE_NARROW_MIN_COLUMNS
+    assert (tile == 1) == narrow
+    if narrow:
+        assert chunks == 1
+    else:
+        assert chunks <= -(-k // dk.UPDATE_MIN_CHUNK)
+        assert chunks == 1 or blocks * chunks <= dk.UPDATE_BLOCKS + blocks
+    if k >= dk.UPDATE_MIN_CHUNK * dk.UPDATE_BLOCKS:
+        assert blocks * chunks > dk.UPDATE_BLOCKS // 2  # a large K fills the card
+
+
+@pytest.mark.parametrize("k,h,want", [(1000, 32, 1), (1024, 32, 1), (4096, 32, 1),
+                                      (16384, 32, 32), (16384, 100, 32), (1000, 5, 32)])
+def test_update_split_picks_the_measured_tile(k, h, want):
+    """chip_smoke's sweep shapes: one column per block at the preset and up
+    to K=4096 (H=32), 32-column tiles at K=16384; few columns, wide tiles."""
+    assert dk.update_split(k, h, A)[0] == want
+
+
+def test_drone_c_interface_matches_the_cuda_source():
+    """Argument counts of both C entry points against their ctypes
+    declarations (drone_update_launch takes the tile width, the chunk
+    length, the partials and the tickets)."""
+    import re
+
+    src = (build.CSRC / "drone_kernel.cu").read_text()
+
+    def c_params(fn):
+        sig = re.search(rf"int {fn}\((.*?)\)\s*\{{", src, re.S).group(1)
+        return len([p for p in sig.split(",") if p.strip()])
+
+    class Fake:
+        class F:
+            pass
+
+        drone_cost_launch, drone_update_launch = F(), F()
+
+    orig = build.load_library
+    dk._lib.cache_clear()
+    try:
+        build.load_library = lambda name: Fake()
+        lib = dk._lib()
+    finally:
+        build.load_library = orig
+        dk._lib.cache_clear()
+    assert len(lib.drone_cost_launch.argtypes) == c_params("drone_cost_launch") == 15
+    assert len(lib.drone_update_launch.argtypes) == c_params("drone_update_launch") == 13
 
 
 def test_build_hash_covers_the_scan_header(tmp_path, monkeypatch):

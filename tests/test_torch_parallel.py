@@ -7,7 +7,9 @@ every case below; this process computes the JAX side on a 2-device sample
 mesh of the virtual CPU devices and hands the workers each shard's noise,
 rebuilt from ``fold_in(sub, shard)`` as ``tests/test_parallel.py`` does.
 The drone preset runs sample-sharded too, on each rank's half of the JAX
-unsharded preset's draws.  The workers import no JAX.
+unsharded preset's draws, and with a scenario axis (``batch_scenarios=True``,
+1 and 2 scenarios) against the JAX sharded solve, vmapped, on each shard's
+normals.  The workers import no JAX.
 """
 
 import dataclasses
@@ -39,6 +41,7 @@ from torch_parity import shared_z, small, torch_one_thread  # noqa: F401
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K, H, A, N_SHARDS, N_STEPS = 2 * 128, 12, 11, 2, 2
 DRONE_K = 64
+DRONE_SCENARIOS = (1, 2)
 TOLS = (2e-3, 4e-3)  # first and second solve, as tests/test_parallel.py
 
 
@@ -91,6 +94,10 @@ def run(tmp_path_factory):
             inp[f"z_rank{r}_step{i}"] = z
     ref_drone, drone_inp = _jax_drone()
     inp.update(drone_inp)
+    ref_batched = {}
+    for n_scn in DRONE_SCENARIOS:
+        ref_batched[n_scn], batched_inp = _jax_drone_batched(n_scn)
+        inp.update(batched_inp)
     np.savez(d / "in.npz", **inp)
 
     worker = os.path.join(REPO, "tests", "torch_multiproc_worker.py")
@@ -114,7 +121,8 @@ def run(tmp_path_factory):
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log[-3000:]
     res = [dict(np.load(d / f"rank{r}.npz")) for r in range(N_SHARDS)]
-    return {"xla": ref_xla, "pallas": ref_pallas, "drone": ref_drone}, res[0], res[1], coll
+    return ({"xla": ref_xla, "pallas": ref_pallas, "drone": ref_drone,
+             "drone_batched": ref_batched}, res[0], res[1], coll)
 
 
 def _jax_drone():
@@ -138,6 +146,39 @@ def _jax_drone():
             inp[f"drone_z_rank{r}_step{i}"] = z[r * half:(r + 1) * half]
         out, state = step(state, obs)
         outs.append((np.asarray(out.u_seq), np.asarray(out.xdes)))
+    return outs, inp
+
+
+def _jax_drone_batched(n_scn):
+    """(outputs per step, worker inputs) of the JAX sharded drone solve with
+    ``batch_scenarios=True`` (``tests/test_parallel.py``) on a 2-shard
+    sample mesh: ``n_scn`` scenarios, vmapped, each shard's normals
+    rebuilt from ``fold_in(sub, shard)`` of its scenario's key."""
+    from quadrotor_manipulator_mppi_tpu.parallel.sharded import scenario_keys
+
+    jp = jdrone.DroneMPPIParams()
+    jp = dataclasses.replace(jp, mppi=dataclasses.replace(jp.mppi, n_samples=DRONE_K))
+    mesh = jmesh.make_mesh(n_sample_shards=N_SHARDS, devices=jax.devices()[:N_SHARDS])
+    step, init = jsharded(jdrone.make_drone_solver, mesh, batch_scenarios=True, params=jp)
+    states = jax.vmap(init)(scenario_keys(jax.random.key(9), n_scn))
+    rng = np.random.default_rng(n_scn)
+    x = (np.asarray([0.2, -0.1, 1.0]) + rng.normal(scale=0.3, size=(n_scn, 3))).astype(np.float32)
+    v = rng.normal(scale=0.2, size=(n_scn, 3)).astype(np.float32)
+    target = np.tile(np.asarray(jdrone.DEFAULT_TARGET, np.float32), (n_scn, 1))
+    obs = jdrone.DroneObs(x=jnp.asarray(x), v=jnp.asarray(v), target=jnp.asarray(target))
+    tag = f"dbatch{n_scn}"
+    inp = {f"{tag}_x": x, f"{tag}_v": v, f"{tag}_target": target}
+    half, outs = DRONE_K // N_SHARDS, []
+    with jax.set_mesh(mesh):
+        jstep = jax.jit(step)
+        for i in range(N_STEPS):
+            subs = [jax.random.split(states.key[b])[1] for b in range(n_scn)]
+            for r in range(N_SHARDS):
+                inp[f"{tag}_z_rank{r}_step{i}"] = np.stack([
+                    np.asarray(jax.random.normal(jax.random.fold_in(sub, r), (half, 32, 3)))
+                    for sub in subs])
+            out, states = jstep(states, obs)
+            outs.append((np.asarray(out.u_seq), np.asarray(out.xdes)))
     return outs, inp
 
 
@@ -221,6 +262,32 @@ def test_sharded_drone_solve_matches_jax(run, field):
     for i, ref in enumerate(refs["drone"]):
         for res in (r0, r1):
             np.testing.assert_allclose(res[f"drone_{field}_{i}"], ref[col], rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("n_scn", DRONE_SCENARIOS)
+@pytest.mark.parametrize("field", ["u_seq", "xdes"])
+def test_sharded_batched_drone_solve_matches_jax(run, n_scn, field):
+    """make_drone_solver through make_sharded_solver with
+    batch_scenarios=True (1 and 2 scenarios, K=64 as 2 x 32) on each
+    rank's blocks of the JAX sharded solve's normals, against that solve
+    (tests/test_parallel.py) at the drone step tolerance, over two solves."""
+    refs, r0, r1, _ = run
+    col = ("u_seq", "xdes").index(field)
+    for i, ref in enumerate(refs["drone_batched"][n_scn]):
+        for res in (r0, r1):
+            got = res[f"dbatch{n_scn}_{field}_{i}"]
+            assert got.shape == ref[col].shape
+            np.testing.assert_allclose(got, ref[col], rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("n_scn", DRONE_SCENARIOS)
+def test_sharded_batched_drone_solve_keeps_three_collectives(run, n_scn):
+    """A batched sharded drone solve makes 3 all-reduces (4 with adaptive
+    sigma), whatever the number of scenarios, and its Philox solve equals
+    the one-rank batched solve on the same seed (summation order only)."""
+    for res in run[1:3]:
+        np.testing.assert_array_equal(res[f"dbatch{n_scn}_collectives"], [3, 4])
+        assert float(res[f"dbatch{n_scn}_philox_err"]) <= 1e-6
 
 
 def test_weak_scaling_reports_the_jax_keys(run):

@@ -182,6 +182,16 @@ def test_ctypes_struct_matches_the_cuda_source():
         (pk.STATE_SIZE, pk.DYN_SIZE, pk.BLOCK)
 
 
+def test_lane_layout_matches_the_cuda_source():
+    """Eight lanes per vehicle row: a lane for each joint and each rotor,
+    whole rows in a warp and a block, as the wrapper declares."""
+    defines = {k: int(v) for k, v in re.findall(r"#define (\w+) (\d+)", CU_SOURCE.read_text())}
+    assert (defines["PT_LANES"], defines["PT_BLOCK"]) == (pk.LANES, pk.BLOCK)
+    assert max(defines["PT_J"], defines["PT_R"]) <= pk.LANES
+    assert 32 % pk.LANES == 0 and pk.BLOCK % 32 == 0
+    assert (defines["PT_J"], defines["PT_R"]) == (pk.N_J, pk.N_R)
+
+
 def test_config_struct_values(case):
     s = case["pc"].struct
     vehicle = jmr.MultirotorParams()

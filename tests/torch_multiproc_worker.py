@@ -2,8 +2,8 @@
 
 Each of two OS processes joins a ``gloo`` process group through
 ``parallel.multihost.initialize`` and runs the port's sample-sharded and
-scenario-sharded whole-body solves and its sample-sharded drone solve on
-the CPU.  Everything that needs JAX was computed
+scenario-sharded whole-body solves and its sample-sharded drone solve,
+unbatched and with a scenario axis, on the CPU.  Everything that needs JAX was computed
 by the parent test (``tests/test_torch_parallel.py``) and arrives as numpy
 arrays in ``in.npz``; this process imports PyTorch and the port only.  Each
 rank writes its results to ``<out_dir>/rank<r>.npz`` for the parent to hold
@@ -155,6 +155,41 @@ def main():
         res, st = dstep(st, dobs, inp[f"drone_z_rank{rank}_step{i}"])
         out[f"drone_u_seq_{i}"] = res.u_seq.numpy()
         out[f"drone_xdes_{i}"] = res.xdes.numpy()
+
+    # The drone preset with batch_scenarios=True: 1 and 2 scenarios on this
+    # rank's blocks of the JAX sharded solve's normals; all-reduces per solve
+    # (plain, adaptive sigma); the Philox solve against the one-rank batch.
+    for n_scn in (1, 2):
+        tag = f"dbatch{n_scn}"
+        bobs = drone.DroneObs(*(torch.tensor(inp[f"{tag}_{n}"]) for n in ("x", "v", "target")))
+        bstep, binit = sharded.make_sharded_solver(drone.make_drone_solver, m, params=dparams,
+                                                   n_scenarios=n_scn, device="cpu")
+        st = binit(9)
+        for i in range(n_steps):
+            res, st = bstep(st, bobs, inp[f"{tag}_z_rank{rank}_step{i}"])
+            out[f"{tag}_u_seq_{i}"] = res.u_seq.numpy()
+            out[f"{tag}_xdes_{i}"] = res.xdes.numpy()
+        counts = []
+        for p in (dparams, dataclasses.replace(dparams, mppi=dataclasses.replace(
+                dparams.mppi, adaptive_sigma=True))):
+            cstep, cinit = sharded.make_sharded_solver(drone.make_drone_solver, m, params=p,
+                                                       n_scenarios=n_scn, device="cpu")
+            calls, plain = [], dist.all_reduce
+            dist.all_reduce = _counting_all_reduce(calls)
+            try:
+                cstep(cinit(0), bobs)
+            finally:
+                dist.all_reduce = plain
+            counts.append(len(calls))
+        out[f"{tag}_collectives"] = np.array(counts)
+        step1, init1 = drone.make_drone_solver(dparams, device="cpu", n_scenarios=n_scn)
+        st, st1, err = binit(21), init1(21), 0.0
+        for _ in range(3):
+            res, st = bstep(st, bobs)
+            res1, st1 = step1(st1, bobs)
+            err = max(err, (res.u_seq - res1.u_seq).abs().max().item()
+                      / max(1.0, res1.u_seq.abs().max().item()))
+        out[f"{tag}_philox_err"] = np.array(err)
 
     # Weak scaling at a tiny size: the JAX function's keys, finite times.
     sc = scaling.measure_weak_scaling(k_per_device=64, h=8, iters=1, device="cpu")
