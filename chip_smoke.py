@@ -1,6 +1,6 @@
 """On-card smoke run of the PyTorch/CUDA port: the whole-body solve, the
-whole-body closed loop, the scenario-batched and sample-sharded solves, and
-the drone MPPI path.
+whole-body closed loop and its fleet, the scenario-batched and
+sample-sharded solves, and the drone MPPI path.
 
     python3 chip_smoke.py
 
@@ -14,16 +14,25 @@ lines; any failure exits non-zero before the final ``ok`` line):
    full step against the plain pipeline;
 3. the Philox path: the kernel's spilled noise against the plain Philox;
 4. the serving path: 50 packed solves of the flagship configuration through
-   ``make_packed_step``, counting kernel launches, then timings;
+   ``make_packed_step``, each a CUDA-graph replay: launches counted per
+   replay, replies and warm start bit-equal to the eager call
+   (``graph=False``), host ms per solve of both (under 10 ms graphed), the
+   bridge head graphed against eager; then kernel timings and profiles of
+   graphed and eager solves (device busy share);
 5. the plant tick (eight lanes per vehicle row) against its plain version
    at B=1 and B=1024, bit-equal reruns and rows equal to their one-row
    launches, its CUDA-event and CUDA-graph timings beside its bound and
    the launch floor (an empty kernel's graph replay), and its registers;
 6. the serving episode: 200 control steps of the position-mode closed loop
-   at K=4096, H=50 with the plant-tick kernel, counting launches, with a
-   profiler breakdown;
-7. the reach gate: 1000-step episodes (10 s of flight) for seeds 0-2,
-   scored with ``episode_quality``; each must converge and hold;
+   at K=4096, H=50 with the plant-tick kernel, one replay of a captured
+   control step per step: launches counted per replay, logs and final
+   plant bit-equal to the eager loop, no host synchronization in the
+   replay loop, host ms per step and device busy share of both, the eager
+   step's host time per part;
+7. the reach gate: 1000-step graphed episodes (10 s of flight) for seeds
+   0-2 in position mode (serving loop) and in attitude and wrench modes
+   (the per-substep RNEA plant), K=4096, H=50, scored with
+   ``episode_quality``; each must converge and hold;
 8. the scenario batch, B=256 x K=4096 x H=50 in the attitude preset: the
    no-spill pair (rows 4, 5) against its plain versions on all 256
    scenarios and the spill pair on 4, the batched step against unbatched
@@ -66,6 +75,13 @@ lines; any failure exits non-zero before the final ``ok`` line):
    plain version, each scenario of a batch bit-equal to its unbatched
    launch, the spill bit-equal to ``philox_eps``, bit-equal reruns,
    CUDA-graph and profiler ms;
+15. the fleet episode (``make_whole_body_episode(n_scenarios=B)``, one
+   graphed control step for B vehicles, position mode, serving loop, starts
+   from ``fleet_starts``): 4 scenarios of a B=16 fleet against their
+   unbatched graphed episodes over 20 steps (1e-4); BASELINE.md's K=512
+   row, B=16 x K=512 x H=50 over 1500 steps, the reach gate per scenario
+   (at least 13 of 16), control steps/s and vehicles at 100 Hz; B=256 x
+   K=512 over 100 steps, ms per fleet step, peak memory, busy share;
 then one ``kernels`` JSON line (rows 4-5 at B=256, rows 6-7 at K_local,
 rows 9a-9b at K=1000 and 9c-9d at K=1024: the shapes of the runs that
 count their launches; each ``wb_update`` row with the R it used and its
@@ -152,6 +168,15 @@ N_REACH = 1000       # phase 7 control steps per seed (10 s of flight)
 REACH_SEEDS = (0, 1, 2)
 SERVING_LOOP = dict(arm_coeffs_per_control=True, plant_kernel=True)
 
+FLEET_K = 512                  # phase 15: BASELINE.md's batched-serving K=512 row
+FLEET_B = 16
+FLEET_STEPS = 1500             # 15 s
+FLEET_MIN_HELD = 13            # of 16 (the JAX package's record: 15)
+FLEET_CHECKED = (0, 5, 10, 15)
+FLEET_CHECK_STEPS = 20
+TOL_FLEET = 1e-4               # a fleet scenario against its unbatched episode
+FLEET_B_TIMED = 256
+FLEET_TIMED_STEPS = 100
 B_BATCH = 256                  # phase 8: BASELINE.json config 5's 256 scenarios
 B_TIMED = (1, 16, B_BATCH)
 CHECK_SCENARIOS = (0, 85, 170, 255)
@@ -397,76 +422,176 @@ def phase_philox(dev) -> None:
         fail("Philox spill disagrees with the plain Philox stream")
 
 
-def phase_serving(dev):
-    params = wb.WholeBodyMPPIParams()
-    pstep, pinit = serving.make_packed_step(params, device=dev)
-    obs_vec, target_vec = serving.pack_obs(wb.default_obs(device=dev))
-    carry = pinit(0)
-    for _ in range(3):  # warm up (allocator, library load)
+def serve_solves(pstep, pinit, obs_vec, target_vec, n: int, seed: int = 0):
+    """(the n replies, the final carry's warm start) of ``n`` packed solves
+    from ``pinit(seed)``; each reply is the caller's copy."""
+    carry, outs = pinit(seed), []
+    for _ in range(n):
         out, carry = pstep(carry, obs_vec, target_vec)
-    sync()
-    torch.cuda.reset_peak_memory_stats(dev)
+        outs.append(out)
+    return outs, carry.u_prev.clone()
 
-    wk.wb_cost.launches = 0
-    wk.wb_update.launches = 0
-    outs, block_ms = [], []
+
+def solve_blocks(pstep, carry, obs_vec, target_vec, outs=None):
+    """Median host ms per solve over N_SERVE solves in blocks of 10, each
+    block ending in a synchronize; the final carry."""
+    block_ms = []
     for _ in range(N_SERVE // 10):
         t0 = time.perf_counter()
         for _ in range(10):
             out, carry = pstep(carry, obs_vec, target_vec)
-            outs.append(out)
+            if outs is not None:
+                outs.append(out)
         sync()
         block_ms.append((time.perf_counter() - t0) * 1e3 / 10)
+    return statistics.median(block_ms), carry
+
+
+def phase_serving(dev):
+    """The packed serving solve as a CUDA graph (one replay per solve)
+    against the eager call (``graph=False``): bit-equal replies and warm
+    starts over N_SERVE solves from one seed, launches counted per replay,
+    host ms per solve of both, then the bridge head graphed against eager."""
+    params = wb.WholeBodyMPPIParams()
+    pstep, pinit = serving.make_packed_step(params, device=dev)
+    pstep_e, pinit_e = serving.make_packed_step(params, device=dev, graph=False)
+    obs_vec, target_vec = serving.pack_obs(wb.default_obs(device=dev))
+    serve_solves(pstep, pinit, obs_vec, target_vec, 3)  # capture (warm-up launches count)
+    serve_solves(pstep_e, pinit_e, obs_vec, target_vec, 3)  # warm up (allocator, library load)
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    reset_counts()
+    outs = []
+    solve_ms, carry = solve_blocks(pstep, pinit(0), obs_vec, target_vec, outs)
     launches = {"wb_cost": wk.wb_cost.launches, "wb_update": wk.wb_update.launches}
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
     finite = all(bool(torch.isfinite(o).all()) for o in outs) and bool(
         torch.isfinite(carry.u_prev).all())
-    print(f"[4] serving {N_SERVE} solves: launches {launches} | finite {finite} | "
-          f"{statistics.median(block_ms):.3f} ms/solve (median of {len(block_ms)} "
-          f"blocks of 10) | peak {peak_mib:.1f} MiB", flush=True)
+    eager_outs, eager_u = serve_solves(pstep_e, pinit_e, obs_vec, target_vec, N_SERVE)
+    sync()
+    equal = all(torch.equal(a, b) for a, b in zip(outs, eager_outs)) and torch.equal(
+        carry.u_prev, eager_u)
+    worst = max((a - b).abs().max().item() for a, b in zip(outs, eager_outs))
+    eager_ms, _ = solve_blocks(pstep_e, pinit_e(0), obs_vec, target_vec)
+    print(f"[4] serving {N_SERVE} solves, CUDA graph: launches {launches} | finite {finite} | "
+          f"bit-equal to the eager call over {N_SERVE} solves {equal} (max|d| {worst:.2e}) | "
+          f"{solve_ms:.3f} ms/solve graphed, {eager_ms:.3f} eager (host, median of "
+          f"{N_SERVE // 10} blocks of 10) | peak {peak_mib:.1f} MiB", flush=True)
     if launches != {"wb_cost": N_SERVE, "wb_update": N_SERVE} or not finite:
         fail("serving path did not run through both kernels with finite output")
+    if not equal:
+        fail("the graphed serving solve is not bit-equal to the eager one")
+    if not solve_ms < 10.0:
+        fail(f"the graphed serving solve takes {solve_ms:.3f} ms on the host, not under 10")
 
-    return launches, statistics.median(block_ms), (pstep, carry, obs_vec, target_vec)
+    bstep, bpinit = serving.make_bridge_step(device=dev)
+    bstep_e, bpinit_e = serving.make_bridge_step(device=dev, graph=False)
+    replies = [serve_solves(f, init, obs_vec, target_vec, 20)
+               for f, init in ((bstep, bpinit), (bstep_e, bpinit_e))]
+    sync()
+    b_equal = all(torch.equal(a, b) for a, b in zip(replies[0][0], replies[1][0])) and \
+        torch.equal(replies[0][1], replies[1][1])
+    b_ms = {name: solve_blocks(f, init(0), obs_vec, target_vec)[0]
+            for name, f, init in (("graphed", bstep, bpinit), ("eager", bstep_e, bpinit_e))}
+    print(f"[4] bridge head (K=512, H=50, position): graphed bit-equal to eager over 20 solves "
+          f"{b_equal} | {b_ms['graphed']:.3f} ms/solve graphed, {b_ms['eager']:.3f} eager",
+          flush=True)
+    if not b_equal:
+        fail("the graphed bridge head is not bit-equal to the eager one")
+    return launches, {"graphed": solve_ms, "eager": eager_ms, "bridge": b_ms}, (
+        (pstep, carry, obs_vec, target_vec), (pstep_e, pinit_e(0), obs_vec, target_vec))
 
 
-def profile_solves(tag: str, fn, n: int, solve_ms: float, unit: str = "solve") -> None:
+# The device symbol of each kernel family and the wrappers that launch it:
+# profile_solves holds the wrappers' launch counters (on a graphed path,
+# the launches the capture recorded, added per replay) against the kernels
+# the device ran.
+KERNEL_FAMILIES = {
+    "wb_cost_kernel<": (wk.wb_cost, wk.wb_cost_nospill),
+    "wb_update_kernel<": (wk.wb_update, wk.wb_update_regen, wk.wb_update_shard,
+                          wk.wb_update_shard_regen),
+    "plant_tick_kernel": (pk.plant_tick,),
+    "drone_cost_kernel<": (dk.drone_cost, dk.drone_cost_noise),
+    "drone_update_kernel<": (dk.drone_update, dk.drone_update_noise),
+}
+
+
+def family_counts() -> dict:
+    return {sym: sum(w.launches for w in ws) for sym, ws in KERNEL_FAMILIES.items()}
+
+
+def profile_solves(tag: str, fn, n: int, solve_ms: float, unit: str = "solve",
+                   check_counts: bool = False):
     """Where a solve's (or a control step's: ``unit``) device time goes:
-    CUDA-side profiler events of ``n`` calls of ``fn``, their busy share of
-    the profiled wall time and of the unprofiled time per call
-    ``solve_ms``, and the device ops that take the most time."""
+    CUDA-side profiler events of ``n`` calls of ``fn`` (after one call the
+    profiler's schedule traces and drops, so that tracing has started),
+    their busy share of the profiled wall time and of the unprofiled time
+    per call ``solve_ms``, and the device ops that take the most time.
+    With ``check_counts`` the kernels of each family that the device ran
+    must equal the launches the wrappers' counters added, and the profiler
+    must have seen them.  Returns (device us per call, busy share of the
+    unprofiled call, device ops per call), or None when the profiler
+    recorded no device time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    traced = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.append(p.key_averages())) as prof:
+        fn()
+        sync()
+        prof.step()
+        host0 = family_counts()
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
         sync()
         wall_us = (time.perf_counter() - t0) * 1e6
-    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        host = {k: v - host0[k] for k, v in family_counts().items()}
+        prof.step()
+    # The wb_loop.* ranges and the profiler's steps also appear on the
+    # device timeline as annotations.
+    ops = [e for e in (traced[0] if traced else [])
+           if e.device_type == DeviceType.CUDA
+           and not e.key.startswith(("wb_loop.", "ProfilerStep"))]
     dev_us = sum(e.self_device_time_total for e in ops)
     launches = sum(e.count for e in ops)
+    if check_counts:
+        device = {sym: sum(e.count for e in ops if sym in e.key) for sym in KERNEL_FAMILIES}
+        ran = {k: v for k, v in host.items() if v or device[k]}
+        print(f"{tag} kernels over {n} x {unit}: counted by the wrappers "
+              f"{ran}, run on the device {({k: device[k] for k in ran})}", flush=True)
+        if not dev_us:
+            fail(f"{tag}: the profiler saw no device work; the launch counts are unchecked")
+        if any(host[k] != device[k] for k in ran) or not ran:
+            fail(f"{tag}: the launch counters disagree with the kernels the device ran")
     if not dev_us:
         print(f"{tag} profiler: device time not measured (no CUDA events)", flush=True)
-        return
+        return None
+    share = dev_us / n / (solve_ms * 1e3)
     print(f"{tag} profiler: device busy {dev_us / n:.1f} us/{unit}; busy share "
           f"{dev_us / wall_us:.3f} of the profiled wall ({wall_us / n:.1f} us/{unit}), "
-          f"{dev_us / n / (solve_ms * 1e3):.3f} of the unprofiled {unit}; "
+          f"{share:.3f} of the unprofiled {unit}; "
           f"{launches / n:.0f} device ops/{unit}", flush=True)
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"    {e.self_device_time_total / n:8.1f} us/{unit} {e.count / n:6.1f} ops/{unit}  "
               f"{e.key[:90]}")
+    return dev_us / n, share, launches / n
 
 
-def phase_profile(serve, solve_ms: float) -> None:
-    pstep, carry, obs_vec, target_vec = serve
-    box = [carry]
+def phase_profile(serve, solve_ms: dict) -> dict:
+    """Profiles of 10 graphed and 10 eager serving solves."""
+    out = {}
+    for (pstep, carry, obs_vec, target_vec), name in zip(serve, ("graphed", "eager")):
+        box = [carry]
 
-    def one():
-        _, box[0] = pstep(box[0], obs_vec, target_vec)
+        def one():
+            _, box[0] = pstep(box[0], obs_vec, target_vec)
 
-    profile_solves("[4]", one, 10, solve_ms)
+        out[name] = profile_solves(f"[4] {name}", one, 10, solve_ms[name], check_counts=True)
+    return out
 
 
 def phase_timing(dev):
@@ -603,11 +728,11 @@ def phase_plant(dev, errs):
     return t, b1, b1024
 
 
-def serving_episode(params, dev, n_steps):
-    """(run, start): ``run(*start(seed))`` is one serving-configuration
-    episode of ``n_steps`` control steps from the hover start."""
-    run = wbl.make_whole_body_episode(params, cfg=wbl.WholeBodyLoopConfig(**SERVING_LOOP),
-                                      n_control_steps=n_steps, device=dev)
+def serving_episode(params, dev, n_steps, loop=SERVING_LOOP, graph=True):
+    """(run, start): ``run(*start(seed))`` is one episode of ``n_steps``
+    control steps from the hover start (the serving loop by default)."""
+    run = wbl.make_whole_body_episode(params, cfg=wbl.WholeBodyLoopConfig(**loop),
+                                      n_control_steps=n_steps, device=dev, graph=graph)
     _, init = wb.make_whole_body_solver(params, device=dev)
     obs = wb.default_obs(device=dev)
 
@@ -618,69 +743,90 @@ def serving_episode(params, dev, n_steps):
     return run, start
 
 
-def phase_episode(dev):
-    """200 control steps of the serving episode: host ms per step, launch
-    counts, finite logs; then a profiled 20-step window."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def episodes_equal(a, b) -> tuple:
+    """(bit-equal, max |d|) of two episodes' logs and final plants."""
+    (fa, la), (fb, lb) = a, b
+    pairs = list(zip(la, lb)) + list(zip(pk.pack_plant(fa[0]), pk.pack_plant(fb[0])))
+    return (all(torch.equal(x, y) for x, y in pairs),
+            max((x - y).abs().max().item() for x, y in pairs))
 
-    params = wb.position_mode_params()
-    warm, warm_start = serving_episode(params, dev, 5)
-    warm(*warm_start(0))  # warm up (allocator, library loads)
-    run, start = serving_episode(params, dev, N_EPISODE)
-    args = start(0)
+
+def count_episode_launches() -> dict:
+    return {"wb_cost": wk.wb_cost.launches, "wb_update": wk.wb_update.launches,
+            "plant_tick": pk.plant_tick.launches}
+
+
+def timed_episode(run, args, n_steps) -> tuple:
+    """(episode, host ms per control step) of ``run(*args)``."""
     sync()
-    for f in (wk.wb_cost, wk.wb_update, pk.plant_tick):
-        f.launches = 0
     t0 = time.perf_counter()
-    _, logs = run(*args)
+    out = run(*args)
     sync()
-    step_ms = (time.perf_counter() - t0) * 1e3 / N_EPISODE
-    launches = {"wb_cost": wk.wb_cost.launches, "wb_update": wk.wb_update.launches,
-                "plant_tick": pk.plant_tick.launches}
-    finite = all(bool(torch.isfinite(f).all()) for f in logs)
+    return out, (time.perf_counter() - t0) * 1e3 / n_steps
+
+
+def phase_episode(dev):
+    """200 control steps of the serving episode replaying one captured
+    control step per step, against the eager loop (``graph=False``) from
+    the same start: logs and final plant bit-equal, launches counted per
+    replay, no host synchronization in the replay loop, host ms per step
+    and device busy share of both."""
+    params = wb.position_mode_params()
+    run, start = serving_episode(params, dev, N_EPISODE)
+    run_e, _ = serving_episode(params, dev, N_EPISODE, graph=False)
+    run(*start(0))  # capture (warm-up launches count), then a first full run
+    warm_e, warm_start = serving_episode(params, dev, 5, graph=False)
+    warm_e(*warm_start(0))  # warm up (allocator, library loads)
+    reset_counts()
+    pk.plant_tick.launches = 0
+    graphed, step_ms = timed_episode(run, start(0), N_EPISODE)
+    launches = count_episode_launches()
+    finite = all(bool(torch.isfinite(f).all()) for f in graphed[1])
+    eager, eager_ms = timed_episode(run_e, start(0), N_EPISODE)
+    equal, worst = episodes_equal(graphed, eager)
     print(f"[6] serving episode {N_EPISODE} control steps (K={K}, H={H}, position mode, "
-          f"plant kernel): {step_ms:.3f} ms/control step | launches {launches} | "
-          f"finite logs {finite} | final l1_cmd {logs.l1_cmd[-1].item() * 1e3:.2f} mm",
-          flush=True)
+          f"plant kernel), CUDA graph of one control step: {step_ms:.3f} ms/control step "
+          f"graphed, {eager_ms:.3f} eager | launches {launches} | finite logs {finite} | "
+          f"logs and final plant bit-equal to the eager loop {equal} (max|d| {worst:.2e}) | "
+          f"final l1_cmd {graphed[1].l1_cmd[-1].item() * 1e3:.2f} mm", flush=True)
     if launches != {"wb_cost": N_EPISODE, "wb_update": N_EPISODE, "plant_tick": N_EPISODE} \
             or not finite:
         fail("serving episode did not run through all three kernels with finite logs")
+    if not equal:
+        fail("the graphed serving episode is not bit-equal to the eager loop")
 
-    args = warm_start(2)
-    check_no_syncs("[6]", "5 control steps", lambda: warm(*args))
+    args = start(2)
+    check_no_syncs("[6]", f"the replay loop of {N_EPISODE} control steps", lambda: run(*args))
 
     n_prof = 20
     window, window_start = serving_episode(params, dev, n_prof)
+    window_e, _ = serving_episode(params, dev, n_prof, graph=False)
+    window(*window_start(1))  # capture
+    busy = {}
+    for name, fn, ms in (("graphed", window, step_ms), ("eager", window_e, eager_ms)):
+        args = window_start(1)
+        busy[name] = profile_solves(f"[6] {name}", lambda: fn(*args), 1, ms * n_prof,
+                                    unit=f"{n_prof} control steps", check_counts=True)
+    eager_parts(window_e, window_start, n_prof)
+    return launches, {"graphed": step_ms, "eager": eager_ms}, busy
+
+
+def eager_parts(window, window_start, n_prof) -> None:
+    """Host time per part of the eager control step (its wb_loop.* ranges;
+    a graph replays them as one range per step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     args = window_start(1)
     sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
         window(*args)
         sync()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
-    # The wb_loop.* ranges also appear on the device timeline as annotations.
-    ops = [e for e in events
-           if e.device_type == DeviceType.CUDA and not e.key.startswith("wb_loop.")]
-    dev_us = sum(e.self_device_time_total for e in ops)
-    n_ops = sum(e.count for e in ops)
-    if not dev_us:
-        print("[6] profiler: device time not measured (no CUDA events)", flush=True)
-        return launches, step_ms
-    print(f"[6] profiler: device busy {dev_us / n_prof:.1f} us/control step; busy share "
-          f"{dev_us / wall_us:.3f} of the profiled wall ({wall_us / n_prof:.1f} us/step), "
-          f"{dev_us / n_prof / (step_ms * 1e3):.3f} of the unprofiled step; "
-          f"{n_ops / n_prof:.0f} device ops/control step", flush=True)
-    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"    {e.self_device_time_total / n_prof:8.1f} us/step {e.count / n_prof:6.1f} "
-              f"ops/step  {e.key[:90]}")
-    parts = sorted((e for e in events
+    parts = sorted((e for e in prof.key_averages()
                     if e.key.startswith("wb_loop.") and e.device_type == DeviceType.CPU),
                    key=lambda e: -e.cpu_time_total)
-    print("[6] host time per part (profiled, us/control step): " + ", ".join(
+    print("[6] eager host time per part (profiled, us/control step): " + ", ".join(
         f"{e.key[8:]} {e.cpu_time_total / n_prof:.0f}" for e in parts), flush=True)
-    return launches, step_ms
 
 
 def check_no_syncs(tag: str, what: str, fn) -> None:
@@ -705,29 +851,151 @@ def check_no_syncs(tag: str, what: str, fn) -> None:
         fail("the loop synchronizes the host with the card")
 
 
-def phase_reach(dev):
-    """The reach gate on the card: converge (L1 of the commanded EE < 5 mm
-    held 50 steps) and hold >= 99% of the steps after, for every seed."""
-    params = wb.position_mode_params()
-    run, start = serving_episode(params, dev, N_REACH)
-    results = {}
-    for seed in REACH_SEEDS:
+def reach_quality(tag: str, logs, tail_n: int, base_target=None) -> dict:
+    """``episode_quality`` of one episode's logs, printed; with
+    ``base_target`` also the base's largest distance from it, over the
+    episode and over its last ``tail_n`` steps."""
+    q = episode_quality(logs.l1_cmd.cpu().numpy(), logs.l1_meas.cpu().numpy(), tail_n=tail_n)
+    exc = ""
+    if base_target is not None:
+        d = torch.linalg.norm(logs.base_pos - base_target, dim=-1)
+        q["base_exc_max_m"] = d.max().item()
+        q["base_exc_tail_max_m"] = d[-tail_n:].max().item()
+        exc = (f" | base excursion max {q['base_exc_max_m']:.3f} m, tail max "
+               f"{q['base_exc_tail_max_m']:.3f} m")
+    print(f"{tag}: converged step {q['converged_step']} | held "
+          f"{q['held_fraction_after_converge']:.3f} after | first reach "
+          f"{q['reach_gate_first_step']} | l1_cmd tail max {q['l1_cmd_tail_max_mm']:.2f} mm "
+          f"(mean {q['l1_cmd_tail_mean_mm']:.2f}) | l1_meas tail max "
+          f"{q['l1_meas_tail_max_mm']:.2f} mm (mean {q['l1_meas_tail_mean_mm']:.2f})" + exc,
+          flush=True)
+    return q
+
+
+def gate_met(q: dict) -> bool:
+    return q["converged_step"] >= 0 and q["held_fraction_after_converge"] >= 0.99
+
+
+# Phase 7's modes: (preset, loop configuration).  Position runs the serving
+# loop; attitude and wrench the default loop, the per-substep RNEA plant,
+# as the JAX package's parity runs (BASELINE.md, "Control parity").
+REACH_MODES = {"position": (wb.position_mode_params, SERVING_LOOP),
+               "attitude": (wb.WholeBodyMPPIParams, {}),
+               "wrench": (wb.wrench_mode_params, {})}
+
+
+def phase_reach(dev, modes=tuple(REACH_MODES), seeds=REACH_SEEDS, summary=None) -> dict:
+    """The reach gate on the card, graphed episodes: converge (L1 of the
+    commanded EE < 5 mm held 50 steps) and hold >= 99% of the steps after,
+    for every seed, in the modes of REACH_MODES at K=4096, H=50.  Returns
+    the host ms per control step of each mode and the per-seed metrics.
+    ``summary`` (the card's ``nvidia-smi`` line): print them all as one
+    JSON line before the gate is judged."""
+    results, ms = {}, {}
+    base_target = wb.default_obs(device=dev).base_target
+    for mode in modes:
+        make, loop = REACH_MODES[mode]
+        run, start = serving_episode(make(), dev, N_REACH, loop)
         t0 = time.perf_counter()
-        _, logs = run(*start(seed))
-        l1_cmd, l1_meas = logs.l1_cmd.cpu().numpy(), logs.l1_meas.cpu().numpy()
-        wall = time.perf_counter() - t0
-        q = episode_quality(l1_cmd, l1_meas, tail_n=300)
-        results[seed] = q
-        print(f"[7] reach seed {seed}: converged step {q['converged_step']} | held "
-              f"{q['held_fraction_after_converge']:.3f} after | first reach "
-              f"{q['reach_gate_first_step']} | l1_cmd tail max {q['l1_cmd_tail_max_mm']:.2f} mm "
-              f"(mean {q['l1_cmd_tail_mean_mm']:.2f}) | l1_meas tail max "
-              f"{q['l1_meas_tail_max_mm']:.2f} mm (mean {q['l1_meas_tail_mean_mm']:.2f}) | "
-              f"{wall:.1f} s wall", flush=True)
-    bad = [s for s, q in results.items()
-           if q["converged_step"] < 0 or q["held_fraction_after_converge"] < 0.99]
+        for seed in seeds:
+            _, logs = run(*start(seed))
+            results[(mode, seed)] = reach_quality(f"[7] {mode} reach seed {seed}", logs, 300,
+                                                  base_target)
+        ms[mode] = (time.perf_counter() - t0) * 1e3 / (N_REACH * len(seeds))
+        print(f"[7] {mode}: {ms[mode]:.3f} ms/control step over {len(seeds)} x "
+              f"{N_REACH} steps (graphed, capture included)", flush=True)
+    bad = [key for key, q in results.items() if not gate_met(q)]
+    if summary is not None:
+        print(json.dumps({"k": K, "h": H, "steps": N_REACH, "nvidia_smi": summary,
+                          "ms_per_control_step": ms, "missed": [list(b) for b in bad],
+                          "per_seed": {f"{m} {s}": q for (m, s), q in results.items()}}))
     if bad:
-        fail(f"reach gate not met (converged and held >= 0.99) for seeds {bad}")
+        fail(f"reach gate not met (converged and held >= 0.99) for {bad}")
+    return ms, results
+
+
+def fleet_run(params, dev, n_scenarios: int, n_steps: int, seed: int = 0):
+    run = wbl.make_whole_body_episode(params, cfg=wbl.WholeBodyLoopConfig(**SERVING_LOOP),
+                                      n_control_steps=n_steps, device=dev,
+                                      n_scenarios=n_scenarios)
+    return run, wbl.fleet_starts(params, n_scenarios, seed=seed, device=dev)
+
+
+def phase_fleet(dev) -> dict:
+    """The fleet episode: B vehicles in one graphed control step
+    (``make_whole_body_episode(n_scenarios=B)``), position mode, serving
+    loop.  (a) FLEET_CHECKED scenarios of a B=16 fleet against their own
+    unbatched graphed episodes over 20 steps; (b) BASELINE.md's K=512 row:
+    B=16, K=512, H=50, 1500 steps, the reach gate per scenario; (c) B=256,
+    K=512, 100 steps, timing only."""
+    params = wb.position_mode_params(n_samples=FLEET_K, n_horizon=H)
+    run, starts = fleet_run(params, dev, FLEET_B, FLEET_CHECK_STEPS)
+    final, logs = run(*starts)
+    single = wbl.make_whole_body_episode(params, cfg=wbl.WholeBodyLoopConfig(**SERVING_LOOP),
+                                         n_control_steps=FLEET_CHECK_STEPS, device=dev)
+    plants, solver, targets, base_targets = starts
+    # The logs and the final base position (atol TOL_FLEET, as the CPU
+    # test), then every plant field, relative to its largest entry.
+    worst, worst_plant, equal = 0.0, {}, True
+    for b in FLEET_CHECKED:
+        one = mppi.MPPIState(u_prev=solver.u_prev[b], sigma=solver.sigma[b],
+                             seed=solver.seed[b:b + 1], step=0)
+        f1, l1 = single(tree_map(lambda x: x[b], plants), one, tree_map(lambda x: x[b], targets),
+                        base_targets[b])
+        pairs = [(getattr(logs, f)[b], getattr(l1, f)) for f in l1._fields]
+        pairs.append((final[0].base.pos[b], f1[0].base.pos))
+        worst = max([worst] + [(x - y).abs().max().item() for x, y in pairs])
+        got, want = pk.pack_plant(final[0])[b], pk.pack_plant(f1[0])
+        for name, lo, hi in PLANT_FIELDS:
+            worst_plant[name] = max(worst_plant.get(name, 0.0), rel_err(got[lo:hi], want[lo:hi]))
+        equal = equal and all(torch.equal(x, y) for x, y in pairs) and torch.equal(got, want)
+    print(f"[15] fleet B={FLEET_B} x K={FLEET_K} x H={H}, {FLEET_CHECK_STEPS} steps: scenarios "
+          f"{FLEET_CHECKED} against their unbatched graphed episodes: logs and final base "
+          f"position max|d| {worst:.2e} (limit {TOL_FLEET:g}); final plant, relative per field: "
+          + ", ".join(f"{k} {v:.1e}" for k, v in worst_plant.items())
+          + f"; bit-equal {equal}", flush=True)
+    if not worst <= TOL_FLEET:
+        fail("a fleet scenario disagrees with its unbatched episode")
+
+    run, starts = fleet_run(params, dev, FLEET_B, FLEET_STEPS)
+    run(*starts)  # capture and a first run
+    reset_counts()
+    pk.plant_tick.launches = 0
+    (_, logs), step_ms = timed_episode(run, starts, FLEET_STEPS)
+    launches = count_episode_launches()
+    tail_n = min(100, FLEET_STEPS // 3)
+    quality = [reach_quality(f"[15] fleet scenario {b}", tree_map(lambda x: x[b], logs), tail_n)
+               for b in range(FLEET_B)]
+    held = [gate_met(q) for q in quality]
+    conv = sorted(q["converged_step"] for q in quality if q["converged_step"] >= 0)
+    rate = FLEET_B * FLEET_STEPS / (step_ms * FLEET_STEPS / 1e3)
+    print(f"[15] fleet B={FLEET_B} x K={FLEET_K}, {FLEET_STEPS} steps ({FLEET_STEPS / 100:.0f} s): "
+          f"gate held in {sum(held)} of {FLEET_B} (held fraction {sum(held) / FLEET_B:.3f}; "
+          f"JAX package's record 15 of 16) | median converged step "
+          f"{statistics.median(conv) if conv else -1} | {step_ms:.3f} ms per fleet step | "
+          f"{rate:.0f} control steps/s = {rate / 100:.1f} vehicles at 100 Hz | launches "
+          f"{launches}", flush=True)
+    if launches != dict.fromkeys(("wb_cost", "wb_update", "plant_tick"), FLEET_STEPS):
+        fail("the fleet episode did not run through all three kernels once per step")
+    if sum(held) < FLEET_MIN_HELD:
+        fail(f"the fleet held the reach gate in {sum(held)} of {FLEET_B} scenarios, "
+             f"fewer than {FLEET_MIN_HELD}")
+
+    run, starts = fleet_run(params, dev, FLEET_B_TIMED, FLEET_TIMED_STEPS)
+    run(*starts)  # capture and a first run
+    torch.cuda.reset_peak_memory_stats(dev)
+    (_, logs), big_ms = timed_episode(run, starts, FLEET_TIMED_STEPS)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    busy = profile_solves(f"[15] fleet B={FLEET_B_TIMED}", lambda: run(*starts), 1,
+                          big_ms * FLEET_TIMED_STEPS, unit=f"{FLEET_TIMED_STEPS} fleet steps",
+                          check_counts=True)
+    big_rate = FLEET_B_TIMED * 1e3 / big_ms
+    print(f"[15] fleet B={FLEET_B_TIMED} x K={FLEET_K}, {FLEET_TIMED_STEPS} steps: "
+          f"{big_ms:.3f} ms per fleet step | {big_rate:.0f} control steps/s = "
+          f"{big_rate / 100:.1f} vehicles at 100 Hz | peak {peak_gib:.2f} GiB | finite "
+          f"{all(bool(torch.isfinite(f).all()) for f in logs)}", flush=True)
+    return {"b16_ms": step_ms, "b16_rate": rate, "held": sum(held), "b256_ms": big_ms,
+            "b256_rate": big_rate, "b256_busy": busy, "peak_gib": peak_gib}
 
 
 def scenario_obs(dev, n: int, seed: int = 8):
@@ -1698,9 +1966,28 @@ def phase_drone_batch(dev):
     return ms
 
 
+def reach_sweep(mode: str, seeds) -> None:
+    """``--reach MODE --seeds ...``: phase 7 alone, for one mode on any
+    seeds; prints one JSON line of the per-seed metrics and exits non-zero
+    if a seed misses the gate."""
+    dev = torch.device("cuda", 0)
+    phase_reach(dev, (mode,), seeds, summary=phase_build(dev))
+
+
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="On-card smoke run of the PyTorch/CUDA port.")
+    ap.add_argument("--reach", choices=sorted(REACH_MODES),
+                    help="run phase 7 alone, in this mode, on --seeds")
+    ap.add_argument("--seeds", default=",".join(map(str, REACH_SEEDS)),
+                    help="comma-separated solver seeds for --reach")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device")
+    if args.reach:
+        reach_sweep(args.reach, tuple(int(x) for x in args.seeds.split(",")))
+        return
     dev = torch.device("cuda", 0)
     smi = phase_build(dev)
     errs = dict.fromkeys(("wb_cost", "wb_update", "plant_tick", "wb_cost_nospill",
@@ -1709,10 +1996,10 @@ def main() -> None:
     phase_philox(dev)
     launches, solve_ms, serve = phase_serving(dev)
     t, bounds = phase_timing(dev)
-    phase_profile(serve, solve_ms)
+    serve_busy = phase_profile(serve, solve_ms)
     t_plant, plant_bound, plant_bound_b1024 = phase_plant(dev, errs)
-    episode_launches, step_ms = phase_episode(dev)
-    phase_reach(dev)
+    episode_launches, step_ms, episode_busy = phase_episode(dev)
+    reach_ms, _ = phase_reach(dev)
     batch_launches, t_b256, batch_rows, b256_bounds = phase_batch(dev, errs)
     t_k4096 = phase_nospill(dev)
     shard = phase_sharded(dev)
@@ -1722,6 +2009,7 @@ def main() -> None:
     drone_batch_ms = phase_drone_batch(dev)
     rows_sweep = phase_update_rows(dev)
     cost_sweep = phase_cost_shapes(dev)
+    fleet = phase_fleet(dev)
     b256 = {(b, spill): e_ms for b, spill, _, e_ms, _, _, _ in batch_rows}
     shard_bounds = {k: bound(*v) for k, v in new_work(K // SHARD_RANKS).items()}
 
@@ -1845,7 +2133,20 @@ def main() -> None:
                 drone_row("drone_update_noise", DRONE_NOISE_K,
                           drone_launches["b"]["drone_update_noise"])]
     print(json.dumps({"kernels": kernels}))
-    print(f"serving solve {solve_ms:.4f} ms, serving episode {step_ms:.4f} ms/control step, "
+    def share(busy):
+        return "not measured" if busy is None else f"{busy[1]:.3f}"
+
+    print(f"serving solve {solve_ms['graphed']:.4f} ms graphed ({solve_ms['eager']:.4f} eager; "
+          f"device busy share {share(serve_busy['graphed'])} / {share(serve_busy['eager'])}), "
+          f"serving episode {step_ms['graphed']:.4f} ms/control step graphed "
+          f"({step_ms['eager']:.4f} eager; busy share {share(episode_busy['graphed'])} / "
+          f"{share(episode_busy['eager'])}), reach episodes (graphed) "
+          + ", ".join(f"{m} {v:.3f}" for m, v in reach_ms.items()) + " ms/control step, "
+          f"fleet B={FLEET_B} x K={FLEET_K} {fleet['b16_ms']:.3f} ms per fleet step "
+          f"({fleet['b16_rate'] / 100:.1f} vehicles at 100 Hz, gate held {fleet['held']}/"
+          f"{FLEET_B}), B={FLEET_B_TIMED} {fleet['b256_ms']:.3f} ms per fleet step "
+          f"({fleet['b256_rate'] / 100:.1f} vehicles at 100 Hz, busy share "
+          f"{share(fleet['b256_busy'])}, peak {fleet['peak_gib']:.2f} GiB), "
           f"batched solve at B={B_BATCH} {b256[(B_BATCH, True)]:.3f} ms (spill) / "
           f"{b256[(B_BATCH, False)]:.3f} ms (no spill), sharded solve "
           f"{shard['ms']['spill']:.3f} ms, drone kernel solve {drone_host['kernel_solve']:.4f} ms "

@@ -95,7 +95,13 @@
 // draws again through the same draw_eps as pass 1, so regenerated noise is
 // bit-identical to the spilled noise.  ops/sampling.py holds the same
 // stream in plain PyTorch; philox.cuh holds the draw, shared with
-// drone_kernel.cu.
+// drone_kernel.cu.  The solve index is read from device memory (one int64
+// per scenario, or one shared by the batch), like the keys: a captured CUDA
+// graph replays with the counter its own last node advanced, so each replay
+// draws the next solve's noise.
+//
+// Sphere obstacles are read from a device buffer of n_obs (x, y, z, radius)
+// rows, any number of them (the TPU kernel bakes its list into the trace).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -107,7 +113,6 @@
 #define WB_A 11              // 4 base + 7 arm actions
 #define WB_J 7               // arm joints
 #define WB_BLOCK 16          // samples per softmin partial = warps per wb_cost block
-#define WB_MAX_OBS 16        // sphere obstacles carried in the parameter struct
 #define WB_SCAN 5            // scan powers per step map in the parameter struct
 #define WB_UPDATE_THREADS 256
 
@@ -148,7 +153,6 @@ struct WbParams {
   float w_pos_stage, w_pos_term, w_ori_stage, w_ori_term;
   float w_base, w_att, w_omega, w_vel, w_action, w_jl, gamma;
   float w_obs, w_stop, stop_horizon;
-  float obs[WB_MAX_OBS][4];  // (x, y, z, radius)
   // wb_cost's scans: the step maps raised to 2^i, i < WB_SCAN.
   float ax_pow[3][WB_SCAN][4];  // per axis, A^(2^i) row-major
   float lag_pow[WB_SCAN], drag_pow[WB_SCAN], rate_pow[WB_SCAN];
@@ -233,11 +237,13 @@ __device__ __forceinline__ void add_arm_moment(const WbParams& p, const float* s
 // One step's 7-joint FK from the base pose (bq, pos) and its cost: the
 // stage terms, or the terminal ones at the last step.  v: the step's
 // actions; q: the raw joint angles (limit costs); qfk: the clamped ones;
-// gam: gamma^t; inv_h: 1 / H, formed once by the caller.
+// gam: gamma^t; inv_h: 1 / H, formed once by the caller; obs: p.n_obs
+// sphere rows (x, y, z, radius) in device memory.
 __device__ __forceinline__ float step_cost(const WbParams& p, const float* sc, const float* v,
                                            const float* q, const float* qfk, const Quat& bq,
                                            const float* pos, const float* vel, const float* om,
-                                           float gam, bool last, float inv_h) {
+                                           float gam, bool last, float inv_h,
+                                           const float* __restrict__ obs) {
   Quat tq = bq;
   float tp[3] = {pos[0], pos[1], pos[2]};
 #pragma unroll
@@ -300,12 +306,10 @@ __device__ __forceinline__ float step_cost(const WbParams& p, const float* sc, c
       if (out) c += p.w_jl * 1e10f * gam;
     }
   }
-#pragma unroll
-  for (int o = 0; o < WB_MAX_OBS; ++o) {
-    if (o >= p.n_obs) break;
-    const float dx = tp[0] - p.obs[o][0], dy = tp[1] - p.obs[o][1],
-                dz = tp[2] - p.obs[o][2];
-    const float pen = fmaxf(p.obs[o][3] - sqrtf(dx * dx + dy * dy + dz * dz), 0.0f);
+  for (int o = 0; o < p.n_obs; ++o) {
+    const float dx = tp[0] - __ldg(obs + 4 * o), dy = tp[1] - __ldg(obs + 4 * o + 1),
+                dz = tp[2] - __ldg(obs + 4 * o + 2);
+    const float pen = fmaxf(__ldg(obs + 4 * o + 3) - sqrtf(dx * dx + dy * dy + dz * dz), 0.0f);
     c += p.w_obs * pen * pen;
   }
   return c;
@@ -405,7 +409,8 @@ wb_cost_kernel(const WbParams p, const float* __restrict__ sc,
                const float* __restrict__ u_prev, float* __restrict__ eps,
                float* __restrict__ s, float* __restrict__ m_part,
                float* __restrict__ e_part, const unsigned long long* __restrict__ seeds,
-               uint32_t step, int k_off) {
+               const long long* __restrict__ steps, int step_stride, int k_off,
+               const float* __restrict__ obs) {
   constexpr int LD = WB_BLOCK + 1;  // stage row pitch (a column read is conflict-free)
   const int b = blockIdx.y, n_groups = gridDim.x;
   const int H = p.h, K = p.k;
@@ -429,8 +434,11 @@ wb_cost_kernel(const WbParams p, const float* __restrict__ sc,
 
   const int lane = threadIdx.x & (WARP_LANES - 1), w = threadIdx.x / WARP_LANES;
   const int k0 = blockIdx.x * WB_BLOCK, k = k0 + w;
-  uint32_t key0 = 0u, key1 = 0u;
-  if (DRAW) philox_key(seeds, b, key0, key1);
+  uint32_t key0 = 0u, key1 = 0u, step = 0u;
+  if (DRAW) {
+    philox_key(seeds, b, key0, key1);
+    step = (uint32_t)steps[(size_t)step_stride * b];
+  }
   const float dt = p.dt, inv_h = 1.0f / (float)H;
 
   // Each recurrence's state at the end of the previous chunk (the same in
@@ -580,7 +588,7 @@ wb_cost_kernel(const WbParams p, const float* __restrict__ sc,
     }
 
     const bool last = t == H - 1;
-    float c = step_cost(p, sc_sm, v, q, qfk, bq, pos, vel, om, gamc * gl, last, inv_h);
+    float c = step_cost(p, sc_sm, v, q, qfk, bq, pos, vel, om, gamc * gl, last, inv_h, obs);
     if (last) c += stop_cost(p, sc_sm, pos, vel);
     if (active) total += c;
     gamc *= g32;
@@ -665,7 +673,8 @@ __global__ void __launch_bounds__(WB_UPDATE_THREADS)
 wb_update_kernel(const float* __restrict__ eps, const float* __restrict__ s,
                  const float* __restrict__ m_part, const float* __restrict__ e_part,
                  const float* __restrict__ se, const float* __restrict__ sc,
-                 const unsigned long long* __restrict__ seeds, uint32_t step, int k_off,
+                 const unsigned long long* __restrict__ seeds,
+                 const long long* __restrict__ steps, int step_stride, int k_off,
                  int n_part, int K, int H, int rows, float inv_lam,
                  float* __restrict__ du, float* __restrict__ m2) {
   constexpr int U = R >= 4 ? 16 / R : 4;  // read variant: groups per load step
@@ -693,6 +702,7 @@ wb_update_kernel(const float* __restrict__ eps, const float* __restrict__ s,
   if (REGEN) {
     uint32_t key0, key1;
     philox_key(seeds, b, key0, key1);
+    const uint32_t step = (uint32_t)steps[(size_t)step_stride * b];
     float sigma[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) sigma[r] = sc[(size_t)b * SC_LEN + SC_SIGMA + row[r] / H];
@@ -771,15 +781,15 @@ static void allow_smem(Kernel kernel, size_t bytes) {
 template <int MODE, bool DRAW, bool STORE>
 static void launch_cost(const WbParams& p, int n_scen, const float* sc, const float* u_prev,
                         float* eps, float* s, float* m_part, float* e_part,
-                        const unsigned long long* seeds, uint32_t step, int k_off,
-                        cudaStream_t stream) {
+                        const unsigned long long* seeds, const long long* steps,
+                        int step_stride, int k_off, const float* obs, cudaStream_t stream) {
   const size_t warm = (size_t)(SC_LEN + p.h * WB_A) * sizeof(float);
   const size_t stage =
       STORE || !DRAW ? (size_t)WB_A * WARP_LANES * (WB_BLOCK + 1) * sizeof(float) : 0;
   const dim3 grid(p.k / WB_BLOCK, n_scen);
   allow_smem(wb_cost_kernel<MODE, DRAW, STORE>, warm + stage);
   wb_cost_kernel<MODE, DRAW, STORE><<<grid, WB_BLOCK * WARP_LANES, warm + stage, stream>>>(
-      p, sc, u_prev, eps, s, m_part, e_part, seeds, step, k_off);
+      p, sc, u_prev, eps, s, m_part, e_part, seeds, steps, step_stride, k_off, obs);
 }
 
 extern "C" {
@@ -787,17 +797,19 @@ extern "C" {
 // Pass 1 over n_scen scenarios (K a multiple of WB_BLOCK).  variant 0: eps
 // is read (explicit noise); 1: Philox noise, spilled to eps (out); 2:
 // Philox noise, not stored (eps may be NULL).  seeds: the n_scen
-// scenarios' keys (unused by variant 0).  Returns cudaGetLastError() after
-// the launch.
+// scenarios' keys; steps: their solve indices, scenario b's at
+// steps[step_stride * b] (stride 0: one shared; both unused by variant 0).
+// obs: p->n_obs sphere rows (x, y, z, radius), NULL when there are none.
+// Returns cudaGetLastError() after the launch.
 int wb_cost_launch(const WbParams* p, const float* sc, const float* u_prev, float* eps,
                    float* s, float* m_part, float* e_part,
-                   const unsigned long long* seeds, unsigned int step, int k_off,
-                   int variant, int n_scen, void* stream) {
+                   const unsigned long long* seeds, const long long* steps, int step_stride,
+                   int k_off, int variant, int n_scen, const float* obs, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
 #define WB_COST_CASE(M, V, D, S)                                                            \
   case (M) * 3 + (V):                                                                       \
-    launch_cost<M, D, S>(*p, n_scen, sc, u_prev, eps, s, m_part, e_part, seeds, step, k_off, \
-                         st);                                                               \
+    launch_cost<M, D, S>(*p, n_scen, sc, u_prev, eps, s, m_part, e_part, seeds, steps,     \
+                         step_stride, k_off, obs, st);                                      \
     break;
   switch (p->mode * 3 + variant) {
     WB_COST_CASE(MODE_ATTITUDE, 0, false, false)
@@ -818,13 +830,13 @@ int wb_cost_launch(const WbParams* p, const float* sc, const float* u_prev, floa
 
 // Pass 2 over n_scen scenarios, rows = A*H, rows_per_block (R) of them per
 // block: ceil(rows / R) blocks per scenario.  regen != 0: draw the noise
-// again from (seeds, step, k_off) and the sigma in sc; else read eps (16-
-// byte aligned).  se != NULL: the given (rho, eta) per scenario; else
+// again from (seeds, steps, k_off) and the sigma in sc (steps as in
+// wb_cost_launch); else read eps (16-byte aligned).  se != NULL: the given (rho, eta) per scenario; else
 // combine the n_part partials per scenario.  R is 1, 2, 4 or 8.
 int wb_update_launch(const float* eps, const float* s, const float* m_part,
                      const float* e_part, const float* se, const float* sc,
-                     const unsigned long long* seeds, unsigned int step, int k_off,
-                     int n_part, int k, int h, int n_scen, float inv_lam, int regen,
+                     const unsigned long long* seeds, const long long* steps, int step_stride,
+                     int k_off, int n_part, int k, int h, int n_scen, float inv_lam, int regen,
                      int rows_per_block, float* du, float* m2, void* stream) {
   const int rows = WB_A * h;
   const dim3 grid((rows + rows_per_block - 1) / rows_per_block, n_scen);
@@ -832,8 +844,8 @@ int wb_update_launch(const float* eps, const float* s, const float* m_part,
 #define WB_UPDATE_CASE(RG, GV, R)                                                             \
   case R:                                                                                     \
     wb_update_kernel<RG, GV, R><<<grid, WB_UPDATE_THREADS, 0, st>>>(                          \
-        eps, s, m_part, e_part, se, sc, seeds, step, k_off, n_part, k, h, rows, inv_lam, du, \
-        m2);                                                                                  \
+        eps, s, m_part, e_part, se, sc, seeds, steps, step_stride, k_off, n_part, k, h, rows, \
+        inv_lam, du, m2);                                                                     \
     break;
 #define WB_UPDATE_VARIANT(RG, GV)                   \
   switch (rows_per_block) {                         \

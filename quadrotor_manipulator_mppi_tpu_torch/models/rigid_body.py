@@ -7,9 +7,14 @@ method; forward dynamics through a Cholesky factor; and the frozen
 (gravity-linear, velocity-quadratic) coefficients the 1 kHz plant substeps
 contract against, all from one batched RNEA.
 
-The 7x7 factorizations use ``torch.linalg.cholesky_ex`` and
-``torch.cholesky_inverse``: unlike ``cholesky``/``inv``/``solve`` they do
-not make the host wait for the card to check for errors.
+The 7x7 factorizations use ``torch.linalg.cholesky_ex``: unlike
+``cholesky``/``inv``/``solve`` it does not make the host wait for the card
+to check for errors.  The solves with the factor are two triangular solves
+(``torch.linalg.solve_triangular``, cuBLAS on the card) for one matrix and
+for a batch alike: PyTorch takes MAGMA's batched Cholesky solve for
+``cholesky_inverse`` and ``cholesky_solve`` on a batch, which a CUDA graph
+cannot capture, and one path keeps a fleet's vehicle bit-equal to the same
+vehicle alone.
 """
 
 from __future__ import annotations
@@ -241,8 +246,24 @@ def frozen_arm_coeffs(spec: ChainSpec, params: InertialParams, q: Tensor) -> Fro
     return FrozenArmCoeffs(
         g_tau=grav(tau_b), c_tau=polarize(tau_b), g_n=grav(n_b), c_n=polarize(n_b),
         g_f=grav(f_b), c_f=polarize(f_b), mass=mass, chol=chol,
-        minv=torch.cholesky_inverse(chol),
+        minv=_spd_inverse(chol),
     )
+
+
+def _chol_solve(chol: Tensor, rhs: Tensor) -> Tensor:
+    """M^-1 rhs from the lower Cholesky factor of M, by two triangular
+    solves (see the module docstring)."""
+    y = torch.linalg.solve_triangular(chol, rhs, upper=False)
+    return torch.linalg.solve_triangular(chol.transpose(-1, -2), y, upper=True)
+
+
+def _spd_inverse(chol: Tensor) -> Tensor:
+    """M^-1 from the lower Cholesky factor of M (batched over leading
+    dims)."""
+    linv = torch.linalg.solve_triangular(
+        chol, torch.eye(chol.shape[-1], dtype=chol.dtype, device=chol.device).expand_as(chol),
+        upper=False)
+    return linv.transpose(-1, -2) @ linv
 
 
 def gravity_accel(base_rot: Optional[Tensor], dtype=torch.float32,
@@ -277,4 +298,4 @@ def forward_dynamics_chol(spec: ChainSpec, params: InertialParams, q: Tensor, qd
     """Forward dynamics with a caller-supplied Cholesky factor of M (a
     factor taken once per control period and reused by its substeps)."""
     rhs = (tau - nonlinear_effects(spec, params, q, qd, base_rot=base_rot)).unsqueeze(-1)
-    return torch.cholesky_solve(rhs, chol).squeeze(-1)
+    return _chol_solve(chol, rhs).squeeze(-1)

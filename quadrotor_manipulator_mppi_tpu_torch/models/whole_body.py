@@ -9,6 +9,11 @@ limit-clamped joints feed the quaternion FK.  Every horizon recurrence is a
 host-precomputed (H, H) operator — this operator form is the plain version
 the CUDA cost kernel, which runs the same recurrences step by step in
 registers, is held against.
+
+The rollouts take leading scenario dims, as ``jax.vmap`` of the JAX model
+does: a state with fields (*B, D) rolls out actions (*B, K, H, A) into
+trajectories (*B, K, H, ...); with no leading dims the ops are the
+unbatched ones.
 """
 
 from __future__ import annotations
@@ -162,13 +167,21 @@ def _attitude_response_matrices(h: int, dt: float, kp: float, kd: float):
     return g_phi, g_omega, hom
 
 
+def _kh(x: Tensor) -> Tensor:
+    """A state vector (*B, D) lifted to broadcast over samples and steps:
+    (*B, 1, 1, D)."""
+    return x[..., None, None, :]
+
+
 def _drag_velocity(drag_kd: float, dt: float, vel0: Tensor, acc: Tensor) -> Tensor:
-    """Velocity trajectory under linear drag from the (K, H, 3) acceleration
-    sequence; plain cumsum when drag is off."""
+    """Velocity trajectory under linear drag from the (*B, K, H, 3)
+    acceleration sequence and the (*B, 3) initial velocity; plain cumsum
+    when drag is off."""
     if not drag_kd:
-        return vel0 + torch.cumsum(acc * dt, dim=-2)
+        return _kh(vel0) + torch.cumsum(acc * dt, dim=-2)
     d, hom = _drag_decay_operator(acc.shape[-2], 1.0 - dt * drag_kd)
-    return torch.einsum("ts,...si->...ti", device_const(d, acc), acc * dt) + device_const(hom, acc)[:, None] * vel0
+    return (torch.einsum("ts,...si->...ti", device_const(d, acc), acc * dt)
+            + device_const(hom, acc)[:, None] * _kh(vel0))
 
 
 def _quat_from_rpy(rpy: Tensor) -> Tensor:
@@ -223,57 +236,60 @@ def _base_rollout_parallel(
     dq = rot.quat_from_axis_angle(omega * dt)
     prefix = _quat_prefix_scan(dq)
     q0 = rot.matrix_to_quat(base_rotation(state.base))
-    quat = rot.quat_multiply(q0, prefix)
+    quat = rot.quat_multiply(_kh(q0), prefix)
     acc = _z_world(quat) * base_u[..., 0:1] / m - _gravity(base_u[..., 0])
     vel = _drag_velocity(params.drag_kd, dt, state.base.vel, acc)
-    pos = state.base.pos + torch.cumsum(vel * dt, dim=-2)
+    pos = _kh(state.base.pos) + torch.cumsum(vel * dt, dim=-2)
     return BaseTraj(pos=pos, quat=quat, vel=vel, omega=omega)
 
 
 def _base_rollout_attitude(
     params: WholeBodyParams, state: WholeBodyState, base_u: Tensor, dt: float
 ) -> BaseTraj:
-    """Attitude-setpoint rollout: base_u = (K, H, 4) = [thrust, rpy_des];
-    the PD-closed axes are (H, H) response operators plus the initial state's
-    homogeneous term (omega0 treated as euler rates)."""
-    h = base_u.shape[1]
+    """Attitude-setpoint rollout: base_u = (*B, K, H, 4) = [thrust,
+    rpy_des]; the PD-closed axes are (H, H) response operators plus the
+    initial state's homogeneous term (omega0 treated as euler rates)."""
+    h = base_u.shape[-2]
     m = params.vehicle.mass + params.arm_mass_lump
     rpy0, om0 = state.base.rpy, state.base.omega
     gains = [(params.att_kp_rp, params.att_kd_rp)] * 2 + [(params.att_kp_yaw, params.att_kd_yaw)]
     phis, oms = [], []
     for i, (kp, kd) in enumerate(gains):
         g_phi, g_om, hom = _attitude_response_matrices(h, dt, kp, kd)
-        x0 = torch.stack([rpy0[i], om0[i]])
-        hom_traj = torch.einsum("hij,j->hi", device_const(hom, base_u), x0)
+        x0 = torch.stack([rpy0[..., i], om0[..., i]], dim=-1)
+        hom_traj = torch.einsum("hij,...j->...hi", device_const(hom, base_u), x0)
         u = base_u[..., 1 + i]
-        phis.append(torch.einsum("ts,ks->kt", device_const(g_phi, u), u) + hom_traj[:, 0])
-        oms.append(torch.einsum("ts,ks->kt", device_const(g_om, u), u) + hom_traj[:, 1])
+        phis.append(torch.einsum("ts,...ks->...kt", device_const(g_phi, u), u)
+                    + hom_traj[..., None, :, 0])
+        oms.append(torch.einsum("ts,...ks->...kt", device_const(g_om, u), u)
+                   + hom_traj[..., None, :, 1])
     quat = _quat_from_rpy(torch.stack(phis, dim=-1))
     omega = torch.stack(oms, dim=-1)
     acc = _z_world(quat) * base_u[..., 0:1] / m - _gravity(base_u[..., 0])
     vel = _drag_velocity(params.drag_kd, dt, state.base.vel, acc)
-    pos = state.base.pos + torch.cumsum(vel * dt, dim=-2)
+    pos = _kh(state.base.pos) + torch.cumsum(vel * dt, dim=-2)
     return BaseTraj(pos=pos, quat=quat, vel=vel, omega=omega)
 
 
 def _base_rollout_position(
     params: WholeBodyParams, state: WholeBodyState, base_u: Tensor, dt: float
 ) -> BaseTraj:
-    """Position-setpoint rollout: base_u = (K, H, 4) = [xyz offsets, yaw];
-    each axis is the identified 2nd-order response to the absolute setpoint
-    pos0 + offset, and the implied small-angle attitude feeds the FK."""
-    h = base_u.shape[1]
+    """Position-setpoint rollout: base_u = (*B, K, H, 4) = [xyz offsets,
+    yaw]; each axis is the identified 2nd-order response to the absolute
+    setpoint pos0 + offset, and the implied small-angle attitude feeds the
+    FK."""
+    h = base_u.shape[-2]
     pos0, vel0 = state.base.pos, state.base.vel
-    setpoints = pos0 + base_u[..., 0:3]
+    setpoints = _kh(pos0) + base_u[..., 0:3]
     gains = [(params.pos_kp_xy, params.pos_kd_xy)] * 2 + [(params.pos_kp_z, params.pos_kd_z)]
     ps, vs, accs = [], [], []
     for i, (kp, kd) in enumerate(gains):
         g_phi, g_om, hom = _attitude_response_matrices(h, dt, kp, kd)
         u = setpoints[..., i]
-        x0 = torch.stack([pos0[i], vel0[i]])
-        hom_traj = torch.einsum("hij,j->hi", device_const(hom, u), x0)
-        p = torch.einsum("ts,ks->kt", device_const(g_phi, u), u) + hom_traj[:, 0]
-        v = torch.einsum("ts,ks->kt", device_const(g_om, u), u) + hom_traj[:, 1]
+        x0 = torch.stack([pos0[..., i], vel0[..., i]], dim=-1)
+        hom_traj = torch.einsum("hij,...j->...hi", device_const(hom, u), x0)
+        p = torch.einsum("ts,...ks->...kt", device_const(g_phi, u), u) + hom_traj[..., None, :, 0]
+        v = torch.einsum("ts,...ks->...kt", device_const(g_om, u), u) + hom_traj[..., None, :, 1]
         ps.append(p)
         vs.append(v)
         accs.append(kp * (u - p) - kd * v)
@@ -289,17 +305,19 @@ def _base_rollout_position(
 def rollout(
     params: WholeBodyParams, state: WholeBodyState, actions: Tensor, dt: float,
 ) -> Tuple[Pose, Tensor, Tensor, BaseTraj]:
-    """Roll K sampled action sequences (K, H, 4 + J) from one initial state.
+    """Roll K sampled action sequences (*B, K, H, 4 + J) from one initial
+    state per scenario (fields (*B, D)).
 
-    Returns (EE Pose over (K, H), raw joint q (K, H, J), qdot, BaseTraj).
-    The raw q feeds the joint-limit costs; the limit-clamped q feeds the FK
-    and the gravity moment (real joints stop at their stops)."""
+    Returns (EE Pose over (*B, K, H), raw joint q (*B, K, H, J), qdot,
+    BaseTraj).  The raw q feeds the joint-limit costs; the limit-clamped q
+    feeds the FK and the gravity moment (real joints stop at their stops)."""
     spec = params.chain()
-    h = actions.shape[1]
+    h = actions.shape[-2]
     base_u = actions[..., :N_BASE_ACTIONS]
     arm_u = actions[..., N_BASE_ACTIONS:]
 
-    q, qdot = integrators.double_integrate(arm_u, state.q, state.qdot, dt)
+    q, qdot = integrators.double_integrate(arm_u, state.q[..., None, :], state.qdot[..., None, :],
+                                           dt)
     q_fk = torch.minimum(torch.maximum(q, device_const(spec.lower, q)), device_const(spec.upper, q))
 
     if params.control_mode == "position":
@@ -307,7 +325,7 @@ def rollout(
     elif params.control_mode == "attitude":
         if params.rotor_lag_tau > 0.0:
             f = device_const(_rotor_lag_matrix(h, dt, params.rotor_lag_tau), base_u)
-            thrust = torch.einsum("ts,ks->kt", f, base_u[..., 0])[..., None]
+            thrust = torch.einsum("ts,...ks->...kt", f, base_u[..., 0])[..., None]
             base_u = torch.cat([thrust, base_u[..., 1:4]], dim=-1)
         base_traj = _base_rollout_attitude(params, state, base_u, dt)
     elif params.control_mode == "wrench":
@@ -315,12 +333,12 @@ def rollout(
             raise ValueError("only the parallel-in-time wrench rollout is ported")
         if params.rotor_lag_tau > 0.0:
             f = device_const(_rotor_lag_matrix(h, dt, params.rotor_lag_tau), base_u)
-            base_u = torch.einsum("ts,ksa->kta", f, base_u)
+            base_u = torch.einsum("ts,...ksa->...kta", f, base_u)
         if params.couple_arm_gravity:
             # Quasi-static coupling at the initial attitude: only the
             # configuration-dependent moment of the arm's weight.
             tau_b = arm_gravity_torque_fast(
-                spec, params.inertials(), q_fk, base_rotation(state.base)
+                spec, params.inertials(), q_fk, base_rotation(state.base)[..., None, None, :, :]
             )
             base_u = torch.cat([base_u[..., 0:1], base_u[..., 1:4] + tau_b], dim=-1)
         base_traj = _base_rollout_parallel(params, state, base_u, dt)

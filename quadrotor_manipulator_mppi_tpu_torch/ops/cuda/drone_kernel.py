@@ -52,7 +52,7 @@ import torch
 from ...ops import costs as costs_mod
 from ...ops import integrators, sampling
 from ...ops import weights as weights_ops
-from ...utils import savgol
+from ...utils import graphs, savgol
 from ...utils.device import device_const
 from . import build
 
@@ -248,6 +248,7 @@ def drone_update_noise(noise: Tensor, w: Tensor) -> Tensor:
 drone_update_noise.launches = 0
 
 KERNEL_WRAPPERS = (drone_cost, drone_update, drone_cost_noise, drone_update_noise)
+graphs.count_replays(*KERNEL_WRAPPERS)
 
 
 # ---------------------------------------------------------------------------

@@ -36,6 +36,7 @@ from ...models.multirotor import MultirotorState
 from ...models.rigid_body import FrozenArmCoeffs
 from ...sim import flight_control as fc
 from ...sim import whole_body_loop as wbl
+from ...utils import graphs
 from ...utils.device import resolve_device
 from . import build
 
@@ -199,6 +200,7 @@ def plant_tick(pc: PlantTickConfig, state: Tensor, dyn: Tensor, cmd: Tensor,
 
 
 plant_tick.launches = 0
+graphs.count_replays(plant_tick)
 
 
 def plant_tick_plain(pc: PlantTickConfig, state: Tensor, dyn: Tensor, cmd: Tensor,

@@ -34,7 +34,13 @@ wb_update_shard           _update_kernel_noise         7
 Every wrapper takes one scenario (``sc`` (54,), ``u_prev`` (H, A), ...) or
 a batch with a leading scenario axis (``sc`` (B, 54), ...); one launch
 covers the batch.  The Philox keys are a (B,) int64 tensor on the
-tensors' device, (1,) for one scenario (:func:`philox_keys`).
+tensors' device, (1,) for one scenario (:func:`philox_keys`).  The solve
+index ``step`` is read by the kernels from the device too: an int64 tensor,
+(1,) shared by the batch or (B,) one per scenario, which a captured CUDA
+graph advances in place; an int is written into a new (1,) tensor by a
+fill, without a host sync (``sampling.step_tensor``).  Sphere obstacles
+reach the kernel as a device buffer of any length
+(a buffer the wrapper keeps per device).
 
 Between and after the passes only (H, A)-sized work runs in plain PyTorch:
 reshaping du, the collectives of the sharded solve, the Savitzky-Golay
@@ -68,9 +74,10 @@ from ...ops.sampling import key_list as _key_list, philox_keys  # noqa: F401 (re
 from ...solver.mppi import (
     MPPIState, _diag_sigma, action_bounds, adapt_sigma, nominal_sequence, update_tail,
 )
+from ...utils import graphs
 from ...utils import rotations as rot
 from ...utils import savgol
-from ...utils.device import resolve_device
+from ...utils.device import device_const, resolve_device
 from ...utils.pose import Pose
 from . import build
 
@@ -82,7 +89,6 @@ WARP_LANES = 32                # horizon steps per wb_cost chunk (WARP_LANES)
 SCAN_STEPS = 5                 # shuffle steps of a warp scan (WARP_SCAN, WB_SCAN)
 # wb_cost's shared-memory noise stage: A x 32 rows of BLOCK + 1 floats.
 _STAGE_BYTES = A_TOTAL * WARP_LANES * (BLOCK + 1) * 4
-MAX_OBSTACLES = 16             # WB_MAX_OBS
 MODES = {"attitude": 0, "position": 1, "wrench": 2}
 # Shared memory per block that a kernel may opt into on the H100 (dynamic
 # and static together); the launcher opts in above the default 48 KB.
@@ -130,7 +136,6 @@ class WbParams(ctypes.Structure):
           ("w_pos_stage", "w_pos_term", "w_ori_stage", "w_ori_term",
            "w_base", "w_att", "w_omega", "w_vel", "w_action", "w_jl", "gamma",
            "w_obs", "w_stop", "stop_horizon")],
-        ("obs", (_F * 4) * MAX_OBSTACLES),
         ("ax_pow", ((_F * 4) * SCAN_STEPS) * 3),
         *[(n, _F * SCAN_STEPS) for n in ("lag_pow", "drag_pow", "rate_pow")],
     ]
@@ -139,7 +144,8 @@ class WbParams(ctypes.Structure):
 @dataclass(frozen=True, eq=False)
 class WbKernelConfig:
     """A configuration compiled for the kernels: sizes plus the by-value
-    parameter struct.  Built once per solver (:func:`make_kernel_config`)."""
+    parameter struct and the sphere obstacles, (n_obs, 4) rows (x, y, z,
+    radius) on the host.  Built once per solver (:func:`make_kernel_config`)."""
 
     params: Any            # solver.whole_body.WholeBodyMPPIParams
     n_samples: int
@@ -147,6 +153,7 @@ class WbKernelConfig:
     n_blocks: int
     inv_lam: float
     struct: WbParams
+    obstacles: np.ndarray
 
 
 def _fill(arr, values) -> None:
@@ -207,8 +214,6 @@ def make_kernel_config(params, n_local_samples: Optional[int] = None) -> WbKerne
             or np.any(spec.joint_type != REVOLUTE)
             or not np.allclose(spec.axis, [0.0, 0.0, 1.0])):
         raise ValueError("fused kernel expects revolute +z joints and an identity tip")
-    if len(cp.obstacle_centers) > MAX_OBSTACLES:
-        raise ValueError(f"fused kernel carries at most {MAX_OBSTACLES} obstacles")
     if h > max_horizon():
         raise ValueError("horizon too long for the kernel's shared-memory warm start")
 
@@ -254,10 +259,17 @@ def make_kernel_config(params, n_local_samples: Optional[int] = None) -> WbKerne
     s.gamma = cp.gamma
     s.w_obs, s.w_stop, s.stop_horizon = cp.obstacle_weight, cp.stop_weight, cp.stop_horizon
     s.n_obs = len(cp.obstacle_centers) if cp.obstacle_weight else 0
-    for o, (c, r) in enumerate(zip(cp.obstacle_centers, cp.obstacle_radii)):
-        _fill(s.obs[o], (*c, r))
+    obstacles = np.asarray([(*c, r) for c, r in zip(cp.obstacle_centers, cp.obstacle_radii)],
+                           np.float64).reshape(-1, 4)[:s.n_obs]
     return WbKernelConfig(params=params, n_samples=k, n_horizon=h,
-                          n_blocks=k // BLOCK, inv_lam=s.inv_lam, struct=s)
+                          n_blocks=k // BLOCK, inv_lam=s.inv_lam, struct=s,
+                          obstacles=obstacles)
+
+
+def _obstacle_buffer(kc: WbKernelConfig, like: Tensor) -> Optional[Tensor]:
+    """The sphere rows (n_obs, 4) as float32 on ``like``'s device (copied
+    there once, :func:`device_const`), or None without obstacles."""
+    return device_const(kc.obstacles, like) if len(kc.obstacles) else None
 
 
 # ---------------------------------------------------------------------------
@@ -302,17 +314,14 @@ def obs_from_scalars(sc: Tensor):
 # Kernel wrappers and their plain versions
 # ---------------------------------------------------------------------------
 
-_U32 = 0xFFFFFFFF
-
-
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load_library("whole_body_kernel")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.wb_cost_launch.argtypes = [ctypes.POINTER(WbParams), vp, vp, vp, vp, vp, vp, vp,
-                                   ctypes.c_uint32, ci, ci, ci, vp]
+                                   vp, ci, ci, ci, ci, vp, vp]
     lib.wb_cost_launch.restype = ci
-    lib.wb_update_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, ctypes.c_uint32, ci, ci,
+    lib.wb_update_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
                                      ci, ci, ci, ctypes.c_float, ci, ci, vp, vp, vp]
     lib.wb_update_launch.restype = ci
     return lib
@@ -341,12 +350,20 @@ def _key_ptr(seeds: Tensor, lead, device):
     return seeds.data_ptr()
 
 
+def _step_arg(step, lead, device) -> Tuple[Tensor, int]:
+    """(the solve index as an int64 device tensor, its stride over the
+    scenarios): (1,) shared (stride 0) or one per scenario (stride 1)."""
+    t = sampling.step_tensor(step, device)
+    _check(t, (1,) if t.numel() == 1 else (lead or (1,)), device, "step", torch.int64)
+    return t, int(t.numel() != 1)
+
+
 def _n_scen(lead) -> int:
     return lead[0] if lead else 1
 
 
 def _launch_cost(kc: WbKernelConfig, name: str, sc: Tensor, u_prev: Tensor,
-                 eps: Optional[Tensor], seeds: Optional[Tensor], step: int, k_off: int,
+                 eps: Optional[Tensor], seeds: Optional[Tensor], step, k_off: int,
                  variant: int):
     """One wb_cost launch of ``variant`` (0: read ``eps``; 1: draw and
     spill; 2: draw, no spill)."""
@@ -362,10 +379,11 @@ def _launch_cost(kc: WbKernelConfig, name: str, sc: Tensor, u_prev: Tensor,
     m_part = torch.empty(lead + (kc.n_blocks,), dtype=torch.float32, device=dev)
     e_part = torch.empty(lead + (kc.n_blocks,), dtype=torch.float32, device=dev)
     keys = _key_ptr(seeds, lead, dev) if variant else None
+    steps, stride = _step_arg(step, lead, dev) if variant else (None, 0)
     rc = _lib().wb_cost_launch(
         ctypes.byref(kc.struct), sc.data_ptr(), u_prev.data_ptr(), _ptr(eps), s.data_ptr(),
-        m_part.data_ptr(), e_part.data_ptr(), keys, int(step) & _U32, int(k_off), variant,
-        _n_scen(lead), torch.cuda.current_stream(dev).cuda_stream,
+        m_part.data_ptr(), e_part.data_ptr(), keys, _ptr(steps), stride, int(k_off), variant,
+        _n_scen(lead), _ptr(_obstacle_buffer(kc, sc)), torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, name)
     return s, m_part, e_part, eps
@@ -388,7 +406,7 @@ def update_rows_per_block(regen: bool, n_scen: int, rows: int) -> int:
 def _launch_update(kc: WbKernelConfig, name: str, s: Tensor, eps: Optional[Tensor] = None,
                    m_part: Optional[Tensor] = None, e_part: Optional[Tensor] = None,
                    se: Optional[Tensor] = None, sc: Optional[Tensor] = None,
-                   seeds: Optional[Tensor] = None, step: int = 0, k_off: int = 0,
+                   seeds: Optional[Tensor] = None, step=0, k_off: int = 0,
                    rows_per_block: Optional[int] = None) -> Tuple[Tensor, Tensor]:
     """One wb_update launch; ``rows_per_block`` overrides
     :func:`update_rows_per_block` (for timing each R)."""
@@ -409,6 +427,7 @@ def _launch_update(kc: WbKernelConfig, name: str, s: Tensor, eps: Optional[Tenso
         raise ValueError("s, eps: wb_update reads 16-byte vectors; pass 16-byte aligned tensors")
     regen = eps is None
     keys = _key_ptr(seeds, lead, dev) if regen else None
+    steps, stride = _step_arg(step, lead, dev) if regen else (None, 0)
     n_scen = _n_scen(lead)
     r = rows_per_block or update_rows_per_block(regen, n_scen, rows)
     if r not in UPDATE_ROWS:
@@ -417,7 +436,7 @@ def _launch_update(kc: WbKernelConfig, name: str, s: Tensor, eps: Optional[Tenso
     m2 = torch.empty(lead + (rows,), dtype=torch.float32, device=dev)
     rc = _lib().wb_update_launch(
         _ptr(eps), s.data_ptr(), _ptr(m_part), _ptr(e_part), _ptr(se), _ptr(sc), keys,
-        int(step) & _U32, int(k_off), kc.n_blocks, k, h, n_scen, kc.inv_lam, int(regen), r,
+        _ptr(steps), stride, int(k_off), kc.n_blocks, k, h, n_scen, kc.inv_lam, int(regen), r,
         du.data_ptr(), m2.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, name)
@@ -425,7 +444,7 @@ def _launch_update(kc: WbKernelConfig, name: str, s: Tensor, eps: Optional[Tenso
 
 
 def wb_cost(kc: WbKernelConfig, sc: Tensor, u_prev: Tensor, eps: Optional[Tensor] = None,
-            seeds: Optional[Tensor] = None, step: int = 0,
+            seeds: Optional[Tensor] = None, step=0,
             k_off: int = 0) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Pass 1 (rows 1 and 2).  Returns (S (K,), group minima (n_blocks,),
     group sums of exp((m - S)/lambda) (n_blocks,), eps (A, H, K)), each
@@ -444,7 +463,7 @@ wb_cost.launches = 0
 
 
 def wb_cost_nospill(kc: WbKernelConfig, sc: Tensor, u_prev: Tensor, seeds: Tensor,
-                    step: int = 0, k_off: int = 0) -> Tuple[Tensor, Tensor, Tensor]:
+                    step=0, k_off: int = 0) -> Tuple[Tensor, Tensor, Tensor]:
     """Pass 1 without the noise spill (row 4): :func:`wb_cost`'s Philox
     variant, returning (S, group minima, group sums) and writing no noise;
     pass 2 draws it again (:func:`wb_update_regen`,
@@ -476,7 +495,7 @@ wb_update.launches = 0
 
 
 def wb_update_regen(kc: WbKernelConfig, sc: Tensor, s: Tensor, m_part: Tensor,
-                    e_part: Tensor, seeds: Tensor, step: int = 0,
+                    e_part: Tensor, seeds: Tensor, step=0,
                     k_off: int = 0) -> Tuple[Tensor, Tensor]:
     """Pass 2 after :func:`wb_cost_nospill` (row 5): :func:`wb_update` on
     the noise drawn again from (seeds, step, k_off) and the packed sigma."""
@@ -507,7 +526,7 @@ wb_update_shard.launches = 0
 
 
 def wb_update_shard_regen(kc: WbKernelConfig, sc: Tensor, s: Tensor, se: Tensor,
-                          seeds: Tensor, step: int = 0,
+                          seeds: Tensor, step=0,
                           k_off: int = 0) -> Tuple[Tensor, Tensor]:
     """Sharded pass 2 after :func:`wb_cost_nospill` (row 6):
     :func:`wb_update_shard` on the noise drawn again."""
@@ -523,26 +542,25 @@ wb_update_shard_regen.launches = 0
 
 KERNEL_WRAPPERS = (wb_cost, wb_cost_nospill, wb_update, wb_update_regen, wb_update_shard,
                    wb_update_shard_regen)
+graphs.count_replays(*KERNEL_WRAPPERS)
 
 
-def philox_eps(kc: WbKernelConfig, sc: Tensor, seeds: Tensor, step: int = 0,
+def philox_eps(kc: WbKernelConfig, sc: Tensor, seeds: Tensor, step=0,
                k_off: int = 0) -> Tensor:
     """The noise (A, H, K) the kernels draw: Philox normals at global
     samples k_off + k scaled by the packed sigma; per scenario for a
-    batch."""
-    keys = _key_list(seeds)
+    batch.  ``step`` as the kernels take it: an int, or an int64 device
+    tensor, (1,) or one per scenario."""
     scs = sc.reshape(-1, SC_LEN)
-    eps = torch.stack([
-        sampling.philox_normals(key, step, kc.n_samples, kc.n_horizon, A_TOTAL, sc.device,
-                                sample_offset=k_off)
-        * row[SC_SIGMA:SC_SIGMA + A_TOTAL].view(A_TOTAL, 1, 1)
-        for key, row in zip(keys, scs)])
+    z = sampling.philox_normals(seeds.reshape(-1), step, kc.n_samples, kc.n_horizon, A_TOTAL,
+                                sc.device, sample_offset=k_off)
+    eps = z * scs[:, SC_SIGMA:SC_SIGMA + A_TOTAL].view(-1, A_TOTAL, 1, 1)
     return eps.view(sc.shape[:-1] + eps.shape[1:])
 
 
 def wb_cost_plain(kc: WbKernelConfig, sc: Tensor, u_prev: Tensor,
                   eps: Optional[Tensor] = None, seeds: Optional[Tensor] = None,
-                  step: int = 0, k_off: int = 0) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+                  step=0, k_off: int = 0) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Plain version of :func:`wb_cost`: the operator-form rollout and cost
     stack of ``solver/whole_body`` on v = u_prev + eps, then the softmin
     partials per group of :data:`BLOCK` samples; one scenario at a time."""
@@ -564,7 +582,7 @@ def wb_cost_plain(kc: WbKernelConfig, sc: Tensor, u_prev: Tensor,
 
 
 def wb_cost_nospill_plain(kc: WbKernelConfig, sc: Tensor, u_prev: Tensor, seeds: Tensor,
-                          step: int = 0, k_off: int = 0) -> Tuple[Tensor, Tensor, Tensor]:
+                          step=0, k_off: int = 0) -> Tuple[Tensor, Tensor, Tensor]:
     """Plain version of :func:`wb_cost_nospill`."""
     return wb_cost_plain(kc, sc, u_prev, None, seeds, step, k_off)[:3]
 
@@ -600,7 +618,7 @@ def wb_update_plain(kc: WbKernelConfig, eps: Tensor, s: Tensor, m_part: Tensor,
 
 
 def wb_update_regen_plain(kc: WbKernelConfig, sc: Tensor, s: Tensor, m_part: Tensor,
-                          e_part: Tensor, seeds: Tensor, step: int = 0,
+                          e_part: Tensor, seeds: Tensor, step=0,
                           k_off: int = 0) -> Tuple[Tensor, Tensor]:
     """Plain version of :func:`wb_update_regen`."""
     return wb_update_plain(kc, philox_eps(kc, sc, seeds, step, k_off), s, m_part, e_part)
@@ -613,7 +631,7 @@ def wb_update_shard_plain(kc: WbKernelConfig, eps: Tensor, s: Tensor,
 
 
 def wb_update_shard_regen_plain(kc: WbKernelConfig, sc: Tensor, s: Tensor, se: Tensor,
-                                seeds: Tensor, step: int = 0,
+                                seeds: Tensor, step=0,
                                 k_off: int = 0) -> Tuple[Tensor, Tensor]:
     """Plain version of :func:`wb_update_shard_regen`."""
     return _weighted_rows(kc, philox_eps(kc, sc, seeds, step, k_off), s, se)
@@ -669,7 +687,7 @@ def make_whole_body_cuda_step(params, device="cuda", group=None,
             sigma_live = sigma_live * cfg.sigma_scale_fn(obs)
         sc = pack_scalars(obs, sigma_live)
         u_prev = state.u_prev.to(torch.float32).contiguous()
-        seeds, n = philox_keys(state.seed, dev), state.step
+        seeds, n = philox_keys(state.seed, dev), sampling.step_tensor(state.step, dev)
         eps = None
         if z is not None:
             z = torch.as_tensor(z, dtype=torch.float32, device=dev)
@@ -700,6 +718,6 @@ def make_whole_body_cuda_step(params, device="cuda", group=None,
             if group is not None:
                 dist.all_reduce(m2, op=dist.ReduceOp.SUM, group=group)
             sigma_next = adapt_sigma(cfg, state.sigma, m2, sigma_base)
-        return u, MPPIState(u_prev=warm, sigma=sigma_next, seed=state.seed, step=n + 1)
+        return u, MPPIState(u_prev=warm, sigma=sigma_next, seed=state.seed, step=state.step + 1)
 
     return step

@@ -104,13 +104,22 @@ def _key_tensor(seed: int, device: torch.device) -> Tensor:
     return torch.full((1,), signed, dtype=torch.int64, device=device)
 
 
+def step_tensor(step, device) -> Tensor:
+    """A solve index as the kernels read it: an int64 tensor on ``device``.
+    An int is written into a new (1,) tensor there by a fill, without a
+    host sync; a tensor is returned as it is."""
+    if isinstance(step, Tensor):
+        return step
+    return torch.full((1,), int(step), dtype=torch.int64, device=device)
+
+
 def key_list(seeds: Tensor) -> list:
     """A key tensor's seeds as unsigned 64-bit host ints."""
     return [int(x) & _U64 for x in seeds.reshape(-1).tolist()]
 
 
 def philox_normals(
-    seed, step: int, n_samples: int, n_horizon: int, n_action: int,
+    seed, step, n_samples: int, n_horizon: int, n_action: int,
     device=None, sample_offset: int = 0,
 ) -> Tensor:
     """Standard normals of solve ``step`` under ``seed`` for the global
@@ -119,15 +128,22 @@ def philox_normals(
 
     ``seed`` is an int, or a (B,) int64 key tensor (``philox_keys``): then
     the result is (B, A, H, K), scenario b drawn under key b.  The keys are
-    split into their two 32-bit words on the device, with no host sync."""
+    split into their two 32-bit words on the device, with no host sync.
+    ``step`` is an int, or an int64 tensor on the device: (1,), one solve
+    index for every scenario, or (B,), one per scenario.  Either draws the
+    same words as the int."""
     k = torch.arange(sample_offset, sample_offset + n_samples, dtype=torch.int64,
                      device=device)
     row = torch.arange(n_action * n_horizon, dtype=torch.int64, device=device)
     c1 = k.view(1, 1, -1).expand(n_action, n_horizon, n_samples)
     c2 = row.view(n_action, n_horizon, 1).expand(n_action, n_horizon, n_samples)
-    c0 = torch.full_like(c1, int(step) & _MASK)
+    batched = isinstance(seed, Tensor)
+    if isinstance(step, Tensor):
+        c0 = (step.to(torch.int64) & _MASK).view((-1, 1, 1, 1) if batched else (1, 1, 1))
+    else:
+        c0 = torch.full_like(c1, int(step) & _MASK)
     c3 = torch.zeros_like(c1)
-    if isinstance(seed, Tensor):
+    if batched:
         keys = seed.to(torch.int64).view(-1, 1, 1, 1)
         key = (keys, keys >> 32)  # the low word, and the high word (masked in philox4x32_10)
     else:

@@ -12,9 +12,22 @@ backstepping or direct wrench).
 
 In the serving configuration (position mode, ``arm_coeffs_per_control``,
 ``plant_kernel``) the control period's physics is ONE launch of the CUDA
-plant-tick kernel (``ops/cuda/plant_kernel``).  The episode is a Python
-loop over control steps that never waits for the card: the logs stay on
-the device until ``run`` returns them stacked.
+plant-tick kernel (``ops/cuda/plant_kernel``).
+
+Where the JAX package scans, the episode here captures one control step in
+a CUDA graph (``utils/graphs.graphed``) and replays it once per step:
+the plant, the solver state and the targets are updated in place in static
+buffers, the solve index advances on the card, and each step writes its
+log row into preallocated (n_control_steps, ...) buffers at a device step
+index.  The eager loop (``graph=False``, and always on the CPU) runs the
+same control step and never waits for the card either.
+
+With ``n_scenarios=B`` the episode runs B vehicles at once, as
+``jax.vmap`` of the JAX episode does (the fleet of the
+``whole-body-batch`` scenario): every field of the plant, the solver state
+and the targets with a leading B, one batched solve and one B-row plant
+tick per control step, the logs (B, n_control_steps).  :func:`fleet_starts`
+draws the fleet's randomized starts.
 
 Not ported yet: the graspable object, generalized contact and a grasped
 payload (``payload_mass > 0``); they come with the payload and contact
@@ -26,6 +39,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -37,7 +51,9 @@ from ..models.chain import ChainSpec
 from ..models.multirotor import Multirotor12State, MultirotorParams, MultirotorState
 from ..models.rigid_body import InertialParams
 from ..models.whole_body import WholeBodyState, _base_rollout_position, arm_gravity_torque_fast
+from ..ops import sampling
 from ..solver import whole_body as wbs
+from ..utils import graphs
 from ..utils import rotations as rot
 from ..utils.device import device_const, resolve_device
 from ..utils.pose import Pose
@@ -94,6 +110,9 @@ class WholeBodyLog(NamedTuple):
     obj_pos: Tensor   # (3,) graspable-object position (zeros: none yet)
 
 
+_VECTOR_LOGS = ("base_pos", "obj_pos")  # the (3,) fields of a WholeBodyLog row
+
+
 @dataclass(frozen=True, eq=False)
 class PlantPhysics:
     """What :func:`physics_tick` needs of a configuration.  ``model`` (the
@@ -116,14 +135,52 @@ class PlantPhysics:
 def init_plant(vehicle: MultirotorParams, pos=(0.0, 0.0, 2.1), q0=None,
                extra_mass: float = 5.54, dtype=torch.float32,
                device="cuda") -> WholeBodyPlant:
-    """Hover at ``pos`` with the arm at ``q0`` (default: home)."""
+    """Hover at ``pos`` with the arm at ``q0`` (default: home).  ``pos``
+    (B, 3) gives B vehicles, every field with a leading B."""
     dev = resolve_device(device)
-    base = mr.init_state(vehicle, pos=pos, dtype=dtype, device=dev)
+    lead = tuple(np.shape(pos))[:-1]
+    if not lead:
+        base = mr.init_state(vehicle, pos=pos, dtype=dtype, device=dev)
+    else:
+        base = mr.init_state(vehicle, batch_shape=lead, dtype=dtype, device=dev)
+        base = base._replace(pos=torch.as_tensor(np.asarray(pos), dtype=dtype).to(dev))
     base = base._replace(rotor_speed=torch.full(
-        (vehicle.n_rotors,), vehicle.hover_rotor_speed(extra_mass), dtype=dtype, device=dev))
+        lead + (vehicle.n_rotors,), vehicle.hover_rotor_speed(extra_mass), dtype=dtype,
+        device=dev))
     q = torch.as_tensor(kinova.Q_HOME if q0 is None else q0, dtype=dtype).to(dev)
-    return WholeBodyPlant(base=base, q=q, qdot=torch.zeros(7, dtype=dtype, device=dev),
-                          ctrl=fc.init_ctrl_state(vehicle.mass + extra_mass, dtype, dev))
+    ctrl = fc.init_ctrl_state(vehicle.mass + extra_mass, dtype, dev)
+    return WholeBodyPlant(
+        base=base, q=q.expand(lead + (7,)).clone(),
+        qdot=torch.zeros(lead + (7,), dtype=dtype, device=dev),
+        ctrl=fc.FlightCtrlState(*(f.expand(lead + f.shape).clone() for f in ctrl)))
+
+
+def fleet_starts(params: "wbs.WholeBodyMPPIParams", n_scenarios: int, seed: int = 0,
+                 device="cuda"):
+    """The randomized starts of an ``n_scenarios`` fleet, as the JAX
+    package's ``whole-body-batch`` scenario draws them: each base starts
+    within +-0.3 m of the hover point (0, 0, 2.1), each EE target lies
+    within +-0.15 m of the default target, and each base station is
+    re-centred over its goal by the same offset.  The offsets come from a
+    NumPy generator seeded with ``seed`` (the distribution is the JAX
+    scenario's; the draws are not), the solver keys from
+    ``parallel.sharded.scenario_seeds(seed, n_scenarios)``.
+
+    Returns ``(plants, solver_state, ee_targets, base_targets)``, each
+    field with a leading ``n_scenarios``: ``run``'s arguments."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    base_off = rng.uniform(-0.3, 0.3, (n_scenarios, 3))
+    tgt_off = torch.as_tensor(rng.uniform(-0.15, 0.15, (n_scenarios, 3)),
+                              dtype=torch.float32).to(dev)
+    obs = wbs.default_obs(device=dev)
+    plants = init_plant(params.model.vehicle, pos=np.asarray([0.0, 0.0, 2.1]) + base_off,
+                        device=dev)
+    _, init = wbs.make_whole_body_solver(params, device=dev, low_k_guard="off",
+                                         n_scenarios=n_scenarios)
+    targets = Pose(position=obs.ee_target.position + tgt_off,
+                   quat=obs.ee_target.quat.expand(n_scenarios, 4).clone())
+    return plants, init(seed), targets, obs.base_target + tgt_off
 
 
 def observe(plant: WholeBodyPlant) -> WholeBodyState:
@@ -206,17 +263,24 @@ def pose_error_jacobian(spec: ChainSpec, q: Tensor, base_pos: Tensor, base_quat:
                         ee_target: Pose, ori_weight: float):
     """The tube servo's 6-vector EE pose residual err6 = [p* - p,
     w 2 sign(qe_w) qe_vec] with qe = q* conj(q_ee), and its (6, J)
-    Jacobian in q.  The Jacobian is exact, in closed form from the joint
-    frames: dp/dq_j = z_j x (p - o_j) and dqe/dq_j = qe [0, -z_j] / 2."""
+    Jacobian in q, each with the leading dims of ``q``.  The Jacobian is
+    exact, in closed form from the joint frames: dp/dq_j = z_j x (p - o_j)
+    and dqe/dq_j = qe [0, -z_j] / 2."""
     origins, axes, p, ee_q = chain_mod.joint_frames_posquat(spec, q, base_pos, base_quat)
     qe = rot.quat_multiply(ee_target.quat, rot.quat_conjugate(ee_q))
     # Small-angle rotation vector 2 sign(w) vec: the short way round.
-    sgn = torch.sign(qe[0:1])
-    err6 = torch.cat([ee_target.position - p, ori_weight * 2.0 * sgn * qe[1:]])
-    d_pos = -torch.linalg.cross(axes, p - origins, dim=-1)                      # (J, 3)
-    d_ori = -ori_weight * sgn * (
-        qe[0:1] * axes + torch.linalg.cross(qe[1:].expand_as(axes), axes, dim=-1))
-    return err6, torch.cat([d_pos, d_ori], dim=-1).T
+    sgn = torch.sign(qe[..., 0:1])
+    err6 = torch.cat([ee_target.position - p, ori_weight * 2.0 * sgn * qe[..., 1:]], dim=-1)
+    d_pos = -torch.linalg.cross(axes, p[..., None, :] - origins, dim=-1)         # (..., J, 3)
+    d_ori = -ori_weight * sgn[..., None, :] * (
+        qe[..., None, 0:1] * axes
+        + torch.linalg.cross(qe[..., None, 1:].expand_as(axes), axes, dim=-1))
+    return err6, torch.cat([d_pos, d_ori], dim=-1).transpose(-1, -2)
+
+
+def _mv(m: Tensor, v: Tensor) -> Tensor:
+    """Matrix (..., n, m) times vector (..., m), with leading batch dims."""
+    return m @ v if v.ndim == 1 else (m @ v.unsqueeze(-1)).squeeze(-1)
 
 
 def make_whole_body_episode(
@@ -229,6 +293,8 @@ def make_whole_body_episode(
     contact=None,
     low_k_guard: str = "warn",
     device="cuda",
+    n_scenarios: Optional[int] = None,
+    graph: bool = True,
 ):
     """Returns ``run(plant, solver, ee_target, base_target, z=None) ->
     ((plant, solver, ee_target, base_target), logs)`` with every
@@ -237,7 +303,19 @@ def make_whole_body_episode(
     ``z`` (n_control_steps, K, H, A) optionally carries the solver's
     standard normals, one draw per control step, in place of the Philox
     stream.  ``backend`` selects the solver pipeline (``"cuda"``, the
-    kernels; ``"torch"``, the plain CPU reference)."""
+    kernels; ``"torch"``, the plain CPU reference).
+
+    ``n_scenarios=B``: B vehicles, as ``jax.vmap(run)`` of the JAX episode
+    (see the module docstring); every argument's fields carry a leading B,
+    ``z`` is (n_control_steps, B, K, H, A) and the logs come back
+    (B, n_control_steps, ...).
+
+    On the card (``graph=True``) the first call captures one control step
+    in a CUDA graph and every call replays it ``n_control_steps`` times
+    (arguments of other shapes get a graph of their own).  The returned carry
+    and logs are copies.  The solver state comes back with its seed and
+    solve index as int64 device tensors.  ``graph=False`` runs the control
+    steps eagerly; so does the CPU."""
     params = params or wbs.WholeBodyMPPIParams()
     dev = resolve_device(device)
     mode = params.model.control_mode
@@ -257,7 +335,7 @@ def make_whole_body_episode(
     spec = params.model.chain()
     inertials = params.model.inertials()
     step, _ = wbs.make_whole_body_solver(params, device=dev, backend=backend,
-                                         low_k_guard=low_k_guard)
+                                         low_k_guard=low_k_guard, n_scenarios=n_scenarios)
     physics = PlantPhysics(
         vehicle=vehicle, spec=spec, dt=cfg.physics_dt, extra_mass=extra, mode=mode,
         arm_coeffs_per_control=cfg.arm_coeffs_per_control,
@@ -276,23 +354,26 @@ def make_whole_body_episode(
     tube_gain = (cfg.tube_gain if cfg.tube_gain is not None
                  else (1.5 if mode == "wrench" else 0.8))
     lookahead = min(cfg.setpoint_lookahead, params.mppi.n_horizon - 1)
+    lead = () if n_scenarios is None else (int(n_scenarios),)
 
     def tube_servo(plant: WholeBodyPlant, ee_target: Pose, qdes: Tensor) -> Tensor:
         """Damped-least-squares arm servo on the measured EE pose residual,
         gated to act inside the tube radius."""
         err6, de_dq = pose_error_jacobian(spec, plant.q, plant.base.pos, plant.base.quat,
                                           ee_target, cfg.tube_ori_weight)
-        d = torch.linalg.norm(err6[:3])
+        d = torch.linalg.norm(err6[..., :3], dim=-1)
         gate = torch.sigmoid((tube_radius - d) / (0.25 * tube_radius))
         # Gauss-Newton/DLS step on ||err6||: de_dq dq = -err6.
-        a = de_dq @ de_dq.T + cfg.tube_mu * torch.eye(6, dtype=err6.dtype, device=err6.device)
-        dq = -de_dq.T @ torch.linalg.solve_ex(a, err6).result
+        a = (de_dq @ de_dq.transpose(-1, -2)
+             + cfg.tube_mu * torch.eye(6, dtype=err6.dtype, device=err6.device))
+        dq = -_mv(de_dq.transpose(-1, -2), torch.linalg.solve_ex(a, err6).result)
         dq = dq.clamp(-cfg.tube_clip, cfg.tube_clip)
-        return qdes + tube_gain * gate * dq
+        return qdes + tube_gain * gate[..., None] * dq
 
     def control_step(plant: WholeBodyPlant, solver, ee_target: Pose, base_target: Tensor,
                      z: Optional[Tensor]):
-        # The record_function ranges name the step's parts for a profiler.
+        # The record_function ranges name the step's parts for a profiler
+        # of the eager loop; a graph replays them as one range per step.
         state = observe(plant)
         with record_function("wb_loop.solve"):
             out, solver = step(solver, wbs.WholeBodyObs(state=state, ee_target=ee_target,
@@ -317,7 +398,7 @@ def make_whole_body_episode(
                 nle = rb.nonlinear_effects(spec, inertials, plant.q, plant.qdot,
                                            base_rot=base_rot)
                 dyn = torch.linalg.cholesky_ex(m).L if cfg.mass_matrix_per_control else None
-            tau_arm = m @ (cfg.track_kp * (qdes - plant.q) - cfg.track_kd * plant.qdot) + nle
+            tau_arm = _mv(m, cfg.track_kp * (qdes - plant.q) - cfg.track_kd * plant.qdot) + nle
             effort = device_const(spec.effort, tau_arm)
             tau_arm = torch.minimum(torch.maximum(tau_arm, -effort), effort)
 
@@ -325,11 +406,13 @@ def make_whole_body_episode(
             if mode == "position":
                 # Smooth carrot: the model's predicted position a short
                 # lookahead along the updated plan.
-                pred = _base_rollout_position(params.model, state, out.u_seq[None, :, :4],
+                pred = _base_rollout_position(params.model, state,
+                                              out.u_seq[..., None, :, :4],
                                               cfg.substeps * cfg.physics_dt)
-                base_cmd = torch.cat([pred.pos[0, lookahead], out.action[3:4]])
+                base_cmd = torch.cat([pred.pos[..., 0, lookahead, :], out.action[..., 3:4]],
+                                     dim=-1)
             else:
-                base_cmd = out.action[:4]
+                base_cmd = out.action[..., :4]
 
         with record_function("wb_loop.tick"):
             if cfg.plant_kernel:
@@ -347,29 +430,69 @@ def make_whole_body_episode(
             d_pos = pos2 - ee_target.position
             qe = rot.quat_multiply(ee_target.quat, rot.quat_conjugate(quat2[0]))
             log = WholeBodyLog(
-                ee_err=torch.linalg.norm(d_pos[0]),
+                ee_err=torch.linalg.norm(d_pos[0], dim=-1),
                 base_pos=plant.base.pos,
-                tilt=torch.linalg.norm(cl.rpy_of(plant.base)[:2]),
-                l1_cmd=d_pos[1].abs().sum(),
-                l1_meas=d_pos[0].abs().sum(),
-                ori_err=2.0 * torch.arccos(qe[0].abs().clamp(0.0, 1.0)),
+                tilt=torch.linalg.norm(cl.rpy_of(plant.base)[..., :2], dim=-1),
+                l1_cmd=d_pos[1].abs().sum(dim=-1),
+                l1_meas=d_pos[0].abs().sum(dim=-1),
+                ori_err=2.0 * torch.arccos(qe[..., 0].abs().clamp(0.0, 1.0)),
                 obj_pos=torch.zeros_like(plant.base.pos),
             )
         return plant, solver, log
 
-    def run(plant: WholeBodyPlant, solver, ee_target: Pose, base_target: Tensor,
-            z: Optional[Tensor] = None):
-        if z is not None:
-            z = torch.as_tensor(z, dtype=torch.float32).to(dev)
-            if z.shape[0] != n_control_steps:
-                raise ValueError(f"z carries {z.shape[0]} steps, the episode "
-                                 f"{n_control_steps}")
+    def check_z(z):
+        if z is None:
+            return None
+        z = torch.as_tensor(z, dtype=torch.float32).to(dev)
+        if z.shape[0] != n_control_steps:
+            raise ValueError(f"z carries {z.shape[0]} steps, the episode {n_control_steps}")
+        return z
+
+    def run_eager(plant, solver, ee_target, base_target, z):
         logs = []
         for i in range(n_control_steps):
             plant, solver, log = control_step(plant, solver, ee_target, base_target,
                                               None if z is None else z[i])
             logs.append(log)
-        stacked = WholeBodyLog(*(torch.stack(f) for f in zip(*logs)))
+        stacked = WholeBodyLog(*(torch.stack(f, dim=1 if lead else 0) for f in zip(*logs)))
         return (plant, solver, ee_target, base_target), stacked
+
+    def one_step(plant, solver, ee_target, base_target, z, index, logs):
+        """One control step on the graph's static buffers: the carry
+        updated in place, the log row written at the device step index."""
+        zi = None if z is None else z.index_select(0, index)[0]
+        new_plant, new_solver, log = control_step(plant, solver, ee_target, base_target, zi)
+        graphs.copy_into(plant, new_plant)
+        graphs.copy_into(solver, new_solver)
+        for buf, row in zip(logs, log):
+            buf.index_copy_(0, index, row.unsqueeze(0))
+        index.add_(1)
+
+    load = graphs.graphed(one_step, dev)
+
+    def run_graphed(plant, solver, ee_target, base_target, z):
+        # The solver state with its key and solve index as device tensors.
+        solver = solver._replace(seed=sampling.philox_keys(solver.seed, dev),
+                                 step=sampling.step_tensor(solver.step, dev))
+        index = torch.zeros(1, dtype=torch.int64, device=dev)
+        logs = WholeBodyLog(**{
+            f: torch.zeros((n_control_steps,) + lead + ((3,) if f in _VECTOR_LOGS else ()),
+                           dtype=plant.base.pos.dtype, device=dev)
+            for f in WholeBodyLog._fields})
+        g = load(plant, solver, ee_target, base_target, z, index, logs)
+        for _ in range(n_control_steps):
+            with record_function("wb_loop.step"):
+                g.replay()
+        *carry, _, _, logs = g.args
+        out = WholeBodyLog(*(buf.movedim(0, 1).clone() if lead else buf.clone()
+                             for buf in logs))
+        return graphs.clone_tree(tuple(carry)), out
+
+    def run(plant: WholeBodyPlant, solver, ee_target: Pose, base_target: Tensor,
+            z: Optional[Tensor] = None):
+        z = check_z(z)
+        if graph and dev.type == "cuda":
+            return run_graphed(plant, solver, ee_target, base_target, z)
+        return run_eager(plant, solver, ee_target, base_target, z)
 
     return run

@@ -12,8 +12,9 @@ u = u_prev + du -> clamp -> warm start.
 Randomness is explicit: ``z`` (standard normals, (K, H, A)) when the caller
 supplies it, else the Philox stream of ``(state.seed, state.step)``
 (``ops/sampling.py``), which the CUDA kernels draw too.  The solver state
-carries the seed and the solve index as host integers, so advancing it costs
-no device work.
+carries the seed and the solve index as host integers, or as int64 device
+tensors (a captured CUDA graph advances the index on the card); either
+draws the same noise.
 
 A step built with ``n_scenarios=B`` solves B independent problems at once,
 as ``jax.vmap`` of the JAX step does: every state field, ``z`` and the
@@ -66,7 +67,8 @@ class MPPIState(NamedTuple):
     u_prev: Tensor  # (H, A) warm-start control sequence; (B, H, A) for a batch
     sigma: Tensor   # (A,) live per-action exploration std (or (A, A)); (B, A)
     seed: Any       # 64-bit Philox key; for a batch a (B,) int64 tensor of keys
-    step: int       # solve index: the first Philox counter word
+    step: Any       # solve index, the first Philox counter word: an int, or an
+                    # int64 device tensor, (1,) or one per scenario (B,)
 
 
 def _diag_sigma(config: MPPIConfig, dtype=torch.float32, device=None) -> Tensor:

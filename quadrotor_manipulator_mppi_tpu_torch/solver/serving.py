@@ -15,8 +15,17 @@ station-keeping target (3)].
 The bridge head (:func:`make_bridge_step`) answers instead with
 ``reply_vec`` (10,): [arm efforts (7), base position carrot (3)].
 
-The carry holds the warm start on the device and the Philox seed and solve
-index on the host; sigma is a build-time constant.
+The carry holds the warm start, the Philox seed and the solve index, all
+on the device; sigma is a build-time constant.
+
+On the card each call replays a CUDA graph of one solve
+(``utils/graphs.graphed``), the counterpart of the JAX package's
+``jax.jit(pstep, donate_argnums=0)``: the graph holds its own static carry,
+inputs and output, and advances the solve index in place.  The carry is
+donated: a call copies a carry it did not return into its static buffers,
+and the carry it returns is those buffers, which the next call overwrites.
+The reply vector is the caller's to keep (one small copy after the replay).
+``graph=False`` keeps the eager call; on the CPU the call is always eager.
 """
 
 from __future__ import annotations
@@ -28,6 +37,8 @@ import torch
 from ..models.multirotor import Multirotor12State
 from ..models.whole_body import WholeBodyState
 from ..utils import rotations as rot
+from ..ops.sampling import philox_keys
+from ..utils import graphs
 from ..utils.device import resolve_device
 from ..utils.pose import Pose
 from . import whole_body as wbs
@@ -42,8 +53,37 @@ OUT_SIZE = 25
 
 class PackedCarry(NamedTuple):
     u_prev: Tensor  # (H, A), on the device
-    seed: int       # Philox key
-    step: int       # solve index
+    seed: Tensor    # (1,) int64 Philox key, on the device
+    step: Tensor    # (1,) int64 solve index, on the device
+
+
+def _init_carry(init, seed, dtype, dev) -> PackedCarry:
+    st = init(seed, dtype)
+    return PackedCarry(u_prev=st.u_prev, seed=philox_keys(seed, dev).clone(),
+                       step=torch.zeros(1, dtype=torch.int64, device=dev))
+
+
+def _graphed_call(solve, dev):
+    """``call(carry, *vecs, z)`` replaying a CUDA graph of ``solve(carry,
+    *vecs, z) -> (reply, new carry)`` (``utils.graphs.graphed``: one graph
+    per argument structure, so one for calls with ``z`` and one without).
+    Returns (a copy of the reply, the static carry)."""
+
+    def fn(carry, *args):
+        reply, new = solve(carry, *args)
+        graphs.copy_into(carry, new)  # the warm start and the advanced solve index
+        return reply
+
+    load = graphs.graphed(fn, dev)
+
+    def call(carry: PackedCarry, *args):
+        *vecs, z = args
+        if z is not None:
+            z = torch.as_tensor(z, dtype=torch.float32)
+        g = load(carry, *vecs, z)
+        return g.replay().clone(), g.args[0]
+
+    return call
 
 
 def pack_obs(obs: "wbs.WholeBodyObs") -> Tuple[Tensor, Tensor]:
@@ -88,6 +128,7 @@ def make_packed_step(
     device="cuda",
     static_targets=None,
     low_k_guard: str = "warn",
+    graph: bool = True,
 ):
     """Build the packed serving solve on the CUDA kernels.
 
@@ -95,7 +136,12 @@ def make_packed_step(
     ``static_targets`` (a WholeBodyObs or an (ee_target Pose, base_target)
     pair) ``pstep(carry, obs_vec, z=None) -> (out_vec, carry)``, without it
     ``pstep(carry, obs_vec, target_vec, z=None)``.  ``z`` optionally
-    replaces the Philox draw with standard normals (K, H, A)."""
+    replaces the Philox draw with standard normals (K, H, A).
+
+    On the card (``graph=True``) each call replays a CUDA graph of one
+    solve and the carry is donated (see the module docstring): the returned
+    carry is overwritten by the next call, so keep a copy of one you need
+    later.  ``graph=False`` runs the solve eagerly; so does the CPU."""
     params = params or wbs.WholeBodyMPPIParams()
     if params.mppi.adaptive_sigma:
         raise ValueError(
@@ -115,6 +161,9 @@ def make_packed_step(
         out_vec = torch.cat([out.action, out.qdes, out.vdes])
         return out_vec, PackedCarry(u_prev=new.u_prev, seed=new.seed, step=new.step)
 
+    if graph and dev.type == "cuda":
+        solve = _graphed_call(solve, dev)
+
     if static_targets is not None:
         if isinstance(static_targets, wbs.WholeBodyObs):
             ee_t, base_t = static_targets.ee_target, static_targets.base_target
@@ -131,8 +180,7 @@ def make_packed_step(
             return solve(carry, obs_vec, target_vec, z)
 
     def pinit(seed: int, dtype=torch.float32) -> PackedCarry:
-        st = init(seed, dtype)
-        return PackedCarry(u_prev=st.u_prev, seed=st.seed, step=st.step)
+        return _init_carry(init, seed, dtype, dev)
 
     return pstep, pinit
 
@@ -145,6 +193,7 @@ def make_bridge_step(
     setpoint_lookahead: int = 10,
     device="cuda",
     low_k_guard: str = "warn",
+    graph: bool = True,
 ):
     """The whole-body bridge head: the solve, the inertia-weighted tracking
     torque and the smooth-carrot base setpoint in one call.
@@ -152,7 +201,9 @@ def make_bridge_step(
     ``bstep(carry, obs_vec, target_vec, z=None) -> (reply_vec, carry)`` with
     ``reply_vec`` (10,) = [arm efforts tau (7), base position carrot (3)].
     Position mode only (its base command is a position setpoint).
-    ``bpinit(seed) -> PackedCarry``."""
+    ``bpinit(seed) -> PackedCarry``.  On the card each call replays a CUDA
+    graph and donates the carry, as :func:`make_packed_step`;
+    ``graph=False`` runs eagerly."""
     from ..models import rigid_body as rb
     from ..models.whole_body import _base_rollout_position
 
@@ -186,8 +237,13 @@ def make_bridge_step(
         reply = torch.cat([tau, pred.pos[0, lookahead]])
         return reply, PackedCarry(u_prev=new.u_prev, seed=new.seed, step=new.step)
 
+    if graph and dev.type == "cuda":
+        call = _graphed_call(bstep, dev)
+
+        def bstep(carry: PackedCarry, obs_vec: Tensor, target_vec: Tensor, z=None):
+            return call(carry, obs_vec, target_vec, z)
+
     def bpinit(seed: int, dtype=torch.float32) -> PackedCarry:
-        st = init(seed, dtype)
-        return PackedCarry(u_prev=st.u_prev, seed=st.seed, step=st.step)
+        return _init_carry(init, seed, dtype, dev)
 
     return bstep, bpinit

@@ -1,0 +1,151 @@
+"""CUDA-graph capture and replay of a step function: the port's
+counterpart of ``jax.jit`` for the serving solve and the episode's control
+step.
+
+A step of the port is a few hundred small eager ops (the solve) or a few
+thousand (a control step), each costing the host several microseconds to
+enqueue, while the card is busy for well under a millisecond of them.
+:func:`graphed` captures one call of the step in a CUDA graph, on static
+copies of its arguments, and replays it: one launch of the host's per call.
+
+* It warms up on a side stream first.  Device constants are created on
+  their first use (``utils.device.device_const``, ``ops.sampling`` keys)
+  by a pageable host-to-device copy, which a capture cannot hold; library
+  handles and workspaces are created there too.
+* It captures one call of ``fn`` on static copies of the first call's
+  arguments; what ``fn`` writes in place into them (a carry, a step
+  counter, log rows) is written on every replay.  A later call copies its
+  arguments into those buffers (a buffer passed back in is not copied)
+  and replays; arguments of another structure get a graph of their own.
+* A capture or a replay that fails raises.  There is no fallback to the
+  eager call: a path that cannot be captured is a fault to repair.
+* The kernel wrappers count their launches on the host, once per call;
+  a replay runs no Python.  So the launches the capture recorded are
+  added, per replay, to the counters registered with
+  :func:`count_replays`, and the capture's own host pass, which launches
+  nothing, is taken back.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict
+
+import torch
+
+Tensor = torch.Tensor
+
+_COUNTED: list = []
+
+
+def count_replays(*wrappers) -> None:
+    """Register kernel wrappers whose ``launches`` counter a replay adds to
+    (each ``ops.cuda`` module registers its own)."""
+    _COUNTED.extend(w for w in wrappers if w not in _COUNTED)
+
+
+def copy_into(dst: Any, src: Any) -> None:
+    """Copy the tensors of the pytree ``src`` into those of ``dst`` (same
+    structure: tensors, tuples, NamedTuples, None), skipping a tensor that
+    is already ``dst``'s."""
+    if isinstance(dst, Tensor):
+        if src is not dst:
+            dst.copy_(src)
+    elif isinstance(dst, (tuple, list)):
+        for d, s in zip(dst, src):
+            copy_into(d, s)
+    elif dst is not None:
+        raise TypeError(f"not a tensor tree: {type(dst).__name__}")
+
+
+def shapes(tree: Any) -> Any:
+    """The (shape, dtype) of every tensor of the pytree ``tree``, nested as
+    the tree is."""
+    if isinstance(tree, Tensor):
+        return tuple(tree.shape), tree.dtype
+    if isinstance(tree, (tuple, list)):
+        return tuple(shapes(x) for x in tree)
+    return tree
+
+
+def clone_tree(tree: Any, device=None) -> Any:
+    """A copy of the pytree ``tree`` with every tensor cloned (onto
+    ``device`` if given)."""
+    if isinstance(tree, Tensor):
+        return tree.clone() if device is None else tree.to(device, copy=True)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(clone_tree(x, device) for x in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(clone_tree(x, device) for x in tree)
+    return tree
+
+
+class GraphedStep:
+    """``fn(*args)`` captured once in a CUDA graph on static copies of
+    ``args`` (:attr:`args`); :meth:`replay` runs it again.
+
+    ``fn`` reads and writes its arguments (the static buffers) and may
+    return tensors, which become the graph's static outputs (:attr:`out`,
+    overwritten by every replay).  ``warmup`` eager calls run first on a
+    side stream, on the static buffers; they are real launches and count
+    as such.  :meth:`load` copies new arguments into the buffers."""
+
+    def __init__(self, fn: Callable[..., Any], device, *args, warmup: int = 2):
+        device = torch.device(device)
+        if device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, got {device}")
+        self.args = clone_tree(args, device)
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for _ in range(warmup):
+                fn(*self.args)
+        current.wait_stream(side)
+        counted = list(_COUNTED)
+        before = [w.launches for w in counted]
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph):
+                self.out = fn(*self.args)
+        except Exception as exc:
+            raise RuntimeError(f"CUDA graph capture failed: {exc}") from exc
+        finally:
+            captured = [w.launches - b for w, b in zip(counted, before)]
+            for w, b in zip(counted, before):
+                w.launches = b
+        self._per_replay = [(w, n) for w, n in zip(counted, captured) if n]
+
+    @property
+    def launches_per_replay(self) -> dict:
+        """{wrapper name: kernel launches in one replay}."""
+        return {w.__name__: n for w, n in self._per_replay}
+
+    def load(self, *args) -> "GraphedStep":
+        """Copy ``args`` (the capture's structure) into the static buffers."""
+        if shapes(args) != shapes(self.args):
+            raise ValueError(f"this graph was captured for {shapes(self.args)}, "
+                             f"got {shapes(args)}")
+        copy_into(self.args, args)
+        return self
+
+    def replay(self) -> Any:
+        """Replay the graph once; returns :attr:`out`."""
+        self.graph.replay()
+        for w, n in self._per_replay:
+            w.launches += n
+        return self.out
+
+
+def graphed(fn: Callable[..., Any], device, warmup: int = 2) -> Callable[..., GraphedStep]:
+    """``load(*args)``: the :class:`GraphedStep` of ``fn`` for the structure
+    of ``args`` (captured at its first call), with ``args`` loaded into its
+    static buffers, ready to :meth:`~GraphedStep.replay`."""
+    cache: Dict[Any, GraphedStep] = {}
+
+    def load(*args) -> GraphedStep:
+        key = shapes(args)
+        if key not in cache:
+            cache[key] = GraphedStep(fn, device, *args, warmup=warmup)
+        return cache[key].load(*args)
+
+    return load

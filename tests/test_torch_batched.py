@@ -215,9 +215,16 @@ def test_batched_init_and_state_from_the_jax_vmapped_states():
                                          device="cpu")
 
 
-def test_torch_backend_refuses_a_scenario_batch():
-    with pytest.raises(ValueError, match="n_scenarios needs backend='cuda'"):
-        twb.make_whole_body_solver(_params("position"), device="cpu", backend="torch",
+def test_torch_backend_refuses_a_scenario_batch(monkeypatch):
+    """The plain pipeline takes a scenario batch on the CPU (its cases are
+    in tests/test_torch_fleet.py); with one, as without, it refuses the
+    card, where the batch runs the kernels."""
+    _, init = twb.make_whole_body_solver(_params("position"), device="cpu", backend="torch",
+                                         n_scenarios=2)
+    assert init(0).u_prev.shape == (2, H, wk.A_TOTAL)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="backend='torch' is the CPU reference pipeline"):
+        twb.make_whole_body_solver(_params("position"), device="cuda", backend="torch",
                                    n_scenarios=2)
 
 
@@ -262,8 +269,8 @@ def test_c_interface_matches_the_cuda_source():
     finally:
         wk.build.load_library = orig
         wk._lib.cache_clear()
-    assert len(lib.wb_cost_launch.argtypes) == _c_params(src, "wb_cost_launch") == 13
-    assert len(lib.wb_update_launch.argtypes) == _c_params(src, "wb_update_launch") == 19
+    assert len(lib.wb_cost_launch.argtypes) == _c_params(src, "wb_cost_launch") == 15
+    assert len(lib.wb_update_launch.argtypes) == _c_params(src, "wb_update_launch") == 20
     cases = re.findall(r"WB_COST_CASE\((MODE_\w+), (\d), (true|false), (true|false)\)", src)
     assert sorted((m, int(v)) for m, v, _, _ in cases) == sorted(
         (m, v) for m in ("MODE_ATTITUDE", "MODE_POSITION", "MODE_WRENCH") for v in range(3))

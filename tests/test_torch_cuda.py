@@ -68,6 +68,33 @@ def test_wb_cost_matches_plain(mode):
 
 
 @pytest.mark.cuda
+def test_wb_cost_reads_forty_obstacles():
+    """40 sphere obstacles (more than the 16 the parameter struct once
+    carried) from the device buffer: S against the plain version, which
+    the obstacles move."""
+    import dataclasses
+
+    import numpy as np
+
+    dev = _card()
+    gen = np.random.default_rng(40)
+    base = _params("position")
+    centers = np.asarray([0.3, 0.1, 1.8]) + gen.uniform(-0.4, 0.4, (40, 3))
+    params = dataclasses.replace(base, cost=dataclasses.replace(
+        base.cost, obstacle_weight=100.0, obstacle_centers=tuple(map(tuple, centers.tolist())),
+        obstacle_radii=tuple(gen.uniform(0.05, 0.3, 40).tolist())))
+    kc = wk.make_kernel_config(params)
+    assert kc.struct.n_obs == 40
+    state, _, _, sc, eps = _inputs(params, dev)
+    s_k = wk.wb_cost(kc, sc, state.u_prev, eps)[0]
+    s_p = wk.wb_cost_plain(kc, sc, state.u_prev, eps)[0]
+    s_free = wk.wb_cost_plain(wk.make_kernel_config(base), sc, state.u_prev, eps)[0]
+    torch.cuda.synchronize()
+    assert (s_k - s_p).abs().max().item() <= 1e-4 * max(1.0, s_p.abs().max().item())
+    assert (s_p - s_free).abs().max().item() > 1.0  # the spheres cost something
+
+
+@pytest.mark.cuda
 def test_wb_update_matches_plain():
     dev = _card()
     params = _params("position")
@@ -116,7 +143,7 @@ def test_packed_serving_launches_both_kernels():
     dev = _card()
     pstep, pinit = serving.make_packed_step(_params("position"), device=dev)
     obs_vec, target_vec = serving.pack_obs(wb.default_obs(device=dev))
-    carry = pinit(0)
+    _, carry = pstep(pinit(0), obs_vec, target_vec)  # the capture (its warm-up calls launch)
     n_cost, n_update = wk.wb_cost.launches, wk.wb_update.launches
     for _ in range(3):
         out, carry = pstep(carry, obs_vec, target_vec)
@@ -166,9 +193,11 @@ def test_serving_episode_kernel_matches_plain_physics():
         cfg = wbl.WholeBodyLoopConfig(arm_coeffs_per_control=True, plant_kernel=use_kernel)
         run = wbl.make_whole_body_episode(params, cfg=cfg, n_control_steps=n, device=dev)
         _, init = wb.make_whole_body_solver(params, device=dev)
+        args = (wbl.init_plant(params.model.vehicle, device=dev), init(0), obs.ee_target,
+                obs.base_target)
+        run(*args, z=z)  # the capture (its warm-up calls launch), then a first run
         n0 = pk.plant_tick.launches
-        final, logs[use_kernel] = run(wbl.init_plant(params.model.vehicle, device=dev), init(0),
-                                      obs.ee_target, obs.base_target, z=z)
+        final, logs[use_kernel] = run(*args, z=z)
         assert pk.plant_tick.launches - n0 == (n if use_kernel else 0)
         assert all(bool(torch.isfinite(f).all()) for f in logs[use_kernel])
     torch.testing.assert_close(logs[True].ee_err, logs[False].ee_err, rtol=0, atol=5e-3)

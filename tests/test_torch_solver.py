@@ -27,6 +27,17 @@ def _obstacle_params():
         obstacle_radii=(0.4,)))
 
 
+def _forty_obstacle_params():
+    """40 spheres around the EE's workspace: more than the 16 the CUDA
+    kernel's parameter struct once carried."""
+    rng = np.random.default_rng(40)
+    centers = np.asarray([0.3, 0.1, 1.8]) + rng.uniform(-0.4, 0.4, (40, 3))
+    p = small(jwb.WholeBodyMPPIParams())
+    return dataclasses.replace(p, cost=dataclasses.replace(
+        p.cost, obstacle_weight=100.0, obstacle_centers=tuple(map(tuple, centers.tolist())),
+        obstacle_radii=tuple(rng.uniform(0.05, 0.3, 40).tolist())))
+
+
 def _adaptive_params():
     p = small(jwb.position_mode_params())
     return dataclasses.replace(p, mppi=dataclasses.replace(
@@ -46,6 +57,7 @@ CASES = {
     "wrench_preset": (lambda: small(jwb.wrench_mode_params()), False, 3, 2e-3),
     "position_adaptive_sigma": (_adaptive_params, False, 3, 2e-3),
     "obstacle": (_obstacle_params, False, 3, 2e-3),
+    "forty_obstacles": (_forty_obstacle_params, False, 3, 2e-3),
     "wrench_nonidentity_attitude": (lambda: wrench_params(h=12), True, 2, 4e-3),
     "wrench_damped_drag": (_damped_wrench_params, True, 2, 2e-3),
 }
