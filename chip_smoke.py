@@ -1,6 +1,7 @@
 """On-card smoke run of the PyTorch/CUDA port: the whole-body solve, the
 whole-body closed loop and its fleet, the scenario-batched and
-sample-sharded solves, and the drone MPPI path.
+sample-sharded solves, the drone MPPI path, the arm node and the
+pick_weight task.
 
     python3 chip_smoke.py
 
@@ -61,7 +62,10 @@ lines; any failure exits non-zero before the final ``ok`` line):
    launches of rows 9a and 9b); (b) the explicit-noise loop, 80 steps at
    K=1024 (80 + 80 of rows 9c and 9d); (c) the drone waypoint episode,
    ``make_drone_solver`` at the preset through ``make_episode`` with
-   backstepping, 2000 control steps; each with its gate; (d) the batched
+   backstepping, 2000 control steps, each a replay of one captured control
+   step: no host synchronization in the replay loop, the first 200 steps'
+   logs and final state bit-equal to the eager loop, host ms per step and
+   device busy share graphed and eager; each with its gate; (d) the batched
    drone preset, ``make_drone_solver(n_scenarios=256)`` at K=1000, H=32 on
    the Philox stream: four of its scenarios against their unbatched solves
    over three steps (1e-6), host ms per batched solve;
@@ -82,6 +86,24 @@ lines; any failure exits non-zero before the final ``ok`` line):
    row, B=16 x K=512 x H=50 over 1500 steps, the reach gate per scenario
    (at least 13 of 16), control steps/s and vehicles at 100 Hz; B=256 x
    K=512 over 100 steps, ms per fleet step, peak memory, busy share;
+16. the arm node at its preset (K=100, H=32, A=7): 50 replays of one
+   captured arm solve bit-equal to the eager solves; ``run_arm_reach``
+   (graphed, 800 steps) on seeds 0-2, MPPI engaged and the commanded EE
+   within 0.10 m at its best; ms per control step graphed and eager, no
+   host synchronization in the replay loop, the device busy share; a
+   checkpoint written at step 400 and restored, the next 10 control steps
+   bit-equal to the uninterrupted run;
+17. the pick_weight task: ``run_pick_weight`` at K=256, H=50, 700 steps on
+   seeds 0-2 with the gates of ``tests/test_cli.py`` (grasped, hold error
+   < 0.05 m, lift error < 0.15 m, tilt < 0.1 rad), ``wb_cost`` and
+   ``wb_update`` once per control step, ms per control step of each stage
+   (seed 0: the first run with its capture, and a second, replay-only run);
+   at K=4096 the graspable approach (100 steps) and the payload lift on the
+   serving configuration (200 steps, rows 1, 3 and 8 once per step), each
+   graphed bit-equal to eager; ``wb_cost`` and ``wb_update`` at the task's
+   solver (K=256 and 4096, the stand obstacle live on some samples) against
+   their plain versions; ``plant_tick`` with the payload's frozen
+   coefficients against its plain version at B=1 and B=1024;
 then one ``kernels`` JSON line (rows 4-5 at B=256, rows 6-7 at K_local,
 rows 9a-9b at K=1000 and 9c-9d at K=1024: the shapes of the runs that
 count their launches; each ``wb_update`` row with the R it used and its
@@ -91,9 +113,11 @@ layout), the ``nvidia-smi`` line and the ``ok`` line.
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -102,6 +126,8 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from quadrotor_manipulator_mppi_tpu_torch.evaluation.metrics import episode_quality
+from quadrotor_manipulator_mppi_tpu_torch.models import chain as chain_mod
+from quadrotor_manipulator_mppi_tpu_torch.models import kinova
 from quadrotor_manipulator_mppi_tpu_torch.models import multirotor as mr
 from quadrotor_manipulator_mppi_tpu_torch.models import point_mass as pm
 from quadrotor_manipulator_mppi_tpu_torch.models import rigid_body as rb
@@ -113,11 +139,17 @@ from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import whole_body_kernel as w
 from quadrotor_manipulator_mppi_tpu_torch.parallel import mesh as mesh_mod
 from quadrotor_manipulator_mppi_tpu_torch.parallel import multihost, scaling, sharded
 from quadrotor_manipulator_mppi_tpu_torch.parallel.multihost import tree_map
+from quadrotor_manipulator_mppi_tpu_torch.scenarios.solvers import run_arm_reach
+from quadrotor_manipulator_mppi_tpu_torch.scenarios.whole_body import run_pick_weight
+from quadrotor_manipulator_mppi_tpu_torch.sim import arm_loop
 from quadrotor_manipulator_mppi_tpu_torch.sim import closed_loop as cl
 from quadrotor_manipulator_mppi_tpu_torch.sim import flight_control as fc
+from quadrotor_manipulator_mppi_tpu_torch.sim import graspable as gr
 from quadrotor_manipulator_mppi_tpu_torch.sim import whole_body_loop as wbl
-from quadrotor_manipulator_mppi_tpu_torch.solver import drone, mppi, serving
+from quadrotor_manipulator_mppi_tpu_torch.solver import arm, drone, mppi, serving
 from quadrotor_manipulator_mppi_tpu_torch.solver import whole_body as wb
+from quadrotor_manipulator_mppi_tpu_torch.utils import checkpoint, graphs
+from quadrotor_manipulator_mppi_tpu_torch.utils.pose import Pose
 
 K, H, A = 4096, 50, wk.A_TOTAL
 N_SERVE = 50
@@ -125,6 +157,10 @@ TOL_COST = 1e-4      # max|dS| / max(1, max|S|): recurrence vs operator form
 TOL_UPDATE = 1e-5    # max|d du| / max|du|: summation order only
 TOL_STEP = 2e-3      # |a - b| <= TOL (1 + |b|): the JAX parity tolerance
 TOL_NOISE = 1e-5     # erfinvf vs torch.erfinv on the card
+# The stand's obstacle term (S with it less S without), kernel against plain,
+# relative to its largest value: each S carries ~2e-6 |S| (phase 2), a few
+# 1e-4 of a term of ~30 beside an S of ~1300.
+TOL_OBSTACLE = 1e-2
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
@@ -209,6 +245,18 @@ TOL_DRONE_STEP = 2e-4          # |a - b| <= TOL (1 + |b|): tests/test_pallas_ker
 N_DRONE_LOOP = 800             # phase 12a: tests/test_solver_golden.py's loop
 N_DRONE_NOISE_LOOP = 80        # phase 12b: tests/test_pallas_kernel.py's loop
 N_DRONE_EPISODE = 2000         # phase 12c: tests/test_sim.py's waypoint episode
+N_DRONE_CHECKED = 200          # phase 12c: steps held bit-equal against the eager loop
+N_ARM_SOLVES = 50              # phase 16a: graphed arm solves against eager ones
+N_ARM_STEPS = 800              # phase 16b: the arm-reach scenario's preset episode
+ARM_SEEDS = (0, 1, 2)
+N_ARM_EAGER = 20               # phase 16c: eager arm control steps timed
+N_PROFILED = 5                 # phases 6, 12c, 15, 16c: control steps in a profiled window
+N_ARM_CHECKPOINT, N_ARM_RESUMED = 400, 10  # phase 16d
+PICK_SEEDS = (0, 1, 2)         # phase 17a: run_pick_weight at its preset
+PICK_K, N_PICK_STEPS = 256, 700
+PICK_TIMED_SEED = 0            # phase 17a: its stages also timed on a second, replay-only run
+N_PICK_WIDE = 100              # phase 17b: the graspable approach at K=4096
+N_PICK_LIFT = 200              # phase 17b: the payload lift at K=4096, serving loop
 B_DRONE = 256                  # phase 12d: the batched drone preset's scenarios
 N_DRONE_BATCH_STEPS = 3
 # The instantiation each drone wrapper launches, as the profiler names it.
@@ -526,13 +574,15 @@ def profile_solves(tag: str, fn, n: int, solve_ms: float, unit: str = "solve",
     """Where a solve's (or a control step's: ``unit``) device time goes:
     CUDA-side profiler events of ``n`` calls of ``fn`` (after one call the
     profiler's schedule traces and drops, so that tracing has started),
-    their busy share of the profiled wall time and of the unprofiled time
-    per call ``solve_ms``, and the device ops that take the most time.
-    With ``check_counts`` the kernels of each family that the device ran
-    must equal the launches the wrappers' counters added, and the profiler
-    must have seen them.  Returns (device us per call, busy share of the
-    unprofiled call, device ops per call), or None when the profiler
-    recorded no device time."""
+    their busy share of the profiled wall time, their ratio to the
+    unprofiled time per call ``solve_ms``, and the device ops that take the
+    most time.  The ratio is not a share: where a call is device-bound the
+    traced kernels can take longer than the whole unprofiled call, and it
+    passes 1.  With ``check_counts`` the kernels of each family that the
+    device ran must equal the launches the wrappers' counters added, and
+    the profiler must have seen them.  Returns (device us per call, device
+    time over the unprofiled call, device ops per call, busy share of the
+    profiled wall), or None when the profiler recorded no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -551,11 +601,12 @@ def profile_solves(tag: str, fn, n: int, solve_ms: float, unit: str = "solve",
         wall_us = (time.perf_counter() - t0) * 1e6
         host = {k: v - host0[k] for k, v in family_counts().items()}
         prof.step()
-    # The wb_loop.* ranges and the profiler's steps also appear on the
-    # device timeline as annotations.
+    # The episodes' record_function ranges (wb_loop.*, loop.step,
+    # arm_loop.step) and the profiler's steps also appear on the device
+    # timeline as annotations.
     ops = [e for e in (traced[0] if traced else [])
            if e.device_type == DeviceType.CUDA
-           and not e.key.startswith(("wb_loop.", "ProfilerStep"))]
+           and not e.key.startswith(("wb_loop.", "loop.", "arm_loop.", "ProfilerStep"))]
     dev_us = sum(e.self_device_time_total for e in ops)
     launches = sum(e.count for e in ops)
     if check_counts:
@@ -570,15 +621,15 @@ def profile_solves(tag: str, fn, n: int, solve_ms: float, unit: str = "solve",
     if not dev_us:
         print(f"{tag} profiler: device time not measured (no CUDA events)", flush=True)
         return None
-    share = dev_us / n / (solve_ms * 1e3)
+    ratio = dev_us / n / (solve_ms * 1e3)
     print(f"{tag} profiler: device busy {dev_us / n:.1f} us/{unit}; busy share "
-          f"{dev_us / wall_us:.3f} of the profiled wall ({wall_us / n:.1f} us/{unit}), "
-          f"{share:.3f} of the unprofiled {unit}; "
-          f"{launches / n:.0f} device ops/{unit}", flush=True)
+          f"{dev_us / wall_us:.3f} of the profiled wall ({wall_us / n:.1f} us/{unit}); device "
+          f"time {ratio:.3f} x the unprofiled {unit} (above 1: the traced kernels outlast the "
+          f"whole unprofiled {unit}); {launches / n:.0f} device ops/{unit}", flush=True)
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"    {e.self_device_time_total / n:8.1f} us/{unit} {e.count / n:6.1f} ops/{unit}  "
               f"{e.key[:90]}")
-    return dev_us / n, share, launches / n
+    return dev_us / n, ratio, launches / n, dev_us / wall_us
 
 
 def phase_profile(serve, solve_ms: dict) -> dict:
@@ -798,7 +849,7 @@ def phase_episode(dev):
     args = start(2)
     check_no_syncs("[6]", f"the replay loop of {N_EPISODE} control steps", lambda: run(*args))
 
-    n_prof = 20
+    n_prof = N_PROFILED
     window, window_start = serving_episode(params, dev, n_prof)
     window_e, _ = serving_episode(params, dev, n_prof, graph=False)
     window(*window_start(1))  # capture
@@ -849,6 +900,16 @@ def check_no_syncs(tag: str, what: str, fn) -> None:
         for where in sorted(set(syncs)):
             print(f"    {syncs.count(where)} x {where}")
         fail("the loop synchronizes the host with the card")
+
+
+def synced_run(tag: str, what: str, run, args, n_steps: int) -> tuple:
+    """(``run(*args)``, host ms per step) with ``check_no_syncs`` watching
+    the run; the clock stops at a synchronize after it."""
+    box = []
+    t0 = time.perf_counter()
+    check_no_syncs(tag, what, lambda: box.append(run(*args)))
+    sync()
+    return box[0], (time.perf_counter() - t0) * 1e3 / n_steps
 
 
 def reach_quality(tag: str, logs, tail_n: int, base_target=None) -> dict:
@@ -986,8 +1047,10 @@ def phase_fleet(dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     (_, logs), big_ms = timed_episode(run, starts, FLEET_TIMED_STEPS)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
-    busy = profile_solves(f"[15] fleet B={FLEET_B_TIMED}", lambda: run(*starts), 1,
-                          big_ms * FLEET_TIMED_STEPS, unit=f"{FLEET_TIMED_STEPS} fleet steps",
+    window, window_starts = fleet_run(params, dev, FLEET_B_TIMED, N_PROFILED)
+    window(*window_starts)  # capture
+    busy = profile_solves(f"[15] fleet B={FLEET_B_TIMED}", lambda: window(*window_starts), 1,
+                          big_ms * N_PROFILED, unit=f"{N_PROFILED} fleet steps",
                           check_counts=True)
     big_rate = FLEET_B_TIMED * 1e3 / big_ms
     print(f"[15] fleet B={FLEET_B_TIMED} x K={FLEET_K}, {FLEET_TIMED_STEPS} steps: "
@@ -1846,8 +1909,10 @@ def phase_drone_loops(dev):
     """(a) the kernel solve in production mode in the point-mass loop, 800
     steps at the preset; (b) the explicit-noise loop, 80 steps at K=1024;
     (c) the drone waypoint episode: the preset through make_episode with
-    backstepping, 2000 control steps.  Each with its gate, launch counts,
-    host ms per step; (a) and (c) with a host-sync check."""
+    backstepping, 2000 control steps, each a replay of one captured control
+    step, its first 200 steps against the eager loop (bit-equal).  Each
+    with its gate, launch counts, host ms per step; (a) and (c) with a
+    host-sync check; (c) with the device busy share graphed and eager."""
     target = torch.tensor(drone.DEFAULT_TARGET, device=dev)
     drone_point_mass_loop(target, 3, DRONE_K)  # warm up
     check_no_syncs("[12a]", "5 kernel-solve steps",
@@ -1886,47 +1951,56 @@ def phase_drone_loops(dev):
                          "drone_update_noise": N_DRONE_NOISE_LOOP}:
         fail("the explicit-noise loop did not run through rows 9c and 9d once per step")
 
-    # (c) The waypoint episode of tests/test_sim.py on the card.
+    # (c) The waypoint episode of tests/test_sim.py on the card, one
+    # captured control step replayed per step.
     step, init = drone.make_drone_solver(drone_params(DRONE_K), device=dev)
     cfg = cl.LoopConfig(controller="backstepping")
     veh = mr.MultirotorParams()
 
-    def episode(n):
+    def episode(n, graph=True):
         return cl.make_episode(
             cfg, veh, fc.FlightGains(), step,
             make_obs=lambda plant: drone.DroneObs(x=plant.pos, v=plant.vel, target=target),
-            setpoint_of=lambda out, plant: fc.hover_setpoint(out.xdes), n_control_steps=n)
+            setpoint_of=lambda out, plant: fc.hover_setpoint(out.xdes), n_control_steps=n,
+            graph=graph)
 
     def start(seed):
         return cl.init_loop_state(cfg, veh, init(seed), pos=(0.0, 0.0, 2.0), device=dev)
 
-    warm = episode(5)
-    warm(start(1))
-    s2 = start(2)
-    check_no_syncs("[12c]", "5 control steps", lambda: warm(s2))
     run, s0 = episode(N_DRONE_EPISODE), start(0)
-    sync()
+    run(start(1))  # capture, then a first full run
     reset_drone_counts()
-    t0 = time.perf_counter()
-    _, (pos, _, _) = run(s0)
-    sync()
-    ms_c = (time.perf_counter() - t0) * 1e3 / N_DRONE_EPISODE
+    (final, (pos, _, _)), ms_c = synced_run("[12c]", f"the replay loop of {N_DRONE_EPISODE} "
+                                            "control steps", run, (s0,), N_DRONE_EPISODE)
     err = torch.linalg.norm(pos - target, dim=-1).cpu().numpy()
     finite = bool(torch.isfinite(pos).all())
+    # The first N_DRONE_CHECKED steps graphed against the eager loop.
+    short_g, short_e = episode(N_DRONE_CHECKED), episode(N_DRONE_CHECKED, graph=False)
+    short_g(start(1))  # capture
+    (fg, lg), _ = timed_episode(short_g, (start(0),), N_DRONE_CHECKED)
+    (fe, le), ms_eager = timed_episode(short_e, (start(0),), N_DRONE_CHECKED)
+    pairs = list(zip(lg, le)) + list(zip(fg.plant, fe.plant)) + list(zip(fg.ctrl, fe.ctrl)) \
+        + [(fg.solver.u_prev, fe.solver.u_prev)]
+    equal = all(torch.equal(a, b) for a, b in pairs)
+    prefix = all(torch.equal(a, b[:N_DRONE_CHECKED]) for a, b in zip(lg, (pos,)))
     print(f"[12c] drone waypoint episode, {N_DRONE_EPISODE} control steps (preset K={DRONE_K}, "
-          f"backstepping): min err {err.min():.4f} m | mean err[1000:] {err[1000:].mean():.4f} m "
-          f"| final {err[-1]:.4f} m | finite {finite} | {ms_c:.3f} ms/control step | "
-          f"drone kernel launches {drone_counts()}", flush=True)
+          f"backstepping), CUDA graph of one control step: min err {err.min():.4f} m | mean "
+          f"err[1000:] {err[1000:].mean():.4f} m | final {err[-1]:.4f} m | finite {finite} | "
+          f"{ms_c:.3f} ms/control step graphed, {ms_eager:.3f} eager | first "
+          f"{N_DRONE_CHECKED} steps: logs and final state bit-equal to the eager loop {equal}, "
+          f"the long run's first {N_DRONE_CHECKED} positions equal {prefix} | solve index "
+          f"{final.solver.step.tolist()} | drone kernel launches {drone_counts()}", flush=True)
     if not (finite and err.min() < 0.8 and err[1000:].mean() < 1.5):
         fail("the drone episode missed its gate (min err < 0.8, mean err[1000:] < 1.5)")
-    window = episode(1)
-    box = [start(3)]
-
-    def one_step():
-        box[0], _ = window(box[0])
-
-    profile_solves("[12c]", one_step, 20, ms_c, unit="control step")
-    return launches, {"a": ms_a, "b": ms_b, "c": ms_c}
+    if not equal:
+        fail("the graphed drone episode is not bit-equal to the eager loop")
+    busy = {}
+    for name, graph, ms in (("graphed", True, ms_c), ("eager", False, ms_eager)):
+        window, s3 = episode(N_PROFILED, graph), start(3)
+        window(s3)  # capture
+        busy[name] = profile_solves(f"[12c] {name}", lambda: window(s3), 1, ms * N_PROFILED,
+                                    unit=f"{N_PROFILED} control steps")
+    return launches, {"a": ms_a, "b": ms_b, "c": ms_c, "c_eager": ms_eager}, busy
 
 
 def phase_drone_batch(dev):
@@ -1966,6 +2040,322 @@ def phase_drone_batch(dev):
     return ms
 
 
+def arm_episode(params, dev, n, graph=True):
+    """(run, start): the arm node's episode of ``n`` control steps at
+    ``params`` and its rest start for a seed."""
+    _, init = arm.make_arm_solver(params, device=dev)
+    run = arm_loop.make_arm_episode(params=params, n_control_steps=n, device=dev, graph=graph)
+    return run, lambda seed: arm_loop.init_arm_loop(init(seed), device=dev)
+
+
+def phase_arm(dev) -> dict:
+    """The arm node at its preset (K=100, H=32, A=7): (a) 50 solves of
+    ``make_arm_solver`` replayed from one captured solve against the eager
+    solves, bit for bit; (b) ``run_arm_reach`` (graphed) for 800 steps on
+    seeds 0-2, MPPI engaged and the commanded EE within 0.10 m at its best;
+    (c) host ms per control step graphed and eager, no host sync in the
+    replay loop, the device busy share; (d) a checkpoint written at step 400
+    and restored: the next 10 control steps bit-equal to those of the timed
+    800-step run (c) from the same seed."""
+    params = arm.ArmMPPIParams()
+    step, init = arm.make_arm_solver(params, device=dev)
+    obs = arm.ArmObs(q=torch.tensor(kinova.Q_HOME, dtype=torch.float32, device=dev) + 0.02,
+                     qdot=torch.full((7,), 0.05, device=dev),
+                     base_pose=Pose(torch.tensor([0.0, 0.0, 2.1], device=dev),
+                                    torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)),
+                     target=arm.default_target(device=dev))
+
+    def solve_in_place(state, obs):
+        out, new = step(state, obs)
+        graphs.copy_into(state, new)
+        return out
+
+    load = graphs.graphed(solve_in_place, dev)
+    g = load(mppi.device_counters(init(5), dev), obs)
+    eager_state, equal = init(5), True
+    for _ in range(N_ARM_SOLVES):
+        out_g = g.replay()
+        out_e, eager_state = step(eager_state, obs)
+        equal = equal and all(torch.equal(a, b) for a, b in zip(out_g, out_e))
+    equal = equal and torch.equal(g.args[0].u_prev, eager_state.u_prev)
+    print(f"[16a] arm solves (K={params.mppi.n_samples}, H={params.mppi.n_horizon}, A=7), "
+          f"{N_ARM_SOLVES} replays of one captured solve: outputs and warm start bit-equal to the "
+          f"eager solves {equal} | solve index {g.args[0].step.tolist()}", flush=True)
+    if not equal:
+        fail("the graphed arm solve is not bit-equal to the eager solve")
+
+    reach = {}
+    t0 = time.perf_counter()
+    for seed in ARM_SEEDS:
+        reach[seed] = run_arm_reach(seed, N_ARM_STEPS, device=dev)
+    reach_ms = (time.perf_counter() - t0) * 1e3 / (N_ARM_STEPS * len(ARM_SEEDS))
+    print(f"[16b] run_arm_reach, {N_ARM_STEPS} steps (graphed, capture included, "
+          f"{reach_ms:.3f} ms/control step): " + " | ".join(
+              f"seed {s}: phase2 {r['phase2']}, min_ee_err {r['min_ee_err_m']:.4f} m, final "
+              f"{r['final_ee_err_m']:.4f} m" for s, r in reach.items())
+          + " | JAX package, CPU, seeds 0-2: min 0.0456/0.0546/0.0551, final 0.365/0.381/0.392",
+          flush=True)
+    missed = [s for s, r in reach.items() if not (r["phase2"] and r["min_ee_err_m"] < 0.10)]
+    if missed:
+        fail(f"the arm node missed its gate (MPPI engaged, min EE error < 0.10 m) on seeds "
+             f"{missed}")
+
+    run, start = arm_episode(params, dev, N_ARM_STEPS)
+    run(start(1))  # capture, then a first run
+    (_, logs_w), ms_g = synced_run("[16c]", f"the replay loop of {N_ARM_STEPS} arm control "
+                                   "steps", run, (start(0),), N_ARM_STEPS)
+    run_e, _ = arm_episode(params, dev, N_ARM_EAGER, graph=False)
+    run_e(start(0))  # warm up
+    _, ms_e = timed_episode(run_e, (start(0),), N_ARM_EAGER)
+    busy = {}
+    for name, graph, ms in (("graphed", True, ms_g), ("eager", False, ms_e)):
+        (window, _), s3 = arm_episode(params, dev, N_PROFILED, graph), start(3)
+        window(s3)  # capture
+        busy[name] = profile_solves(f"[16c] {name}", lambda: window(s3), 1, ms * N_PROFILED,
+                                    unit=f"{N_PROFILED} control steps")
+    print(f"[16c] arm control step: {ms_g:.3f} ms graphed ({N_ARM_STEPS} steps), {ms_e:.3f} ms "
+          f"eager ({N_ARM_EAGER} steps)", flush=True)
+
+    # The timed 800-step run from seed 0 is the uninterrupted run.
+    first, _ = arm_episode(params, dev, N_ARM_CHECKPOINT)
+    rest, _ = arm_episode(params, dev, N_ARM_RESUMED)
+    mid, _ = first(start(0))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "arm_checkpoint.npz")
+        checkpoint.save(path, mid)
+        restored = checkpoint.restore(path, start(0), device=dev)
+    _, logs_r = rest(restored)
+    end = N_ARM_CHECKPOINT + N_ARM_RESUMED
+    resumed = all(torch.equal(a, b[N_ARM_CHECKPOINT:end]) for a, b in zip(logs_r, logs_w))
+    print(f"[16d] checkpoint at step {N_ARM_CHECKPOINT} (phase2 {bool(mid.phase2)}, solve index "
+          f"{mid.solver.step.tolist()}) restored: the next {N_ARM_RESUMED} control steps (q, "
+          f"ee_err, tau) bit-equal to the uninterrupted run {resumed}", flush=True)
+    if not (resumed and bool(mid.phase2)):
+        fail("the resumed arm episode is not bit-equal to the uninterrupted run")
+    return {"graphed_ms": ms_g, "eager_ms": ms_e, "busy": busy, "reach": reach}
+
+
+PICK_STAGES = ("approach", "descent", "lift")
+
+
+def pick_params(n_samples: int):
+    """The pick_weight solver: position mode, H=50, the stand as a sphere
+    obstacle under the grasp point (as ``run_pick_weight`` builds it)."""
+    params = wb.position_mode_params(n_samples=n_samples, n_horizon=H)
+    grasp = wb.default_obs(device="cpu").ee_target.position.tolist()
+    return dataclasses.replace(params, cost=dataclasses.replace(
+        params.cost, obstacle_weight=100.0,
+        obstacle_centers=((grasp[0], grasp[1], grasp[2] - 0.35),), obstacle_radii=(0.25,)))
+
+
+STAND_DEPTH = 0.05  # m: the end effector's start below the top of the stand's sphere
+
+
+def stand_obs(params, dev):
+    """The default observation with the base moved so that the end
+    effector at the home pose starts STAND_DEPTH inside the top of the
+    stand's sphere: a rollout's steps inside it and outside it both
+    count, the first through the penetration, the second through its
+    clamp at zero."""
+    obs = wb.default_obs(device=dev)
+    st = obs.state
+    ee, _ = chain_mod.forward_kinematics_posquat(
+        params.model.chain(), st.q, base_pos=st.base.pos,
+        base_quat=torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev))
+    top = torch.tensor(params.cost.obstacle_centers[0], device=dev)
+    top[2] += params.cost.obstacle_radii[0] - STAND_DEPTH
+    return obs._replace(state=st._replace(base=st.base._replace(pos=st.base.pos + top - ee)))
+
+
+def pick_kernels(dev, errs) -> dict:
+    """``wb_cost`` (row 1: position mode, the stand as one sphere obstacle,
+    Philox draw and spill) and ``wb_update`` (row 3) at the pick_weight
+    solver's K=256 and K=4096, against their plain versions on the same
+    draws, from :func:`stand_obs`: S within TOL_COST, du and m2 within
+    TOL_UPDATE, the spill bit-equal to the plain draw, and the obstacle
+    term alone (S with it less S without, each side) within TOL_OBSTACLE of
+    its largest value, nonzero on some samples."""
+    res = {}
+    for k in (PICK_K, K):
+        params = pick_params(k)
+        free = dataclasses.replace(params, cost=dataclasses.replace(params.cost,
+                                                                    obstacle_weight=0.0))
+        kc, kc_free = wk.make_kernel_config(params), wk.make_kernel_config(free)
+        _, init = wb.make_whole_body_solver(params, device=dev)
+        state, obs = init(7), stand_obs(params, dev)
+        sigma = state.sigma
+        if params.mppi.sigma_scale_fn is not None:
+            sigma = sigma * params.mppi.sigma_scale_fn(obs)
+        sc, u_prev = wk.pack_scalars(obs, sigma), state.u_prev.contiguous()
+        seeds, step = wk.philox_keys(state.seed, dev), 3
+        s_k, m_k, e_k, eps = wk.wb_cost(kc, sc, u_prev, None, seeds, step)
+        s_p, _, _, eps_p = wk.wb_cost_plain(kc, sc, u_prev, None, seeds, step)
+        s_free = wk.wb_cost_plain(kc_free, sc, u_prev, None, seeds, step)[0]
+        s_k_free = wk.wb_cost(kc_free, sc, u_prev, None, seeds, step)[0]
+        du_k, m2_k = wk.wb_update(kc, eps, s_k, m_k, e_k)
+        du_p, m2_p = wk.wb_update_plain(kc, eps, s_k, m_k, e_k)
+        sync()
+        abs_s = (s_k - s_p).abs().max().item()
+        rel_s = rel_err(s_k, s_p)
+        abs_du = max((du_k - du_p).abs().max().item(), (m2_k - m2_p).abs().max().item())
+        rel_du = max((du_k - du_p).abs().max().item() / du_p.abs().max().item(),
+                     (m2_k - m2_p).abs().max().item() / m2_p.abs().max().item())
+        spill_eq = torch.equal(eps, eps_p)
+        obstacle = s_p - s_free
+        hit = int((obstacle > 0).sum().item())
+        rel_obs = ((s_k - s_k_free) - obstacle).abs().max().item() / max(
+            obstacle.abs().max().item(), 1e-30)
+        print(f"[17c] pick_weight solver K={k}, H={H}, position mode, stand obstacle: wb_cost "
+              f"max|dS| {abs_s:.3e} (rel {rel_s:.2e}, limit {TOL_COST:g}) | wb_update rel "
+              f"{rel_du:.2e} (limit {TOL_UPDATE:g}) | spill == plain draw {spill_eq} | obstacle "
+              f"term on {hit} of {k} samples, max {obstacle.max().item():.3e} of S max "
+              f"{s_p.max().item():.3e}, kernel vs plain rel {rel_obs:.2e} (limit "
+              f"{TOL_OBSTACLE:g})", flush=True)
+        if not (rel_s <= TOL_COST and rel_du <= TOL_UPDATE and spill_eq
+                and rel_obs <= TOL_OBSTACLE):
+            fail(f"wb_cost or wb_update at the pick_weight solver (K={k}) disagrees with its "
+                 "plain version")
+        if not 0 < hit:
+            fail(f"the stand obstacle is on no sample at K={k}: the check does not hold it")
+        errs["wb_cost"] = max(errs["wb_cost"], abs_s)
+        errs["wb_update"] = max(errs["wb_update"], abs_du)
+        res[k] = {"rel_s": rel_s, "rel_du": rel_du, "rel_obstacle": rel_obs,
+                  "obstacle_samples": hit}
+    return res
+
+
+def phase_pick(dev, errs) -> dict:
+    """The pick_weight task: (a) ``run_pick_weight`` at K=256, H=50, 700
+    steps on seeds 0-2 with the gates of tests/test_cli.py, the kernel
+    launches per control step and the host ms per control step of each
+    stage (first and replay-only runs, seed 0); (b) at K=4096: the
+    graspable approach, 100 steps, graphed against eager (bit-equal); the
+    payload lift on the serving configuration, 200 steps, graphed against
+    eager (bit-equal), rows 1, 3 and 8 launched once per step; (c)
+    ``wb_cost`` and ``wb_update`` at the path's configurations against
+    their plain versions (:func:`pick_kernels`); (d) ``plant_tick`` with
+    the payload's frozen coefficients and mass against its plain version at
+    B=1 and B=1024."""
+    results, stages = {}, None
+    for seed in PICK_SEEDS:
+        reset_counts()
+        timed = seed == PICK_TIMED_SEED
+        if timed:
+            stages = {}
+        t0 = time.perf_counter()
+        results[seed] = run_pick_weight(seed, N_PICK_STEPS, n_samples=PICK_K, device=dev,
+                                        stage_ms=stages if timed else None)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = {"wb_cost": wk.wb_cost.launches, "wb_update": wk.wb_update.launches}
+        r = results[seed]
+        print(f"[17a] pick_weight seed {seed} (K={PICK_K}, H={H}, {N_PICK_STEPS} steps): "
+              + ", ".join(f"{k} {v}" for k, v in r.items())
+              + (" | ms/control step, first run (capture included) / second run (replays "
+                 "only): " + ", ".join(f"{k} {stages[k]:.3f} / {stages[k + '_replay']:.3f}"
+                                       for k in PICK_STAGES)
+                 if timed else f" | {wall_ms / N_PICK_STEPS:.3f} ms/control step over the "
+                 "scenario (3 captures included)")
+              + f" | launches {launches}", flush=True)
+        # Three episodes (approach, descent, lift), each capture making two
+        # warm-up calls before its replays; a timed seed runs each twice.
+        want = N_PICK_STEPS * (2 if timed else 1) + 3 * 2
+        if launches != {"wb_cost": want, "wb_update": want}:
+            fail(f"pick_weight seed {seed} did not run wb_cost and wb_update once per control "
+                 f"step ({want - 6} steps + 6 warm-up calls)")
+    print("[17a] JAX package, CPU, seeds 0-2: grasp_hold_err_m 0.0303/0.0316/0.0320, "
+          "lift_min_err_m 0.0569/0.0382/0.0046, max_tilt_rad 0.022/0.021/0.022", flush=True)
+    missed = [s for s, r in results.items()
+              if not (r["grasped"] and r["grasp_hold_err_m"] < 0.05 and r["lift_min_err_m"] < 0.15
+                      and r["max_tilt_rad"] < 0.1)]
+    if missed:
+        fail(f"pick_weight missed its gates (grasped, hold < 0.05, lift min < 0.15, tilt < 0.1) "
+             f"on seeds {missed}")
+
+    # (b) At full width: the graspable approach.
+    params = pick_params(K)
+    obs = wb.default_obs(device=dev)
+    grasp = obs.ee_target.position.tolist()
+    gp = gr.GraspableParams(mass=0.5, stand_center_xy=(grasp[0], grasp[1]),
+                            stand_top_z=grasp[2] - 0.04)
+    pregrasp = Pose(obs.ee_target.position + torch.tensor([0.0, 0.0, 0.12], device=dev),
+                    obs.ee_target.quat)
+    _, init = wb.make_whole_body_solver(params, device=dev)
+
+    def approach_start(seed):
+        return (wbl.init_plant(params.model.vehicle, device=dev), init(seed), pregrasp,
+                obs.base_target, gr.init_graspable(gp, pos=grasp, device=dev))
+
+    out = {}
+    runs = [wbl.make_whole_body_episode(params, n_control_steps=N_PICK_WIDE, graspable=gp,
+                                        device=dev, graph=g) for g in (True, False)]
+    runs[0](*approach_start(1))  # capture
+    (ga, eg_a), out["approach_ms"] = timed_episode(runs[0], approach_start(0), N_PICK_WIDE)
+    (ea, ee_a), out["approach_eager_ms"] = timed_episode(runs[1], approach_start(0), N_PICK_WIDE)
+    eq_a = all(torch.equal(a, b) for a, b in zip(eg_a, ee_a)) \
+        and torch.equal(pk.pack_plant(ga[0]), pk.pack_plant(ea[0])) \
+        and all(torch.equal(a, b) for a, b in zip(ga[4], ea[4]))
+    print(f"[17b] graspable approach, K={K}, H={H}, {N_PICK_WIDE} steps: {out['approach_ms']:.3f} "
+          f"ms/control step graphed, {out['approach_eager_ms']:.3f} eager | logs, final plant and "
+          f"object bit-equal {eq_a} | final ee_err {eg_a.ee_err[-1].item():.4f} m, object moved "
+          f"{(eg_a.obj_pos[-1] - eg_a.obj_pos[0]).norm().item():.2e} m", flush=True)
+    if not eq_a:
+        fail("the graphed graspable approach is not bit-equal to the eager loop")
+
+    # The payload lift on the serving configuration (plant_tick).
+    lump = params.model.arm_mass_lump
+    params2 = dataclasses.replace(params, model=dataclasses.replace(
+        params.model, arm_mass_lump=lump + 0.5))
+    loop = wbl.WholeBodyLoopConfig(payload_mass=0.5, plant_arm_lump=lump, **SERVING_LOOP)
+    lift = Pose(obs.ee_target.position + torch.tensor([0.0, 0.0, 0.4], device=dev),
+                obs.ee_target.quat)
+    _, init2 = wb.make_whole_body_solver(params2, device=dev)
+
+    def lift_start(seed):
+        return wbl.init_plant(params.model.vehicle, device=dev), init2(seed), lift, obs.base_target
+
+    runs = [wbl.make_whole_body_episode(params2, cfg=loop, n_control_steps=N_PICK_LIFT,
+                                        device=dev, graph=g) for g in (True, False)]
+    runs[0](*lift_start(1))  # capture
+    reset_counts()
+    pk.plant_tick.launches = 0
+    (gl, lg), out["lift_ms"] = timed_episode(runs[0], lift_start(0), N_PICK_LIFT)
+    out["lift_launches"] = count_episode_launches()
+    (el, le), out["lift_eager_ms"] = timed_episode(runs[1], lift_start(0), N_PICK_LIFT)
+    eq_l = all(torch.equal(a, b) for a, b in zip(lg, le)) \
+        and torch.equal(pk.pack_plant(gl[0]), pk.pack_plant(el[0]))
+    print(f"[17b] payload lift, serving configuration (plant_tick), K={K}, {N_PICK_LIFT} steps: "
+          f"{out['lift_ms']:.3f} ms/control step graphed, {out['lift_eager_ms']:.3f} eager | "
+          f"launches {out['lift_launches']} | logs and final plant bit-equal {eq_l} | ee_err "
+          f"min {lg.ee_err.min().item():.4f} m, tilt max {lg.tilt.max().item():.4f} rad",
+          flush=True)
+    if out["lift_launches"] != dict.fromkeys(("wb_cost", "wb_update", "plant_tick"), N_PICK_LIFT):
+        fail("the payload lift did not run rows 1, 3 and 8 once per control step")
+    if not (eq_l and bool(torch.isfinite(lg.ee_err).all())):
+        fail("the graphed payload lift is not bit-equal to the eager loop")
+
+    # (c) The path's kernels against their plain versions.
+    out["kernel_errs"] = pick_kernels(dev, errs)
+    m = params.model
+    heavy = wbl.payload_inertials(m.inertials(), 0.5)
+    pc = pk.make_plant_config(m.vehicle, fc.FlightGains(), m.chain(), extra_mass=lump + 0.5)
+    worst = 0.0
+    for rows in (1, 1024):
+        args = pk.sample_rows(m.vehicle, m.chain(), heavy, rows, seed=4, device=dev,
+                              extra_mass=lump + 0.5)
+        got, want = pk.plant_tick(pc, *args), pk.plant_tick_plain(pc, *args)
+        sync()
+        d = (got - want).abs().max().item()
+        worst = max(worst, d)
+        print(f"[17d] plant_tick with the payload (link 7 {heavy.mass[-1]:.2f} kg, base "
+              f"+{lump + 0.5:.2f} kg) B={rows}: max|d| {d:.2e} (limit {TOL_PLANT:g}) | finite "
+              f"{bool(torch.isfinite(got).all())}", flush=True)
+        if not (d <= TOL_PLANT and bool(torch.isfinite(got).all())):
+            fail(f"plant_tick with the payload disagrees with its plain version at B={rows}")
+    errs["plant_tick"] = max(errs["plant_tick"], worst)
+    out.update(results=results, stages=stages, payload_err=worst)
+    return out
+
+
 def reach_sweep(mode: str, seeds) -> None:
     """``--reach MODE --seeds ...``: phase 7 alone, for one mode on any
     seeds; prints one JSON line of the per-seed metrics and exits non-zero
@@ -1989,27 +2379,40 @@ def main() -> None:
         reach_sweep(args.reach, tuple(int(x) for x in args.seeds.split(",")))
         return
     dev = torch.device("cuda", 0)
-    smi = phase_build(dev)
+    walls = []
+
+    def lap(name, fn, *fn_args):
+        """``fn(*fn_args)``, its wall time kept for the phase-time line."""
+        t0 = time.perf_counter()
+        out = fn(*fn_args)
+        walls.append((name, time.perf_counter() - t0))
+        return out
+
+    smi = lap("1", phase_build, dev)
     errs = dict.fromkeys(("wb_cost", "wb_update", "plant_tick", "wb_cost_nospill",
                           "wb_update_regen", "wb_update_shard_regen", "wb_update_shard"), 0.0)
-    phase_kernels(dev, errs)
-    phase_philox(dev)
-    launches, solve_ms, serve = phase_serving(dev)
-    t, bounds = phase_timing(dev)
-    serve_busy = phase_profile(serve, solve_ms)
-    t_plant, plant_bound, plant_bound_b1024 = phase_plant(dev, errs)
-    episode_launches, step_ms, episode_busy = phase_episode(dev)
-    reach_ms, _ = phase_reach(dev)
-    batch_launches, t_b256, batch_rows, b256_bounds = phase_batch(dev, errs)
-    t_k4096 = phase_nospill(dev)
-    shard = phase_sharded(dev)
+    lap("2", phase_kernels, dev, errs)
+    lap("3", phase_philox, dev)
+    launches, solve_ms, serve = lap("4", phase_serving, dev)
+    t, bounds = lap("4t", phase_timing, dev)
+    serve_busy = lap("4p", phase_profile, serve, solve_ms)
+    t_plant, plant_bound, plant_bound_b1024 = lap("5", phase_plant, dev, errs)
+    episode_launches, step_ms, episode_busy = lap("6", phase_episode, dev)
+    reach_ms, _ = lap("7", phase_reach, dev)
+    batch_launches, t_b256, batch_rows, b256_bounds = lap("8", phase_batch, dev, errs)
+    t_k4096 = lap("9", phase_nospill, dev)
+    shard = lap("10", phase_sharded, dev)
     errs.update(shard["kernel_err_all_ranks"])
-    drone_sweep, drone_host, drone_floor = phase_drone_kernels(dev, errs)
-    drone_launches, drone_loop_ms = phase_drone_loops(dev)
-    drone_batch_ms = phase_drone_batch(dev)
-    rows_sweep = phase_update_rows(dev)
-    cost_sweep = phase_cost_shapes(dev)
-    fleet = phase_fleet(dev)
+    drone_sweep, drone_host, drone_floor = lap("11", phase_drone_kernels, dev, errs)
+    drone_launches, drone_loop_ms, drone_busy = lap("12", phase_drone_loops, dev)
+    drone_batch_ms = lap("12d", phase_drone_batch, dev)
+    rows_sweep = lap("13", phase_update_rows, dev)
+    cost_sweep = lap("14", phase_cost_shapes, dev)
+    fleet = lap("15", phase_fleet, dev)
+    arm_node = lap("16", phase_arm, dev)
+    pick = lap("17", phase_pick, dev, errs)
+    print("[t] wall s per phase: " + ", ".join(f"{n} {w:.1f}" for n, w in walls)
+          + f" | total {sum(w for _, w in walls):.1f}", flush=True)
     b256 = {(b, spill): e_ms for b, spill, _, e_ms, _, _, _ in batch_rows}
     shard_bounds = {k: bound(*v) for k, v in new_work(K // SHARD_RANKS).items()}
 
@@ -2072,7 +2475,8 @@ def main() -> None:
          "noise_ms": t["wb_cost_noise"], "noise_plain_ms": t["wb_cost_noise_plain"],
          "noise_bound_ms": bounds["wb_cost_noise"][0],
          "noise_bound_by": bounds["wb_cost_noise"][1],
-         "episode_launches": episode_launches["wb_cost"], "b256_ms": t_b256["wb_cost"],
+         "episode_launches": episode_launches["wb_cost"],
+         "pick_lift_launches": pick["lift_launches"]["wb_cost"], "b256_ms": t_b256["wb_cost"],
          "layout": COST_LAYOUT, "noise_layout": COST_LAYOUT,
          "graph_ms": t["wb_cost_graph"], "device_ms": t["wb_cost_device"],
          "noise_graph_ms": t["wb_cost_noise_graph"], "noise_device_ms": t["wb_cost_noise_device"],
@@ -2083,6 +2487,7 @@ def main() -> None:
          "ms": t["wb_update"], "plain_ms": t["wb_update_plain"],
          "bound_ms": bounds["wb_update"][0], "bound_by": bounds["wb_update"][1],
          "library_ms": t["library_mv"], "episode_launches": episode_launches["wb_update"],
+         "pick_lift_launches": pick["lift_launches"]["wb_update"],
          **vs_library(t_k4096["wb_update"], t_k4096["library_mv"]), **rows_of("3", 1),
          "b256_ms": t_b256["wb_update"], "b256_bound_ms": b256_bounds["wb_update"][0],
          **vs_library(at_b256("wb_update"), at_b256("library_bmm"), "b256_"),
@@ -2093,6 +2498,8 @@ def main() -> None:
          "ms": t_plant["plant_tick"], "plain_ms": t_plant["plant_tick_plain"],
          "bound_ms": plant_bound[0], "bound_by": plant_bound[1], "library_ms": None,
          "layout": PLANT_LAYOUT, "graph_ms": t_plant["plant_tick_graph"],
+         "pick_lift_launches": pick["lift_launches"]["plant_tick"],
+         "payload_max_abs_err": pick["payload_err"],
          "launch_floor_ms": t_plant["launch_floor"],
          "b1024_ms": t_plant["plant_tick_b1024"],
          "b1024_graph_ms": t_plant["plant_tick_b1024_graph"],
@@ -2134,7 +2541,9 @@ def main() -> None:
                           drone_launches["b"]["drone_update_noise"])]
     print(json.dumps({"kernels": kernels}))
     def share(busy):
-        return "not measured" if busy is None else f"{busy[1]:.3f}"
+        """The busy share of the profiled wall, and the device time over the
+        unprofiled step."""
+        return "not measured" if busy is None else f"{busy[3]:.3f} ({busy[1]:.3f} x unprofiled)"
 
     print(f"serving solve {solve_ms['graphed']:.4f} ms graphed ({solve_ms['eager']:.4f} eager; "
           f"device busy share {share(serve_busy['graphed'])} / {share(serve_busy['eager'])}), "
@@ -2151,8 +2560,18 @@ def main() -> None:
           f"{b256[(B_BATCH, False)]:.3f} ms (no spill), sharded solve "
           f"{shard['ms']['spill']:.3f} ms, drone kernel solve {drone_host['kernel_solve']:.4f} ms "
           f"/ preset step {drone_host['make_drone_solver_step']:.4f} ms at K={DRONE_NOISE_K}, "
-          f"drone episode {drone_loop_ms['c']:.3f} ms/control step, batched drone preset at "
-          f"B={B_DRONE} {drone_batch_ms:.3f} ms on {smi}")
+          f"drone episode {drone_loop_ms['c']:.3f} ms/control step graphed "
+          f"({drone_loop_ms['c_eager']:.3f} eager; busy share {share(drone_busy['graphed'])} / "
+          f"{share(drone_busy['eager'])}), batched drone preset at B={B_DRONE} "
+          f"{drone_batch_ms:.3f} ms, arm control step {arm_node['graphed_ms']:.3f} ms graphed "
+          f"({arm_node['eager_ms']:.3f} eager; busy share {share(arm_node['busy']['graphed'])} / "
+          f"{share(arm_node['busy']['eager'])}), pick_weight K={PICK_K} ms/control step "
+          "(seed 0, first run / replays) "
+          + ", ".join(f"{k} {pick['stages'][k]:.3f} / {pick['stages'][k + '_replay']:.3f}"
+                      for k in PICK_STAGES)
+          + f", K={K} approach {pick['approach_ms']:.3f} / lift (serving) {pick['lift_ms']:.3f} "
+          f"ms/control step graphed ({pick['approach_eager_ms']:.3f} / "
+          f"{pick['lift_eager_ms']:.3f} eager) on {smi}")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,11 @@ package's vmapped states (:func:`batched_state_from_numpy`).
 package's ``config.to_dict`` writes — ``{"__dataclass__": name, ...}``
 nodes, ``{"__ndarray__": list, "dtype": str}`` arrays and
 ``{"__schedule__": {"kind": "ee_error", ...}}`` sigma schedules — and
-rebuilds it from this package's dataclasses.  :func:`plant_from_numpy`
-reads the JAX plant-kernel state vector (``pack_plant``).
+rebuilds it from this package's dataclasses (the whole-body, drone and arm
+solvers, the loops, the graspable object and the contact layer).
+:func:`plant_from_numpy` reads the JAX plant-kernel state vector
+(``pack_plant``); :func:`graspable_state_from_numpy` and
+:func:`arm_loop_state_from_numpy` the object's and the arm node's states.
 """
 
 from __future__ import annotations
@@ -22,9 +25,14 @@ import torch
 
 from .models.multirotor import MultirotorParams
 from .models.whole_body import WholeBodyParams
+from .ops.costs import ArmCostParams
+from .sim.arm_loop import ArmLoopConfig, ArmLoopState
 from .sim.closed_loop import LoopConfig
+from .sim.contact import ContactParams, WorldPrimitives
 from .sim.flight_control import FlightGains
+from .sim.graspable import GraspableParams, GraspableState
 from .sim.whole_body_loop import WholeBodyLoopConfig, WholeBodyPlant
+from .solver.arm import ArmMPPIParams
 from .solver.drone import DroneMPPIParams
 from .solver.mppi import MPPIConfig, MPPIState
 from .solver.whole_body import (
@@ -35,6 +43,7 @@ from .utils.device import resolve_device
 _REGISTRY = {cls.__name__: cls for cls in (
     MPPIConfig, MultirotorParams, WholeBodyParams, WholeBodyCostParams,
     WholeBodyMPPIParams, FlightGains, WholeBodyLoopConfig, DroneMPPIParams, LoopConfig,
+    ArmCostParams, ArmMPPIParams, ArmLoopConfig, GraspableParams, ContactParams, WorldPrimitives,
 )}
 _SCHEDULES = {"ee_error": ee_error_sigma_schedule}
 
@@ -69,8 +78,9 @@ def _from_dict(data: Any) -> Any:
 
 def config_from_dict(d: dict) -> Any:
     """Any configuration tree of the registered dataclasses (solver
-    parameters, ``FlightGains``, ``WholeBodyLoopConfig``, ``LoopConfig``)
-    from its JAX ``config.to_dict`` form."""
+    parameters, ``FlightGains``, ``WholeBodyLoopConfig``, ``LoopConfig``,
+    ``ArmLoopConfig``, ``GraspableParams``, ``ContactParams``) from its JAX
+    ``config.to_dict`` form."""
     return _from_dict(d)
 
 
@@ -91,6 +101,12 @@ def drone_params_from_dict(d: dict) -> DroneMPPIParams:
     """The port's ``DroneMPPIParams`` from the JAX ``config.to_dict`` form
     of a ``DroneMPPIParams``."""
     return _typed_from_dict(d, DroneMPPIParams)
+
+
+def arm_params_from_dict(d: dict) -> ArmMPPIParams:
+    """The port's ``ArmMPPIParams`` from the JAX ``config.to_dict`` form of
+    an ``ArmMPPIParams``."""
+    return _typed_from_dict(d, ArmMPPIParams)
 
 
 def state_from_numpy(u_prev, sigma, seed: int, device="cuda", step: int = 0) -> MPPIState:
@@ -130,3 +146,30 @@ def plant_from_numpy(vec46, device="cuda") -> WholeBodyPlant:
     if vec.shape != (STATE_SIZE,):
         raise ValueError(f"expected a ({STATE_SIZE},) plant vector, got {vec.shape}")
     return unpack_plant(torch.tensor(vec, device=resolve_device(device)))
+
+
+def graspable_state_from_numpy(pos, vel, attached, device="cuda") -> GraspableState:
+    """A ``GraspableState`` from host arrays (the JAX state's leaves): the
+    object's position and velocity (..., 3) and its attached flag (...)."""
+    dev = resolve_device(device)
+    return GraspableState(
+        pos=torch.tensor(np.asarray(pos, dtype=np.float32), device=dev),
+        vel=torch.tensor(np.asarray(vel, dtype=np.float32), device=dev),
+        attached=torch.tensor(np.asarray(attached, dtype=bool), device=dev))
+
+
+def arm_loop_state_from_numpy(q, qdot, t, phase2, hold_count, q_start, t_start,
+                              solver: MPPIState, device="cuda") -> ArmLoopState:
+    """An ``ArmLoopState`` from host arrays (the JAX state's leaves) and the
+    port's solver state (``state_from_numpy``: the JAX key has no
+    counterpart)."""
+    dev = resolve_device(device)
+
+    def f32(x):
+        return torch.tensor(np.asarray(x, dtype=np.float32), device=dev)
+
+    return ArmLoopState(q=f32(q), qdot=f32(qdot), t=f32(t),
+                        phase2=torch.tensor(np.asarray(phase2, dtype=bool), device=dev),
+                        hold_count=torch.tensor(np.asarray(hold_count, dtype=np.int32),
+                                                device=dev),
+                        q_start=f32(q_start), t_start=f32(t_start), solver=solver)

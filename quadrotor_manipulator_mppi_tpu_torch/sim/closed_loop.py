@@ -3,11 +3,14 @@
 Port of the JAX package's ``sim/closed_loop.py``.  Each control step runs
 one MPPI solve, turns its output into the inner loop's setpoint, then runs
 ``substeps`` physics + flight-controller ticks (default 10: 100 Hz control
-over 1 kHz physics).  Where the JAX package scans, the episode here is a
-Python loop over control steps and substeps that never waits for the card:
-the per-step logs stay on the device until ``run`` returns them stacked.
-:func:`rpy_of` is the plant attitude in the layout the flight controllers
-consume.
+over 1 kHz physics).  Where the JAX package scans, the episode on the card
+captures one control step in a CUDA graph (``utils/graphs.graphed``) and
+replays it once per step: the loop state is updated in place in static
+buffers, the solve index advances on the card, and each step writes its
+log row into preallocated (n_control_steps, 3) buffers at a device step
+index.  The eager loop (``graph=False``, and always on the CPU) runs the
+same control step and never waits for the card either.  :func:`rpy_of` is
+the plant attitude in the layout the flight controllers consume.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import torch
 
 from ..models import multirotor
 from ..models.multirotor import MultirotorParams, MultirotorState
+from ..solver.mppi import MPPIState, device_counters
+from ..utils import graphs
 from ..utils import rotations as rot
 from ..utils.device import resolve_device
 from . import flight_control as fc
@@ -58,6 +63,7 @@ def make_episode(
     make_obs: Callable[[MultirotorState], Any],
     setpoint_of: Callable[[Any, MultirotorState], fc.FlightSetpoint],
     n_control_steps: int,
+    graph: bool = True,
 ):
     """Build an episode runner.
 
@@ -71,7 +77,15 @@ def make_episode(
     Returns ``run(loop_state, z=None) -> (final_state, (pos, rpy, vel))``
     with each log stacked over the control steps.  ``z`` (n_control_steps,
     K, H, A) optionally carries the solver's standard normals, one draw per
-    control step, in place of its Philox stream."""
+    control step, in place of its Philox stream.
+
+    On the card (``graph=True``) the first call captures one control step
+    in a CUDA graph and every call replays it ``n_control_steps`` times
+    (loop states of other shapes get a graph of their own); every field of
+    the loop state must be a tensor, and an ``MPPIState`` solver state
+    comes back with its seed and solve index as int64 device tensors.  The
+    returned state and logs are copies.  ``graph=False`` runs the control
+    steps eagerly; so does the CPU."""
     if cfg.controller not in _CONTROLLERS:
         raise ValueError(f"unknown controller {cfg.controller!r}")
     ctrl_fn = _CONTROLLERS[cfg.controller]
@@ -96,9 +110,23 @@ def make_episode(
         return (LoopState(plant=plant, ctrl=ctrl, solver=solver, setpoint=sp),
                 (plant.pos, rpy_of(plant), plant.vel))
 
+    loads = {}  # the graph runner of each device
+
+    def run_graphed(state: LoopState, z):
+        dev = state.plant.pos.device
+        if isinstance(state.solver, MPPIState):
+            state = state._replace(solver=device_counters(state.solver, dev))
+        logs = tuple(torch.zeros((n_control_steps, 3), dtype=state.plant.pos.dtype, device=dev)
+                     for _ in range(3))
+        if dev not in loads:
+            loads[dev] = graphs.graphed(graphs.episode_step(control_step), dev)
+        return graphs.run_episode(loads[dev], state, z, logs, n_control_steps, "loop.step")
+
     def run(state: LoopState, z=None):
         if z is not None and len(z) != n_control_steps:
             raise ValueError(f"z carries {len(z)} steps, the episode {n_control_steps}")
+        if graph and state.plant.pos.device.type == "cuda":
+            return run_graphed(state, z)
         logs = []
         for i in range(n_control_steps):
             state, log = control_step(state, None if z is None else z[i])

@@ -29,13 +29,20 @@ and the targets with a leading B, one batched solve and one B-row plant
 tick per control step, the logs (B, n_control_steps).  :func:`fleet_starts`
 draws the fleet's randomized starts.
 
-Not ported yet: the graspable object, generalized contact and a grasped
-payload (``payload_mass > 0``); they come with the payload and contact
-slice.
+The pick_weight task's branches: a grasped payload (``payload_mass``: link
+7's mass and centre of mass carry it, in the per-substep RNEA plant and in
+the plant tick's frozen coefficients alike), the free-body graspable object
+(``sim/graspable``: the carry gains its state, the palm's push reaction
+acts back on the vehicle and the arm), and the primitive contact layer
+(``sim/contact``).  Both feed the external body wrench of the base's
+physics step.  The end effector's velocity and position Jacobian are the
+closed-form ones of the joint frames, where the JAX package differentiates
+its forward kinematics.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, NamedTuple, Optional
 
@@ -51,18 +58,18 @@ from ..models.chain import ChainSpec
 from ..models.multirotor import Multirotor12State, MultirotorParams, MultirotorState
 from ..models.rigid_body import InertialParams
 from ..models.whole_body import WholeBodyState, _base_rollout_position, arm_gravity_torque_fast
-from ..ops import sampling
 from ..solver import whole_body as wbs
+from ..solver.mppi import device_counters
 from ..utils import graphs
 from ..utils import rotations as rot
 from ..utils.device import device_const, resolve_device
 from ..utils.pose import Pose
 from . import closed_loop as cl
+from . import contact as ct
 from . import flight_control as fc
+from . import graspable as gr
 
 Tensor = torch.Tensor
-
-_LATER = "the payload and contact slice of the port"
 
 
 @dataclass(frozen=True)
@@ -107,7 +114,7 @@ class WholeBodyLog(NamedTuple):
     l1_cmd: Tensor    # reference reach-gate metric [m]
     l1_meas: Tensor   # L1 measured EE position error [m]
     ori_err: Tensor   # measured EE geodesic orientation error [rad]
-    obj_pos: Tensor   # (3,) graspable-object position (zeros: none yet)
+    obj_pos: Tensor   # (3,) graspable-object position (zeros without one)
 
 
 _VECTOR_LOGS = ("base_pos", "obj_pos")  # the (3,) fields of a WholeBodyLog row
@@ -190,11 +197,27 @@ def observe(plant: WholeBodyPlant) -> WholeBodyState:
     return WholeBodyState(base=base12, q=plant.q, qdot=plant.qdot)
 
 
+def payload_inertials(inertials: InertialParams, payload_mass: float) -> InertialParams:
+    """Link 7 carrying a point mass at its frame origin (the end-effector
+    tip frame is the link-7 frame): the combined mass, and the centre of
+    mass moved toward the origin.  The point mass adds no inertia about
+    itself; the shift of the centre of mass carries the moment."""
+    if payload_mass <= 0.0:
+        return inertials
+    mass, com = inertials.mass.copy(), inertials.com.copy()
+    m7 = mass[-1]
+    com[-1] = com[-1] * (m7 / (m7 + payload_mass))
+    mass[-1] = m7 + payload_mass
+    return dataclasses.replace(inertials, mass=mass, com=com)
+
+
 def physics_tick(ph: PlantPhysics, plant: WholeBodyPlant, action_cmd: Tensor,
-                 tau_arm_pd: Tensor, dyn) -> WholeBodyPlant:
+                 tau_arm_pd: Tensor, dyn, ext_wrench_b=None) -> WholeBodyPlant:
     """One 1 kHz physics step (batched over leading dims).  ``dyn`` is the
     control step's FrozenArmCoeffs (``arm_coeffs_per_control``), the
-    Cholesky factor of M (``mass_matrix_per_control``) or unused."""
+    Cholesky factor of M (``mass_matrix_per_control``) or unused;
+    ``ext_wrench_b`` an external (force, torque) on the base, body frame,
+    held over the control period (contact and the object's reaction)."""
     dt = ph.dt
     quat = plant.base.quat
     if ph.arm_coeffs_per_control:
@@ -253,9 +276,10 @@ def physics_tick(ph: PlantPhysics, plant: WholeBodyPlant, action_cmd: Tensor,
                 device_const(ph.vehicle.inertia, q) * plant.base.omega)
         wrench_cmd = torch.cat([action_cmd[..., 0:1], tau_cmd], dim=-1)
 
+    ext = ((torch.zeros_like(tau_g), tau_g) if ext_wrench_b is None
+           else (ext_wrench_b[0], tau_g + ext_wrench_b[1]))
     base = mr.step(ph.vehicle, plant.base, fc.allocate(ph.vehicle, wrench_cmd), dt,
-                   extra_mass=ph.extra_mass,
-                   external_wrench_body=(torch.zeros_like(tau_g), tau_g))
+                   extra_mass=ph.extra_mass, external_wrench_body=ext)
     return WholeBodyPlant(base=base, q=q, qdot=qdot, ctrl=ctrl)
 
 
@@ -278,6 +302,19 @@ def pose_error_jacobian(spec: ChainSpec, q: Tensor, base_pos: Tensor, base_quat:
     return err6, torch.cat([d_pos, d_ori], dim=-1).transpose(-1, -2)
 
 
+def ee_motion(spec: ChainSpec, plant: WholeBodyPlant):
+    """The end effector's world position (..., 3), velocity (..., 3) and
+    position Jacobian in q (..., 3, J) at the plant's state: the tangent the
+    JAX package takes with ``jax.jvp`` of its forward kinematics (the base
+    quaternion moving at 0.5 q (0, omega)) and its ``jax.jacfwd``."""
+    base = plant.base
+    origins, axes, ee, _ = chain_mod.joint_frames_posquat(spec, plant.q, base.pos, base.quat)
+    omega_w = (rot.quat_to_matrix(base.quat) @ base.omega.unsqueeze(-1)).squeeze(-1)
+    vel, jac = ct.point_motion(origins, axes, ee[..., None, :], plant.qdot, base.pos,
+                               base.vel, omega_w, device_const([[1.0] * spec.n_joints], ee))
+    return ee, vel[..., 0, :], jac[..., 0, :, :]
+
+
 def _mv(m: Tensor, v: Tensor) -> Tensor:
     """Matrix (..., n, m) times vector (..., m), with leading batch dims."""
     return m @ v if v.ndim == 1 else (m @ v.unsqueeze(-1)).squeeze(-1)
@@ -287,18 +324,29 @@ def make_whole_body_episode(
     params: "wbs.WholeBodyMPPIParams" = None,
     cfg: WholeBodyLoopConfig = WholeBodyLoopConfig(),
     n_control_steps: int = 300,
-    graspable=None,
+    graspable: Optional[gr.GraspableParams] = None,
     gripper_closed: bool = False,
     backend: str = "cuda",
-    contact=None,
+    contact: Optional[ct.ContactParams] = None,
     low_k_guard: str = "warn",
     device="cuda",
     n_scenarios: Optional[int] = None,
     graph: bool = True,
 ):
-    """Returns ``run(plant, solver, ee_target, base_target, z=None) ->
-    ((plant, solver, ee_target, base_target), logs)`` with every
-    :class:`WholeBodyLog` field stacked over the ``n_control_steps`` steps.
+    """Returns ``run(plant, solver, ee_target, base_target, obj=None,
+    z=None) -> (carry, logs)`` with every :class:`WholeBodyLog` field
+    stacked over the ``n_control_steps`` steps; the carry is ``(plant,
+    solver, ee_target, base_target)``, and with ``graspable`` also ``obj``.
+
+    ``graspable`` (a ``sim.graspable.GraspableParams``) simulates the
+    pick_weight object as a free body: ``run`` then takes its
+    ``GraspableState`` as ``obj``, the palm can push it off its stand, and
+    the push reaction acts back on the vehicle and the arm.
+    ``gripper_closed`` is the episode's gripper command.  ``contact`` (a
+    ``sim.contact.ContactParams``) lets the hull and arm-link spheres feel
+    the world geometry.  ``cfg.payload_mass`` puts a grasped mass on link 7
+    of the plant (``cfg.plant_arm_lump`` the lump the plant's base carries
+    beside it).
 
     ``z`` (n_control_steps, K, H, A) optionally carries the solver's
     standard normals, one draw per control step, in place of the Philox
@@ -312,10 +360,11 @@ def make_whole_body_episode(
 
     On the card (``graph=True``) the first call captures one control step
     in a CUDA graph and every call replays it ``n_control_steps`` times
-    (arguments of other shapes get a graph of their own).  The returned carry
-    and logs are copies.  The solver state comes back with its seed and
-    solve index as int64 device tensors.  ``graph=False`` runs the control
-    steps eagerly; so does the CPU."""
+    (arguments of other shapes get a graph of their own); the object's
+    state is one of the graph's buffers.  The returned carry and logs are
+    copies.  The solver state comes back with its seed and solve index as
+    int64 device tensors.  ``graph=False`` runs the control steps eagerly;
+    so does the CPU."""
     params = params or wbs.WholeBodyMPPIParams()
     dev = resolve_device(device)
     mode = params.model.control_mode
@@ -325,15 +374,11 @@ def make_whole_body_episode(
             "plant_kernel covers the serving configuration only: "
             "position mode + arm_coeffs_per_control, free flight"
         )
-    if graspable is not None or contact is not None or gripper_closed:
-        raise NotImplementedError(f"the graspable object and contact wait for {_LATER}")
-    if cfg.payload_mass > 0.0:
-        raise NotImplementedError(f"a grasped payload waits for {_LATER}")
     vehicle = params.model.vehicle
     extra = (cfg.plant_arm_lump if cfg.plant_arm_lump is not None
              else params.model.arm_mass_lump) + cfg.payload_mass
     spec = params.model.chain()
-    inertials = params.model.inertials()
+    inertials = payload_inertials(params.model.inertials(), cfg.payload_mass)
     step, _ = wbs.make_whole_body_solver(params, device=dev, backend=backend,
                                          low_k_guard=low_k_guard, n_scenarios=n_scenarios)
     physics = PlantPhysics(
@@ -355,6 +400,7 @@ def make_whole_body_episode(
                  else (1.5 if mode == "wrench" else 0.8))
     lookahead = min(cfg.setpoint_lookahead, params.mppi.n_horizon - 1)
     lead = () if n_scenarios is None else (int(n_scenarios),)
+    external = graspable is not None or contact is not None
 
     def tube_servo(plant: WholeBodyPlant, ee_target: Pose, qdes: Tensor) -> Tensor:
         """Damped-least-squares arm servo on the measured EE pose residual,
@@ -370,8 +416,35 @@ def make_whole_body_episode(
         dq = dq.clamp(-cfg.tube_clip, cfg.tube_clip)
         return qdes + tube_gain * gate[..., None] * dq
 
-    def control_step(plant: WholeBodyPlant, solver, ee_target: Pose, base_target: Tensor,
-                     z: Optional[Tensor]):
+    def external_wrench(plant: WholeBodyPlant, obj, tau_arm: Tensor, effort: Tensor):
+        """The contact layer's and the object's forces over this control
+        period: (base wrench, body frame), the arm torque with their joint
+        torques added, and the object's new state."""
+        zeros = torch.zeros_like(plant.base.pos)
+        ext_f, ext_tau = zeros, zeros
+        if contact is not None:
+            f_cb, tau_cb, tau_carm = ct.whole_body_contact(
+                contact, spec, plant.q, plant.qdot, plant.base.pos, plant.base.quat,
+                plant.base.vel, plant.base.omega)
+            ext_f, ext_tau = ext_f + f_cb, ext_tau + tau_cb
+            tau_arm = torch.minimum(torch.maximum(tau_arm + tau_carm, -effort), effort)
+        if graspable is not None:
+            # Step the object over this period with the palm's pose and
+            # velocity; its push reaction acts on the vehicle and the arm.
+            ee_pos, ee_vel, j_ee = ee_motion(spec, plant)
+            obj, reaction_w = gr.graspable_step(graspable, obj, ee_pos, ee_vel, gripper_closed,
+                                                cfg.substeps * cfg.physics_dt)
+            r_t = rot.quat_to_matrix(plant.base.quat).transpose(-1, -2)
+            ext_f = ext_f + _mv(r_t, reaction_w)
+            ext_tau = ext_tau + _mv(r_t, torch.linalg.cross(ee_pos - plant.base.pos,
+                                                            reaction_w, dim=-1))
+            tau_arm = torch.minimum(torch.maximum(
+                tau_arm + _mv(j_ee.transpose(-1, -2), reaction_w), -effort), effort)
+        return (ext_f, ext_tau), tau_arm, obj
+
+    def control_step(carry, z: Optional[Tensor]):
+        plant, solver, ee_target, base_target = carry[:4]
+        obj = carry[4] if graspable is not None else None
         # The record_function ranges name the step's parts for a profiler
         # of the eager loop; a graph replays them as one range per step.
         state = observe(plant)
@@ -414,13 +487,18 @@ def make_whole_body_episode(
             else:
                 base_cmd = out.action[..., :4]
 
+        ext_wrench_b = None
+        if external:
+            with record_function("wb_loop.contact"):
+                ext_wrench_b, tau_arm, obj = external_wrench(plant, obj, tau_arm, effort)
+
         with record_function("wb_loop.tick"):
             if cfg.plant_kernel:
                 plant = pk.unpack_plant(plant_tick(pk.pack_plant(plant), pk.pack_dyn(dyn),
                                                    base_cmd, tau_arm))
             else:
                 for _ in range(cfg.substeps):
-                    plant = physics_tick(physics, plant, base_cmd, tau_arm, dyn)
+                    plant = physics_tick(physics, plant, base_cmd, tau_arm, dyn, ext_wrench_b)
 
         with record_function("wb_loop.logs"):
             # One FK of the measured q and the commanded qdes together.
@@ -436,9 +514,10 @@ def make_whole_body_episode(
                 l1_cmd=d_pos[1].abs().sum(dim=-1),
                 l1_meas=d_pos[0].abs().sum(dim=-1),
                 ori_err=2.0 * torch.arccos(qe[..., 0].abs().clamp(0.0, 1.0)),
-                obj_pos=torch.zeros_like(plant.base.pos),
+                obj_pos=obj.pos if graspable is not None else torch.zeros_like(plant.base.pos),
             )
-        return plant, solver, log
+        new_carry = (plant, solver, ee_target, base_target)
+        return (new_carry + (obj,) if graspable is not None else new_carry), log
 
     def check_z(z):
         if z is None:
@@ -448,51 +527,35 @@ def make_whole_body_episode(
             raise ValueError(f"z carries {z.shape[0]} steps, the episode {n_control_steps}")
         return z
 
-    def run_eager(plant, solver, ee_target, base_target, z):
+    def run_eager(carry, z):
         logs = []
         for i in range(n_control_steps):
-            plant, solver, log = control_step(plant, solver, ee_target, base_target,
-                                              None if z is None else z[i])
+            carry, log = control_step(carry, None if z is None else z[i])
             logs.append(log)
-        stacked = WholeBodyLog(*(torch.stack(f, dim=1 if lead else 0) for f in zip(*logs)))
-        return (plant, solver, ee_target, base_target), stacked
+        return carry, WholeBodyLog(*(torch.stack(f, dim=1 if lead else 0) for f in zip(*logs)))
 
-    def one_step(plant, solver, ee_target, base_target, z, index, logs):
-        """One control step on the graph's static buffers: the carry
-        updated in place, the log row written at the device step index."""
-        zi = None if z is None else z.index_select(0, index)[0]
-        new_plant, new_solver, log = control_step(plant, solver, ee_target, base_target, zi)
-        graphs.copy_into(plant, new_plant)
-        graphs.copy_into(solver, new_solver)
-        for buf, row in zip(logs, log):
-            buf.index_copy_(0, index, row.unsqueeze(0))
-        index.add_(1)
+    load = graphs.graphed(graphs.episode_step(control_step), dev) if dev.type == "cuda" \
+        else None
 
-    load = graphs.graphed(one_step, dev)
-
-    def run_graphed(plant, solver, ee_target, base_target, z):
+    def run_graphed(carry, z):
         # The solver state with its key and solve index as device tensors.
-        solver = solver._replace(seed=sampling.philox_keys(solver.seed, dev),
-                                 step=sampling.step_tensor(solver.step, dev))
-        index = torch.zeros(1, dtype=torch.int64, device=dev)
+        carry = (carry[0], device_counters(carry[1], dev)) + tuple(carry[2:])
         logs = WholeBodyLog(**{
             f: torch.zeros((n_control_steps,) + lead + ((3,) if f in _VECTOR_LOGS else ()),
-                           dtype=plant.base.pos.dtype, device=dev)
+                           dtype=carry[0].base.pos.dtype, device=dev)
             for f in WholeBodyLog._fields})
-        g = load(plant, solver, ee_target, base_target, z, index, logs)
-        for _ in range(n_control_steps):
-            with record_function("wb_loop.step"):
-                g.replay()
-        *carry, _, _, logs = g.args
-        out = WholeBodyLog(*(buf.movedim(0, 1).clone() if lead else buf.clone()
-                             for buf in logs))
-        return graphs.clone_tree(tuple(carry)), out
+        carry, logs = graphs.run_episode(load, carry, z, logs, n_control_steps, "wb_loop.step")
+        return carry, WholeBodyLog(*(buf.movedim(0, 1) if lead else buf for buf in logs))
 
     def run(plant: WholeBodyPlant, solver, ee_target: Pose, base_target: Tensor,
-            z: Optional[Tensor] = None):
+            obj: Optional[gr.GraspableState] = None, z: Optional[Tensor] = None):
+        if (obj is None) != (graspable is None):
+            raise ValueError("run takes the object's state exactly when the episode has "
+                             "a graspable object")
+        carry = (plant, solver, ee_target, base_target) + ((obj,) if obj is not None else ())
         z = check_z(z)
-        if graph and dev.type == "cuda":
-            return run_graphed(plant, solver, ee_target, base_target, z)
-        return run_eager(plant, solver, ee_target, base_target, z)
+        if graph and load is not None:
+            return run_graphed(carry, z)
+        return run_eager(carry, z)
 
     return run

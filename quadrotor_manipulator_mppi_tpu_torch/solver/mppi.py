@@ -66,7 +66,8 @@ class MPPIConfig:
 class MPPIState(NamedTuple):
     u_prev: Tensor  # (H, A) warm-start control sequence; (B, H, A) for a batch
     sigma: Tensor   # (A,) live per-action exploration std (or (A, A)); (B, A)
-    seed: Any       # 64-bit Philox key; for a batch a (B,) int64 tensor of keys
+    seed: Any       # 64-bit Philox key: an int, or a (1,) int64 tensor
+                    # (``philox_keys``); for a batch a (B,) int64 tensor of keys
     step: Any       # solve index, the first Philox counter word: an int, or an
                     # int64 device tensor, (1,) or one per scenario (B,)
 
@@ -115,6 +116,14 @@ def scenario_state(u_prev: Tensor, sigma: Tensor, seed, n_scenarios: int) -> MPP
         sigma=sigma.expand(n_scenarios, *sigma.shape).clone(),
         seed=torch.tensor(seeds, dtype=torch.int64, device=u_prev.device), step=0,
     )
+
+
+def device_counters(state: MPPIState, device) -> MPPIState:
+    """``state`` with its Philox key and solve index as int64 tensors on
+    ``device`` (``sampling.philox_keys``, ``sampling.step_tensor``), as a
+    captured CUDA graph reads them; they draw the same noise as the ints."""
+    return state._replace(seed=sampling.philox_keys(state.seed, device),
+                          step=sampling.step_tensor(state.step, device))
 
 
 def action_bounds(config: MPPIConfig, dtype=torch.float32, device=None):
@@ -221,6 +230,8 @@ def make_step(
         if z is None:
             z = sampling.philox_normals(state.seed, state.step, k, h, a, dev,
                                         sample_offset=k_off)
+            if not batched and z.ndim == 4:  # one problem under a (1,) key tensor
+                z = z[0]
             z = z.permute(0, 3, 2, 1) if batched else z.permute(2, 1, 0)
         z = torch.as_tensor(z, dtype=dtype, device=dev)
         noise = sampling.sample_noise(z, sigma_live, batched)

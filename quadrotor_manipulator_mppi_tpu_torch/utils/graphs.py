@@ -24,6 +24,11 @@ copies of its arguments, and replays it: one launch of the host's per call.
   added, per replay, to the counters registered with
   :func:`count_replays`, and the capture's own host pass, which launches
   nothing, is taken back.
+
+:func:`episode_step` and :func:`run_episode` are the episode runner the
+whole-body, drone and arm episodes share: one control step captured on the
+carry's static buffers, the log rows written at a device step index, one
+replay per step.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict
 
 import torch
+from torch.profiler import record_function
 
 Tensor = torch.Tensor
 
@@ -149,3 +155,50 @@ def graphed(fn: Callable[..., Any], device, warmup: int = 2) -> Callable[..., Gr
         return cache[key].load(*args)
 
     return load
+
+
+def require_tensors(tree: Any, what: str, path: str = "") -> None:
+    """Raise unless every leaf of the pytree ``tree`` is a tensor (or None):
+    a Python number in a graph's carry would be frozen into the capture."""
+    if isinstance(tree, Tensor) or tree is None:
+        return
+    if isinstance(tree, (tuple, list)):
+        names = getattr(tree, "_fields", range(len(tree)))
+        for name, x in zip(names, tree):
+            require_tensors(x, what, f"{path}.{name}")
+        return
+    raise TypeError(f"{what}{path} is a {type(tree).__name__}, not a tensor: a graph "
+                    f"would freeze it")
+
+
+def episode_step(control_step: Callable[[Any, Any], tuple]) -> Callable[..., None]:
+    """The captured body of an episode: ``control_step(carry, z_i) ->
+    (carry, log_row)`` becomes ``one_step(carry, z, index, logs)``, which
+    reads ``z[index]`` (``z`` None: no explicit noise), updates ``carry`` in
+    place, writes each field of the log row into its (n_steps, ...) buffer
+    at the device step index, and advances the index."""
+    def one_step(carry, z, index, logs):
+        zi = None if z is None else z.index_select(0, index)[0]
+        new_carry, row = control_step(carry, zi)
+        copy_into(carry, new_carry)
+        for buf, x in zip(logs, row):
+            buf.index_copy_(0, index, x.unsqueeze(0))
+        index.add_(1)
+
+    return one_step
+
+
+def run_episode(load: Callable[..., GraphedStep], carry: Any, z: Any, logs: Any,
+                n_steps: int, label: str = "episode.step") -> tuple:
+    """Replay the graph of ``episode_step`` (``load = graphed(one_step,
+    device)``) ``n_steps`` times from ``carry``, the logs written into the
+    preallocated ``logs`` buffers.  Returns copies of the final carry and of
+    the log buffers."""
+    require_tensors(carry, "the carry")
+    index = torch.zeros(1, dtype=torch.int64, device=logs[0].device)
+    g = load(carry, z, index, logs)
+    for _ in range(n_steps):
+        with record_function(label):
+            g.replay()
+    carry, _, _, logs = g.args
+    return clone_tree(carry), clone_tree(logs)

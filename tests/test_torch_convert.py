@@ -70,7 +70,7 @@ def test_carried_schedule_scales_like_jax(preset):
 
 def test_params_from_dict_rejects_foreign_trees():
     with pytest.raises(ValueError, match="no counterpart"):
-        convert.params_from_dict({"__dataclass__": "GraspableParams"})
+        convert.params_from_dict({"__dataclass__": "MissionConfig"})
     with pytest.raises(ValueError, match="expected a WholeBodyMPPIParams"):
         convert.params_from_dict(jcfg.to_dict(jwb.WholeBodyMPPIParams().model))
     with pytest.raises(ValueError, match="unknown sigma schedule"):

@@ -109,12 +109,26 @@ def test_plant_kernel_outside_serving_configuration_raises():
 
 
 def test_later_slice_features_raise():
+    """The branches of the pick_weight task (a payload, contact, the
+    graspable object and the gripper command) build now; what still raises
+    is a call that leaves out the object's state, or passes one to an
+    episode without an object."""
+    from quadrotor_manipulator_mppi_tpu_torch.sim import contact as tct
+    from quadrotor_manipulator_mppi_tpu_torch.sim import graspable as tgr
+
     tp = twbs.position_mode_params(n_samples=64, n_horizon=8)
-    with pytest.raises(NotImplementedError, match="payload"):
-        wbl.make_whole_body_episode(tp, cfg=wbl.WholeBodyLoopConfig(payload_mass=0.5),
-                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="contact"):
-        wbl.make_whole_body_episode(tp, contact=object(), device="cpu")
+    gp = tgr.GraspableParams()
+    wbl.make_whole_body_episode(tp, cfg=wbl.WholeBodyLoopConfig(payload_mass=0.5), device="cpu")
+    wbl.make_whole_body_episode(tp, contact=tct.ContactParams(), device="cpu")
+    run = wbl.make_whole_body_episode(tp, graspable=gp, gripper_closed=True, device="cpu")
+    _, init = twbs.make_whole_body_solver(tp, device="cpu")
+    obs = twbs.default_obs(device="cpu")
+    plant = wbl.init_plant(tp.model.vehicle, device="cpu")
+    with pytest.raises(ValueError, match="object's state"):
+        run(plant, init(0), obs.ee_target, obs.base_target)
+    free = wbl.make_whole_body_episode(tp, device="cpu")
+    with pytest.raises(ValueError, match="object's state"):
+        free(plant, init(0), obs.ee_target, obs.base_target, tgr.init_graspable(gp, device="cpu"))
 
 
 def test_pose_error_jacobian_matches_jax_jacfwd():

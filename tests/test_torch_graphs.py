@@ -3,11 +3,13 @@
 CPU cases: a tensor solve index draws exactly what the int draws (the
 plain Philox draw, the kernels' plain noise, the plain pipeline), the tree
 helpers of ``utils/graphs``, and ``graph=True`` on the CPU running the
-eager call with the same result.  ``cuda`` cases (each decides in its body
-whether a card exists): the graphed serving solve, bridge head and
-20-step episodes in every mode bit-equal to their eager calls, the launch
-counters counting replays, one graph per argument structure, a capture
-that fails raising.  This file
+eager call with the same result (the serving solve, the bridge head, the
+whole-body, drone and arm episodes).  ``cuda`` cases (each decides in its
+body whether a card exists): the graphed serving solve, bridge head,
+20-step whole-body episodes in every mode, the pick_weight branches (a
+payload, the object, contact), the drone episode and the arm episode
+bit-equal to their eager calls, the launch counters counting replays, one
+graph per argument structure, a capture that fails raising.  This file
 imports neither JAX nor the JAX package, so it also runs where only
 PyTorch is installed:
 
@@ -23,8 +25,15 @@ from quadrotor_manipulator_mppi_tpu_torch.ops import sampling
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import plant_kernel as pk
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import whole_body_kernel as wk
 from quadrotor_manipulator_mppi_tpu_torch.parallel.multihost import tree_map
+from quadrotor_manipulator_mppi_tpu_torch.models import kinova
+from quadrotor_manipulator_mppi_tpu_torch.models import multirotor as mr
+from quadrotor_manipulator_mppi_tpu_torch.sim import arm_loop
+from quadrotor_manipulator_mppi_tpu_torch.sim import closed_loop as cl
+from quadrotor_manipulator_mppi_tpu_torch.sim import contact as ct
+from quadrotor_manipulator_mppi_tpu_torch.sim import flight_control as fc
+from quadrotor_manipulator_mppi_tpu_torch.sim import graspable as gr
 from quadrotor_manipulator_mppi_tpu_torch.sim import whole_body_loop as wbl
-from quadrotor_manipulator_mppi_tpu_torch.solver import mppi, serving
+from quadrotor_manipulator_mppi_tpu_torch.solver import arm, drone, mppi, serving
 from quadrotor_manipulator_mppi_tpu_torch.solver import whole_body as wb
 from quadrotor_manipulator_mppi_tpu_torch.utils import graphs
 
@@ -200,6 +209,59 @@ def test_episode_graph_flag_on_cpu_runs_eagerly():
     assert outs[0][0][1].step == 4  # the eager loop keeps an int solve index
 
 
+def drone_episode(dev, n, graph, k=64):
+    """The drone waypoint episode (``make_drone_solver`` through
+    ``make_episode``, backstepping) at K=``k``, and its start."""
+    params = drone.DroneMPPIParams(mppi=dataclasses.replace(drone.DroneMPPIParams().mppi,
+                                                            n_samples=k))
+    step, init = drone.make_drone_solver(params, device=dev)
+    cfg, veh = cl.LoopConfig(controller="backstepping"), mr.MultirotorParams()
+    target = torch.tensor(drone.DEFAULT_TARGET, device=dev)
+    run = cl.make_episode(cfg, veh, fc.FlightGains(), step,
+                          make_obs=lambda p: drone.DroneObs(x=p.pos, v=p.vel, target=target),
+                          setpoint_of=lambda out, p: fc.hover_setpoint(out.xdes),
+                          n_control_steps=n, graph=graph)
+    return run, cl.init_loop_state(cfg, veh, init(3), pos=(0.0, 0.0, 2.0), device=dev)
+
+
+def arm_episode(dev, n, graph, phase2=False):
+    """The arm node at K=64, H=16 (torque limits x10), from rest in phase 1
+    or from home in phase 2, and its start."""
+    params = arm.ArmMPPIParams(mppi=mppi.MPPIConfig(n_samples=64, n_horizon=16))
+    _, init = arm.make_arm_solver(params, device=dev)
+    run = arm_loop.make_arm_episode(arm_loop.ArmLoopConfig(torque_limit_scale=10.0), params,
+                                    n_control_steps=n, device=dev, graph=graph)
+    start = arm_loop.init_arm_loop(init(4), q0=kinova.Q_HOME if phase2 else None, device=dev)
+    return run, start._replace(phase2=torch.full((), phase2, device=dev))
+
+
+def test_drone_episode_graph_flag_on_cpu_runs_eagerly():
+    outs = [run(start) for run, start in (drone_episode("cpu", 4, g) for g in (True, False))]
+    for a, b in zip(outs[0][1], outs[1][1]):
+        assert torch.equal(a, b)
+    assert outs[0][0].solver.step == 4  # the eager loop keeps an int solve index
+
+
+@pytest.mark.parametrize("phase2", [False, True])
+def test_arm_episode_graph_flag_on_cpu_runs_eagerly(phase2):
+    outs = [run(start) for run, start in (arm_episode("cpu", 4, g, phase2) for g in (True, False))]
+    for a, b in zip(outs[0][1], outs[1][1]):
+        assert torch.equal(a, b)
+    assert outs[0][0].solver.step.tolist() == [4 if phase2 else 0]
+
+
+def test_a_number_in_the_carry_is_refused():
+    """A graph freezes a Python number of its carry: ``run_episode`` names
+    the field and refuses it before a capture."""
+    _, start = drone_episode("cpu", 2, True)
+    graphs.require_tensors(start._replace(solver=mppi.device_counters(start.solver, "cpu")),
+                           "the loop state")
+    with pytest.raises(TypeError, match=r"the loop state\.solver\.seed is a int"):
+        graphs.require_tensors(start, "the loop state")
+    with pytest.raises(TypeError, match=r"carry\.1\.yaw is a float"):
+        graphs.require_tensors((start.plant, start.setpoint._replace(yaw=0.0)), "carry")
+
+
 # ---------------------------------------------------------------------------
 # cuda: graphed = eager, bit for bit; counters; a failed capture raises
 # ---------------------------------------------------------------------------
@@ -300,6 +362,70 @@ def test_graphed_fleet_bit_equal_to_eager(case):
     for name, a, b in zip(lg._fields, lg, le):
         assert torch.equal(a, b), name
     assert torch.equal(pk.pack_plant(fg[0]), pk.pack_plant(fe[0]))
+
+
+@pytest.mark.cuda
+def test_graphed_drone_episode_bit_equal_to_eager():
+    dev = _card()
+    (fg, lg), (fe, le) = (run(start) for run, start in
+                          (drone_episode(dev, 30, g, k=1000) for g in (True, False)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(lg, le))
+    assert all(torch.equal(a, b) for a, b in zip(fg.plant, fe.plant))
+    assert torch.equal(fg.solver.u_prev, fe.solver.u_prev) and fg.solver.step.tolist() == [30]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase2", [False, True])
+def test_graphed_arm_episode_bit_equal_to_eager(phase2):
+    dev = _card()
+    (fg, lg), (fe, le) = (run(start) for run, start in
+                          (arm_episode(dev, 20, g, phase2) for g in (True, False)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(lg, le))
+    for name, a, b in zip(fg._fields[:-1], fg[:-1], fe[:-1]):
+        assert torch.equal(a, b), name
+    assert all(torch.equal(a, b) for a, b in zip(fg.solver, fe.solver))
+
+
+# The pick_weight branches: (loop configuration, object and contact).
+PICK = {"payload_serving": (dict(payload_mass=0.5, plant_arm_lump=5.54,
+                                 arm_coeffs_per_control=True, plant_kernel=True), False),
+        "payload_object_contact": (dict(payload_mass=0.5, plant_arm_lump=5.54), True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PICK))
+def test_graphed_pick_episode_bit_equal_to_eager(case):
+    dev = _card()
+    loop, with_object = PICK[case]
+    params = PRESETS["position"]()
+    _, init = wb.make_whole_body_solver(params, device=dev)
+    obs = wb.default_obs(device=dev)
+    plant = wbl.init_plant(params.model.vehicle, device=dev)
+    ee, _ = wbl.chain_mod.forward_kinematics_posquat(params.model.chain(), plant.q,
+                                                     plant.base.pos, plant.base.quat)
+    kw, args = {}, []
+    if with_object:
+        obj_pos = (ee - torch.tensor([0.0, 0.0, 0.025], device=dev)).tolist()
+        kw = dict(graspable=gr.GraspableParams(stand_center_xy=tuple(obj_pos[:2]),
+                                               stand_top_z=obj_pos[2] - 0.04),
+                  contact=ct.ContactParams(world=ct.WorldPrimitives(
+                      spheres=((obj_pos[0], obj_pos[1], obj_pos[2] - 0.08, 0.08),))))
+        args = [gr.init_graspable(kw["graspable"], pos=obj_pos, device=dev)]
+    outs = []
+    for g in (True, False):
+        run = wbl.make_whole_body_episode(params, cfg=wbl.WholeBodyLoopConfig(**loop),
+                                          n_control_steps=12, device=dev, graph=g, **kw)
+        outs.append(run(plant, init(3), obs.ee_target, obs.base_target, *args))
+    torch.cuda.synchronize()
+    (fg, lg), (fe, le) = outs
+    for name, a, b in zip(lg._fields, lg, le):
+        assert torch.equal(a, b), name
+    assert torch.equal(pk.pack_plant(fg[0]), pk.pack_plant(fe[0]))
+    if with_object:
+        assert all(torch.equal(a, b) for a, b in zip(fg[4], fe[4]))
+        assert (lg.obj_pos[-1] - lg.obj_pos[0]).abs().max().item() > 0.0  # the palm pushed
 
 
 @pytest.mark.cuda
