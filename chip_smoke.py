@@ -1,7 +1,8 @@
 """On-card smoke run of the PyTorch/CUDA port: the whole-body solve, the
 whole-body closed loop and its fleet, the scenario-batched and
-sample-sharded solves, the drone MPPI path, the arm node and the
-pick_weight task.
+sample-sharded solves, the drone MPPI path, the arm node, the
+pick_weight task, the multirotor preset and the perfect-model whole-body
+loop, the fixed-wing flyby and mapped flight.
 
     python3 chip_smoke.py
 
@@ -24,7 +25,7 @@ lines; any failure exits non-zero before the final ``ok`` line):
    at B=1 and B=1024, bit-equal reruns and rows equal to their one-row
    launches, its CUDA-event and CUDA-graph timings beside its bound and
    the launch floor (an empty kernel's graph replay), and its registers;
-6. the serving episode: 200 control steps of the position-mode closed loop
+6. the serving episode: 100 control steps of the position-mode closed loop
    at K=4096, H=50 with the plant-tick kernel, one replay of a captured
    control step per step: launches counted per replay, logs and final
    plant bit-equal to the eager loop, no host synchronization in the
@@ -63,7 +64,7 @@ lines; any failure exits non-zero before the final ``ok`` line):
    K=1024 (80 + 80 of rows 9c and 9d); (c) the drone waypoint episode,
    ``make_drone_solver`` at the preset through ``make_episode`` with
    backstepping, 2000 control steps, each a replay of one captured control
-   step: no host synchronization in the replay loop, the first 200 steps'
+   step: no host synchronization in the replay loop, the first 100 steps'
    logs and final state bit-equal to the eager loop, host ms per step and
    device busy share graphed and eager; each with its gate; (d) the batched
    drone preset, ``make_drone_solver(n_scenarios=256)`` at K=1000, H=32 on
@@ -97,13 +98,33 @@ lines; any failure exits non-zero before the final ``ok`` line):
    seeds 0-2 with the gates of ``tests/test_cli.py`` (grasped, hold error
    < 0.05 m, lift error < 0.15 m, tilt < 0.1 rad), ``wb_cost`` and
    ``wb_update`` once per control step, ms per control step of each stage
-   (seed 0: the first run with its capture, and a second, replay-only run);
-   at K=4096 the graspable approach (100 steps) and the payload lift on the
+   (seed 0, each stage's capture included);
+   at K=4096 the graspable approach (50 steps) and the payload lift on the
    serving configuration (200 steps, rows 1, 3 and 8 once per step), each
    graphed bit-equal to eager; ``wb_cost`` and ``wb_update`` at the task's
    solver (K=256 and 4096, the stand obstacle live on some samples) against
    their plain versions; ``plant_tick`` with the payload's frozen
    coefficients against its plain version at B=1 and B=1024;
+18. the multirotor preset (K=1024, H=30, A=4): 20 replays of one captured
+   solve bit-equal to eager; tests/test_multirotor_mppi.py's hover (300
+   steps, max error < 0.5 m) and ``run_multirotor_waypoint`` (500 steps,
+   min < 0.4 m, final < 1.0 m) at the preset; 20 graphed steps bit-equal
+   to eager, ms per control step graphed and eager, no host sync in the
+   replay loop, device ops per step; ``run_whole_body`` (K=4096, H=50,
+   attitude), 80 steps, tests/test_cli.py's gates, rows 1 and 3 launched
+   once per step;
+19. the fixed-wing flyby at K=1024, H=40: ``run_fixed_wing`` 400 steps
+   with tests/test_cli.py's gates (reached, closest < 20 m, altitude > 80
+   m, 10 < mean speed < 25 m/s); 20 graphed steps bit-equal to eager; ms
+   per control step graphed and eager, device ops per step;
+20. mapped flight (lidar, occupancy grid, map-aware MPPI, backstepping):
+   ``run_mapped_flight`` at K=512, 3000 steps, sphere and ESDF mode, with
+   tests/test_cli.py's gates; the first 100 steps graphed bit-equal to
+   eager in both modes (logs, plant, grid, solver state); at K=1024 ms per
+   control step graphed and eager, no host sync in the replay loop, device
+   ops per step and busy share; ``occupied_centers`` on the card against
+   the CPU index for index (more tied voxels than slots); a state saved at
+   step 1500 and resumed, bit-equal to the uninterrupted run for 10 steps;
 then one ``kernels`` JSON line (rows 4-5 at B=256, rows 6-7 at K_local,
 rows 9a-9b at K=1000 and 9c-9d at K=1024: the shapes of the runs that
 count their launches; each ``wb_update`` row with the R it used and its
@@ -121,6 +142,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -129,6 +151,7 @@ from quadrotor_manipulator_mppi_tpu_torch.evaluation.metrics import episode_qual
 from quadrotor_manipulator_mppi_tpu_torch.models import chain as chain_mod
 from quadrotor_manipulator_mppi_tpu_torch.models import kinova
 from quadrotor_manipulator_mppi_tpu_torch.models import multirotor as mr
+from quadrotor_manipulator_mppi_tpu_torch.models.multirotor import Multirotor12State
 from quadrotor_manipulator_mppi_tpu_torch.models import point_mass as pm
 from quadrotor_manipulator_mppi_tpu_torch.models import rigid_body as rb
 from quadrotor_manipulator_mppi_tpu_torch.ops import sampling
@@ -139,14 +162,19 @@ from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import whole_body_kernel as w
 from quadrotor_manipulator_mppi_tpu_torch.parallel import mesh as mesh_mod
 from quadrotor_manipulator_mppi_tpu_torch.parallel import multihost, scaling, sharded
 from quadrotor_manipulator_mppi_tpu_torch.parallel.multihost import tree_map
+from quadrotor_manipulator_mppi_tpu_torch.scenarios import solvers as scenarios
 from quadrotor_manipulator_mppi_tpu_torch.scenarios.solvers import run_arm_reach
 from quadrotor_manipulator_mppi_tpu_torch.scenarios.whole_body import run_pick_weight
 from quadrotor_manipulator_mppi_tpu_torch.sim import arm_loop
 from quadrotor_manipulator_mppi_tpu_torch.sim import closed_loop as cl
 from quadrotor_manipulator_mppi_tpu_torch.sim import flight_control as fc
 from quadrotor_manipulator_mppi_tpu_torch.sim import graspable as gr
+from quadrotor_manipulator_mppi_tpu_torch.sim import mapped_loop
+from quadrotor_manipulator_mppi_tpu_torch.sim import occupancy as occ
 from quadrotor_manipulator_mppi_tpu_torch.sim import whole_body_loop as wbl
 from quadrotor_manipulator_mppi_tpu_torch.solver import arm, drone, mppi, serving
+from quadrotor_manipulator_mppi_tpu_torch.solver import fixed_wing as fws
+from quadrotor_manipulator_mppi_tpu_torch.solver import multirotor_mppi as mm
 from quadrotor_manipulator_mppi_tpu_torch.solver import whole_body as wb
 from quadrotor_manipulator_mppi_tpu_torch.utils import checkpoint, graphs
 from quadrotor_manipulator_mppi_tpu_torch.utils.pose import Pose
@@ -199,7 +227,7 @@ PLANT_OPS_PER_SUBSTEP = 16 + 777 + 161 + 18 + 39 + 6 + 40 + 44 + 20 + 73 + 136 +
     + 58 + 1 + 59
 PLANT_FLOATS_PER_ROW = pk.STATE_SIZE + pk.DYN_SIZE + 4 + 7 + pk.STATE_SIZE  # in + out
 TOL_PLANT = 1e-4     # max |d state| per field: atan2f vs torch.atan2 on one card
-N_EPISODE = 200      # phase 6 control steps
+N_EPISODE = 100      # phase 6 control steps
 N_REACH = 1000       # phase 7 control steps per seed (10 s of flight)
 REACH_SEEDS = (0, 1, 2)
 SERVING_LOOP = dict(arm_coeffs_per_control=True, plant_kernel=True)
@@ -245,19 +273,32 @@ TOL_DRONE_STEP = 2e-4          # |a - b| <= TOL (1 + |b|): tests/test_pallas_ker
 N_DRONE_LOOP = 800             # phase 12a: tests/test_solver_golden.py's loop
 N_DRONE_NOISE_LOOP = 80        # phase 12b: tests/test_pallas_kernel.py's loop
 N_DRONE_EPISODE = 2000         # phase 12c: tests/test_sim.py's waypoint episode
-N_DRONE_CHECKED = 200          # phase 12c: steps held bit-equal against the eager loop
+N_DRONE_CHECKED = 100          # phase 12c: steps held bit-equal against the eager loop
 N_ARM_SOLVES = 50              # phase 16a: graphed arm solves against eager ones
 N_ARM_STEPS = 800              # phase 16b: the arm-reach scenario's preset episode
 ARM_SEEDS = (0, 1, 2)
 N_ARM_EAGER = 20               # phase 16c: eager arm control steps timed
-N_PROFILED = 5                 # phases 6, 12c, 15, 16c: control steps in a profiled window
+N_PROFILED = 2                 # phases 6, 12c, 15, 16c, 18-20: control steps in a profiled window
 N_ARM_CHECKPOINT, N_ARM_RESUMED = 400, 10  # phase 16d
 PICK_SEEDS = (0, 1, 2)         # phase 17a: run_pick_weight at its preset
 PICK_K, N_PICK_STEPS = 256, 700
-PICK_TIMED_SEED = 0            # phase 17a: its stages also timed on a second, replay-only run
+PICK_TIMED_SEED = 0            # phase 17a: the seed whose stages are timed
 N_PICK_WIDE = 100              # phase 17b: the graspable approach at K=4096
 N_PICK_LIFT = 200              # phase 17b: the payload lift at K=4096, serving loop
 B_DRONE = 256                  # phase 12d: the batched drone preset's scenarios
+N_MR_SOLVES = 20               # phase 18a: graphed multirotor solves against eager ones
+N_MR_HOVER, N_MR_WAYPOINT = 300, 500  # phase 18b: tests/test_multirotor_mppi.py's loops
+MR_WAYPOINT = scenarios.MR_TARGET
+N_WB_PERFECT = 80              # phase 18d: tests/test_cli.py's whole-body scenario
+N_SCENARIO_EAGER = 20          # phases 18-20: eager control steps timed
+N_SCENARIO_CHECKED = 20        # phases 18c, 19b: graphed steps held bit-equal to eager
+N_FW_STEPS = 400               # phase 19a: tests/test_cli.py's fixed-wing flyby, K=1024
+N_FW_TIMED = 100               # phase 19c: graphed control steps timed
+MAPPED_K, N_MAPPED_STEPS = 512, 3000  # phase 20a: tests/test_cli.py's mapped flight
+N_MAPPED_CHECKED = 100         # phase 20b: graphed steps held bit-equal to eager
+MAPPED_SERVING_K = 1024        # phase 20c: the serving shape (run.py's default K)
+N_MAPPED_TIMED = 100           # phase 20c: graphed control steps timed
+N_MAPPED_SAVE, N_MAPPED_RESUMED = 1500, 10  # phase 20e
 N_DRONE_BATCH_STEPS = 3
 # The instantiation each drone wrapper launches, as the profiler names it.
 DRONE_KEYS = {"drone_cost": "drone_cost_kernel<true>", "drone_update": "drone_update_kernel<true>",
@@ -817,7 +858,7 @@ def timed_episode(run, args, n_steps) -> tuple:
 
 
 def phase_episode(dev):
-    """200 control steps of the serving episode replaying one captured
+    """100 control steps of the serving episode replaying one captured
     control step per step, against the eager loop (``graph=False``) from
     the same start: logs and final plant bit-equal, launches counted per
     replay, no host synchronization in the replay loop, host ms per step
@@ -1910,7 +1951,7 @@ def phase_drone_loops(dev):
     steps at the preset; (b) the explicit-noise loop, 80 steps at K=1024;
     (c) the drone waypoint episode: the preset through make_episode with
     backstepping, 2000 control steps, each a replay of one captured control
-    step, its first 200 steps against the eager loop (bit-equal).  Each
+    step, its first 100 steps against the eager loop (bit-equal).  Each
     with its gate, launch counts, host ms per step; (a) and (c) with a
     host-sync check; (c) with the device busy share graphed and eager."""
     target = torch.tensor(drone.DEFAULT_TARGET, device=dev)
@@ -2250,15 +2291,14 @@ def phase_pick(dev, errs) -> dict:
         r = results[seed]
         print(f"[17a] pick_weight seed {seed} (K={PICK_K}, H={H}, {N_PICK_STEPS} steps): "
               + ", ".join(f"{k} {v}" for k, v in r.items())
-              + (" | ms/control step, first run (capture included) / second run (replays "
-                 "only): " + ", ".join(f"{k} {stages[k]:.3f} / {stages[k + '_replay']:.3f}"
-                                       for k in PICK_STAGES)
+              + (" | ms/control step (each stage's capture included): "
+                 + ", ".join(f"{k} {stages[k]:.3f}" for k in PICK_STAGES)
                  if timed else f" | {wall_ms / N_PICK_STEPS:.3f} ms/control step over the "
                  "scenario (3 captures included)")
               + f" | launches {launches}", flush=True)
         # Three episodes (approach, descent, lift), each capture making two
-        # warm-up calls before its replays; a timed seed runs each twice.
-        want = N_PICK_STEPS * (2 if timed else 1) + 3 * 2
+        # warm-up calls before its replays.
+        want = N_PICK_STEPS + 3 * 2
         if launches != {"wb_cost": want, "wb_update": want}:
             fail(f"pick_weight seed {seed} did not run wb_cost and wb_update once per control "
                  f"step ({want - 6} steps + 6 warm-up calls)")
@@ -2356,6 +2396,262 @@ def phase_pick(dev, errs) -> dict:
     return out
 
 
+def trees_equal(a, b) -> bool:
+    """Every tensor of two pytrees bit-equal."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return all(trees_equal(x, y) for x, y in zip(a, b))
+
+
+def graphed_solves(tag: str, step, state, obs, n: int, dev) -> None:
+    """``n`` replays of one captured solve of ``step`` against ``n`` eager
+    solves from the same state: outputs and warm start bit-equal."""
+    def solve_in_place(state, obs):
+        out, new = step(state, obs)
+        graphs.copy_into(state, new)
+        return out
+
+    g = graphs.graphed(solve_in_place, dev)(mppi.device_counters(state, dev), obs)
+    eager, equal = state, True
+    for _ in range(n):
+        out_g = g.replay()
+        out_e, eager = step(eager, obs)
+        equal = equal and trees_equal(out_g, out_e)
+    equal = equal and torch.equal(g.args[0].u_prev, eager.u_prev)
+    print(f"{tag} {n} replays of one captured solve: outputs and warm start bit-equal to the "
+          f"eager solves {equal} | solve index {g.args[0].step.tolist()}", flush=True)
+    if not equal:
+        fail(f"{tag}: the graphed solve is not bit-equal to the eager solve")
+
+
+def graphed_equals_eager(tag: str, build, n: int, seed: int = 0) -> tuple:
+    """An episode of ``n`` steps graphed and eager (``build(n, graph) ->
+    (run, start)``): logs and every field of the final carry bit-equal.
+    Returns the graphed (final carry, logs) and the eager run's host ms per
+    control step (the graphed run first: the eager one finds every cache
+    warm)."""
+    outs = []
+    for graph in (True, False):
+        run, start = build(n, graph)
+        out, eager_ms = timed_episode(run, (start(seed),), n)
+        outs.append(out)
+    (fg, lg), (fe, le) = outs
+    equal, finite = trees_equal((fg, lg), (fe, le)), all(bool(torch.isfinite(x).all()) for x in lg)
+    print(f"{tag} {n} control steps graphed against eager: logs and final state bit-equal "
+          f"{equal} | finite logs {finite} | {eager_ms:.3f} ms/control step eager", flush=True)
+    if not (equal and finite):
+        fail(f"{tag}: the graphed episode is not bit-equal to the eager loop")
+    return outs[0], eager_ms
+
+
+def scenario_times(tag: str, build, n_graphed: int, eager_ms=None, seed: int = 0) -> dict:
+    """Host ms per control step of a scenario episode (``build(n, graph) ->
+    (run, start)``): graphed over ``n_graphed`` replays (capture excluded)
+    with the host-sync check on the replay loop; eager over
+    ``N_SCENARIO_EAGER`` steps unless ``eager_ms`` is given; and a profile
+    of a graphed ``N_PROFILED``-step window (device ops per step, busy
+    share; the eager step launches the same ops)."""
+    run, start = build(n_graphed, True)
+    run(start(1))  # capture, then a first run
+    _, ms_g = synced_run(tag, f"the replay loop of {n_graphed} control steps", run,
+                         (start(seed),), n_graphed)
+    if eager_ms is None:
+        warm, _ = build(2, False)
+        warm(start(1))
+        run_e, _ = build(N_SCENARIO_EAGER, False)
+        _, eager_ms = timed_episode(run_e, (start(seed),), N_SCENARIO_EAGER)
+    window, _ = build(N_PROFILED, True)
+    s3 = start(3)
+    window(s3)  # capture
+    busy = profile_solves(f"{tag} graphed", lambda: window(s3), 1, ms_g * N_PROFILED,
+                          unit=f"{N_PROFILED} control steps")
+    out = {"graphed_ms": ms_g, "eager_ms": eager_ms,
+           "graphed_ops": None if busy is None else busy[2] / N_PROFILED,
+           "graphed_busy": None if busy is None else busy[3]}
+    print(f"{tag} control step: {ms_g:.3f} ms graphed ({n_graphed} steps), {eager_ms:.3f} ms "
+          f"eager | device ops/step {fmt_ops(out['graphed_ops'])}", flush=True)
+    return out
+
+
+def fmt_ops(v) -> str:
+    return "not measured" if v is None else f"{v:.0f}"
+
+
+def phase_multirotor(dev) -> dict:
+    """The multirotor preset (K=1024, H=30, A=4) and the perfect-model
+    loops: (a) 20 replays of one captured solve bit-equal to the eager
+    solves; (b) tests/test_multirotor_mppi.py's loops at the preset, seed
+    0: hover 300 steps (max error < 0.5 m), ``run_multirotor_waypoint``
+    500 steps (min < 0.4 m, final < 1.0 m); (c) 20 graphed steps bit-equal
+    to eager, ms per control step graphed and eager, no host sync in the
+    replay loop, device ops per step; (d) ``run_whole_body`` (K=4096, H=50,
+    attitude mode, rows 1 and 3) 80 steps with tests/test_cli.py's gates,
+    each kernel launched once per step."""
+    params = mm.MultirotorMPPIParams()
+    step, init = mm.make_multirotor_solver(params, device=dev)
+    state = tilted_multirotor(dev)
+    graphed_solves(f"[18a] multirotor solves (K={params.mppi.n_samples}, "
+                   f"H={params.mppi.n_horizon}, A=4),", step, init(5),
+                   mm.MultirotorObs(state=state, target=torch.tensor(MR_WAYPOINT, device=dev)),
+                   N_MR_SOLVES, dev)
+
+    def build(target):
+        return lambda n, graph: scenarios.multirotor_episode(params, target, n, dev, graph)
+
+    run, start = build((0.0, 0.0, 2.0))(N_MR_HOVER, True)
+    _, (hover,) = run(start(0))
+    way = scenarios.run_multirotor_waypoint(0, N_MR_WAYPOINT, dev)
+    print(f"[18b] multirotor hover, {N_MR_HOVER} steps: max err {hover.max().item():.4f} m "
+          f"(gate 0.5), finite {bool(torch.isfinite(hover).all())} | run_multirotor_waypoint, "
+          f"{N_MR_WAYPOINT} steps: min {way['min_err_m']:.4f} m (gate 0.4), final "
+          f"{way['final_err_m']:.4f} m (gate 1.0)", flush=True)
+    if not (bool(torch.isfinite(hover).all()) and hover.max().item() < 0.5
+            and way["min_err_m"] < 0.4 and way["final_err_m"] < 1.0):
+        fail("the multirotor preset missed tests/test_multirotor_mppi.py's gates")
+    _, eager_ms = graphed_equals_eager("[18c] multirotor waypoint loop,", build(MR_WAYPOINT),
+                                       N_SCENARIO_CHECKED)
+    out = scenario_times("[18c] multirotor", build(MR_WAYPOINT), N_MR_WAYPOINT, eager_ms)
+
+    reset_counts()
+    pk.plant_tick.launches = 0
+    t0 = time.perf_counter()
+    wbr = scenarios.run_whole_body(0, N_WB_PERFECT, dev)
+    wall = (time.perf_counter() - t0) * 1e3 / N_WB_PERFECT
+    out["whole_body_launches"] = count_episode_launches()
+    out["whole_body_ms"] = wall
+    print(f"[18d] run_whole_body (K={K}, H={H}, attitude mode), {N_WB_PERFECT} steps: "
+          + ", ".join(f"{k} {v}" for k, v in wbr.items())
+          + f" | {wall:.3f} ms/control step (capture included) | launches "
+          f"{out['whole_body_launches']}", flush=True)
+    # One capture: two warm-up calls, then one launch of each kernel per replay.
+    want = {"wb_cost": N_WB_PERFECT + 2, "wb_update": N_WB_PERFECT + 2, "plant_tick": 0}
+    if out["whole_body_launches"] != want:
+        fail(f"run_whole_body did not launch rows 1 and 3 once per control step ({want})")
+    if not (wbr["min_ee_err_m"] < 0.75 * wbr["initial_ee_err_m"]
+            and abs(wbr["base_alt_final_m"] - 2.1) < 0.8):
+        fail("run_whole_body missed tests/test_cli.py's gates (min EE error < 0.75 x initial, "
+             "|final altitude - 2.1| < 0.8)")
+    out.update(hover_max=hover.max().item(), waypoint=way, whole_body=wbr)
+    return out
+
+
+def tilted_multirotor(dev) -> Multirotor12State:
+    """A tilted, moving multirotor state for the solve checks."""
+    return Multirotor12State(pos=torch.tensor([0.3, -0.2, 2.1], device=dev),
+                             rpy=torch.tensor([0.05, -0.03, 0.2], device=dev),
+                             vel=torch.tensor([0.2, 0.1, -0.05], device=dev),
+                             omega=torch.tensor([0.1, -0.05, 0.02], device=dev))
+
+
+def phase_fixed_wing(dev) -> dict:
+    """The fixed-wing flyby at K=1024 (run.py's default), H=40: (a)
+    ``run_fixed_wing`` 400 steps, seed 0, with tests/test_cli.py's gates;
+    (b) 20 graphed steps bit-equal to eager; (c) ms per control step
+    graphed and eager, no host sync in the replay loop, device ops per
+    step (a solve's 40-step rollout is a Python loop captured whole)."""
+    t0 = time.perf_counter()
+    r = scenarios.run_fixed_wing(0, N_FW_STEPS, dev)
+    wall = (time.perf_counter() - t0) * 1e3 / N_FW_STEPS
+    print(f"[19a] run_fixed_wing (K=1024, H=40), {N_FW_STEPS} steps: "
+          + ", ".join(f"{k} {v}" for k, v in r.items())
+          + f" | {wall:.3f} ms/control step (capture included) | JAX package, CPU, K=192: the "
+          "gates of tests/test_cli.py", flush=True)
+    if not (r["reached"] and r["closest_approach_m"] < 20.0 and r["min_altitude_m"] > 80.0
+            and 10.0 < r["mean_speed_ms"] < 25.0):
+        fail("the fixed-wing flyby missed tests/test_cli.py's gates (reached, closest < 20 m, "
+             "min altitude > 80 m, 10 < mean speed < 25 m/s)")
+    params = fws.FwMPPIParams()
+
+    def build(n, graph):
+        return scenarios.fixed_wing_episode(params, n, dev, graph)
+
+    _, eager_ms = graphed_equals_eager("[19b] fixed-wing flyby,", build, N_SCENARIO_CHECKED)
+    out = scenario_times("[19c] fixed-wing", build, N_FW_TIMED, eager_ms)
+    out.update(result=r, wall_ms=wall)
+    return out
+
+
+def phase_mapped(dev) -> dict:
+    """Mapped flight (lidar -> occupancy grid -> map-aware MPPI ->
+    backstepping): (a) ``run_mapped_flight`` at K=512, 3000 steps, seed 0,
+    sphere and ESDF mode, with tests/test_cli.py's gates; (b) the first 100
+    steps graphed bit-equal to eager in both modes (logs, plant, grid,
+    solver state, noise counters); (c) at the serving shape K=1024: ms per
+    control step graphed and eager, no host sync in the replay loop, device
+    ops per step and busy share; (d) ``occupied_centers`` on the card
+    against the CPU, index for index, on a grid with more tied voxels than
+    slots and on a flown grid; (e) a state saved at step 1500 and resumed:
+    the next 10 steps bit-equal to the uninterrupted run's."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = {}
+        for mode in ("spheres", "esdf"):
+            path = os.path.join(tmp, f"{mode}.npz")
+            t0 = time.perf_counter()
+            r = scenarios.run_mapped_flight(0, N_MAPPED_STEPS, dev, MAPPED_K, mode,
+                                            save_log=path)
+            wall = (time.perf_counter() - t0) * 1e3 / N_MAPPED_STEPS
+            with np.load(path) as d:
+                logs[mode] = {k: d[k] for k in d.files}
+            print(f"[20a] run_mapped_flight ({mode}, K={MAPPED_K}), {N_MAPPED_STEPS} steps: "
+                  + ", ".join(f"{k} {v}" for k, v in r.items())
+                  + f" | {wall:.3f} ms/control step (capture included)", flush=True)
+            ok = r["reached"] and not r["collided"] and r["min_clearance_m"] > 0.1
+            if mode == "spheres":
+                ok = ok and r["final_dist_m"] < 0.6 and r["mapped_occupied_voxels"] > 20
+            if not ok:
+                fail(f"mapped flight ({mode}) missed tests/test_cli.py's gates")
+            out[mode] = dict(r, wall_ms=wall)
+
+        flown = None
+        for mode in ("spheres", "esdf"):
+            (final, _), _ = graphed_equals_eager(
+                f"[20b] mapped flight ({mode}, K={MAPPED_K}),",
+                lambda n, graph: scenarios.mapped_flight_episode(n, dev, MAPPED_K, mode, graph),
+                N_MAPPED_CHECKED)
+            flown = flown if flown is not None else final.grid
+
+        for mode in ("spheres", "esdf"):
+            out[f"serving_{mode}"] = scenario_times(
+                f"[20c] mapped flight ({mode}, K={MAPPED_SERVING_K})",
+                lambda n, graph: scenarios.mapped_flight_episode(n, dev, MAPPED_SERVING_K, mode,
+                                                                 graph),
+                N_MAPPED_TIMED)
+
+        p = mapped_loop.MappedFlightConfig().grid
+        gen = torch.Generator(device=dev).manual_seed(5)
+        pick = torch.randint(0, 3, tuple(p.shape), generator=gen, device=dev)
+        lo = torch.tensor([0.0, occ.LOG_ODDS_MISS, occ.LOG_ODDS_MIN], device=dev)[pick]
+        flat = lo.view(-1)
+        flat[torch.randperm(flat.numel(), generator=gen, device=dev)[:100]] = occ.LOG_ODDS_MAX
+        tied = int((flat == occ.LOG_ODDS_MAX).sum())
+        same = True
+        for grid in (occ.OccupancyGrid(lo), flown):
+            c, r = occ.occupied_centers(p, grid)
+            cc, rc = occ.occupied_centers(p, occ.OccupancyGrid(grid.log_odds.cpu()))
+            same = same and torch.equal(c.cpu(), cc) and torch.equal(r.cpu(), rc)
+        print(f"[20d] occupied_centers on the card against the CPU, index for index: {same} "
+              f"({tied} voxels tied at the clamp for 64 slots; the grid flown in [20b])",
+              flush=True)
+        if not same:
+            fail("occupied_centers on the card differs from the CPU")
+
+        ck, log = os.path.join(tmp, "mapped_ck.npz"), os.path.join(tmp, "resumed.npz")
+        scenarios.run_mapped_flight(0, N_MAPPED_SAVE, dev, MAPPED_K, "spheres", save_state=ck)
+        scenarios.run_mapped_flight(0, N_MAPPED_RESUMED, dev, MAPPED_K, "spheres", resume=ck,
+                                    save_log=log)
+        end = N_MAPPED_SAVE + N_MAPPED_RESUMED
+        with np.load(log) as d:
+            resumed = all((d[k] == logs["spheres"][k][N_MAPPED_SAVE:end]).all()
+                          for k in ("pos", "clearance"))
+        print(f"[20e] mapped flight saved at step {N_MAPPED_SAVE} and resumed: the next "
+              f"{N_MAPPED_RESUMED} steps (pos, clearance) bit-equal to the uninterrupted run "
+              f"{resumed}", flush=True)
+        if not resumed:
+            fail("the resumed mapped flight is not bit-equal to the uninterrupted run")
+    return out
+
+
 def reach_sweep(mode: str, seeds) -> None:
     """``--reach MODE --seeds ...``: phase 7 alone, for one mode on any
     seeds; prints one JSON line of the per-seed metrics and exits non-zero
@@ -2411,6 +2707,9 @@ def main() -> None:
     fleet = lap("15", phase_fleet, dev)
     arm_node = lap("16", phase_arm, dev)
     pick = lap("17", phase_pick, dev, errs)
+    multirotor = lap("18", phase_multirotor, dev)
+    fixed_wing = lap("19", phase_fixed_wing, dev)
+    mapped = lap("20", phase_mapped, dev)
     print("[t] wall s per phase: " + ", ".join(f"{n} {w:.1f}" for n, w in walls)
           + f" | total {sum(w for _, w in walls):.1f}", flush=True)
     b256 = {(b, spill): e_ms for b, spill, _, e_ms, _, _, _ in batch_rows}
@@ -2476,7 +2775,9 @@ def main() -> None:
          "noise_bound_ms": bounds["wb_cost_noise"][0],
          "noise_bound_by": bounds["wb_cost_noise"][1],
          "episode_launches": episode_launches["wb_cost"],
-         "pick_lift_launches": pick["lift_launches"]["wb_cost"], "b256_ms": t_b256["wb_cost"],
+         "pick_lift_launches": pick["lift_launches"]["wb_cost"],
+         "whole_body_launches": multirotor["whole_body_launches"]["wb_cost"],
+         "b256_ms": t_b256["wb_cost"],
          "layout": COST_LAYOUT, "noise_layout": COST_LAYOUT,
          "graph_ms": t["wb_cost_graph"], "device_ms": t["wb_cost_device"],
          "noise_graph_ms": t["wb_cost_noise_graph"], "noise_device_ms": t["wb_cost_noise_device"],
@@ -2488,6 +2789,7 @@ def main() -> None:
          "bound_ms": bounds["wb_update"][0], "bound_by": bounds["wb_update"][1],
          "library_ms": t["library_mv"], "episode_launches": episode_launches["wb_update"],
          "pick_lift_launches": pick["lift_launches"]["wb_update"],
+         "whole_body_launches": multirotor["whole_body_launches"]["wb_update"],
          **vs_library(t_k4096["wb_update"], t_k4096["library_mv"]), **rows_of("3", 1),
          "b256_ms": t_b256["wb_update"], "b256_bound_ms": b256_bounds["wb_update"][0],
          **vs_library(at_b256("wb_update"), at_b256("library_bmm"), "b256_"),
@@ -2566,12 +2868,21 @@ def main() -> None:
           f"{drone_batch_ms:.3f} ms, arm control step {arm_node['graphed_ms']:.3f} ms graphed "
           f"({arm_node['eager_ms']:.3f} eager; busy share {share(arm_node['busy']['graphed'])} / "
           f"{share(arm_node['busy']['eager'])}), pick_weight K={PICK_K} ms/control step "
-          "(seed 0, first run / replays) "
-          + ", ".join(f"{k} {pick['stages'][k]:.3f} / {pick['stages'][k + '_replay']:.3f}"
-                      for k in PICK_STAGES)
+          "(seed 0, captures included) "
+          + ", ".join(f"{k} {pick['stages'][k]:.3f}" for k in PICK_STAGES)
           + f", K={K} approach {pick['approach_ms']:.3f} / lift (serving) {pick['lift_ms']:.3f} "
           f"ms/control step graphed ({pick['approach_eager_ms']:.3f} / "
-          f"{pick['lift_eager_ms']:.3f} eager) on {smi}")
+          f"{pick['lift_eager_ms']:.3f} eager), multirotor {multirotor['graphed_ms']:.3f} "
+          f"ms/control step graphed ({multirotor['eager_ms']:.3f} eager; {fmt_ops(multirotor['graphed_ops'])} "
+          f"device ops/step), whole-body perfect-model {multirotor['whole_body_ms']:.3f} "
+          f"(capture included), fixed-wing {fixed_wing['graphed_ms']:.3f} graphed "
+          f"({fixed_wing['eager_ms']:.3f} eager; {fmt_ops(fixed_wing['graphed_ops'])} ops/step), "
+          f"mapped flight K={MAPPED_SERVING_K} "
+          + ", ".join(f"{m} {mapped['serving_' + m]['graphed_ms']:.3f} graphed "
+                      f"({mapped['serving_' + m]['eager_ms']:.3f} eager; "
+                      f"{fmt_ops(mapped['serving_' + m]['graphed_ops'])} ops/step)"
+                      for m in ("spheres", "esdf"))
+          + f" on {smi}")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -8,11 +8,16 @@ package's vmapped states (:func:`batched_state_from_numpy`).
 package's ``config.to_dict`` writes — ``{"__dataclass__": name, ...}``
 nodes, ``{"__ndarray__": list, "dtype": str}`` arrays and
 ``{"__schedule__": {"kind": "ee_error", ...}}`` sigma schedules — and
-rebuilds it from this package's dataclasses (the whole-body, drone and arm
-solvers, the loops, the graspable object and the contact layer).
+rebuilds it from this package's dataclasses (the whole-body, drone, arm,
+multirotor, fixed-wing and mapped solvers, the loops, the graspable object,
+the contact layer, the lidar and the occupancy grid).  A mapped solver's
+exploration schedule is a bare callable, which the JAX ``to_dict`` refuses:
+its tree crosses with ``sigma_scale_fn=None``, and the caller puts the
+port's schedule back (``solver.mapped.distance_to_go_scale``).
 :func:`plant_from_numpy` reads the JAX plant-kernel state vector
 (``pack_plant``); :func:`graspable_state_from_numpy` and
-:func:`arm_loop_state_from_numpy` the object's and the arm node's states.
+:func:`arm_loop_state_from_numpy` the object's and the arm node's states;
+:func:`grid_from_numpy` an occupancy grid's log-odds.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from .models.fixed_wing import FwAeroParams, FwVehicleParams
 from .models.multirotor import MultirotorParams
 from .models.whole_body import WholeBodyParams
 from .ops.costs import ArmCostParams
@@ -31,10 +37,16 @@ from .sim.closed_loop import LoopConfig
 from .sim.contact import ContactParams, WorldPrimitives
 from .sim.flight_control import FlightGains
 from .sim.graspable import GraspableParams, GraspableState
+from .sim.mapped_loop import MappedFlightConfig
+from .sim.occupancy import OccupancyGrid, OccupancyParams
+from .sim.sensors import LidarParams
 from .sim.whole_body_loop import WholeBodyLoopConfig, WholeBodyPlant
 from .solver.arm import ArmMPPIParams
 from .solver.drone import DroneMPPIParams
+from .solver.fixed_wing import FwMPPIParams
+from .solver.mapped import MappedMPPIParams
 from .solver.mppi import MPPIConfig, MPPIState
+from .solver.multirotor_mppi import MultirotorCostParams, MultirotorMPPIParams
 from .solver.whole_body import (
     WholeBodyCostParams, WholeBodyMPPIParams, ee_error_sigma_schedule,
 )
@@ -44,6 +56,8 @@ _REGISTRY = {cls.__name__: cls for cls in (
     MPPIConfig, MultirotorParams, WholeBodyParams, WholeBodyCostParams,
     WholeBodyMPPIParams, FlightGains, WholeBodyLoopConfig, DroneMPPIParams, LoopConfig,
     ArmCostParams, ArmMPPIParams, ArmLoopConfig, GraspableParams, ContactParams, WorldPrimitives,
+    MultirotorCostParams, MultirotorMPPIParams, FwAeroParams, FwVehicleParams, FwMPPIParams,
+    LidarParams, OccupancyParams, MappedMPPIParams, MappedFlightConfig,
 )}
 _SCHEDULES = {"ee_error": ee_error_sigma_schedule}
 
@@ -79,8 +93,9 @@ def _from_dict(data: Any) -> Any:
 def config_from_dict(d: dict) -> Any:
     """Any configuration tree of the registered dataclasses (solver
     parameters, ``FlightGains``, ``WholeBodyLoopConfig``, ``LoopConfig``,
-    ``ArmLoopConfig``, ``GraspableParams``, ``ContactParams``) from its JAX
-    ``config.to_dict`` form."""
+    ``ArmLoopConfig``, ``GraspableParams``, ``ContactParams``, the
+    fixed-wing airframe, ``LidarParams``, ``OccupancyParams``,
+    ``MappedFlightConfig``) from its JAX ``config.to_dict`` form."""
     return _from_dict(d)
 
 
@@ -173,3 +188,12 @@ def arm_loop_state_from_numpy(q, qdot, t, phase2, hold_count, q_start, t_start,
                         hold_count=torch.tensor(np.asarray(hold_count, dtype=np.int32),
                                                 device=dev),
                         q_start=f32(q_start), t_start=f32(t_start), solver=solver)
+
+
+def grid_from_numpy(log_odds, device="cuda") -> OccupancyGrid:
+    """An ``OccupancyGrid`` from a host (nx, ny, nz) log-odds array, e.g.
+    the JAX grid's leaf."""
+    lo = np.asarray(log_odds, dtype=np.float32)
+    if lo.ndim != 3:
+        raise ValueError(f"expected (nx, ny, nz) log-odds, got {lo.shape}")
+    return OccupancyGrid(log_odds=torch.tensor(lo, device=resolve_device(device)))

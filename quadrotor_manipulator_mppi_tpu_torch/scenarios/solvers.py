@@ -1,15 +1,53 @@
-"""Single-solver scenarios of the port: the reference's arm node.
+"""Single-solver scenarios of the port: the reference's arm node, the
+perfect-model whole-body and multirotor loops, the fixed-wing flyby and
+mapped flight.
 
-Port of ``run_arm_reach`` of the JAX package's ``scenarios/solvers.py``,
-as a function that returns the scenario's metrics (the command line and
-its output files are not ported).
+Port of the JAX package's ``scenarios/solvers.py``, each scenario a
+function that returns the JAX scenario's metrics (the command line and its
+output files are not ported, apart from mapped flight's checkpoint and log
+files).  Each builds its episode with an ``*_episode`` function, ``(run,
+start)``: ``run(start(seed))`` is one episode, on the card one captured
+control step replayed per step (``graph=False`` runs it eagerly).
 """
 
 from __future__ import annotations
 
-from ..sim import arm_loop
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..models import chain as chain_mod
+from ..models import fixed_wing as fw
+from ..models import whole_body as wbm
+from ..models.multirotor import Multirotor12State
+from ..models.whole_body import WholeBodyState
+from ..sim import arm_loop, mapped_loop
 from ..solver import arm as arm_solver
+from ..solver import fixed_wing as fw_solver
+from ..solver import mapped as mapped_solver
+from ..solver import multirotor_mppi as mm
+from ..solver import whole_body as wbs
+from ..solver.mppi import device_counters
+from ..utils import checkpoint, graphs
+from ..utils import rotations as rot
 from ..utils.device import resolve_device
+from .common import perfect_model_episode
+
+
+def _with_samples(params, n_samples: Optional[int]):
+    if n_samples is None:
+        return params
+    return dataclasses.replace(params, mppi=dataclasses.replace(params.mppi,
+                                                                n_samples=n_samples))
+
+
+def _base12(base: wbm.BaseTraj) -> Multirotor12State:
+    """A (1, 1) rollout BaseTraj -> the reduced state it ends in."""
+    ang = rot.matrix_to_euler(rot.quat_to_matrix(base.quat[0, 0]), "ZYX")
+    return Multirotor12State(pos=base.pos[0, 0], rpy=torch.stack([ang[2], ang[1], ang[0]]),
+                             vel=base.vel[0, 0], omega=base.omega[0, 0])
 
 
 def run_arm_reach(seed: int = 0, steps: int = 800, device="cuda") -> dict:
@@ -26,3 +64,197 @@ def run_arm_reach(seed: int = 0, steps: int = 800, device="cuda") -> dict:
     return {"phase2": bool(final.phase2),
             "min_ee_err_m": round(float(err.min()), 4),
             "final_ee_err_m": round(float(err[-1]), 4)}
+
+
+def whole_body_episode(params: wbs.WholeBodyMPPIParams, n_steps: int, device="cuda",
+                       graph: bool = True):
+    """The perfect-model whole-body loop: ``make_whole_body_solver`` (the
+    CUDA kernels on the card, their plain versions on the CPU) on the hover
+    + reach task of ``default_obs``, the plant one step of the solver's own
+    rollout model (attitude-mode actions are setpoints).  ``(run, start)``;
+    the logs are the EE error and the base position after each step."""
+    dev = resolve_device(device)
+    step, init = wbs.make_whole_body_solver(params, device=dev)
+    obs0 = wbs.default_obs(device=dev)
+    spec = params.model.chain()
+
+    def plant_step(state: WholeBodyState, action):
+        _, q, qdot, base = wbm.rollout(params.model, state, action[None, None, :], 0.01)
+        return WholeBodyState(base=_base12(base), q=q[0, 0], qdot=qdot[0, 0])
+
+    def log_of(state: WholeBodyState):
+        ee_pos, _ = chain_mod.forward_kinematics_posquat(
+            spec, state.q, base_pos=state.base.pos,
+            base_quat=wbm._quat_from_rpy(state.base.rpy))
+        return torch.linalg.norm(ee_pos - obs0.ee_target.position), state.base.pos
+
+    run = perfect_model_episode(
+        step, lambda st: wbs.WholeBodyObs(state=st, ee_target=obs0.ee_target,
+                                          base_target=obs0.base_target),
+        plant_step, log_of, n_steps, dev, graph, "loop.whole_body")
+    return run, lambda seed: (obs0.state, init(seed))
+
+
+def run_whole_body(seed: int = 0, steps: int = 300, device="cuda",
+                   n_samples: Optional[int] = None) -> dict:
+    """The whole-body perfect-model loop at its preset (K=4096, H=50,
+    attitude mode; ``n_samples`` overrides K).  Returns the JAX scenario's
+    metrics: the EE error after the first step, its least and last value,
+    and the base's final altitude."""
+    dev = resolve_device(device)
+    run, start = whole_body_episode(_with_samples(wbs.WholeBodyMPPIParams(), n_samples),
+                                    steps, dev)
+    _, (errs, base_pos) = run(start(seed))
+    errs, base_pos = errs.cpu(), base_pos.cpu()
+    return {"initial_ee_err_m": round(float(errs[0]), 4),
+            "min_ee_err_m": round(float(errs.min()), 4),
+            "final_ee_err_m": round(float(errs[-1]), 4),
+            "base_alt_final_m": round(float(base_pos[-1, 2]), 3)}
+
+
+def multirotor_episode(params: mm.MultirotorMPPIParams, target, n_steps: int, device="cuda",
+                       graph: bool = True):
+    """The perfect-model multirotor loop from rest at (0, 0, 2) toward
+    ``target``; the plant is one step of the attitude rollout.  ``(run,
+    start)``; the log is the distance to the target after each step."""
+    dev = resolve_device(device)
+    step, init = mm.make_multirotor_solver(params, device=dev)
+    tgt = torch.tensor(target, dtype=torch.float32, device=dev)
+
+    def plant_step(state: Multirotor12State, action):
+        return _base12(wbm._base_rollout_attitude(
+            params.model, WholeBodyState(base=state, q=None, qdot=None),
+            action[None, None, :], 0.01))
+
+    run = perfect_model_episode(
+        step, lambda st: mm.MultirotorObs(state=st, target=tgt), plant_step,
+        lambda st: (torch.linalg.norm(st.pos - tgt),), n_steps, dev, graph, "loop.multirotor")
+
+    def start(seed):
+        zero = torch.zeros(3, device=dev)
+        state = Multirotor12State(pos=torch.tensor([0.0, 0.0, 2.0], device=dev), rpy=zero,
+                                  vel=zero, omega=zero)
+        return state, init(seed)
+
+    return run, start
+
+
+MR_TARGET = (1.0, 2.0, 3.4)
+
+
+def run_multirotor_waypoint(seed: int = 0, steps: int = 500, device="cuda",
+                            n_samples: Optional[int] = None) -> dict:
+    """Quadrotor-only MPPI (12-state rigid-body rollouts, K=1024, H=30) to
+    the waypoint ``MR_TARGET``.  Returns the JAX scenario's metrics: the
+    least and last distance to it."""
+    dev = resolve_device(device)
+    run, start = multirotor_episode(_with_samples(mm.MultirotorMPPIParams(), n_samples),
+                                    MR_TARGET, steps, dev)
+    _, (errs,) = run(start(seed))
+    errs = errs.cpu()
+    return {"min_err_m": round(float(errs.min()), 4),
+            "final_err_m": round(float(errs[-1]), 4)}
+
+
+FW_TARGET = (250.0, 60.0, 110.0)
+FW_CRUISE = 15.0
+
+
+def fixed_wing_episode(params: fw_solver.FwMPPIParams, n_steps: int, device="cuda",
+                       graph: bool = True):
+    """The fixed-wing flyby: one solve per 0.05 s, the plant integrating
+    5 x 0.01 s substeps holding the commanded surfaces, from level flight at
+    100 m and 15 m/s toward a waypoint ahead and off-axis.  ``(run,
+    start)``; the logs are the position and the speed after each step."""
+    dev = resolve_device(device)
+    step, init = fw_solver.make_fixed_wing_solver(params, device=dev)
+    target = torch.tensor(FW_TARGET, device=dev)
+    cruise = torch.tensor(FW_CRUISE, device=dev)
+
+    def control_step(carry, z):
+        plant, sol = carry
+        out, sol = step(sol, fw_solver.FwObs(state=plant, target=target, cruise_speed=cruise), z)
+        for _ in range(5):
+            plant = fw.step(params.aero, params.veh, plant, out.controls, 0.01)
+        return (plant, sol), (plant.pos, torch.linalg.norm(plant.vel))
+
+    run = graphs.episode_runner(control_step, lambda c: (c[0].pos, c[0].pos[0]), n_steps, dev,
+                                graph, "loop.fixed_wing")
+
+    def start(seed):
+        plant = fw.init_state(pos=(0.0, 0.0, 100.0), vel=(FW_CRUISE, 0.0, 0.0), device=dev)
+        return plant, device_counters(init(seed), dev)
+
+    return run, start
+
+
+def run_fixed_wing(seed: int = 0, steps: int = 400, device="cuda",
+                   n_samples: Optional[int] = None) -> dict:
+    """The fixed-wing waypoint flyby (K=1024 unless ``n_samples``).  Returns
+    the JAX scenario's metrics: closest approach, whether it came within
+    20 m, the least altitude and the mean speed."""
+    dev = resolve_device(device)
+    run, start = fixed_wing_episode(_with_samples(fw_solver.FwMPPIParams(), n_samples or 1024),
+                                    steps, dev)
+    _, (pos, speed) = run(start(seed))
+    pos, speed = pos.cpu().numpy(), speed.cpu().numpy()
+    dist = np.linalg.norm(pos - np.asarray(FW_TARGET), axis=-1)
+    return {"closest_approach_m": round(float(dist.min()), 2),
+            "reached": bool(dist.min() < 20.0),
+            "min_altitude_m": round(float(pos[:, 2].min()), 2),
+            "mean_speed_ms": round(float(speed.mean()), 2),
+            "steps": steps}
+
+
+def mapped_flight_episode(n_steps: int, device="cuda", n_samples: Optional[int] = None,
+                          obstacles: str = "spheres", graph: bool = True):
+    """Mapped flight: lidar -> occupancy grid -> map-aware MPPI (K=1024
+    unless ``n_samples``) -> backstepping, through the hidden two-sphere
+    scene of ``MappedFlightConfig``, the obstacles as the grid's top-64
+    voxels (``obstacles="spheres"``) or its distance field (``"esdf"``).
+    ``(run, start)``; the lidar's key is the seed + 1, the solver's the
+    seed; the logs are the position and the clearance to the true scene."""
+    if obstacles not in ("spheres", "esdf"):
+        raise ValueError(f"unknown obstacle representation {obstacles!r}")
+    dev = resolve_device(device)
+    cfg = mapped_loop.MappedFlightConfig()
+    params = _with_samples(mapped_solver.MappedMPPIParams(
+        altitude_weight=8.0, use_esdf=obstacles == "esdf", esdf_params=cfg.grid),
+        n_samples or 1024)
+    _, init = mapped_solver.make_mapped_solver(params, device=dev)
+    run = mapped_loop.make_mapped_episode(cfg, params, n_steps, device=dev, graph=graph)
+    return run, lambda seed: mapped_loop.init_mapped_flight(cfg, init(seed), seed + 1,
+                                                            device=dev)
+
+
+def run_mapped_flight(seed: int = 0, steps: int = 3000, device="cuda",
+                      n_samples: Optional[int] = None, obstacles: str = "spheres",
+                      save_state: Optional[str] = None, resume: Optional[str] = None,
+                      save_log: Optional[str] = None) -> dict:
+    """Fly to the waypoint through obstacles the solver does not know a
+    priori (``mapped_flight_episode``).  ``resume`` starts from a state
+    saved with ``save_state`` (the grid, the plant, the controller, the
+    solver and both noise streams: the run continues as the uninterrupted
+    one would); ``save_log`` writes the logs (``pos``, ``clearance``) to an
+    .npz.  Returns the JAX scenario's metrics: the final and least distance
+    to the goal, whether it ended within 0.5 m, the least clearance to the
+    true scene, whether it touched it, and the occupied voxels of the map."""
+    dev = resolve_device(device)
+    run, start = mapped_flight_episode(steps, dev, n_samples, obstacles)
+    state0 = start(seed)
+    if resume:
+        state0 = checkpoint.restore(resume, state0, device=dev)
+    final, (pos, clr) = run(state0)
+    if save_state:
+        checkpoint.save(save_state, final)
+    pos, clr = pos.cpu().numpy(), clr.cpu().numpy()
+    if save_log:
+        np.savez(save_log, pos=pos, clearance=clr)
+    dist = np.linalg.norm(pos - np.asarray(mapped_loop.MappedFlightConfig().target), axis=-1)
+    return {"final_dist_m": round(float(dist[-1]), 3),
+            "min_dist_m": round(float(dist.min()), 3),
+            "reached": bool(dist[-1] < 0.5),
+            "min_clearance_m": round(float(clr.min()), 3),
+            "collided": bool(clr.min() <= 0.0),
+            "mapped_occupied_voxels": int((final.grid.log_odds > 0.0).sum()),
+            "steps": steps}

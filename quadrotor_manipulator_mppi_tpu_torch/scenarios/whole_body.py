@@ -46,11 +46,8 @@ def run_pick_weight(seed: int = 0, steps: int = 700, n_samples: int = 256, devic
 
     Returns the JAX scenario's metrics.  ``stage_ms``, if given, receives
     the host ms per control step of each stage (``approach``, ``descent``,
-    ``lift``), each ending in a synchronize: that of the stage's first run
-    (on the card its two eager warm-up steps and the graph capture
-    included) and, as ``<stage>_replay``, that of a second run from the
-    same start, which only replays the captured step.  Each stage then runs
-    twice; the metrics come from the first run."""
+    ``lift``), each ending in a synchronize (on the card its two eager
+    warm-up steps and the graph capture included)."""
     dev = resolve_device(device)
     params = wbs.position_mode_params(n_samples=n_samples, n_horizon=50)
     obs0 = wbs.default_obs(device=dev)
@@ -84,7 +81,6 @@ def run_pick_weight(seed: int = 0, steps: int = 700, n_samples: int = 256, devic
         if stage_ms is None:
             return run(*args)
         out, stage_ms[name] = timed(run, n, args)
-        _, stage_ms[name + "_replay"] = timed(run, n, args)
         return out
 
     # Approach: the pre-grasp pose above the object, gripper open; from

@@ -148,25 +148,13 @@ def make_arm_episode(
                            solver=solver)
         return nxt, (q, out.ee_target_err, tau)
 
-    load = graphs.graphed(graphs.episode_step(control_step), dev) if dev.type == "cuda" \
-        else None
+    episode = graphs.episode_runner(control_step, lambda s: (s.q, s.t, s.q), n_control_steps,
+                                    dev, graph, "arm_loop.step")
 
     def run(state: ArmLoopState, z: Optional[Tensor] = None):
         if z is not None:
             z = torch.as_tensor(z, dtype=state.q.dtype).to(dev)
-            if z.shape[0] != n_control_steps:
-                raise ValueError(f"z carries {z.shape[0]} steps, the episode {n_control_steps}")
         # Tensor counters, so the phase mask can keep the old solve index.
-        state = state._replace(solver=device_counters(state.solver, dev))
-        if graph and load is not None:
-            logs = (torch.zeros((n_control_steps, 7), dtype=state.q.dtype, device=dev),
-                    torch.zeros((n_control_steps,), dtype=state.q.dtype, device=dev),
-                    torch.zeros((n_control_steps, 7), dtype=state.q.dtype, device=dev))
-            return graphs.run_episode(load, state, z, logs, n_control_steps, "arm_loop.step")
-        logs = []
-        for i in range(n_control_steps):
-            state, row = control_step(state, None if z is None else z[i])
-            logs.append(row)
-        return state, tuple(torch.stack(f) for f in zip(*logs))
+        return episode(state._replace(solver=device_counters(state.solver, dev)), z)
 
     return run

@@ -110,28 +110,19 @@ def make_episode(
         return (LoopState(plant=plant, ctrl=ctrl, solver=solver, setpoint=sp),
                 (plant.pos, rpy_of(plant), plant.vel))
 
-    loads = {}  # the graph runner of each device
-
-    def run_graphed(state: LoopState, z):
-        dev = state.plant.pos.device
-        if isinstance(state.solver, MPPIState):
-            state = state._replace(solver=device_counters(state.solver, dev))
-        logs = tuple(torch.zeros((n_control_steps, 3), dtype=state.plant.pos.dtype, device=dev)
-                     for _ in range(3))
-        if dev not in loads:
-            loads[dev] = graphs.graphed(graphs.episode_step(control_step), dev)
-        return graphs.run_episode(loads[dev], state, z, logs, n_control_steps, "loop.step")
+    runners = {}  # the episode runner of each device
 
     def run(state: LoopState, z=None):
         if z is not None and len(z) != n_control_steps:
             raise ValueError(f"z carries {len(z)} steps, the episode {n_control_steps}")
-        if graph and state.plant.pos.device.type == "cuda":
-            return run_graphed(state, z)
-        logs = []
-        for i in range(n_control_steps):
-            state, log = control_step(state, None if z is None else z[i])
-            logs.append(log)
-        return state, tuple(torch.stack(f) for f in zip(*logs))
+        dev = state.plant.pos.device
+        if graph and dev.type == "cuda" and isinstance(state.solver, MPPIState):
+            state = state._replace(solver=device_counters(state.solver, dev))
+        if dev not in runners:
+            runners[dev] = graphs.episode_runner(
+                control_step, lambda s: (s.plant.pos, s.plant.pos, s.plant.vel), n_control_steps,
+                dev, graph)
+        return runners[dev](state, z)
 
     return run
 

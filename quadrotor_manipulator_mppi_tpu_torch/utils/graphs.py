@@ -28,7 +28,9 @@ copies of its arguments, and replays it: one launch of the host's per call.
 :func:`episode_step` and :func:`run_episode` are the episode runner the
 whole-body, drone and arm episodes share: one control step captured on the
 carry's static buffers, the log rows written at a device step index, one
-replay per step.
+replay per step.  :func:`episode_runner` wraps them, with the eager loop
+beside them, for the arm episode and the scenario episodes (perfect-model,
+fixed-wing, mapped flight).
 """
 
 from __future__ import annotations
@@ -202,3 +204,32 @@ def run_episode(load: Callable[..., GraphedStep], carry: Any, z: Any, logs: Any,
             g.replay()
     carry, _, _, logs = g.args
     return clone_tree(carry), clone_tree(logs)
+
+
+def episode_runner(control_step: Callable[[Any, Any], tuple], row_like: Callable[[Any], tuple],
+                   n_steps: int, device, graph: bool = True, label: str = "loop.step"):
+    """``run(carry, z=None) -> (final carry, logs)``: ``n_steps`` calls of
+    ``control_step(carry, z_i) -> (carry, log_row)``, each log field stacked
+    over the steps; ``row_like(carry)`` gives one row's tensors, whose
+    shapes and dtypes size the log buffers.  On the card (``graph=True``)
+    the first call captures one control step (:func:`episode_step`) and
+    every call replays it (:func:`run_episode`: every field of the carry
+    must be a tensor; the final carry and the logs are copies).
+    ``graph=False``, and the CPU, run the same control step eagerly."""
+    dev = torch.device(device)
+    load = graphed(episode_step(control_step), dev) if graph and dev.type == "cuda" else None
+
+    def run(carry, z=None):
+        if z is not None and len(z) != n_steps:
+            raise ValueError(f"z carries {len(z)} steps, the episode {n_steps}")
+        if load is not None:
+            logs = tuple(torch.zeros((n_steps,) + tuple(x.shape), dtype=x.dtype, device=dev)
+                         for x in row_like(carry))
+            return run_episode(load, carry, z, logs, n_steps, label)
+        rows = []
+        for i in range(n_steps):
+            carry, row = control_step(carry, None if z is None else z[i])
+            rows.append(row)
+        return carry, tuple(torch.stack(f) for f in zip(*rows))
+
+    return run

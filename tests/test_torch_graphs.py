@@ -4,11 +4,13 @@ CPU cases: a tensor solve index draws exactly what the int draws (the
 plain Philox draw, the kernels' plain noise, the plain pipeline), the tree
 helpers of ``utils/graphs``, and ``graph=True`` on the CPU running the
 eager call with the same result (the serving solve, the bridge head, the
-whole-body, drone and arm episodes).  ``cuda`` cases (each decides in its
-body whether a card exists): the graphed serving solve, bridge head,
-20-step whole-body episodes in every mode, the pick_weight branches (a
-payload, the object, contact), the drone episode and the arm episode
-bit-equal to their eager calls, the launch counters counting replays, one
+whole-body, drone and arm episodes, the scenario episodes: perfect-model
+whole-body and multirotor, fixed-wing, mapped flight in both obstacle
+modes).  ``cuda`` cases (each decides in its body whether a card exists):
+the graphed serving solve, bridge head, 20-step whole-body episodes in
+every mode, the pick_weight branches (a payload, the object, contact), the
+drone episode, the arm episode and the 20-step scenario episodes bit-equal
+to their eager calls, the launch counters counting replays, one
 graph per argument structure, a capture that fails raising.  This file
 imports neither JAX nor the JAX package, so it also runs where only
 PyTorch is installed:
@@ -27,6 +29,7 @@ from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import whole_body_kernel as w
 from quadrotor_manipulator_mppi_tpu_torch.parallel.multihost import tree_map
 from quadrotor_manipulator_mppi_tpu_torch.models import kinova
 from quadrotor_manipulator_mppi_tpu_torch.models import multirotor as mr
+from quadrotor_manipulator_mppi_tpu_torch.scenarios import solvers as scenarios
 from quadrotor_manipulator_mppi_tpu_torch.sim import arm_loop
 from quadrotor_manipulator_mppi_tpu_torch.sim import closed_loop as cl
 from quadrotor_manipulator_mppi_tpu_torch.sim import contact as ct
@@ -34,6 +37,8 @@ from quadrotor_manipulator_mppi_tpu_torch.sim import flight_control as fc
 from quadrotor_manipulator_mppi_tpu_torch.sim import graspable as gr
 from quadrotor_manipulator_mppi_tpu_torch.sim import whole_body_loop as wbl
 from quadrotor_manipulator_mppi_tpu_torch.solver import arm, drone, mppi, serving
+from quadrotor_manipulator_mppi_tpu_torch.solver import fixed_wing as fws
+from quadrotor_manipulator_mppi_tpu_torch.solver import multirotor_mppi as mm
 from quadrotor_manipulator_mppi_tpu_torch.solver import whole_body as wb
 from quadrotor_manipulator_mppi_tpu_torch.utils import graphs
 
@@ -250,6 +255,42 @@ def test_arm_episode_graph_flag_on_cpu_runs_eagerly(phase2):
     assert outs[0][0].solver.step.tolist() == [4 if phase2 else 0]
 
 
+# The scenario episodes: (run, start) of n steps at small K, graphed or not.
+SCENARIOS = {
+    "whole_body": lambda dev, n, g: scenarios.whole_body_episode(
+        _small(wb.position_mode_params(), 128, 10), n, dev, g),
+    "multirotor": lambda dev, n, g: scenarios.multirotor_episode(
+        _small(mm.MultirotorMPPIParams(), 128, 30), (1.0, 2.0, 3.4), n, dev, g),
+    "fixed_wing": lambda dev, n, g: scenarios.fixed_wing_episode(
+        _small(fws.FwMPPIParams(), 128, 40), n, dev, g),
+    "mapped_spheres": lambda dev, n, g: scenarios.mapped_flight_episode(n, dev, 128, "spheres",
+                                                                        g),
+    "mapped_esdf": lambda dev, n, g: scenarios.mapped_flight_episode(n, dev, 128, "esdf", g),
+}
+
+
+def _scenario_runs(case, dev, n):
+    """The final carries and logs of the graphed and the eager episode."""
+    outs = []
+    for g in (True, False):
+        run, start = SCENARIOS[case](dev, n, g)
+        outs.append(run(start(2)))
+    return outs
+
+
+def _trees_equal(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return all(_trees_equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("case", sorted(SCENARIOS))
+def test_scenario_episode_graph_flag_on_cpu_runs_eagerly(case):
+    (fg, lg), (fe, le) = _scenario_runs(case, "cpu", 3)
+    assert _trees_equal(lg, le) and _trees_equal(fg, fe)
+    assert all(x.shape[0] == 3 for x in lg)
+
+
 def test_a_number_in_the_carry_is_refused():
     """A graph freezes a Python number of its carry: ``run_episode`` names
     the field and refuses it before a capture."""
@@ -426,6 +467,18 @@ def test_graphed_pick_episode_bit_equal_to_eager(case):
     if with_object:
         assert all(torch.equal(a, b) for a, b in zip(fg[4], fe[4]))
         assert (lg.obj_pos[-1] - lg.obj_pos[0]).abs().max().item() > 0.0  # the palm pushed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SCENARIOS))
+def test_graphed_scenario_episode_bit_equal_to_eager(case):
+    """20 control steps: the logs and every field of the final carry (the
+    grid, the solver state and the noise counters included)."""
+    dev = _card()
+    (fg, lg), (fe, le) = _scenario_runs(case, dev, 20)
+    torch.cuda.synchronize()
+    assert _trees_equal(lg, le) and _trees_equal(fg, fe)
+    assert all(bool(torch.isfinite(x).all()) for x in lg)
 
 
 @pytest.mark.cuda
