@@ -2,7 +2,8 @@
 whole-body closed loop and its fleet, the scenario-batched and
 sample-sharded solves, the drone MPPI path, the arm node, the
 pick_weight task, the multirotor preset and the perfect-model whole-body
-loop, the fixed-wing flyby and mapped flight.
+loop, the fixed-wing flyby, mapped flight, the plain whole-body solve on
+the card, and the rotorcraft flight layer.
 
     python3 chip_smoke.py
 
@@ -65,8 +66,9 @@ lines; any failure exits non-zero before the final ``ok`` line):
    ``make_drone_solver`` at the preset through ``make_episode`` with
    backstepping, 2000 control steps, each a replay of one captured control
    step: no host synchronization in the replay loop, the first 100 steps'
-   logs and final state bit-equal to the eager loop, host ms per step and
-   device busy share graphed and eager; each with its gate; (d) the batched
+   logs and final state bit-equal to the eager loop, host ms per step
+   graphed and eager, the graphed step's device busy share; each with its
+   gate; (d) the batched
    drone preset, ``make_drone_solver(n_scenarios=256)`` at K=1000, H=32 on
    the Philox stream: four of its scenarios against their unbatched solves
    over three steps (1e-6), host ms per batched solve;
@@ -125,6 +127,21 @@ lines; any failure exits non-zero before the final ``ok`` line):
    ops per step and busy share; ``occupied_centers`` on the card against
    the CPU index for index (more tied voxels than slots); a state saved at
    step 1500 and resumed, bit-equal to the uninterrupted run for 10 steps;
+21. F6 and F7, the plain whole-body pipeline (``backend="torch"``) on the
+   card at K=4096, H=50 in the configurations the kernels refuse (the
+   wrench preset's sequential rollout; the serving preset with zero-mean
+   noise and the euler orientation metric): one solve on explicit normals
+   against the CPU (2e-4), ``backend="cuda"`` refusing each, 20 graphed
+   solves bit-equal to eager, ms and device ops per graphed solve;
+22. the rotorcraft flight layer (Lee, PID and backstepping laws, wind,
+   ground contact, the mission machine), 1 kHz ticks captured 10 per
+   control step: the JAX tests' gates for hover, figure-eight, mission,
+   a saved and resumed mission (its first 10 steps bit-equal to the live
+   carry's), the waypoint files (the inline one, the default one smooth) and the gust
+   recovery; ``run_disturbance`` beside the JAX package's CPU figures; 10
+   control steps of each scenario graphed bit-equal to eager; ms per
+   control step graphed and eager, device ops per tick, no host sync in
+   the replay loop;
 then one ``kernels`` JSON line (rows 4-5 at B=256, rows 6-7 at K_local,
 rows 9a-9b at K=1000 and 9c-9d at K=1024: the shapes of the runs that
 count their launches; each ``wb_update`` row with the R it used and its
@@ -162,16 +179,20 @@ from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import whole_body_kernel as w
 from quadrotor_manipulator_mppi_tpu_torch.parallel import mesh as mesh_mod
 from quadrotor_manipulator_mppi_tpu_torch.parallel import multihost, scaling, sharded
 from quadrotor_manipulator_mppi_tpu_torch.parallel.multihost import tree_map
+from quadrotor_manipulator_mppi_tpu_torch.scenarios import rotorcraft as rc
 from quadrotor_manipulator_mppi_tpu_torch.scenarios import solvers as scenarios
+from quadrotor_manipulator_mppi_tpu_torch.scenarios.common import hover_plant, tick_episode
 from quadrotor_manipulator_mppi_tpu_torch.scenarios.solvers import run_arm_reach
 from quadrotor_manipulator_mppi_tpu_torch.scenarios.whole_body import run_pick_weight
 from quadrotor_manipulator_mppi_tpu_torch.sim import arm_loop
 from quadrotor_manipulator_mppi_tpu_torch.sim import closed_loop as cl
 from quadrotor_manipulator_mppi_tpu_torch.sim import flight_control as fc
 from quadrotor_manipulator_mppi_tpu_torch.sim import graspable as gr
+from quadrotor_manipulator_mppi_tpu_torch.sim import lee_controller as lee
 from quadrotor_manipulator_mppi_tpu_torch.sim import mapped_loop
 from quadrotor_manipulator_mppi_tpu_torch.sim import occupancy as occ
 from quadrotor_manipulator_mppi_tpu_torch.sim import whole_body_loop as wbl
+from quadrotor_manipulator_mppi_tpu_torch.sim import wind as wind_mod
 from quadrotor_manipulator_mppi_tpu_torch.solver import arm, drone, mppi, serving
 from quadrotor_manipulator_mppi_tpu_torch.solver import fixed_wing as fws
 from quadrotor_manipulator_mppi_tpu_torch.solver import multirotor_mppi as mm
@@ -241,6 +262,7 @@ FLEET_CHECK_STEPS = 20
 TOL_FLEET = 1e-4               # a fleet scenario against its unbatched episode
 FLEET_B_TIMED = 256
 FLEET_TIMED_STEPS = 100
+FLEET_B16_TIMED = 100          # phase 15: B=16 fleet steps timed (replays only)
 B_BATCH = 256                  # phase 8: BASELINE.json config 5's 256 scenarios
 B_TIMED = (1, 16, B_BATCH)
 CHECK_SCENARIOS = (0, 85, 170, 255)
@@ -277,8 +299,10 @@ N_DRONE_CHECKED = 100          # phase 12c: steps held bit-equal against the eag
 N_ARM_SOLVES = 50              # phase 16a: graphed arm solves against eager ones
 N_ARM_STEPS = 800              # phase 16b: the arm-reach scenario's preset episode
 ARM_SEEDS = (0, 1, 2)
-N_ARM_EAGER = 20               # phase 16c: eager arm control steps timed
-N_PROFILED = 2                 # phases 6, 12c, 15, 16c, 18-20: control steps in a profiled window
+N_ARM_EAGER = 10               # phase 16c: eager arm control steps timed
+N_ARM_TIMED = 50               # phase 16c: graphed arm control steps timed (replays only)
+N_ARM_UNINTERRUPTED = 410      # phase 16d: the uninterrupted run (steps 400-410 compared)
+N_PROFILED = 1                 # phases 6, 12c, 15, 16c, 18-22: control steps in a profiled window
 N_ARM_CHECKPOINT, N_ARM_RESUMED = 400, 10  # phase 16d
 PICK_SEEDS = (0, 1, 2)         # phase 17a: run_pick_weight at its preset
 PICK_K, N_PICK_STEPS = 256, 700
@@ -290,15 +314,32 @@ N_MR_SOLVES = 20               # phase 18a: graphed multirotor solves against ea
 N_MR_HOVER, N_MR_WAYPOINT = 300, 500  # phase 18b: tests/test_multirotor_mppi.py's loops
 MR_WAYPOINT = scenarios.MR_TARGET
 N_WB_PERFECT = 80              # phase 18d: tests/test_cli.py's whole-body scenario
-N_SCENARIO_EAGER = 20          # phases 18-20: eager control steps timed
+N_SCENARIO_EAGER = 10          # phases 18-20: eager control steps timed
 N_SCENARIO_CHECKED = 20        # phases 18c, 19b: graphed steps held bit-equal to eager
 N_FW_STEPS = 400               # phase 19a: tests/test_cli.py's fixed-wing flyby, K=1024
-N_FW_TIMED = 100               # phase 19c: graphed control steps timed
+N_FW_TIMED = 20                # phase 19c: graphed control steps timed
 MAPPED_K, N_MAPPED_STEPS = 512, 3000  # phase 20a: tests/test_cli.py's mapped flight
 N_MAPPED_CHECKED = 100         # phase 20b: graphed steps held bit-equal to eager
 MAPPED_SERVING_K = 1024        # phase 20c: the serving shape (run.py's default K)
-N_MAPPED_TIMED = 100           # phase 20c: graphed control steps timed
+N_MAPPED_TIMED = 20            # phase 20c: graphed control steps timed
 N_MAPPED_SAVE, N_MAPPED_RESUMED = 1500, 10  # phase 20e
+N_PLAIN_SOLVES = 20            # phase 21b: graphed plain whole-body solves against eager ones
+TOL_PLAIN_CARD = 2e-4          # phase 21a: u_seq card vs CPU, of its largest entry
+N_PLAIN_TIMED = 20             # phase 21c: graphed plain solves timed
+N_HOVER, N_FIG8, N_MISSION = 400, 1800, 1500  # phase 22a-c: tests/test_cli.py's lengths
+N_MISSION_SAVE, N_MISSION_CHECKED = 400, 10   # phase 22d: tests/test_cli.py's resume, 10 checked
+N_GUST_STEPS = 800             # phase 22f: tests/test_lee_wind.py's 8,000-tick gust loop
+N_DISTURBANCE = 1000           # phase 22g: run_disturbance, beside the JAX package's figures
+N_ROTOR_CHECKED = 10           # phase 22h: graphed control steps held bit-equal to eager
+N_ROTOR_TIMED = 20             # phase 22i: graphed control steps timed
+# tests/test_cli.py's inline waypoint file (tests/test_cli.py:115-119).
+CLI_WAYPOINTS = "3.0 0.0 0.0 2.0 0.0\n4.0 1.5 1.5 2.5 60.0\n4.0 0.0 1.5 2.0 0.0\n"
+# The JAX package's run_disturbance on the same length, on the CPU (its own
+# command line: python -m quadrotor_manipulator_mppi_tpu.run disturbance
+# --steps 1000 --seed 0 --platform cpu); the turbulence streams differ.
+JAX_DISTURBANCE = {"pos_rms_m": 0.0011, "ang_rate_rms": 0.0011, "passed": True,
+                   "peak_err_m": 0.0085, "peak_time_s": 3.11, "recovery_time_s": 0.0,
+                   "final_err_m": 0.0009}
 N_DRONE_BATCH_STEPS = 3
 # The instantiation each drone wrapper launches, as the profiler names it.
 DRONE_KEYS = {"drone_cost": "drone_cost_kernel<true>", "drone_update": "drone_update_kernel<true>",
@@ -682,7 +723,7 @@ def phase_profile(serve, solve_ms: dict) -> dict:
         def one():
             _, box[0] = pstep(box[0], obs_vec, target_vec)
 
-        out[name] = profile_solves(f"[4] {name}", one, 10, solve_ms[name], check_counts=True)
+        out[name] = profile_solves(f"[4] {name}", one, 5, solve_ms[name], check_counts=True)
     return out
 
 
@@ -1060,11 +1101,13 @@ def phase_fleet(dev) -> dict:
         fail("a fleet scenario disagrees with its unbatched episode")
 
     run, starts = fleet_run(params, dev, FLEET_B, FLEET_STEPS)
-    run(*starts)  # capture and a first run
     reset_counts()
     pk.plant_tick.launches = 0
-    (_, logs), step_ms = timed_episode(run, starts, FLEET_STEPS)
+    _, logs = run(*starts)  # its capture included: two warm-up calls launch the kernels
     launches = count_episode_launches()
+    timed, timed_starts = fleet_run(params, dev, FLEET_B, FLEET_B16_TIMED)
+    timed(*timed_starts)  # capture
+    _, step_ms = timed_episode(timed, timed_starts, FLEET_B16_TIMED)
     tail_n = min(100, FLEET_STEPS // 3)
     quality = [reach_quality(f"[15] fleet scenario {b}", tree_map(lambda x: x[b], logs), tail_n)
                for b in range(FLEET_B)]
@@ -1074,10 +1117,11 @@ def phase_fleet(dev) -> dict:
     print(f"[15] fleet B={FLEET_B} x K={FLEET_K}, {FLEET_STEPS} steps ({FLEET_STEPS / 100:.0f} s): "
           f"gate held in {sum(held)} of {FLEET_B} (held fraction {sum(held) / FLEET_B:.3f}; "
           f"JAX package's record 15 of 16) | median converged step "
-          f"{statistics.median(conv) if conv else -1} | {step_ms:.3f} ms per fleet step | "
+          f"{statistics.median(conv) if conv else -1} | {step_ms:.3f} ms per fleet step "
+          f"({FLEET_B16_TIMED} replays) | "
           f"{rate:.0f} control steps/s = {rate / 100:.1f} vehicles at 100 Hz | launches "
           f"{launches}", flush=True)
-    if launches != dict.fromkeys(("wb_cost", "wb_update", "plant_tick"), FLEET_STEPS):
+    if launches != dict.fromkeys(("wb_cost", "wb_update", "plant_tick"), FLEET_STEPS + 2):
         fail("the fleet episode did not run through all three kernels once per step")
     if sum(held) < FLEET_MIN_HELD:
         fail(f"the fleet held the reach gate in {sum(held)} of {FLEET_B} scenarios, "
@@ -1953,7 +1997,8 @@ def phase_drone_loops(dev):
     backstepping, 2000 control steps, each a replay of one captured control
     step, its first 100 steps against the eager loop (bit-equal).  Each
     with its gate, launch counts, host ms per step; (a) and (c) with a
-    host-sync check; (c) with the device busy share graphed and eager."""
+    host-sync check (on the replays of (c)'s 100-step window); (c) with the
+    device busy share of the graphed step."""
     target = torch.tensor(drone.DEFAULT_TARGET, device=dev)
     drone_point_mass_loop(target, 3, DRONE_K)  # warm up
     check_no_syncs("[12a]", "5 kernel-solve steps",
@@ -2008,17 +2053,16 @@ def phase_drone_loops(dev):
     def start(seed):
         return cl.init_loop_state(cfg, veh, init(seed), pos=(0.0, 0.0, 2.0), device=dev)
 
-    run, s0 = episode(N_DRONE_EPISODE), start(0)
-    run(start(1))  # capture, then a first full run
     reset_drone_counts()
-    (final, (pos, _, _)), ms_c = synced_run("[12c]", f"the replay loop of {N_DRONE_EPISODE} "
-                                            "control steps", run, (s0,), N_DRONE_EPISODE)
+    final, (pos, _, _) = episode(N_DRONE_EPISODE)(start(0))  # its capture included
     err = torch.linalg.norm(pos - target, dim=-1).cpu().numpy()
     finite = bool(torch.isfinite(pos).all())
-    # The first N_DRONE_CHECKED steps graphed against the eager loop.
+    # The first N_DRONE_CHECKED steps graphed (replays only, timed, with the
+    # host-sync check) against the eager loop.
     short_g, short_e = episode(N_DRONE_CHECKED), episode(N_DRONE_CHECKED, graph=False)
     short_g(start(1))  # capture
-    (fg, lg), _ = timed_episode(short_g, (start(0),), N_DRONE_CHECKED)
+    (fg, lg), ms_c = synced_run("[12c]", f"the replay loop of {N_DRONE_CHECKED} control steps",
+                                short_g, (start(0),), N_DRONE_CHECKED)
     (fe, le), ms_eager = timed_episode(short_e, (start(0),), N_DRONE_CHECKED)
     pairs = list(zip(lg, le)) + list(zip(fg.plant, fe.plant)) + list(zip(fg.ctrl, fe.ctrl)) \
         + [(fg.solver.u_prev, fe.solver.u_prev)]
@@ -2027,7 +2071,8 @@ def phase_drone_loops(dev):
     print(f"[12c] drone waypoint episode, {N_DRONE_EPISODE} control steps (preset K={DRONE_K}, "
           f"backstepping), CUDA graph of one control step: min err {err.min():.4f} m | mean "
           f"err[1000:] {err[1000:].mean():.4f} m | final {err[-1]:.4f} m | finite {finite} | "
-          f"{ms_c:.3f} ms/control step graphed, {ms_eager:.3f} eager | first "
+          f"{ms_c:.3f} ms/control step graphed ({N_DRONE_CHECKED} replays), {ms_eager:.3f} "
+          f"eager | first "
           f"{N_DRONE_CHECKED} steps: logs and final state bit-equal to the eager loop {equal}, "
           f"the long run's first {N_DRONE_CHECKED} positions equal {prefix} | solve index "
           f"{final.solver.step.tolist()} | drone kernel launches {drone_counts()}", flush=True)
@@ -2035,12 +2080,10 @@ def phase_drone_loops(dev):
         fail("the drone episode missed its gate (min err < 0.8, mean err[1000:] < 1.5)")
     if not equal:
         fail("the graphed drone episode is not bit-equal to the eager loop")
-    busy = {}
-    for name, graph, ms in (("graphed", True, ms_c), ("eager", False, ms_eager)):
-        window, s3 = episode(N_PROFILED, graph), start(3)
-        window(s3)  # capture
-        busy[name] = profile_solves(f"[12c] {name}", lambda: window(s3), 1, ms * N_PROFILED,
-                                    unit=f"{N_PROFILED} control steps")
+    window, s3 = episode(N_PROFILED), start(3)
+    window(s3)  # capture
+    busy = {"graphed": profile_solves("[12c] graphed", lambda: window(s3), 1, ms_c * N_PROFILED,
+                                      unit=f"{N_PROFILED} control steps"), "eager": None}
     return launches, {"a": ms_a, "b": ms_b, "c": ms_c, "c_eager": ms_eager}, busy
 
 
@@ -2096,8 +2139,8 @@ def phase_arm(dev) -> dict:
     seeds 0-2, MPPI engaged and the commanded EE within 0.10 m at its best;
     (c) host ms per control step graphed and eager, no host sync in the
     replay loop, the device busy share; (d) a checkpoint written at step 400
-    and restored: the next 10 control steps bit-equal to those of the timed
-    800-step run (c) from the same seed."""
+    and restored: the next 10 control steps bit-equal to those of a 410-step
+    run from the same seed."""
     params = arm.ArmMPPIParams()
     step, init = arm.make_arm_solver(params, device=dev)
     obs = arm.ArmObs(q=torch.tensor(kinova.Q_HOME, dtype=torch.float32, device=dev) + 0.02,
@@ -2141,23 +2184,23 @@ def phase_arm(dev) -> dict:
         fail(f"the arm node missed its gate (MPPI engaged, min EE error < 0.10 m) on seeds "
              f"{missed}")
 
-    run, start = arm_episode(params, dev, N_ARM_STEPS)
-    run(start(1))  # capture, then a first run
-    (_, logs_w), ms_g = synced_run("[16c]", f"the replay loop of {N_ARM_STEPS} arm control "
-                                   "steps", run, (start(0),), N_ARM_STEPS)
+    run, start = arm_episode(params, dev, N_ARM_UNINTERRUPTED)
+    _, logs_w = run(start(0))  # the uninterrupted run of (d), its capture included
+    timed, _ = arm_episode(params, dev, N_ARM_TIMED)
+    timed(start(1))  # capture
+    _, ms_g = synced_run("[16c]", f"the replay loop of {N_ARM_TIMED} arm control steps", timed,
+                         (start(0),), N_ARM_TIMED)
     run_e, _ = arm_episode(params, dev, N_ARM_EAGER, graph=False)
     run_e(start(0))  # warm up
     _, ms_e = timed_episode(run_e, (start(0),), N_ARM_EAGER)
-    busy = {}
-    for name, graph, ms in (("graphed", True, ms_g), ("eager", False, ms_e)):
-        (window, _), s3 = arm_episode(params, dev, N_PROFILED, graph), start(3)
-        window(s3)  # capture
-        busy[name] = profile_solves(f"[16c] {name}", lambda: window(s3), 1, ms * N_PROFILED,
-                                    unit=f"{N_PROFILED} control steps")
-    print(f"[16c] arm control step: {ms_g:.3f} ms graphed ({N_ARM_STEPS} steps), {ms_e:.3f} ms "
+    (window, _), s3 = arm_episode(params, dev, N_PROFILED), start(3)
+    window(s3)  # capture
+    busy = {"graphed": profile_solves("[16c] graphed", lambda: window(s3), 1, ms_g * N_PROFILED,
+                                      unit=f"{N_PROFILED} control steps"), "eager": None}
+    print(f"[16c] arm control step: {ms_g:.3f} ms graphed ({N_ARM_TIMED} steps), {ms_e:.3f} ms "
           f"eager ({N_ARM_EAGER} steps)", flush=True)
 
-    # The timed 800-step run from seed 0 is the uninterrupted run.
+    # The 410-step run from seed 0 is the uninterrupted run.
     first, _ = arm_episode(params, dev, N_ARM_CHECKPOINT)
     rest, _ = arm_episode(params, dev, N_ARM_RESUMED)
     mid, _ = first(start(0))
@@ -2652,6 +2695,210 @@ def phase_mapped(dev) -> dict:
     return out
 
 
+def refused_configs() -> dict:
+    """The whole-body configurations the kernels refuse, at full width:
+    the wrench preset with the sequential rollout, and the serving preset
+    (attitude) with zero-mean noise and the euler orientation metric."""
+    wrench, serving_p = wb.wrench_mode_params(), wb.WholeBodyMPPIParams()
+    return {
+        "wrench, sequential rollout": dataclasses.replace(
+            wrench, model=dataclasses.replace(wrench.model, time_parallel=False)),
+        "attitude, zero-mean noise, euler_zyx": dataclasses.replace(
+            serving_p, mppi=dataclasses.replace(serving_p.mppi, zero_mean_noise=True),
+            cost=dataclasses.replace(serving_p.cost, ori_mode="euler_zyx")),
+    }
+
+
+def phase_plain(dev) -> dict:
+    """F6 and F7: the plain whole-body pipeline (``backend="torch"``) on the
+    card, K=4096, H=50, in each configuration the kernels refuse: (a) one
+    solve on explicit normals against the same solve on the CPU (u_seq
+    within 2e-4 of its largest entry), the default ``backend="cuda"``
+    refusing the configuration; (b) 20 replays of one captured solve
+    bit-equal to 20 eager solves; (c) ms per graphed solve, device ops per
+    solve."""
+    out = {}
+    obs, obs_cpu = wb.default_obs(device=dev), wb.default_obs(device="cpu")
+    gen = torch.Generator().manual_seed(21)
+    for name, params in refused_configs().items():
+        try:
+            wb.make_whole_body_solver(params, device=dev)
+            fail(f"backend='cuda' took the configuration the kernels refuse ({name})")
+        except ValueError as exc:
+            refusal = str(exc)
+        step, init = wb.make_whole_body_solver(params, device=dev, backend="torch")
+        step_c, init_c = wb.make_whole_body_solver(params, device="cpu", backend="torch")
+        z = torch.randn((K, H, A), generator=gen)
+        got, _ = step(init(0), obs, z.to(dev))
+        want, _ = step_c(init_c(0), obs_cpu, z)
+        err = ((got.u_seq.cpu() - want.u_seq).abs().max() / want.u_seq.abs().max()).item()
+        finite = bool(torch.isfinite(got.u_seq).all())
+        print(f"[21a] plain whole-body solve on the card ({name}, K={K}, H={H}): u_seq against "
+              f"the CPU on the same normals {err:.2e} of its largest entry (tol "
+              f"{TOL_PLAIN_CARD:g}), finite {finite} | backend='cuda' refuses: {refusal}",
+              flush=True)
+        if not (finite and err <= TOL_PLAIN_CARD):
+            fail(f"the plain whole-body solve on the card differs from the CPU ({name})")
+        graphed_solves(f"[21b] plain whole-body solves ({name}),", step, init(5), obs,
+                       N_PLAIN_SOLVES, dev)
+
+        def solve_in_place(state, obs):
+            o, new = step(state, obs)
+            graphs.copy_into(state, new)
+            return o
+
+        g = graphs.graphed(solve_in_place, dev)(mppi.device_counters(init(6), dev), obs)
+        ms = host_ms(lambda: [g.replay() for _ in range(N_PLAIN_TIMED)]) / N_PLAIN_TIMED
+        eager_state = [mppi.device_counters(init(6), dev)]
+
+        def eager_solve():
+            _, eager_state[0] = step(eager_state[0], obs)
+
+        eager = host_ms(eager_solve, reps=3)
+        busy = profile_solves(f"[21c] ({name}) graphed", g.replay, 1, ms)
+        out[name] = {"u_seq_err": err, "graphed_ms": ms, "eager_ms": eager,
+                     "ops": None if busy is None else busy[2]}
+        print(f"[21c] plain whole-body solve ({name}): {ms:.3f} ms graphed, {eager:.3f} ms "
+              f"eager | device ops/solve {fmt_ops(out[name]['ops'])}", flush=True)
+    return out
+
+
+def gust_episode(n_steps: int, dev, graph: bool = True):
+    """tests/test_lee_wind.py's gust loop: Lee hover of the HarrierD7 at
+    (0, 0, 2), rotors at hover speed, a 5 m/s gust along x from 2 s for
+    1 s; one tick per millisecond, 10 per control step.  ``(run, start)``;
+    the log is the position."""
+    veh = mr.MultirotorParams()
+    gains, sp = lee.LeeGains(), lee.setpoint([0.0, 0.0, 2.0], device=dev)
+    wp = wind_mod.WindParams(gust_velocity=(5.0, 0.0, 0.0), gust_start=2.0, gust_duration=1.0,
+                             gust_period=1e9)
+
+    def tick(carry, i, noise):
+        plant, ws = carry
+        wvel, ws = wind_mod.wind_velocity(wp, ws, i.to(torch.float32) * 0.001, 0.001)
+        u = lee.lee_control(gains, veh, sp, pos=plant.pos, vel_world=plant.vel, quat=plant.quat,
+                            omega_body=plant.omega)
+        plant = mr.step(veh, plant, fc.allocate(veh, u), 0.001, wind_world=wvel)
+        return (plant, ws), (plant.pos,)
+
+    run = tick_episode(tick, lambda c: (c[0].pos,), n_steps * 10, dev, graph, "loop.gust")
+    return run, lambda seed=0: (hover_plant(veh, (0.0, 0.0, 2.0), device=dev),
+                                wind_mod.init_wind(device=dev))
+
+
+def rotorcraft_builds(dev) -> dict:
+    """``build(n, graph) -> (run, start)`` of each rotorcraft scenario."""
+    return {
+        "hover": lambda n, g: rc.hover_episode(n, dev, g, controller="lee"),
+        "figure-eight": lambda n, g: rc.figure_eight_episode(n, dev, g),
+        "mission": lambda n, g: rc.mission_episode(n, dev, g),
+        "waypoint-file": lambda n, g: rc.waypoint_file_episode(None, dev, g,
+                                                               n_ticks=n * 10)[:2],
+        "disturbance": lambda n, g: rc.disturbance_episode(n, dev, g),
+    }
+
+
+def phase_rotorcraft(dev) -> dict:
+    """The rotorcraft flight layer (no solver in the loop; 1 kHz ticks, one
+    captured control step of 10 ticks replayed per step), harrier, seed 0,
+    with the JAX tests' gates at their lengths: (a) Lee hover 400 steps
+    (passed, pos RMS < 0.1 m); (b) figure-eight 1800 (passed, track RMS <
+    0.15 m, tilt < 0.6 rad); (c) mission 1500 (max altitude > 1.9 m,
+    landed); (d) mission 400 saved, then 400 resumed (phase >= 1, resumed
+    max altitude >= the saved run's final - 0.2 m) and the resumed run's
+    first 10 steps bit-equal to 10 steps continued from the live carry;
+    (e) waypoint file: tests/test_cli.py's inline file (max end error <
+    0.2 m) and the default resource smooth (track RMS and max end error <
+    0.05 m); the default resource flown raw (tests/test_cli.py:127) stays
+    off the card, for the phase-wall budget; (f) tests/test_lee_wind.py's gust
+    recovery (error < 0.05 m at tick 1500, < 0.1 m at the end); (g)
+    ``run_disturbance`` 1000 steps beside the JAX package's CPU figures (no
+    gate); (h) 10 control steps of each scenario graphed bit-equal to
+    eager; (i) ms per control step graphed and eager, device ops per tick,
+    no host sync in the replay loop."""
+    out, gates = {}, []
+
+    def gate(tag, r, ok, what, wall=None):
+        print(f"{tag} " + ", ".join(f"{k} {v}" for k, v in r.items() if k != "file")
+              + ("" if wall is None else f" | {wall:.3f} ms/control step (capture included)"),
+              flush=True)
+        gates.append(ok)
+        if not ok:
+            fail(f"{what} missed the JAX tests' gates")
+
+    def timed(fn, n_steps):
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        return r, (time.perf_counter() - t0) * 1e3 / n_steps
+
+    r, wall = timed(lambda: rc.run_hover(0, N_HOVER, dev, controller="lee"), N_HOVER)
+    gate(f"[22a] run_hover (lee), {N_HOVER} steps:", r, r["passed"] and r["pos_rms_m"] < 0.1,
+         "the Lee hover", wall)
+    r, wall = timed(lambda: rc.run_figure_eight(0, N_FIG8, dev), N_FIG8)
+    gate(f"[22b] run_figure_eight, {N_FIG8} steps:", r,
+         r["passed"] and r["track_rms_m"] < 0.15 and r["max_tilt_rad"] < 0.6, "the figure-eight",
+         wall)
+    r, wall = timed(lambda: rc.run_mission(0, N_MISSION, dev), N_MISSION)
+    gate(f"[22c] run_mission, {N_MISSION} steps:", r, r["max_alt_m"] > 1.9 and r["landed"],
+         "the mission", wall)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "mission.npz")
+        run, start = rc.mission_episode(N_MISSION_SAVE, dev)
+        live, logs = run(start(0), save_state=ck)
+        r1 = {"final_phase": int(live[2].phase), "final_alt_m": round(logs[0][-1, 2].item(), 3)}
+        r2 = rc.run_mission(0, N_MISSION_SAVE, dev, resume=ck)
+        land_after = N_MISSION_SAVE * 10 * 3 // 5
+        cont, _ = rc.mission_episode(N_MISSION_CHECKED, dev, land_after=land_after)
+        same = trees_equal(cont(live), cont(start(0), resume=ck))
+        print(f"[22d] run_mission {N_MISSION_SAVE} steps saved: final phase "
+              f"{r1['final_phase']}, final alt {r1['final_alt_m']} m | resumed {N_MISSION_SAVE} steps: max alt "
+              f"{r2['max_alt_m']} m (gate >= {r1['final_alt_m'] - 0.2:.3f}), final phase "
+              f"{r2['final_phase']} | the resumed run's first {N_MISSION_CHECKED} control steps "
+              f"bit-equal to the live carry's {same}", flush=True)
+        if not (r1["final_phase"] >= 1 and r2["max_alt_m"] >= r1["final_alt_m"] - 0.2 and same):
+            fail("the mission's save and resume missed tests/test_cli.py's gate or is not "
+                 "bit-equal to the live carry")
+        gates.append(True)
+
+        path = os.path.join(tmp, "wps.txt")
+        with open(path, "w") as f:
+            f.write(CLI_WAYPOINTS)
+        r = rc.run_waypoint_file(device=dev, path=path)
+        gate("[22e] run_waypoint_file (tests/test_cli.py's inline file):", r,
+             r["n_waypoints"] == 3 and r["passed"] and r["max_end_err_m"] < 0.2,
+             "the inline waypoint file")
+    r = rc.run_waypoint_file(device=dev, smooth=True)
+    gate("[22e] run_waypoint_file (default resource, smooth):", r,
+         r["passed"] and r["track_rms_m"] < 0.05 and r["max_end_err_m"] < 0.05,
+         "the smooth waypoint file")
+
+    run, start = gust_episode(N_GUST_STEPS, dev)
+    _, (pos,) = run(start())
+    err = torch.linalg.norm(pos - torch.tensor([0.0, 0.0, 2.0], device=dev), dim=-1).cpu()
+    gate(f"[22f] gust recovery (tests/test_lee_wind.py, {N_GUST_STEPS * 10} ticks):",
+         {"err_at_1500": round(err[1500].item(), 4), "final_err": round(err[-1].item(), 4),
+          "peak_err": round(err.max().item(), 4)},
+         err[1500].item() < 0.05 and err[-1].item() < 0.1, "the gust recovery")
+
+    r, wall = timed(lambda: rc.run_disturbance(0, N_DISTURBANCE, dev), N_DISTURBANCE)
+    print(f"[22g] run_disturbance, {N_DISTURBANCE} steps (no gate): "
+          + ", ".join(f"{k} {v}" for k, v in r.items())
+          + " | JAX package, CPU, same length: "
+          + ", ".join(f"{k} {v}" for k, v in JAX_DISTURBANCE.items())
+          + f" | {wall:.3f} ms/control step (capture included)", flush=True)
+    out["disturbance"] = r
+
+    for name, build in rotorcraft_builds(dev).items():
+        _, eager_ms = graphed_equals_eager(f"[22h] {name},", build, N_ROTOR_CHECKED)
+        t = scenario_times(f"[22i] {name}", build, N_ROTOR_TIMED, eager_ms)
+        t["ops_per_tick"] = None if t["graphed_ops"] is None else t["graphed_ops"] / 10
+        out[name] = t
+    out["gates"] = len(gates)
+    return out
+
+
 def reach_sweep(mode: str, seeds) -> None:
     """``--reach MODE --seeds ...``: phase 7 alone, for one mode on any
     seeds; prints one JSON line of the per-seed metrics and exits non-zero
@@ -2710,6 +2957,8 @@ def main() -> None:
     multirotor = lap("18", phase_multirotor, dev)
     fixed_wing = lap("19", phase_fixed_wing, dev)
     mapped = lap("20", phase_mapped, dev)
+    plain = lap("21", phase_plain, dev)
+    rotor = lap("22", phase_rotorcraft, dev)
     print("[t] wall s per phase: " + ", ".join(f"{n} {w:.1f}" for n, w in walls)
           + f" | total {sum(w for _, w in walls):.1f}", flush=True)
     b256 = {(b, spill): e_ms for b, spill, _, e_ms, _, _, _ in batch_rows}
@@ -2882,6 +3131,12 @@ def main() -> None:
                       f"({mapped['serving_' + m]['eager_ms']:.3f} eager; "
                       f"{fmt_ops(mapped['serving_' + m]['graphed_ops'])} ops/step)"
                       for m in ("spheres", "esdf"))
+          + ", plain whole-body solve (graphed) "
+          + ", ".join(f"{n} {v['graphed_ms']:.3f} ms ({fmt_ops(v['ops'])} ops)"
+                      for n, v in plain.items())
+          + ", rotorcraft control step of 10 ticks (graphed / eager; ops per tick) "
+          + ", ".join(f"{n} {rotor[n]['graphed_ms']:.3f} / {rotor[n]['eager_ms']:.3f} ms; "
+                      f"{fmt_ops(rotor[n]['ops_per_tick'])}" for n in rotorcraft_builds(dev))
           + f" on {smi}")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,14 +10,17 @@ nodes, ``{"__ndarray__": list, "dtype": str}`` arrays and
 ``{"__schedule__": {"kind": "ee_error", ...}}`` sigma schedules — and
 rebuilds it from this package's dataclasses (the whole-body, drone, arm,
 multirotor, fixed-wing and mapped solvers, the loops, the graspable object,
-the contact layer, the lidar and the occupancy grid).  A mapped solver's
+the contact layer, the sensors, the occupancy grid, the ground contact,
+the Lee gains, the wind and the mission).  A mapped solver's
 exploration schedule is a bare callable, which the JAX ``to_dict`` refuses:
 its tree crosses with ``sigma_scale_fn=None``, and the caller puts the
 port's schedule back (``solver.mapped.distance_to_go_scale``).
 :func:`plant_from_numpy` reads the JAX plant-kernel state vector
 (``pack_plant``); :func:`graspable_state_from_numpy` and
 :func:`arm_loop_state_from_numpy` the object's and the arm node's states;
-:func:`grid_from_numpy` an occupancy grid's log-odds.
+:func:`grid_from_numpy` an occupancy grid's log-odds;
+:func:`wind_field_from_numpy` a static wind field and
+:func:`mission_state_from_numpy` the mission machine's state.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import numpy as np
 import torch
 
 from .models.fixed_wing import FwAeroParams, FwVehicleParams
-from .models.multirotor import MultirotorParams
+from .models.multirotor import GroundContactParams, MultirotorParams
 from .models.whole_body import WholeBodyParams
 from .ops.costs import ArmCostParams
 from .sim.arm_loop import ArmLoopConfig, ArmLoopState
@@ -37,10 +40,16 @@ from .sim.closed_loop import LoopConfig
 from .sim.contact import ContactParams, WorldPrimitives
 from .sim.flight_control import FlightGains
 from .sim.graspable import GraspableParams, GraspableState
+from .sim.lee_controller import LeeGains
 from .sim.mapped_loop import MappedFlightConfig
 from .sim.occupancy import OccupancyGrid, OccupancyParams
-from .sim.sensors import LidarParams
+from .sim.scenario import MissionConfig, MissionState
+from .sim.sensors import (
+    BarometerParams, GpsParams, ImuParams, LidarParams, MagnetometerParams, OdometryParams,
+    OpticalFlowParams,
+)
 from .sim.whole_body_loop import WholeBodyLoopConfig, WholeBodyPlant
+from .sim.wind import WindField, WindParams
 from .solver.arm import ArmMPPIParams
 from .solver.drone import DroneMPPIParams
 from .solver.fixed_wing import FwMPPIParams
@@ -57,7 +66,9 @@ _REGISTRY = {cls.__name__: cls for cls in (
     WholeBodyMPPIParams, FlightGains, WholeBodyLoopConfig, DroneMPPIParams, LoopConfig,
     ArmCostParams, ArmMPPIParams, ArmLoopConfig, GraspableParams, ContactParams, WorldPrimitives,
     MultirotorCostParams, MultirotorMPPIParams, FwAeroParams, FwVehicleParams, FwMPPIParams,
-    LidarParams, OccupancyParams, MappedMPPIParams, MappedFlightConfig,
+    LidarParams, OccupancyParams, MappedMPPIParams, MappedFlightConfig, GroundContactParams,
+    LeeGains, WindParams, WindField, MissionConfig, ImuParams, GpsParams, BarometerParams,
+    MagnetometerParams, OdometryParams, OpticalFlowParams,
 )}
 _SCHEDULES = {"ee_error": ee_error_sigma_schedule}
 
@@ -95,7 +106,9 @@ def config_from_dict(d: dict) -> Any:
     parameters, ``FlightGains``, ``WholeBodyLoopConfig``, ``LoopConfig``,
     ``ArmLoopConfig``, ``GraspableParams``, ``ContactParams``, the
     fixed-wing airframe, ``LidarParams``, ``OccupancyParams``,
-    ``MappedFlightConfig``) from its JAX ``config.to_dict`` form."""
+    ``MappedFlightConfig``, ``GroundContactParams``, ``LeeGains``,
+    ``WindParams``, ``WindField``, ``MissionConfig``, the sensor
+    parameters) from its JAX ``config.to_dict`` form."""
     return _from_dict(d)
 
 
@@ -197,3 +210,34 @@ def grid_from_numpy(log_odds, device="cuda") -> OccupancyGrid:
     if lo.ndim != 3:
         raise ValueError(f"expected (nx, ny, nz) log-odds, got {lo.shape}")
     return OccupancyGrid(log_odds=torch.tensor(lo, device=resolve_device(device)))
+
+
+def wind_field_from_numpy(field) -> WindField:
+    """The port's ``WindField`` from a JAX ``WindField`` (or any object with
+    its fields), the grids as float32 NumPy arrays."""
+    def f32(x):
+        return np.asarray(x, dtype=np.float32)
+
+    return WindField(min_x=float(field.min_x), min_y=float(field.min_y),
+                     res_x=float(field.res_x), res_y=float(field.res_y),
+                     vertical_spacing_factors=f32(field.vertical_spacing_factors),
+                     bottom_z=f32(field.bottom_z), top_z=f32(field.top_z), u=f32(field.u),
+                     v=f32(field.v), w=f32(field.w))
+
+
+def mission_state_from_numpy(phase, gear, gripper, gripper_cmd, payload_attached, land_cmd,
+                             land_z, device="cuda") -> MissionState:
+    """A ``MissionState`` from host values (the JAX state's leaves): the
+    phase as int32, the two flags as bool, the rest float32."""
+    dev = resolve_device(device)
+
+    def f32(x):
+        return torch.tensor(np.asarray(x, dtype=np.float32), device=dev)
+
+    def flag(x):
+        return torch.tensor(np.asarray(x, dtype=bool), device=dev)
+
+    return MissionState(phase=torch.tensor(np.asarray(phase, dtype=np.int32), device=dev),
+                        gear=f32(gear), gripper=f32(gripper), gripper_cmd=f32(gripper_cmd),
+                        payload_attached=flag(payload_attached), land_cmd=flag(land_cmd),
+                        land_z=f32(land_z))

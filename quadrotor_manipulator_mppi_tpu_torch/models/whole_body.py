@@ -1,11 +1,12 @@
 """Whole-body quadrotor + 7-DoF-arm model for MPPI rollouts.
 
-Port of the JAX package's ``models/whole_body.py`` (the parallel-in-time
-rollouts).  The base runs in one of three action modes (attitude
-setpoints through a PD-closed attitude loop, position setpoints through the
-identified closed position loop, or the direct wrench with a quaternion
-prefix scan); the arm's joint accelerations are double-integrated and the
-limit-clamped joints feed the quaternion FK.  Every horizon recurrence is a
+Port of the JAX package's ``models/whole_body.py``.  The base runs in one
+of three action modes (attitude setpoints through a PD-closed attitude
+loop, position setpoints through the identified closed position loop, or
+the direct wrench: a quaternion prefix scan, or with ``time_parallel=False``
+the sequential euler-angle ``step12`` loop over the horizon); the arm's
+joint accelerations are double-integrated and the limit-clamped joints
+feed the quaternion FK.  Every parallel-in-time recurrence is a
 host-precomputed (H, H) operator — this operator form is the plain version
 the CUDA cost kernel, which runs the same recurrences step by step in
 registers, is held against.
@@ -32,7 +33,7 @@ from ..utils.pose import Pose
 from . import chain as chain_mod
 from . import kinova
 from .chain import ChainSpec
-from .multirotor import Multirotor12State, MultirotorParams
+from .multirotor import Multirotor12State, MultirotorParams, step12
 from .rigid_body import InertialParams
 
 Tensor = torch.Tensor
@@ -225,6 +226,24 @@ def _quat_prefix_scan(q: Tensor) -> Tensor:
     return q
 
 
+def _base_rollout_scan(
+    params: WholeBodyParams, state: WholeBodyState, base_u: Tensor, dt: float
+) -> BaseTraj:
+    """Sequential wrench rollout: ``step12`` of the reduced euler-angle
+    state, one horizon step after another (the JAX package's ``lax.scan``,
+    here a Python loop of H steps over every sample at once)."""
+    lead = base_u.shape[:-2]
+    b = Multirotor12State(*(x.unsqueeze(-2).expand(lead + x.shape[-1:]) for x in state.base))
+    steps = []
+    for t in range(base_u.shape[-2]):
+        b = step12(params.vehicle, b, base_u[..., t, :], dt, extra_mass=params.arm_mass_lump,
+                   drag_kd=params.drag_kd, rate_damping=params.rate_damping)
+        steps.append(b)
+    traj = Multirotor12State(*(torch.stack(f, dim=-2) for f in zip(*steps)))
+    return BaseTraj(pos=traj.pos, quat=rot.matrix_to_quat(base_rotation(traj)), vel=traj.vel,
+                    omega=traj.omega)
+
+
 def _base_rollout_parallel(
     params: WholeBodyParams, state: WholeBodyState, base_u: Tensor, dt: float
 ) -> BaseTraj:
@@ -329,8 +348,6 @@ def rollout(
             base_u = torch.cat([thrust, base_u[..., 1:4]], dim=-1)
         base_traj = _base_rollout_attitude(params, state, base_u, dt)
     elif params.control_mode == "wrench":
-        if not params.time_parallel:
-            raise ValueError("only the parallel-in-time wrench rollout is ported")
         if params.rotor_lag_tau > 0.0:
             f = device_const(_rotor_lag_matrix(h, dt, params.rotor_lag_tau), base_u)
             base_u = torch.einsum("ts,...ksa->...kta", f, base_u)
@@ -341,7 +358,8 @@ def rollout(
                 spec, params.inertials(), q_fk, base_rotation(state.base)[..., None, None, :, :]
             )
             base_u = torch.cat([base_u[..., 0:1], base_u[..., 1:4] + tau_b], dim=-1)
-        base_traj = _base_rollout_parallel(params, state, base_u, dt)
+        base_fn = _base_rollout_parallel if params.time_parallel else _base_rollout_scan
+        base_traj = base_fn(params, state, base_u, dt)
     else:
         raise ValueError(f"unknown control mode {params.control_mode!r}")
 

@@ -4,7 +4,8 @@ Port of the JAX package's ``sim/flight_control.py`` (the parts the
 whole-body and drone loops run): the PID position + PD attitude law
 (:func:`pid_step`), the adaptive backstepping law
 (:func:`backstepping_step`, with its optional safeguards), the
-pseudo-inverse rotor allocation (:func:`allocate`), the gain presets and
+stateless attitude-command law (:func:`roll_pitch_yawrate_thrust_step`),
+the pseudo-inverse rotor allocation (:func:`allocate`), the gain presets and
 :func:`hover_setpoint`.  Functions of tensors
 with leading batch dims; the controller state is an explicit NamedTuple.
 The reference's quirks are kept as they are written, e.g. the pitch
@@ -276,6 +277,22 @@ def backstepping_step(
                                m_hat=torch.stack([mx_hat, my_hat, mz_hat], -1),
                                n_hat=torch.stack([nx, ny], -1))
     return torch.stack([u1, u2, u3, u4], dim=-1), new_ctrl
+
+
+def roll_pitch_yawrate_thrust_step(
+    vehicle: MultirotorParams, roll_des: Tensor, pitch_des: Tensor, yaw_rate_des: Tensor,
+    thrust: Tensor, rpy: Tensor, omega_body: Tensor, kp_rp: float = 100.0,
+    kd_rp: float = 18.0, kd_yaw_rate: float = 10.0,
+) -> Tensor:
+    """Attitude-command law -> U = [T, tau] (body frame): RotorS'
+    roll_pitch_yawrate_thrust controller, the joystick-flight path.  Tracks
+    the commanded roll and pitch angles and the yaw *rate* with an
+    inertia-normalized PD and passes the thrust through; stateless."""
+    inertia = device_const(vehicle.inertia, rpy)
+    tau_r = inertia[0] * (kp_rp * (roll_des - rpy[..., 0]) - kd_rp * omega_body[..., 0])
+    tau_p = inertia[1] * (kp_rp * (pitch_des - rpy[..., 1]) - kd_rp * omega_body[..., 1])
+    tau_y = inertia[2] * kd_yaw_rate * (yaw_rate_des - omega_body[..., 2])
+    return torch.stack([thrust, tau_r, tau_p, tau_y], dim=-1)
 
 
 def allocate(vehicle: MultirotorParams, u: Tensor) -> Tensor:

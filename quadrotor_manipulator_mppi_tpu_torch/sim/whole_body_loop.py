@@ -351,7 +351,7 @@ def make_whole_body_episode(
     ``z`` (n_control_steps, K, H, A) optionally carries the solver's
     standard normals, one draw per control step, in place of the Philox
     stream.  ``backend`` selects the solver pipeline (``"cuda"``, the
-    kernels; ``"torch"``, the plain CPU reference).
+    kernels; ``"torch"``, the plain pipeline, on any device).
 
     ``n_scenarios=B``: B vehicles, as ``jax.vmap(run)`` of the JAX episode
     (see the module docstring); every argument's fields carry a leading B,

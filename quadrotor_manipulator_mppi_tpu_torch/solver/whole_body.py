@@ -9,7 +9,10 @@ H=50, attitude mode.
 (``ops/cuda/whole_body_kernel``); for CPU tensors those kernels' wrappers
 run their plain versions.  ``backend="torch"`` selects the plain pipeline
 (``solver/mppi.make_step``), the counterpart of the JAX package's XLA
-backend; it is a CPU reference and refuses a CUDA device.
+backend, on any device: on the card it runs every configuration the
+kernels refuse (another ``ori_mode``, ``zero_mean_noise``, a full sigma
+matrix, the sequential wrench rollout), and it can be captured in a CUDA
+graph.  The caller chooses the backend; nothing switches on its own.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from ..models.whole_body import (
     rollout,
 )
 from ..ops import costs as costs_mod
-from ..utils.device import resolve_device
+from ..utils.device import device_const, resolve_device
 from ..utils.pose import Pose
 from .mppi import MPPIConfig, MPPIState, _diag_sigma, make_step, scenario_state
 
@@ -237,7 +240,6 @@ def rollout_cost_fns(params: WholeBodyMPPIParams):
 
     def cost_one(aux, v: Tensor, obs: WholeBodyObs) -> Tensor:
         ee, q, qdot, base = aux
-        dtype, dev = v.dtype, v.device
         tpos, tquat = obs.ee_target.position, obs.ee_target.quat
         s = costs_mod.pose_stage_cost_pq(
             ee.position, ee.quat, tpos, tquat,
@@ -264,8 +266,7 @@ def rollout_cost_fns(params: WholeBodyMPPIParams):
         if cp.action_weight:
             s = s + costs_mod.action_cost(v, cp.action_weight, cp.gamma)
         if cp.joint_limit_weight:
-            lo = torch.as_tensor(spec.lower, dtype=dtype, device=dev)
-            hi = torch.as_tensor(spec.upper, dtype=dtype, device=dev)
+            lo, hi = device_const(spec.lower, v), device_const(spec.upper, v)
             if cp.joint_limit_soft:
                 s = s + costs_mod.joint_limit_soft_cost(
                     q, lo, hi, cp.gamma, weight=1e3 * cp.joint_limit_weight
@@ -275,8 +276,7 @@ def rollout_cost_fns(params: WholeBodyMPPIParams):
         if has_obstacles:
             s = s + costs_mod.sphere_obstacle_cost(
                 ee.position,
-                torch.as_tensor(cp.obstacle_centers, dtype=dtype, device=dev),
-                torch.as_tensor(cp.obstacle_radii, dtype=dtype, device=dev),
+                device_const(cp.obstacle_centers, v), device_const(cp.obstacle_radii, v),
                 cp.obstacle_weight,
             )
         return s
@@ -335,11 +335,6 @@ def make_whole_body_solver(
                                           n_local_samples=n_local_samples,
                                           noise_spill=noise_spill, n_scenarios=n_scenarios)
     elif backend == "torch":
-        if dev.type != "cpu":
-            raise ValueError(
-                "backend='torch' is the CPU reference pipeline; on the card "
-                "the solve runs the CUDA kernels (backend='cuda')"
-            )
         inner = make_step(cfg, *rollout_cost_fns(params), group=group,
                           n_local_samples=n_local_samples, n_scenarios=n_scenarios)
     else:

@@ -178,13 +178,17 @@ def episode_step(control_step: Callable[[Any, Any], tuple]) -> Callable[..., Non
     (carry, log_row)`` becomes ``one_step(carry, z, index, logs)``, which
     reads ``z[index]`` (``z`` None: no explicit noise), updates ``carry`` in
     place, writes each field of the log row into its (n_steps, ...) buffer
-    at the device step index, and advances the index."""
+    at the device step index, and advances the index.  The row index is
+    clamped to the last row: the capture's warm-up calls advance it past
+    the end of an episode shorter than they are (their writes are
+    discarded when the buffers are loaded)."""
     def one_step(carry, z, index, logs):
-        zi = None if z is None else z.index_select(0, index)[0]
+        row_index = index.clamp(max=logs[0].shape[0] - 1)
+        zi = None if z is None else z.index_select(0, row_index)[0]
         new_carry, row = control_step(carry, zi)
         copy_into(carry, new_carry)
         for buf, x in zip(logs, row):
-            buf.index_copy_(0, index, x.unsqueeze(0))
+            buf.index_copy_(0, row_index, x.unsqueeze(0))
         index.add_(1)
 
     return one_step

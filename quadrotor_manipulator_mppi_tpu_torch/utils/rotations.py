@@ -68,6 +68,11 @@ def quat_rotate(q: Tensor, v: Tensor) -> Tensor:
     return v + 2.0 * (w * uv + uuv)
 
 
+def matvec(m: Tensor, v: Tensor) -> Tensor:
+    """m @ v over leading dims: (..., 3, 3) x (..., 3) -> (..., 3)."""
+    return (m @ v.unsqueeze(-1)).squeeze(-1)
+
+
 def quat_to_matrix(q: Tensor) -> Tensor:
     """Unit quaternion (wxyz) -> rotation matrix [..., 3, 3]."""
     q = quat_normalize(q)

@@ -117,6 +117,8 @@ def polynomial_sample(breaks, coeffs, t: Tensor, derivative: int = 0) -> Tensor:
     terminal state."""
     breaks = torch.as_tensor(breaks, dtype=t.dtype, device=t.device)
     coeffs = torch.as_tensor(coeffs, dtype=t.dtype, device=t.device)
+    lead = t.shape
+    t = t.reshape(-1)  # (N,) segment indices: a 0-d index tensor would be read on the host
     t = torch.clamp(t, breaks[0], breaks[-1])
     seg = torch.clamp(torch.searchsorted(breaks, t.contiguous(), right=True) - 1,
                       0, coeffs.shape[0] - 1)
@@ -130,7 +132,7 @@ def polynomial_sample(breaks, coeffs, t: Tensor, derivative: int = 0) -> Tensor:
         for d in range(derivative):
             fact *= (j - d)
         out = out * tau[..., None] + fact * c[..., j, :]
-    return out
+    return out.reshape(lead + out.shape[-1:])
 
 
 def gerono_reference(t: Tensor, amp: float, omega: float, z0: float, t_ramp: float = 1.5):

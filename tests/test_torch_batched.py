@@ -217,15 +217,20 @@ def test_batched_init_and_state_from_the_jax_vmapped_states():
 
 def test_torch_backend_refuses_a_scenario_batch(monkeypatch):
     """The plain pipeline takes a scenario batch on the CPU (its cases are
-    in tests/test_torch_fleet.py); with one, as without, it refuses the
-    card, where the batch runs the kernels."""
+    in tests/test_torch_fleet.py) and, since the plain pipeline runs on the
+    card too, it is built for the card with one as without; a
+    configuration the kernels refuse still raises under the default
+    ``backend="cuda"``, batched or not: the caller chooses the backend."""
     _, init = twb.make_whole_body_solver(_params("position"), device="cpu", backend="torch",
                                          n_scenarios=2)
     assert init(0).u_prev.shape == (2, H, wk.A_TOTAL)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(ValueError, match="backend='torch' is the CPU reference pipeline"):
-        twb.make_whole_body_solver(_params("position"), device="cuda", backend="torch",
-                                   n_scenarios=2)
+    refused = dataclasses.replace(_params("position"), mppi=dataclasses.replace(
+        _params("position").mppi, zero_mean_noise=True))
+    for n in (None, 2):
+        twb.make_whole_body_solver(refused, device="cuda", backend="torch", n_scenarios=n)
+        with pytest.raises(ValueError, match="zero_mean_noise"):
+            twb.make_whole_body_solver(refused, device="cuda", n_scenarios=n)
 
 
 def test_seed_arguments():

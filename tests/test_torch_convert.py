@@ -70,7 +70,7 @@ def test_carried_schedule_scales_like_jax(preset):
 
 def test_params_from_dict_rejects_foreign_trees():
     with pytest.raises(ValueError, match="no counterpart"):
-        convert.params_from_dict({"__dataclass__": "MissionConfig"})
+        convert.params_from_dict({"__dataclass__": "GimbalParams"})
     with pytest.raises(ValueError, match="expected a WholeBodyMPPIParams"):
         convert.params_from_dict(jcfg.to_dict(jwb.WholeBodyMPPIParams().model))
     with pytest.raises(ValueError, match="unknown sigma schedule"):
@@ -126,12 +126,11 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     for build in (lambda: twb.make_whole_body_solver(params),
                   lambda: serving.make_packed_step(params),
                   lambda: twb.default_obs(),
-                  lambda: convert.state_from_numpy(np.zeros((10, 11)), np.ones(11), 0)):
+                  lambda: convert.state_from_numpy(np.zeros((10, 11)), np.ones(11), 0),
+                  # the plain pipeline defaults to the card as the kernels do
+                  lambda: twb.make_whole_body_solver(params, backend="torch")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
-    # the plain pipeline is a CPU reference, never a stand-in on a device
-    with pytest.raises(ValueError, match="CPU reference"):
-        twb.make_whole_body_solver(params, device="meta", backend="torch")
 
 
 def test_loop_config_and_gains_trees_load():

@@ -209,8 +209,15 @@ def test_init_state_and_step_refusals():
     js = jmr.init_state(jmr.MultirotorParams(), pos=(0.0, 1.0, 2.0), batch_shape=(2,))
     for g, w in zip(st, js):
         np.testing.assert_array_equal(N(g), np.asarray(w))
-    with pytest.raises(NotImplementedError, match="contact"):
-        mr.step(mr.MultirotorParams(), st, torch.zeros(2, 8), 0.001, wind_world=torch.zeros(3))
+    # The wind branch no longer raises (the flight layer's port): it steps
+    # as the JAX plant does.
+    wind = np.array([1.0, -0.5, 0.2], np.float32)
+    got = mr.step(mr.MultirotorParams(), st, torch.full((2, 8), 300.0), 0.001,
+                  wind_world=T(wind))
+    want = jmr.step(jmr.MultirotorParams(), js, jnp.full((2, 8), 300.0), 0.001,
+                    wind_world=jnp.asarray(wind))
+    for w, g in zip(want, got):
+        close(g, w, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -6,11 +6,13 @@ helpers of ``utils/graphs``, and ``graph=True`` on the CPU running the
 eager call with the same result (the serving solve, the bridge head, the
 whole-body, drone and arm episodes, the scenario episodes: perfect-model
 whole-body and multirotor, fixed-wing, mapped flight in both obstacle
-modes).  ``cuda`` cases (each decides in its body whether a card exists):
-the graphed serving solve, bridge head, 20-step whole-body episodes in
-every mode, the pick_weight branches (a payload, the object, contact), the
-drone episode, the arm episode and the 20-step scenario episodes bit-equal
-to their eager calls, the launch counters counting replays, one
+modes, and the rotorcraft tick episodes).  ``cuda`` cases (each decides in
+its body whether a card exists): the graphed serving solve, bridge head,
+20-step whole-body episodes in every mode, the pick_weight branches (a
+payload, the object, contact), the drone episode, the arm episode, the
+20-step scenario episodes, the rotorcraft tick episodes (hover, mission
+and the rest) and the plain whole-body step in the configurations the
+kernels refuse, each bit-equal to its eager call, the launch counters counting replays, one
 graph per argument structure, a capture that fails raising.  This file
 imports neither JAX nor the JAX package, so it also runs where only
 PyTorch is installed:
@@ -29,6 +31,7 @@ from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import whole_body_kernel as w
 from quadrotor_manipulator_mppi_tpu_torch.parallel.multihost import tree_map
 from quadrotor_manipulator_mppi_tpu_torch.models import kinova
 from quadrotor_manipulator_mppi_tpu_torch.models import multirotor as mr
+from quadrotor_manipulator_mppi_tpu_torch.scenarios import rotorcraft
 from quadrotor_manipulator_mppi_tpu_torch.scenarios import solvers as scenarios
 from quadrotor_manipulator_mppi_tpu_torch.sim import arm_loop
 from quadrotor_manipulator_mppi_tpu_torch.sim import closed_loop as cl
@@ -291,6 +294,34 @@ def test_scenario_episode_graph_flag_on_cpu_runs_eagerly(case):
     assert all(x.shape[0] == 3 for x in lg)
 
 
+# The rotorcraft tick episodes: (run, start) of n control steps (10 ticks
+# each), graphed or not.
+ROTORCRAFT = {
+    "hover_lee": lambda dev, n, g: rotorcraft.hover_episode(n, dev, g, controller="lee"),
+    "hover_pid": lambda dev, n, g: rotorcraft.hover_episode(n, dev, g, controller="pid"),
+    "figure_eight": lambda dev, n, g: rotorcraft.figure_eight_episode(n, dev, g),
+    "disturbance": lambda dev, n, g: rotorcraft.disturbance_episode(n, dev, g),
+    "mission": lambda dev, n, g: rotorcraft.mission_episode(n, dev, g, land_after=n * 5),
+    "waypoint": lambda dev, n, g: rotorcraft.waypoint_file_episode(None, dev, g,
+                                                                   n_ticks=n * 10)[:2],
+}
+
+
+def _rotorcraft_runs(case, dev, n):
+    outs = []
+    for g in (True, False):
+        run, start = ROTORCRAFT[case](dev, n, g)
+        outs.append(run(start(2)))
+    return outs
+
+
+@pytest.mark.parametrize("case", ["hover_lee", "mission"])
+def test_rotorcraft_episode_graph_flag_on_cpu_runs_eagerly(case):
+    (fg, lg), (fe, le) = _rotorcraft_runs(case, "cpu", 3)
+    assert _trees_equal(lg, le) and _trees_equal(fg, fe)
+    assert all(x.shape[0] == 30 for x in lg)
+
+
 def test_a_number_in_the_carry_is_refused():
     """A graph freezes a Python number of its carry: ``run_episode`` names
     the field and refuses it before a capture."""
@@ -479,6 +510,70 @@ def test_graphed_scenario_episode_bit_equal_to_eager(case):
     torch.cuda.synchronize()
     assert _trees_equal(lg, le) and _trees_equal(fg, fe)
     assert all(bool(torch.isfinite(x).all()) for x in lg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ROTORCRAFT))
+def test_graphed_rotorcraft_episode_bit_equal_to_eager(case):
+    """10 control steps (100 ticks): the logs and every field of the final
+    carry (plant, controller, wind, mission machine, noise key)."""
+    dev = _card()
+    (fg, lg), (fe, le) = _rotorcraft_runs(case, dev, 10)
+    torch.cuda.synchronize()
+    assert _trees_equal(lg, le) and _trees_equal(fg, fe)
+    assert all(bool(torch.isfinite(x.float()).all()) for x in lg)
+
+
+@pytest.mark.cuda
+def test_graphed_one_step_episode_bit_equal_to_eager():
+    """An episode shorter than the capture's two warm-up calls: their row
+    index runs past its log buffers, and is clamped to the last row."""
+    dev = _card()
+    (fg, lg), (fe, le) = _rotorcraft_runs("hover_lee", dev, 1)
+    torch.cuda.synchronize()
+    assert _trees_equal(lg, le) and _trees_equal(fg, fe) and lg[0].shape[0] == 10
+
+
+def _refused(case):
+    """Whole-body configurations the kernels refuse, at small K."""
+    if case == "sequential_wrench":
+        p = _small(wb.wrench_mode_params(), 256, 12)
+        return dataclasses.replace(p, model=dataclasses.replace(p.model, time_parallel=False))
+    p = _small(wb.WholeBodyMPPIParams(), 256, 12)
+    sigma = torch.diag(torch.tensor(wb.default_sigma())).numpy()
+    sigma[0, 1:4] = [0.5, -0.3, 0.2]
+    return dataclasses.replace(
+        p, mppi=dataclasses.replace(p.mppi, zero_mean_noise=True, sigma=sigma),
+        cost=dataclasses.replace(p.cost, ori_mode="euler_zyx"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["sequential_wrench", "zero_mean_euler_full_sigma"])
+def test_graphed_plain_whole_body_step_bit_equal_to_eager(case):
+    """``backend="torch"`` on the card: 6 replays of one captured solve
+    against 6 eager solves, plans and warm start bit-equal; the kernel
+    backend refuses the configuration."""
+    dev = _card()
+    params = _refused(case)
+    with pytest.raises(ValueError):
+        wb.make_whole_body_solver(params, device=dev, low_k_guard="off")
+    step, init = wb.make_whole_body_solver(params, device=dev, backend="torch",
+                                           low_k_guard="off")
+    obs = wb.default_obs(device=dev)
+
+    def solve_in_place(state, obs):
+        out, new = step(state, obs)
+        graphs.copy_into(state, new)
+        return out
+
+    g = graphs.graphed(solve_in_place, dev)(mppi.device_counters(init(4), dev), obs)
+    eager = mppi.device_counters(init(4), dev)
+    for _ in range(6):
+        out_g = g.replay()
+        out_e, eager = step(eager, obs)
+        assert _trees_equal(out_g, out_e)
+    torch.cuda.synchronize()
+    assert torch.equal(g.args[0].u_prev, eager.u_prev) and g.args[0].step.tolist() == [6]
 
 
 @pytest.mark.cuda

@@ -1,6 +1,9 @@
 """Port models vs the JAX package: chain FK, link positions, the arm gravity
 moment, the host horizon operators and the whole-body rollout in every
-mode, on the same random joints, base pose and actions."""
+mode (the wrench mode's parallel-in-time and sequential rollouts), on the
+same random joints, base pose and actions; then the JAX package's own
+comparisons of the two wrench rollouts (``tests/test_whole_body.py``) on
+the port."""
 
 import dataclasses
 
@@ -96,6 +99,10 @@ ROLLOUT_CASES = {
     "wrench_coupled": dict(control_mode="wrench", couple_arm_gravity=True),
     "wrench_drag": dict(control_mode="wrench", drag_kd=0.5),
     "wrench_rate_damping": dict(control_mode="wrench", rate_damping=12.0),
+    "wrench_sequential": dict(control_mode="wrench", time_parallel=False),
+    "wrench_sequential_damped_drag": dict(control_mode="wrench", time_parallel=False,
+                                          couple_arm_gravity=True, rate_damping=12.0,
+                                          drag_kd=0.5),
 }
 
 
@@ -124,3 +131,66 @@ def test_hover_nominal_matches_jax():
     got = twbm.hover_nominal_action(twbm.WholeBodyParams(), 10)
     want = jwbm.hover_nominal_action(jwbm.WholeBodyParams(), 10)
     np.testing.assert_allclose(N(got), np.asarray(want), rtol=1e-7)
+
+
+# The JAX package's comparisons of the parallel-in-time and the sequential
+# rollout (tests/test_whole_body.py), on the port, on the JAX tests' draws.
+
+def _jax_actions(key, sigma, k=16, h=40):
+    import jax
+
+    noise = jax.random.normal(jax.random.key(key), (k, h, 11)) * jnp.asarray(sigma, jnp.float32)
+    return T(np.asarray(jwbm.hover_nominal_action(jwbm.WholeBodyParams(), h)[None] + noise))
+
+
+def test_parallel_rollout_matches_scan_rollout():
+    from quadrotor_manipulator_mppi_tpu_torch.solver import whole_body as twb
+
+    obs = twb.default_obs(device="cpu")
+    actions = _jax_actions(3, jwb.default_sigma())
+    ee_p, q_p, _, base_p = twbm.rollout(twbm.WholeBodyParams(time_parallel=True), obs.state,
+                                        actions, 0.01)
+    ee_s, q_s, _, base_s = twbm.rollout(twbm.WholeBodyParams(time_parallel=False), obs.state,
+                                        actions, 0.01)
+    np.testing.assert_allclose(N(q_p), N(q_s), atol=1e-5)
+    np.testing.assert_allclose(N(base_p.pos), N(base_s.pos), atol=2e-2)
+    qd = np.abs(np.sum(N(base_p.quat) * N(base_s.quat), axis=-1))
+    assert qd.min() > 1 - 2e-4, f"quat mismatch: min dot {qd.min()}"
+    np.testing.assert_allclose(N(ee_p.position), N(ee_s.position), atol=3e-2)
+
+
+def test_drag_kd_parallel_matches_scan():
+    from quadrotor_manipulator_mppi_tpu_torch.solver import whole_body as twb
+
+    obs = twb.default_obs(device="cpu")
+    actions = _jax_actions(5, jwb.default_sigma())
+    params = {tp: twbm.WholeBodyParams(control_mode="wrench", time_parallel=tp, drag_kd=0.8)
+              for tp in (True, False)}
+    _, _, _, base_p = twbm.rollout(params[True], obs.state, actions, 0.01)
+    _, _, _, base_s = twbm.rollout(params[False], obs.state, actions, 0.01)
+    np.testing.assert_allclose(N(base_p.vel), N(base_s.vel), atol=2e-2)
+    np.testing.assert_allclose(N(base_p.pos), N(base_s.pos), atol=2e-2)
+    _, _, _, base_0 = twbm.rollout(twbm.WholeBodyParams(control_mode="wrench"), obs.state,
+                                   actions, 0.01)
+    v_drag = np.linalg.norm(N(base_p.vel[:, -1]), axis=-1).mean()
+    v_free = np.linalg.norm(N(base_0.vel[:, -1]), axis=-1).mean()
+    assert v_drag < v_free
+
+
+def test_rate_damping_parallel_matches_scan():
+    from quadrotor_manipulator_mppi_tpu_torch.solver import whole_body as twb
+
+    obs = twb.default_obs(device="cpu")
+    state = obs.state._replace(base=obs.state.base._replace(omega=T([0.4, -0.3, 0.2])))
+    actions = _jax_actions(7, jwb.wrench_sigma())
+    params = {tp: twbm.WholeBodyParams(control_mode="wrench", time_parallel=tp,
+                                       rate_damping=8.0) for tp in (True, False)}
+    _, _, _, base_p = twbm.rollout(params[True], state, actions, 0.01)
+    _, _, _, base_s = twbm.rollout(params[False], state, actions, 0.01)
+    np.testing.assert_allclose(N(base_p.omega), N(base_s.omega), atol=1e-4)
+    np.testing.assert_allclose(N(base_p.pos), N(base_s.pos), atol=3e-2)
+    _, _, _, base_u = twbm.rollout(twbm.WholeBodyParams(control_mode="wrench"), state, actions,
+                                   0.01)
+    w_damp = np.linalg.norm(N(base_p.omega[:, -1]), axis=-1).mean()
+    w_free = np.linalg.norm(N(base_u.omega[:, -1]), axis=-1).mean()
+    assert w_damp < 0.7 * w_free

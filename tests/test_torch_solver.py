@@ -2,7 +2,11 @@
 JAX noise stream shared: each step reproduces the JAX key split and hands
 the standard normals z to the port.  Both port backends are held to the
 reference: the kernel step (plain versions on the CPU) and the plain
-pipeline.  Tolerances are those of ``tests/test_whole_body_pallas.py``."""
+pipeline.  Tolerances are those of ``tests/test_whole_body_pallas.py``.
+The configurations the kernels refuse (the sequential wrench rollout;
+zero-mean noise, a full sigma matrix and the euler orientation metric) run
+on the plain pipeline alone, held to the JAX XLA step at 2e-4 of the plan's
+largest entry, while the default ``backend="cuda"`` still refuses them."""
 
 import dataclasses
 import functools
@@ -50,6 +54,27 @@ def _damped_wrench_params():
         p.model, rate_damping=12.0, drag_kd=0.5))
 
 
+def _sequential_wrench_params():
+    p = _damped_wrench_params()
+    return dataclasses.replace(p, model=dataclasses.replace(p.model, time_parallel=False))
+
+
+def _zero_mean_euler_full_sigma_params():
+    p = small(jwb.WholeBodyMPPIParams())
+    sigma = np.diag(jwb.default_sigma())
+    sigma[0, 1:4] = [0.5, -0.3, 0.2]       # thrust noise leaks into the attitude channels
+    sigma[4:, 4:] += 0.1                   # correlated joint accelerations
+    return dataclasses.replace(
+        p, mppi=dataclasses.replace(p.mppi, zero_mean_noise=True, sigma=sigma),
+        cost=dataclasses.replace(p.cost, ori_mode="euler_zyx"))
+
+
+# Configurations the fused kernels refuse: the plain pipeline runs them.
+REFUSED = {
+    "sequential_wrench": (_sequential_wrench_params, True, 3, 2e-4),
+    "zero_mean_euler_full_sigma": (_zero_mean_euler_full_sigma_params, True, 3, 2e-4),
+}
+
 # name -> (JAX params factory, perturbed initial state?, steps, tolerance)
 CASES = {
     "attitude": (lambda: small(jwb.WholeBodyMPPIParams()), False, 3, 2e-3),
@@ -66,7 +91,7 @@ CASES = {
 @functools.lru_cache(maxsize=None)
 def _jax_reference(case):
     """(obs, [(z, u_seq, u_prev, sigma) per step]) of the JAX XLA solver."""
-    make, perturb, steps, _ = CASES[case]
+    make, perturb, steps, _ = {**CASES, **REFUSED}[case]
     params = make()
     step, init = jwb.make_whole_body_solver(params, low_k_guard="off")
     step = jax.jit(step)
@@ -94,6 +119,22 @@ def test_solver_matches_jax_xla(case, backend):
         np.testing.assert_allclose(N(out.u_seq), u_seq, rtol=tol, atol=tol)
         np.testing.assert_allclose(N(state.u_prev), u_prev, rtol=tol, atol=tol)
         np.testing.assert_allclose(N(state.sigma), sigma, rtol=2e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_refused_configuration_runs_the_plain_pipeline(case):
+    jparams, jobs, ref = _jax_reference(case)
+    tol = REFUSED[case][3]
+    with pytest.raises(ValueError):
+        twb.make_whole_body_solver(to_port(jparams), device="cpu", low_k_guard="off")
+    step, init = twb.make_whole_body_solver(to_port(jparams), device="cpu", backend="torch",
+                                            low_k_guard="off")
+    state, obs = init(7), obs_to_port(jobs)
+    for z, u_seq, u_prev, _ in ref:
+        out, state = step(state, obs, z)
+        for got, want in ((out.u_seq, u_seq), (state.u_prev, u_prev)):
+            np.testing.assert_allclose(N(got), want, rtol=0,
+                                       atol=tol * max(1.0, np.abs(want).max()))
 
 
 def test_solver_output_setpoints_match_jax():
