@@ -3,7 +3,9 @@ whole-body closed loop and its fleet, the scenario-batched and
 sample-sharded solves, the drone MPPI path, the arm node, the
 pick_weight task, the multirotor preset and the perfect-model whole-body
 loop, the fixed-wing flyby, mapped flight, the plain whole-body solve on
-the card, and the rotorcraft flight layer.
+the card, the rotorcraft flight layer, and the solver bridge (the QMM
+server with both sessions, the sim and HIL adapters, the float64 plant
+oracle).
 
     python3 chip_smoke.py
 
@@ -142,6 +144,24 @@ lines; any failure exits non-zero before the final ``ok`` line):
    control steps of each scenario graphed bit-equal to eager; ms per
    control step graphed and eager, device ops per tick, no host sync in
    the replay loop;
+23. the solver bridge: (a) ``evaluation/parity.oracle_parity_report`` on
+   the card (128 single steps, 1000 near-hover ticks) with the JAX test's
+   gates; (b) a ``BridgeServer`` on 127.0.0.1 with a ``WholeBodySession``
+   (K=512, H=50, rows 1 and 3) and (c) with a ``SolverSession`` at its
+   defaults, each driven by a Python QMM client: 20 requests bit-equal to
+   an eager session on the same states, then a teleop nudge and an
+   EE_REACH goal and 5 more bit-equal, rows 1 and 3 launched twice at the
+   capture and once per request, then both against their plain versions
+   at the session's K=512, H=50 on its own Philox key, solve index, warm
+   start and a request's observation, the client's round trip (p50, p99
+   over 200 requests), one readback per request and no other host sync,
+   the head replay's device time; (d) the sim adapter against each session
+   for 2 s with tests/test_bridge.py's gate, the solver plant's adapter and
+   session built and captured while the whole-body plant runs, 10 graphed
+   control periods bit-equal to eager, ms per period (CUDA events and host
+   clock), no host sync in the period's replay;
+   (e) tests/test_hil.py's two gates on the card, 100 graphed ticks
+   bit-equal to eager, ms per tick;
 then one ``kernels`` JSON line (rows 4-5 at B=256, rows 6-7 at K_local,
 rows 9a-9b at K=1000 and 9c-9d at K=1024: the shapes of the runs that
 count their launches; each ``wb_update`` row with the R it used and its
@@ -152,6 +172,7 @@ layout), the ``nvidia-smi`` line and the ``ok`` line.
 import dataclasses
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -164,6 +185,13 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from quadrotor_manipulator_mppi_tpu_torch.bridge import action as bridge_action
+from quadrotor_manipulator_mppi_tpu_torch.bridge import hil as hil_mod
+from quadrotor_manipulator_mppi_tpu_torch.bridge import mavlink as mav
+from quadrotor_manipulator_mppi_tpu_torch.bridge import protocol as proto
+from quadrotor_manipulator_mppi_tpu_torch.bridge import server as bridge
+from quadrotor_manipulator_mppi_tpu_torch.bridge.sim_adapter import SimAdapter
+from quadrotor_manipulator_mppi_tpu_torch.evaluation import parity
 from quadrotor_manipulator_mppi_tpu_torch.evaluation.metrics import episode_quality
 from quadrotor_manipulator_mppi_tpu_torch.models import chain as chain_mod
 from quadrotor_manipulator_mppi_tpu_torch.models import kinova
@@ -332,6 +360,17 @@ N_GUST_STEPS = 800             # phase 22f: tests/test_lee_wind.py's 8,000-tick 
 N_DISTURBANCE = 1000           # phase 22g: run_disturbance, beside the JAX package's figures
 N_ROTOR_CHECKED = 10           # phase 22h: graphed control steps held bit-equal to eager
 N_ROTOR_TIMED = 20             # phase 22i: graphed control steps timed
+N_BRIDGE_CHECKED = 20          # phase 23b-c: requests held bit-equal to the eager session
+N_BRIDGE_AFTER = 5             # phase 23b-c: requests after the nudge and the goal
+N_BRIDGE_RTT = 200             # phase 23b-c: client round trips timed
+N_BRIDGE_SYNC = 20             # phase 23b-c: requests under the host-sync check
+BRIDGE_SIM_S = 2.0             # phase 23d: tests/test_bridge.py's loop, 200 exchanges
+N_SIM_CHECKED = 10             # phase 23d: control periods held bit-equal to eager
+N_SIM_TIMED = 10               # phase 23d: control periods timed (replays only)
+N_HIL_CLIMB, N_HIL_GROUNDED = 600, 200  # phase 23e: tests/test_hil.py's lengths
+N_HIL_CHECKED = 100            # phase 23e: ticks held bit-equal to eager
+BRIDGE_TIMEOUT_S = 30.0        # phase 23: every socket wait
+EE_GOAL = (0.2, 0.4, 1.6)      # phase 23b-c: the EE_REACH goal's target
 # tests/test_cli.py's inline waypoint file (tests/test_cli.py:115-119).
 CLI_WAYPOINTS = "3.0 0.0 0.0 2.0 0.0\n4.0 1.5 1.5 2.5 60.0\n4.0 0.0 1.5 2.0 0.0\n"
 # The JAX package's run_disturbance on the same length, on the CPU (its own
@@ -962,9 +1001,9 @@ def eager_parts(window, window_start, n_prof) -> None:
         f"{e.key[8:]} {e.cpu_time_total / n_prof:.0f}" for e in parts), flush=True)
 
 
-def check_no_syncs(tag: str, what: str, fn) -> None:
-    """No host synchronization inside a loop: any synchronizing CUDA call
-    while ``fn`` runs shows up as a warning, and fails the phase."""
+def sync_sites(fn) -> list:
+    """The ``file:line`` of every host synchronization while ``fn`` runs
+    (each synchronizing CUDA call shows up as a warning)."""
     import warnings
 
     sync()
@@ -975,8 +1014,14 @@ def check_no_syncs(tag: str, what: str, fn) -> None:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    syncs = [f"{w.filename}:{w.lineno}" for w in caught
-             if "called a synchronizing" in str(w.message)]
+    return [f"{w.filename}:{w.lineno}" for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def check_no_syncs(tag: str, what: str, fn) -> None:
+    """No host synchronization inside a loop: any synchronizing CUDA call
+    while ``fn`` runs fails the phase."""
+    syncs = sync_sites(fn)
     print(f"{tag} host synchronizations in {what}: {len(syncs)}", flush=True)
     if syncs:
         for where in sorted(set(syncs)):
@@ -2899,6 +2944,418 @@ def phase_rotorcraft(dev) -> dict:
     return out
 
 
+def bridge_states(n: int, seed: int = 23) -> list:
+    """``n`` ROBOT_STATES payloads (the reference's 14 + 13 layout, base
+    quaternion xyzw) near hover: the base within ~0.1 m of (0, 0, 2.1),
+    tilted a few degrees and drifting, the arm near home."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        axis_angle = rng.normal(0.0, 0.05, 3)
+        angle = np.linalg.norm(axis_angle)
+        quat_xyzw = np.concatenate([axis_angle / angle * np.sin(angle / 2), [np.cos(angle / 2)]])
+        state = np.concatenate([np.array([0.0, 0.0, 2.1]) + rng.normal(0.0, 0.1, 3), quat_xyzw,
+                                kinova.Q_HOME + rng.normal(0.0, 0.05, 7),
+                                rng.normal(0.0, 0.1, 6), rng.normal(0.0, 0.1, 7)])
+        out.append([float(x) for x in state.astype(np.float32)])
+    return out
+
+
+class QmmClient:
+    """A Python QMM client (the native tools' part): one TCP connection to
+    a ``BridgeServer``, every wait bounded by ``BRIDGE_TIMEOUT_S``."""
+
+    def __init__(self, server):
+        self.sock = socket.create_connection((server.host, server.port),
+                                             timeout=BRIDGE_TIMEOUT_S)
+        self.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self.dec = proto.Decoder()
+        self.pending = []
+
+    def send(self, frame) -> None:
+        self.sock.sendall(proto.encode(frame))
+
+    def take(self, mtype):
+        """The next frame of type ``mtype`` (frames of other types stay
+        pending)."""
+        while True:
+            for i, f in enumerate(self.pending):
+                if f.type == mtype:
+                    return self.pending.pop(i)
+            data = self.sock.recv(65536)
+            if not data:
+                fail("the bridge server closed the connection")
+            self.dec.feed(data)
+            self.pending.extend(self.dec.frames())
+
+    def request(self, state) -> tuple:
+        """ROBOT_STATES -> (ROBOT_CMD payload, DRONE_POSE payload)."""
+        self.send(proto.Frame(proto.MsgType.ROBOT_STATES, state))
+        return (self.take(proto.MsgType.ROBOT_CMD).payload,
+                self.take(proto.MsgType.DRONE_POSE).payload)
+
+    def close(self) -> None:
+        self.sock.close()
+
+
+def fmt_vec(v) -> str:
+    return "[" + ", ".join(f"{x:.4f}" for x in v) + "]"
+
+
+def cmd_and_pose(frames) -> tuple:
+    by_type = {f.type: f.payload for f in frames}
+    return by_type[proto.MsgType.ROBOT_CMD], by_type[proto.MsgType.DRONE_POSE]
+
+
+def replies_equal(a, b) -> bool:
+    return all(np.array_equal(np.float32(x), np.float32(y)) for x, y in zip(a, b))
+
+
+def bridge_counts() -> dict:
+    return {"wb_cost": wk.wb_cost.launches, "wb_update": wk.wb_update.launches}
+
+
+def session_kernels(tag: str, live, state, errs) -> dict:
+    """``wb_cost`` (row 1: position mode, Philox draw and spill) and
+    ``wb_update`` (row 3) at the whole-body session's own shape (K=512,
+    H=50) against their plain versions, on the session's own inputs: its
+    Philox key, solve index and warm start after the requests, and the
+    packed observation and targets of the request ``state``.  S within
+    TOL_COST, du and m2 within TOL_UPDATE, the spill bit-equal to the
+    plain draw."""
+    params, dev, carry = live.params, live._head.device, live._head._state
+    obs = serving.unpack_obs(torch.tensor(live._obs_vec(state), device=dev),
+                             torch.tensor(live._targets(), device=dev))
+    kc = wk.make_kernel_config(params)
+    sigma = mppi._diag_sigma(params.mppi, device=dev)
+    if params.mppi.sigma_scale_fn is not None:
+        sigma = sigma * params.mppi.sigma_scale_fn(obs)
+    sc, u_prev = wk.pack_scalars(obs, sigma), carry.u_prev.contiguous()
+    s_k, m_k, e_k, eps = wk.wb_cost(kc, sc, u_prev, None, carry.seed, carry.step)
+    s_p, _, _, eps_p = wk.wb_cost_plain(kc, sc, u_prev, None, carry.seed, carry.step)
+    du_k, m2_k = wk.wb_update(kc, eps, s_k, m_k, e_k)
+    du_p, m2_p = wk.wb_update_plain(kc, eps, s_k, m_k, e_k)
+    sync()
+    abs_s, rel_s = (s_k - s_p).abs().max().item(), rel_err(s_k, s_p)
+    abs_du = max((du_k - du_p).abs().max().item(), (m2_k - m2_p).abs().max().item())
+    rel_du = max((du_k - du_p).abs().max().item() / du_p.abs().max().item(),
+                 (m2_k - m2_p).abs().max().item() / m2_p.abs().max().item())
+    spill_eq = torch.equal(eps, eps_p)
+    print(f"{tag} wb_cost / wb_update at the session's K={kc.n_samples}, H={params.mppi.n_horizon} "
+          f"(solve index {int(carry.step.item())}, a request's observation) vs plain: max|dS| "
+          f"{abs_s:.3e} (rel {rel_s:.2e}, limit {TOL_COST:g}) | du/m2 rel {rel_du:.2e} (limit "
+          f"{TOL_UPDATE:g}) | spill == plain draw {spill_eq}", flush=True)
+    if not (rel_s <= TOL_COST and rel_du <= TOL_UPDATE and spill_eq):
+        fail(f"{tag}: wb_cost or wb_update at the session's shape disagrees with its plain "
+             "version")
+    errs["wb_cost"] = max(errs["wb_cost"], abs_s)
+    errs["wb_update"] = max(errs["wb_update"], abs_du)
+    return {"rel_s": rel_s, "rel_du": rel_du}
+
+
+def bridge_session(tag: str, make, kernels: bool, errs) -> dict:
+    """Phase 23b/c for one session kind (``make(graph)``): the replies of
+    an eager session first, then a BridgeServer on 127.0.0.1 with the
+    graphed session and a Python QMM client; its replies bit-equal to the
+    eager session's on the same states, before and after a teleop nudge and
+    an EE_REACH goal; rows 1 and 3's launches by the live session
+    (``kernels``: its path runs them; its capture's two warm-up calls plus
+    one per request), then both kernels against their plain versions on
+    the live session's inputs; the client's round trip; one readback per
+    request; the head replay's device time."""
+    states = bridge_states(N_BRIDGE_CHECKED)
+    goal = bridge_action.goal_frame(1, bridge_action.Task.EE_REACH, EE_GOAL)
+    eager, eager_times = make(False), []
+
+    def eager_reply(state):
+        t1 = time.perf_counter()
+        reply = cmd_and_pose(eager.handle_states(state))
+        eager_times.append((time.perf_counter() - t1) * 1e3)
+        return reply
+
+    want = [eager_reply(st) for st in states]
+    eager.handle_teleop_uav(1)
+    eager.actions.handle_goal(goal.payload, eager)
+    want_after = [eager_reply(st) for st in states[:N_BRIDGE_AFTER]]
+
+    reset_counts()
+    t0 = time.perf_counter()
+    server = bridge.BridgeServer(session_factory=lambda: make(True))
+    server.start()
+    live = server.session()  # built, its head captured, before any client
+    build_s = time.perf_counter() - t0
+    client = QmmClient(server)
+    try:
+        equal = all([replies_equal(client.request(st), w) for st, w in zip(states, want)])
+        client.send(proto.Frame(proto.MsgType.TELEOP_UAV, [1.0]))
+        client.send(goal)
+        fb = client.take(proto.MsgType.ACTION_FEEDBACK)
+        after = all([replies_equal(client.request(st), w)
+                     for st, w in zip(states[:N_BRIDGE_AFTER], want_after)])
+        with server._session_lock:
+            targets_ok = (np.array_equal(live.drone_target, eager.drone_target)
+                          and np.array_equal(live.ee_position, np.float32(EE_GOAL))
+                          and fb.payload[:2] == [1.0, float(bridge_action.ActionStatus.ACTIVE)])
+        print(f"{tag} {N_BRIDGE_CHECKED} requests over the wire bit-equal to the eager session "
+              f"{equal} | after a teleop nudge and an EE_REACH goal, {N_BRIDGE_AFTER} more "
+              f"bit-equal {after} (targets moved {targets_ok}) | session built and captured in "
+              f"{build_s:.3f} s", flush=True)
+        if not (equal and after and targets_ok):
+            fail(f"{tag}: the graphed session is not bit-equal to the eager session")
+
+        rtts = []
+        for i in range(N_BRIDGE_RTT):
+            t1 = time.perf_counter()
+            client.request(states[i % len(states)])
+            rtts.append((time.perf_counter() - t1) * 1e3)
+        p50, p99 = np.percentile(rtts, [50, 99])
+        with server._session_lock:
+            sites = sync_sites(lambda: [live.handle_states(st) for st in states[:N_BRIDGE_SYNC]])
+            launches = bridge_counts()
+            want_n = N_BRIDGE_CHECKED + N_BRIDGE_AFTER + N_BRIDGE_RTT + N_BRIDGE_SYNC + 2 \
+                if kernels else 0
+            check = session_kernels(tag, live, states[0], errs) if kernels else None
+            head = live._head
+            g = head._bind(head._z_none)
+            head_ms = event_ms(g.replay, reps=20)
+            req_ms = host_ms(lambda: live.handle_states(states[0]), reps=10)
+        eager_ms = statistics.median(eager_times[1:])
+        one_site = len(sites) == N_BRIDGE_SYNC and len(set(sites)) == 1 \
+            and "bridge/server.py" in sites[0]
+        print(f"{tag} host synchronizations in {N_BRIDGE_SYNC} requests: {len(sites)} at "
+              f"{sorted(set(sites))} (one readback per request {one_site})", flush=True)
+        print(f"{tag} rows 1 and 3 launched by the live session {launches} "
+              + (f"(want {want_n} each: 2 warm-up calls + {want_n - 2} requests)" if kernels
+                 else "(want 0: no kernel on this path)"), flush=True)
+        if not one_site:
+            fail(f"{tag}: a request synchronizes the host other than by its one readback")
+        if launches != {"wb_cost": want_n, "wb_update": want_n}:
+            fail(f"{tag}: rows 1 and 3 were not launched once per request")
+        print(f"{tag} client round trip p50 {p50:.3f} ms, p99 {p99:.3f} ms ({N_BRIDGE_RTT} "
+              f"requests) | request {req_ms:.3f} ms graphed, {eager_ms:.3f} ms eager (session "
+              f"call, host clock) | head replay {head_ms:.4f} ms (CUDA events)", flush=True)
+    finally:
+        client.close()
+        server.stop()
+    return {"rtt_p50_ms": p50, "rtt_p99_ms": p99, "request_ms": req_ms, "eager_ms": eager_ms,
+            "head_ms": head_ms, "launches": launches, "build_s": build_s, "kernels": check}
+
+
+def hil_climb(dev, graph: bool = True, n_ticks: int = N_HIL_CLIMB, armed: bool = True):
+    """tests/test_hil.py's loop on ``dev``: a loopback autopilot sends one
+    HIL_ACTUATOR_CONTROLS frame (5 % above hover on every rotor, armed; or
+    all channels full, disarmed), then ``n_ticks`` ticks.  Returns (the
+    session, the last message of each name, host ms per tick)."""
+    veh = mr.MultirotorParams()
+    ap = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    ap.bind(("127.0.0.1", 0))
+    ap.setblocking(False)
+    session = hil_mod.HilSession(vehicle=veh, peer=ap.getsockname(), device=dev, graph=graph)
+    cmd = min(1.0, 1.05 * veh.hover_rotor_speed() / veh.max_rotor_speed) if armed else 1.0
+    n_on = veh.n_rotors if armed else 16
+    ap.sendto(mav.encode("HIL_ACTUATOR_CONTROLS", dict(
+        time_usec=0, flags=mav.MOTOR_SPEED_FLAG, controls=[cmd] * n_on + [0.0] * (16 - n_on),
+        mode=mav.MAV_MODE_FLAG_SAFETY_ARMED if armed else 0)), session.address)
+    parser, got = mav.Parser(), {}
+    t0 = time.perf_counter()
+    try:
+        for _ in range(n_ticks):
+            session.tick()
+            try:
+                while True:
+                    data, _ = ap.recvfrom(4096)
+                    got.update(parser.push(data))
+            except BlockingIOError:
+                pass
+    finally:
+        session.close()
+        ap.close()
+    return session, got, (time.perf_counter() - t0) * 1e3 / n_ticks
+
+
+def phase_bridge(dev, errs) -> dict:
+    """The solver bridge on the card: (a) the port's plant against the
+    float64 oracle with the JAX test's gates; (b) a BridgeServer with a
+    WholeBodySession (K=512, H=50, rows 1 and 3) and (c) with a
+    SolverSession at its defaults, each driven by a Python QMM client
+    (``bridge_session``); (d) the sim adapter against each session for 2 s
+    with tests/test_bridge.py's gate, the solver session built lazily while
+    the whole-body plant runs, 10 graphed control periods bit-equal to
+    eager, ms per period, no host sync in the period's replay; (e)
+    both tests/test_hil.py gates on the card, 100 graphed ticks bit-equal
+    to eager, ms per tick."""
+    out, walls, mark = {}, {}, [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        walls[part] = now - mark[0]
+        mark[0] = now
+
+    rep = parity.oracle_parity_report(n_steps=1000, n_ensemble=128, device=dev)
+    dev_ = rep["single_step_max_dev"]
+    ok = (dev_["pos"] < 1e-5 and dev_["vel"] < 1e-4 and dev_["omega"] < 1e-4
+          and dev_["quat"] < 1e-5 and rep["rmse_m"] < 1e-4)
+    print(f"[23a] plant vs float64 oracle (n_ensemble 128, 1000 ticks): single-step max dev "
+          f"{dev_}, rmse {rep['rmse_m']} m, max dev {rep['max_dev_m']} m | gates {ok}", flush=True)
+    if not ok:
+        fail("the port's plant missed the float64 oracle's gates")
+    out["oracle"] = rep
+    lap("a")
+
+    sessions = {
+        "whole-body": (lambda g: bridge.WholeBodySession(device=dev, graph=g), True),
+        "solver": (lambda g: bridge.SolverSession(device=dev, graph=g), False),
+    }
+    for tag, (make, kernels) in sessions.items():
+        out[tag] = bridge_session(f"[23{'b' if kernels else 'c'}] {tag} session:", make, kernels,
+                                  errs)
+        lap("b" if kernels else "c")
+
+    # Two plants at once, one server each ("run several servers for several
+    # plants"), each adapter on its own CUDA stream.  The whole-body plant
+    # starts first; while it runs, the solver plant's adapter captures its
+    # control period and its server builds its session lazily, at the first
+    # exchange, in a handler thread: each capture of the bridge is
+    # thread-local, so it may overlap another thread's use of the card.
+    servers, adapters, runs, built = {}, {}, {}, {}
+
+    def timed_factory(tag, make):
+        def factory():
+            t0 = time.perf_counter()
+            session = make(True)
+            built[tag] = (t0, time.perf_counter())
+            return session
+        return factory
+
+    def fly(tag):
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            t0 = time.perf_counter()
+            res = adapters[tag].run(BRIDGE_SIM_S)
+            return res, time.perf_counter() - t0, t0
+
+    def adapter(tag):
+        t0 = time.perf_counter()
+        adapters[tag] = SimAdapter(servers[tag].host, servers[tag].port, device=dev)
+        adapters[tag]._sock.settimeout(BRIDGE_TIMEOUT_S)
+        built[f"{tag} adapter"] = (t0, time.perf_counter())
+
+    try:
+        for tag, (make, _) in sessions.items():
+            servers[tag] = bridge.BridgeServer(session_factory=timed_factory(tag, make))
+            servers[tag].start()
+        servers["whole-body"].session()
+        adapter("whole-body")
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(sessions)) as pool:
+            futures = {"whole-body": pool.submit(fly, "whole-body")}
+            adapter("solver")
+            futures["solver"] = pool.submit(fly, "solver")
+            runs = {tag: f.result() for tag, f in futures.items()}
+        both = time.perf_counter() - t0
+    finally:
+        for server in servers.values():
+            server.stop()
+    n_ex = int(round(BRIDGE_SIM_S / 0.001)) // 10
+    for tag, (res, wall, _) in runs.items():
+        pos = res["pos"]
+        ok = (bool(np.isfinite(pos).all()) and pos[-1, 2] > 1.5
+              and bool(np.isfinite(res["final_setpoint"]).all()))
+        print(f"[23d] sim adapter against the {tag} session, {BRIDGE_SIM_S} s ({n_ex} exchanges): "
+              f"final pos {fmt_vec(pos[-1])}, min alt {pos[:, 2].min():.4f} m, "
+              f"final setpoint {fmt_vec(res['final_setpoint'])} | gate {ok} | "
+              f"{wall * 1e3 / n_ex:.3f} ms per exchange and period (wall, both plants at once)",
+              flush=True)
+        if not ok:
+            fail(f"the sim adapter against the {tag} session missed tests/test_bridge.py's gate")
+        out[f"sim_{tag}_ms"] = wall * 1e3 / n_ex
+    _, wb_wall, wb_t0 = runs["whole-body"]
+    inside = {k: wb_t0 < a and b < wb_t0 + wb_wall for k, (a, b) in built.items()
+              if k.startswith("solver")}
+    print(f"[23d] both plants' runs: {both:.3f} s of wall | built and captured while the "
+          f"whole-body plant ran: " + ", ".join(
+              f"{k} ({built[k][1] - built[k][0]:.3f} s) {v}" for k, v in inside.items()),
+          flush=True)
+    if not (len(inside) == 2 and all(inside.values())):
+        fail("the solver session and its adapter were not built while the other plant ran: "
+             "the check of concurrent captures did not hold")
+
+    lap("d runs")
+    # The whole-body run's adapter (its graph captured already) against an
+    # eager adapter from its final state, under one command.
+    ga = adapters["whole-body"]
+    with socket.create_server(("127.0.0.1", 0)) as lis:
+        ea = SimAdapter(*lis.getsockname(), device=dev, graph=False)
+        ea._carry = graphs.clone_tree(ga._carry)
+        cmd = torch.tensor([2.0, -3.0, 1.0, 0.5, -0.5, 0.2, 0.1, 0.3, -0.2, 2.4], device=dev)
+        ga._cmd.copy_(cmd)
+        ea._cmd.copy_(cmd)
+        equal, eager_times = True, []
+        for _ in range(N_SIM_CHECKED):
+            rows = ga._replay_period()
+            sync()
+            t0 = time.perf_counter()
+            rows_e = ea._replay_period()
+            sync()
+            eager_times.append((time.perf_counter() - t0) * 1e3)
+            equal = torch.equal(rows, rows_e) and equal
+        equal = equal and trees_equal(ga._carry, ea._carry)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+        def replays():
+            start.record()
+            for _ in range(N_SIM_TIMED):
+                ga._replay_period()
+            end.record()
+
+        _, period_host_ms = synced_run("[23d]", f"{N_SIM_TIMED} replays of the control period",
+                                       replays, (), N_SIM_TIMED)
+        period_ms = start.elapsed_time(end) / N_SIM_TIMED
+        eager_ms = statistics.median(eager_times)
+        ea._sock.close()
+    print(f"[23d] {N_SIM_CHECKED} control periods (10 ticks each) graphed against eager: "
+          f"positions and plant bit-equal {equal} | {period_ms:.4f} ms per period graphed (CUDA "
+          f"events; {period_host_ms:.4f} by the host clock), {eager_ms:.3f} ms eager (host "
+          f"clock)", flush=True)
+    if not equal:
+        fail("the sim adapter's graphed control period is not bit-equal to eager")
+    out["period_ms"], out["period_host_ms"] = period_ms, period_host_ms
+    out["period_eager_ms"] = eager_ms
+    lap("d period")
+
+    session, got, tick_ms = hil_climb(dev)
+    state, sensor = got.get("HIL_STATE_QUATERNION"), got.get("HIL_SENSOR")
+    ok = (session.armed and float(session.plant.pos[2]) > 0.05 and state is not None
+          and sensor is not None and state["alt"] > int(mav.KALT_ZURICH_M * 1000)
+          and state["vz"] < 0 and sensor["zacc"] < -5.0
+          and 900.0 < sensor["abs_pressure"] < 1013.0)
+    print(f"[23e] HIL climb, {N_HIL_CLIMB} ticks: alt {float(session.plant.pos[2]):.4f} m, "
+          f"vz {None if state is None else state['vz']} cm/s, zacc "
+          f"{None if sensor is None else round(sensor['zacc'], 3)} | gate {ok} | "
+          f"{tick_ms:.4f} ms per tick (host clock, messages included)", flush=True)
+    if not ok:
+        fail("the HIL climb missed tests/test_hil.py's gate")
+    session, _, _ = hil_climb(dev, n_ticks=N_HIL_GROUNDED, armed=False)
+    ok = (not session.armed and not np.any(session.rotor_cmd)
+          and abs(float(session.plant.pos[2])) < 1e-3)
+    print(f"[23e] HIL disarmed, {N_HIL_GROUNDED} ticks: alt {float(session.plant.pos[2]):.6f} m "
+          f"| gate {ok}", flush=True)
+    if not ok:
+        fail("the disarmed HIL session missed tests/test_hil.py's gate")
+    gs, gmsg, _ = hil_climb(dev, n_ticks=N_HIL_CHECKED)
+    es, emsg, eager_tick_ms = hil_climb(dev, graph=False, n_ticks=N_HIL_CHECKED)
+    equal = trees_equal(gs.plant, es.plant) and gmsg == emsg
+    print(f"[23e] {N_HIL_CHECKED} HIL ticks graphed against eager: plant and last messages "
+          f"bit-equal {equal} | {eager_tick_ms:.4f} ms per tick eager", flush=True)
+    if not equal:
+        fail("the graphed HIL step is not bit-equal to eager")
+    out["hil_tick_ms"], out["hil_eager_tick_ms"] = tick_ms, eager_tick_ms
+    lap("e")
+    print("[t] phase 23 wall s per part: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()),
+          flush=True)
+    out["walls"] = walls
+    return out
+
+
 def reach_sweep(mode: str, seeds) -> None:
     """``--reach MODE --seeds ...``: phase 7 alone, for one mode on any
     seeds; prints one JSON line of the per-seed metrics and exits non-zero
@@ -2959,6 +3416,7 @@ def main() -> None:
     mapped = lap("20", phase_mapped, dev)
     plain = lap("21", phase_plain, dev)
     rotor = lap("22", phase_rotorcraft, dev)
+    bridge_out = lap("23", phase_bridge, dev, errs)
     print("[t] wall s per phase: " + ", ".join(f"{n} {w:.1f}" for n, w in walls)
           + f" | total {sum(w for _, w in walls):.1f}", flush=True)
     b256 = {(b, spill): e_ms for b, spill, _, e_ms, _, _, _ in batch_rows}
@@ -3026,6 +3484,7 @@ def main() -> None:
          "episode_launches": episode_launches["wb_cost"],
          "pick_lift_launches": pick["lift_launches"]["wb_cost"],
          "whole_body_launches": multirotor["whole_body_launches"]["wb_cost"],
+         "bridge_launches": bridge_out["whole-body"]["launches"]["wb_cost"],
          "b256_ms": t_b256["wb_cost"],
          "layout": COST_LAYOUT, "noise_layout": COST_LAYOUT,
          "graph_ms": t["wb_cost_graph"], "device_ms": t["wb_cost_device"],
@@ -3039,6 +3498,7 @@ def main() -> None:
          "library_ms": t["library_mv"], "episode_launches": episode_launches["wb_update"],
          "pick_lift_launches": pick["lift_launches"]["wb_update"],
          "whole_body_launches": multirotor["whole_body_launches"]["wb_update"],
+         "bridge_launches": bridge_out["whole-body"]["launches"]["wb_update"],
          **vs_library(t_k4096["wb_update"], t_k4096["library_mv"]), **rows_of("3", 1),
          "b256_ms": t_b256["wb_update"], "b256_bound_ms": b256_bounds["wb_update"][0],
          **vs_library(at_b256("wb_update"), at_b256("library_bmm"), "b256_"),
@@ -3137,6 +3597,13 @@ def main() -> None:
           + ", rotorcraft control step of 10 ticks (graphed / eager; ops per tick) "
           + ", ".join(f"{n} {rotor[n]['graphed_ms']:.3f} / {rotor[n]['eager_ms']:.3f} ms; "
                       f"{fmt_ops(rotor[n]['ops_per_tick'])}" for n in rotorcraft_builds(dev))
+          + ", bridge round trip p50/p99 (head replay) "
+          + ", ".join(f"{n} {bridge_out[n]['rtt_p50_ms']:.3f}/{bridge_out[n]['rtt_p99_ms']:.3f} "
+                      f"ms ({bridge_out[n]['head_ms']:.4f})" for n in ("whole-body", "solver"))
+          + f", sim adapter period {bridge_out['period_ms']:.4f} ms graphed (CUDA events; "
+          f"{bridge_out['period_host_ms']:.4f} host clock; {bridge_out['period_eager_ms']:.3f} "
+          f"eager), HIL tick "
+          f"{bridge_out['hil_tick_ms']:.4f} ms ({bridge_out['hil_eager_tick_ms']:.4f} eager)"
           + f" on {smi}")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

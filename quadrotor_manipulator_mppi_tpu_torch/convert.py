@@ -11,7 +11,8 @@ nodes, ``{"__ndarray__": list, "dtype": str}`` arrays and
 rebuilds it from this package's dataclasses (the whole-body, drone, arm,
 multirotor, fixed-wing and mapped solvers, the loops, the graspable object,
 the contact layer, the sensors, the occupancy grid, the ground contact,
-the Lee gains, the wind and the mission).  A mapped solver's
+the Lee gains, the wind, the mission and the HIL session's
+``HilConfig``).  A mapped solver's
 exploration schedule is a bare callable, which the JAX ``to_dict`` refuses:
 its tree crosses with ``sigma_scale_fn=None``, and the caller puts the
 port's schedule back (``solver.mapped.distance_to_go_scale``).
@@ -31,6 +32,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from .bridge.config import HilConfig
 from .models.fixed_wing import FwAeroParams, FwVehicleParams
 from .models.multirotor import GroundContactParams, MultirotorParams
 from .models.whole_body import WholeBodyParams
@@ -68,7 +70,7 @@ _REGISTRY = {cls.__name__: cls for cls in (
     MultirotorCostParams, MultirotorMPPIParams, FwAeroParams, FwVehicleParams, FwMPPIParams,
     LidarParams, OccupancyParams, MappedMPPIParams, MappedFlightConfig, GroundContactParams,
     LeeGains, WindParams, WindField, MissionConfig, ImuParams, GpsParams, BarometerParams,
-    MagnetometerParams, OdometryParams, OpticalFlowParams,
+    MagnetometerParams, OdometryParams, OpticalFlowParams, HilConfig,
 )}
 _SCHEDULES = {"ee_error": ee_error_sigma_schedule}
 
@@ -108,7 +110,8 @@ def config_from_dict(d: dict) -> Any:
     fixed-wing airframe, ``LidarParams``, ``OccupancyParams``,
     ``MappedFlightConfig``, ``GroundContactParams``, ``LeeGains``,
     ``WindParams``, ``WindField``, ``MissionConfig``, the sensor
-    parameters) from its JAX ``config.to_dict`` form."""
+    parameters, the bridge sessions' ``ArmMPPIParams``, ``DroneMPPIParams``
+    and ``HilConfig``) from its JAX ``config.to_dict`` form."""
     return _from_dict(d)
 
 

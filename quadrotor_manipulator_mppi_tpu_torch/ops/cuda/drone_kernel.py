@@ -192,7 +192,7 @@ def drone_cost(u_prev: Tensor, x0: Tensor, v0: Tensor, target: Tensor, seeds: Te
                                 term_w)
     s = _launch_cost("drone_cost", u_prev, x0, v0, target, None, seeds, n_samples, dt, sigma,
                      stage_w, term_w)
-    drone_cost.launches += 1
+    graphs.count_launch(drone_cost)
     return s
 
 
@@ -208,7 +208,7 @@ def drone_cost_noise(u_prev: Tensor, noise: Tensor, x0: Tensor, v0: Tensor, targ
         return drone_cost_noise_plain(u_prev, noise, x0, v0, target, dt, stage_w, term_w)
     s = _launch_cost("drone_cost_noise", u_prev, x0, v0, target, noise, None, noise.shape[0],
                      dt, 0.0, stage_w, term_w)
-    drone_cost_noise.launches += 1
+    graphs.count_launch(drone_cost_noise)
     return s
 
 
@@ -224,7 +224,7 @@ def drone_update(w: Tensor, seeds: Tensor, n_horizon: int, n_action: int,
     if w.device.type == "cpu":
         return drone_update_plain(w, seeds, n_horizon, n_action, sigma)
     du = _launch_update("drone_update", w, None, seeds, n_horizon, n_action, sigma)
-    drone_update.launches += 1
+    graphs.count_launch(drone_update)
     return du
 
 
@@ -241,14 +241,13 @@ def drone_update_noise(noise: Tensor, w: Tensor) -> Tensor:
         return drone_update_noise_plain(noise, w)
     du = _launch_update("drone_update_noise", w, noise, None, noise.shape[1], noise.shape[2],
                         0.0)
-    drone_update_noise.launches += 1
+    graphs.count_launch(drone_update_noise)
     return du
 
 
 drone_update_noise.launches = 0
 
 KERNEL_WRAPPERS = (drone_cost, drone_update, drone_cost_noise, drone_update_noise)
-graphs.count_replays(*KERNEL_WRAPPERS)
 
 
 # ---------------------------------------------------------------------------

@@ -195,12 +195,11 @@ def plant_tick(pc: PlantTickConfig, state: Tensor, dyn: Tensor, cmd: Tensor,
     )
     if rc != 0:
         raise RuntimeError(f"plant_tick launch failed with CUDA error {rc}")
-    plant_tick.launches += 1
+    graphs.count_launch(plant_tick)
     return out
 
 
 plant_tick.launches = 0
-graphs.count_replays(plant_tick)
 
 
 def plant_tick_plain(pc: PlantTickConfig, state: Tensor, dyn: Tensor, cmd: Tensor,

@@ -455,7 +455,7 @@ def wb_cost(kc: WbKernelConfig, sc: Tensor, u_prev: Tensor, eps: Optional[Tensor
         return wb_cost_plain(kc, sc, u_prev, eps, seeds, step, k_off)
     out = _launch_cost(kc, "wb_cost", sc, u_prev, eps, seeds, step, k_off,
                        1 if eps is None else 0)
-    wb_cost.launches += 1
+    graphs.count_launch(wb_cost)
     return out
 
 
@@ -472,7 +472,7 @@ def wb_cost_nospill(kc: WbKernelConfig, sc: Tensor, u_prev: Tensor, seeds: Tenso
         return wb_cost_nospill_plain(kc, sc, u_prev, seeds, step, k_off)
     s, m_part, e_part, _ = _launch_cost(kc, "wb_cost_nospill", sc, u_prev, None, seeds, step,
                                         k_off, 2)
-    wb_cost_nospill.launches += 1
+    graphs.count_launch(wb_cost_nospill)
     return s, m_part, e_part
 
 
@@ -487,7 +487,7 @@ def wb_update(kc: WbKernelConfig, eps: Tensor, s: Tensor, m_part: Tensor,
     if eps.device.type == "cpu":
         return wb_update_plain(kc, eps, s, m_part, e_part)
     out = _launch_update(kc, "wb_update", s, eps=eps, m_part=m_part, e_part=e_part)
-    wb_update.launches += 1
+    graphs.count_launch(wb_update)
     return out
 
 
@@ -503,7 +503,7 @@ def wb_update_regen(kc: WbKernelConfig, sc: Tensor, s: Tensor, m_part: Tensor,
         return wb_update_regen_plain(kc, sc, s, m_part, e_part, seeds, step, k_off)
     out = _launch_update(kc, "wb_update_regen", s, m_part=m_part, e_part=e_part, sc=sc,
                          seeds=seeds, step=step, k_off=k_off)
-    wb_update_regen.launches += 1
+    graphs.count_launch(wb_update_regen)
     return out
 
 
@@ -518,7 +518,7 @@ def wb_update_shard(kc: WbKernelConfig, eps: Tensor, s: Tensor,
     if s.device.type == "cpu":
         return wb_update_shard_plain(kc, eps, s, se)
     out = _launch_update(kc, "wb_update_shard", s, eps=eps, se=se)
-    wb_update_shard.launches += 1
+    graphs.count_launch(wb_update_shard)
     return out
 
 
@@ -534,7 +534,7 @@ def wb_update_shard_regen(kc: WbKernelConfig, sc: Tensor, s: Tensor, se: Tensor,
         return wb_update_shard_regen_plain(kc, sc, s, se, seeds, step, k_off)
     out = _launch_update(kc, "wb_update_shard_regen", s, se=se, sc=sc, seeds=seeds, step=step,
                          k_off=k_off)
-    wb_update_shard_regen.launches += 1
+    graphs.count_launch(wb_update_shard_regen)
     return out
 
 
@@ -542,7 +542,6 @@ wb_update_shard_regen.launches = 0
 
 KERNEL_WRAPPERS = (wb_cost, wb_cost_nospill, wb_update, wb_update_regen, wb_update_shard,
                    wb_update_shard_regen)
-graphs.count_replays(*KERNEL_WRAPPERS)
 
 
 def philox_eps(kc: WbKernelConfig, sc: Tensor, seeds: Tensor, step=0,

@@ -19,11 +19,20 @@ copies of its arguments, and replays it: one launch of the host's per call.
   and replays; arguments of another structure get a graph of their own.
 * A capture or a replay that fails raises.  There is no fallback to the
   eager call: a path that cannot be captured is a fault to repair.
-* The kernel wrappers count their launches on the host, once per call;
-  a replay runs no Python.  So the launches the capture recorded are
-  added, per replay, to the counters registered with
-  :func:`count_replays`, and the capture's own host pass, which launches
-  nothing, is taken back.
+* ``capture_error_mode`` is the capture's ``cudaStreamCaptureMode``
+  (``torch.cuda.graph``'s argument).  The default, ``"global"``, fails the
+  capture when any thread of the process makes a call that is unsafe
+  during a capture (an allocation, a synchronizing copy).  A step that
+  takes every input from its own static buffers and may be captured while
+  other threads use the card (the bridge's session heads, beside a plant
+  or another server) passes ``"thread_local"``: only its own thread is
+  then held to the rule.
+* The kernel wrappers count their launches on the host, once per call,
+  through :func:`count_launch`; a replay runs no Python.  So a capture
+  tallies the calls its own thread makes during its host pass, which
+  launches nothing: they are taken back off the counters, and added to
+  them again on every replay.  Another thread's launches during the
+  capture count as that thread's.
 
 :func:`episode_step` and :func:`run_episode` are the episode runner the
 whole-body, drone and arm episodes share: one control step captured on the
@@ -35,6 +44,7 @@ fixed-wing, mapped flight).
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Callable, Dict
 
 import torch
@@ -42,13 +52,17 @@ from torch.profiler import record_function
 
 Tensor = torch.Tensor
 
-_COUNTED: list = []
+_CAPTURE = threading.local()  # .tally: {wrapper: calls} of this thread's capture
 
 
-def count_replays(*wrappers) -> None:
-    """Register kernel wrappers whose ``launches`` counter a replay adds to
-    (each ``ops.cuda`` module registers its own)."""
-    _COUNTED.extend(w for w in wrappers if w not in _COUNTED)
+def count_launch(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel (each ``ops.cuda`` wrapper calls
+    this where it launches): on its ``launches`` counter, and in the tally
+    of the capture this thread is running, if any."""
+    wrapper.launches += 1
+    tally = getattr(_CAPTURE, "tally", None)
+    if tally is not None:
+        tally[wrapper] = tally.get(wrapper, 0) + 1
 
 
 def copy_into(dst: Any, src: Any) -> None:
@@ -97,7 +111,8 @@ class GraphedStep:
     side stream, on the static buffers; they are real launches and count
     as such.  :meth:`load` copies new arguments into the buffers."""
 
-    def __init__(self, fn: Callable[..., Any], device, *args, warmup: int = 2):
+    def __init__(self, fn: Callable[..., Any], device, *args, warmup: int = 2,
+                 capture_error_mode: str = "global"):
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, got {device}")
@@ -109,19 +124,22 @@ class GraphedStep:
             for _ in range(warmup):
                 fn(*self.args)
         current.wait_stream(side)
-        counted = list(_COUNTED)
-        before = [w.launches for w in counted]
         self.graph = torch.cuda.CUDAGraph()
+        _CAPTURE.tally = tally = {}
         try:
-            with torch.cuda.graph(self.graph):
+            # Captured on its own stream: torch.cuda.graph's default capture
+            # stream is one per process, which two threads capturing at
+            # once would share.
+            with torch.cuda.graph(self.graph, stream=side,
+                                  capture_error_mode=capture_error_mode):
                 self.out = fn(*self.args)
         except Exception as exc:
             raise RuntimeError(f"CUDA graph capture failed: {exc}") from exc
         finally:
-            captured = [w.launches - b for w, b in zip(counted, before)]
-            for w, b in zip(counted, before):
-                w.launches = b
-        self._per_replay = [(w, n) for w, n in zip(counted, captured) if n]
+            _CAPTURE.tally = None
+            for w, n in tally.items():
+                w.launches -= n
+        self._per_replay = list(tally.items())
 
     @property
     def launches_per_replay(self) -> dict:
@@ -144,7 +162,8 @@ class GraphedStep:
         return self.out
 
 
-def graphed(fn: Callable[..., Any], device, warmup: int = 2) -> Callable[..., GraphedStep]:
+def graphed(fn: Callable[..., Any], device, warmup: int = 2,
+            capture_error_mode: str = "global") -> Callable[..., GraphedStep]:
     """``load(*args)``: the :class:`GraphedStep` of ``fn`` for the structure
     of ``args`` (captured at its first call), with ``args`` loaded into its
     static buffers, ready to :meth:`~GraphedStep.replay`."""
@@ -153,7 +172,8 @@ def graphed(fn: Callable[..., Any], device, warmup: int = 2) -> Callable[..., Gr
     def load(*args) -> GraphedStep:
         key = shapes(args)
         if key not in cache:
-            cache[key] = GraphedStep(fn, device, *args, warmup=warmup)
+            cache[key] = GraphedStep(fn, device, *args, warmup=warmup,
+                                     capture_error_mode=capture_error_mode)
         return cache[key].load(*args)
 
     return load

@@ -121,6 +121,9 @@ def test_no_source_file_names_jax_or_the_jax_package():
 
 
 def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
+    from quadrotor_manipulator_mppi_tpu_torch.bridge import hil, server, sim_adapter
+    from quadrotor_manipulator_mppi_tpu_torch.evaluation import parity
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     params = twb.position_mode_params(n_samples=128, n_horizon=10)
     for build in (lambda: twb.make_whole_body_solver(params),
@@ -128,7 +131,14 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
                   lambda: twb.default_obs(),
                   lambda: convert.state_from_numpy(np.zeros((10, 11)), np.ones(11), 0),
                   # the plain pipeline defaults to the card as the kernels do
-                  lambda: twb.make_whole_body_solver(params, backend="torch")):
+                  lambda: twb.make_whole_body_solver(params, backend="torch"),
+                  # the bridge's entry points (the device is resolved before
+                  # any socket is opened)
+                  lambda: server.SolverSession(),
+                  lambda: server.WholeBodySession(),
+                  lambda: sim_adapter.SimAdapter("127.0.0.1", 9),
+                  lambda: hil.HilSession(),
+                  lambda: parity.oracle_parity_report(n_steps=10, n_ensemble=2)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
 

@@ -13,7 +13,8 @@ payload, the object, contact), the drone episode, the arm episode, the
 20-step scenario episodes, the rotorcraft tick episodes (hover, mission
 and the rest) and the plain whole-body step in the configurations the
 kernels refuse, each bit-equal to its eager call, the launch counters counting replays, one
-graph per argument structure, a capture that fails raising.  This file
+graph per argument structure, a capture that fails raising, and a bridge
+session built and captured while another server's plant runs.  This file
 imports neither JAX nor the JAX package, so it also runs where only
 PyTorch is installed:
 
@@ -167,15 +168,32 @@ def test_graphed_step_needs_a_card():
 
 
 def test_every_kernel_wrapper_counts_replays():
-    """Each ops.cuda module registers its wrappers' counters with the
-    graph runner, so a replay adds to every kernel's count."""
+    """Each ops.cuda wrapper counts its launches through
+    ``graphs.count_launch``, so a capture tallies them and a replay adds to
+    every kernel's count; the tally is the capturing thread's alone."""
+    import inspect
+    import threading
+
     from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import drone_kernel as dk
 
     wrappers = (*wk.KERNEL_WRAPPERS, pk.plant_tick, *dk.KERNEL_WRAPPERS)
     assert len(wrappers) == 11
-    assert all(w in graphs._COUNTED for w in wrappers)
-    graphs.count_replays(pk.plant_tick)  # registering twice keeps one entry
-    assert graphs._COUNTED.count(pk.plant_tick) == 1
+    assert all(f"graphs.count_launch({w.__name__})" in inspect.getsource(w) for w in wrappers)
+    before = [w.launches for w in wrappers]
+    graphs._CAPTURE.tally = tally = {}
+    try:
+        for w in wrappers:
+            graphs.count_launch(w)
+        other = threading.Thread(target=graphs.count_launch, args=(pk.plant_tick,))
+        other.start()
+        other.join()
+    finally:
+        graphs._CAPTURE.tally = None
+    assert tally == {w: 1 for w in wrappers}
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [
+        2 if w is pk.plant_tick else 1 for w in wrappers]
+    for w, b in zip(wrappers, before):
+        w.launches = b
 
 
 def test_packed_step_graph_flag_on_cpu_runs_eagerly():
@@ -678,3 +696,71 @@ def test_a_failed_capture_raises():
         graphs.GraphedStep(host_sync, dev, warmup=1)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(x * 2).all())  # the card still works after the failure
+
+
+@pytest.mark.cuda
+def test_bridge_session_builds_while_another_plant_runs():
+    """A BridgeServer builds its session lazily, its head captured in a
+    handler thread, while another server's plant runs on the card from a
+    thread of its own: the capture (thread-local) holds, it tallies only
+    its own launches (one of rows 1 and 3 per replay), and the new
+    session's reply equals an eager session's."""
+    import socket
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from quadrotor_manipulator_mppi_tpu_torch.bridge import protocol as proto
+    from quadrotor_manipulator_mppi_tpu_torch.bridge import server as bridge
+    from quadrotor_manipulator_mppi_tpu_torch.bridge.sim_adapter import SimAdapter
+
+    dev = _card()
+    params = wb.position_mode_params(n_samples=K, n_horizon=H)
+
+    def session(graph):
+        return bridge.WholeBodySession(params=params, device=dev, graph=graph)
+
+    running = bridge.BridgeServer(session_factory=lambda: session(True))
+    lazy = bridge.BridgeServer(session_factory=lambda: session(True))
+    running.start()
+    lazy.start()
+    running.session()
+    plant = SimAdapter(running.host, running.port, device=dev)
+    plant._sock.settimeout(30.0)
+    flying, stop = threading.Event(), threading.Event()
+
+    def fly():
+        periods = 0
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            while not stop.is_set():
+                plant._exchange()
+                plant._replay_period()
+                periods += 1
+                flying.set()
+        return periods
+
+    state = [0.0] * 27
+    state[2], state[6] = 2.1, 1.0
+    try:
+        with ThreadPoolExecutor(1) as pool:
+            periods = pool.submit(fly)
+            try:
+                assert flying.wait(60.0)
+                with socket.create_connection((lazy.host, lazy.port), timeout=30.0) as conn:
+                    conn.sendall(proto.encode(proto.Frame(proto.MsgType.ROBOT_STATES, state)))
+                    dec, frames = proto.Decoder(), []
+                    while len(frames) < 2:
+                        data = conn.recv(65536)
+                        assert data, "the server closed the connection"
+                        dec.feed(data)
+                        frames.extend(dec.frames())
+            finally:
+                stop.set()
+            assert periods.result(timeout=60.0) > 0
+    finally:
+        plant._sock.close()
+        running.stop()
+        lazy.stop()
+    head = lazy.session()._head
+    assert head._bind(head._z_none).launches_per_replay == {"wb_cost": 1, "wb_update": 1}
+    want = session(False).handle_states(state)
+    assert [f.payload for f in frames] == [f.payload for f in want]
