@@ -3,9 +3,9 @@ whole-body closed loop and its fleet, the scenario-batched and
 sample-sharded solves, the drone MPPI path, the arm node, the
 pick_weight task, the multirotor preset and the perfect-model whole-body
 loop, the fixed-wing flyby, mapped flight, the plain whole-body solve on
-the card, the rotorcraft flight layer, and the solver bridge (the QMM
+the card, the rotorcraft flight layer, the solver bridge (the QMM
 server with both sessions, the sim and HIL adapters, the float64 plant
-oracle).
+oracle), and the camera stack with the scenario command line.
 
     python3 chip_smoke.py
 
@@ -162,6 +162,23 @@ lines; any failure exits non-zero before the final ``ok`` line):
    clock), no host sync in the period's replay;
    (e) tests/test_hil.py's two gates on the card, 100 graphed ticks
    bit-equal to eager, ms per tick;
+24. the camera stack and the scenario command line, each scenario through
+   ``run.main`` as a user runs it: (a) ``camera-survey --steps 400`` with
+   tests/test_cli.py's gates (3 frames or more, pointing error tail < 10
+   deg, a geotagged 2-D first frame), 10 control steps graphed bit-equal
+   to eager, ms per control step, device ops per tick, no host sync in the
+   replay loop; (b) the depth camera at 640 x 480 on 8 poses of the
+   survey's log in one call against float64 on the CPU (1e-4 relative,
+   +inf masks equal off the silhouettes), the Kinect noise on explicit
+   normals card against CPU (1e-6), ms per batched render; (c) the survey
+   streamed to a live ``BridgeServer``, its last frame read back equal to
+   the stored one; (d) ``drone-waypoint`` (300 steps, ``--save-log``, the
+   Lee refusal), ``whole-body-full`` (200 steps, rows 1 and 3 once per
+   step), its save and resume at K=64, H=12 (30 + 30 against 60, 1e-5),
+   ``whole-body-batch`` (4 x K=64, 120 steps) with their gates, rows 1 and
+   3 against plain on the resumed run's and the fleet's live states, and
+   ``bench-scaling`` on the card; (e) every registered name resolved to
+   the port's runner;
 then one ``kernels`` JSON line (rows 4-5 at B=256, rows 6-7 at K_local,
 rows 9a-9b at K=1000 and 9c-9d at K=1024: the shapes of the runs that
 count their launches; each ``wb_update`` row with the R it used and its
@@ -185,7 +202,10 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from quadrotor_manipulator_mppi_tpu_torch import run as cli
+from quadrotor_manipulator_mppi_tpu_torch import scenarios as registry
 from quadrotor_manipulator_mppi_tpu_torch.bridge import action as bridge_action
+from quadrotor_manipulator_mppi_tpu_torch.bridge import camera as bridge_camera
 from quadrotor_manipulator_mppi_tpu_torch.bridge import hil as hil_mod
 from quadrotor_manipulator_mppi_tpu_torch.bridge import mavlink as mav
 from quadrotor_manipulator_mppi_tpu_torch.bridge import protocol as proto
@@ -211,9 +231,13 @@ from quadrotor_manipulator_mppi_tpu_torch.scenarios import rotorcraft as rc
 from quadrotor_manipulator_mppi_tpu_torch.scenarios import solvers as scenarios
 from quadrotor_manipulator_mppi_tpu_torch.scenarios.common import hover_plant, tick_episode
 from quadrotor_manipulator_mppi_tpu_torch.scenarios.solvers import run_arm_reach
-from quadrotor_manipulator_mppi_tpu_torch.scenarios.whole_body import run_pick_weight
+from quadrotor_manipulator_mppi_tpu_torch.scenarios.whole_body import (
+    run_pick_weight, run_whole_body_full,
+)
 from quadrotor_manipulator_mppi_tpu_torch.sim import arm_loop
 from quadrotor_manipulator_mppi_tpu_torch.sim import closed_loop as cl
+from quadrotor_manipulator_mppi_tpu_torch.sim import depth_camera as dcam
+from quadrotor_manipulator_mppi_tpu_torch.sim import gimbal as gb
 from quadrotor_manipulator_mppi_tpu_torch.sim import flight_control as fc
 from quadrotor_manipulator_mppi_tpu_torch.sim import graspable as gr
 from quadrotor_manipulator_mppi_tpu_torch.sim import lee_controller as lee
@@ -371,6 +395,30 @@ N_HIL_CLIMB, N_HIL_GROUNDED = 600, 200  # phase 23e: tests/test_hil.py's lengths
 N_HIL_CHECKED = 100            # phase 23e: ticks held bit-equal to eager
 BRIDGE_TIMEOUT_S = 30.0        # phase 23: every socket wait
 EE_GOAL = (0.2, 0.4, 1.6)      # phase 23b-c: the EE_REACH goal's target
+N_SURVEY = 400                 # phase 24a: tests/test_cli.py's camera survey
+N_SURVEY_CHECKED = 10          # phase 24a: graphed control steps held bit-equal to eager
+N_SURVEY_TIMED = 20            # phase 24a: graphed control steps timed
+N_RENDER = 8                   # phase 24b: poses of the survey's log rendered at once
+RENDER_W, RENDER_H = 640, 480  # phase 24b: the Kinect's frame
+TOL_RENDER = 1e-4              # phase 24b: float32 card vs float64 CPU, relative
+# Phase 24b's silhouette pixels: |discriminant| / b^2 below SILHOUETTE_REL.
+# Near a tangent ray the float32 hit distance's relative error grows as
+# ~3e-8 / sqrt(|disc| / b^2): 9.6e-5 was seen on the CPU at 1e-6, 3.8e-5 at 1e-5.
+SILHOUETTE_REL = 1e-5
+MAX_SILHOUETTE = 512           # phase 24b: silhouette pixels allowed in the 8 frames (of 2.46M)
+TOL_DEPTH_NOISE = 1e-6         # phase 24b: the Kinect noise on explicit normals, relative
+N_DRONE_CLI = 300              # phase 24d: tests/test_cli.py's drone waypoint
+N_WB_FULL = 200                # phase 24d: whole-body-full, SKILL.md's gates
+N_RESUME = 30                  # phase 24d: tests/test_cli.py:175, 30 + 30 against 60
+RESUME_K, RESUME_H = 64, 12    # phase 24d: its solver
+N_WB_BATCH, WB_BATCH_B, WB_BATCH_K = 120, 4, 64  # phase 24d: tests/test_cli.py's batch
+TOL_RESUME = 1e-5              # phase 24d: resumed against continuous
+# Phase 24e: the phase that drives each registered scenario on the card.
+SCENARIO_PHASES = {"arm-reach": "16", "pick-weight": "17", "multirotor-waypoint": "18",
+                   "whole-body": "18", "fixed-wing": "19", "mapped-flight": "20",
+                   "hover": "22", "figure-eight": "22", "mission": "22", "waypoint-file": "22",
+                   "disturbance": "22", "camera-survey": "24", "drone-waypoint": "24",
+                   "whole-body-full": "24", "whole-body-batch": "24", "bench-scaling": "24"}
 # tests/test_cli.py's inline waypoint file (tests/test_cli.py:115-119).
 CLI_WAYPOINTS = "3.0 0.0 0.0 2.0 0.0\n4.0 1.5 1.5 2.5 60.0\n4.0 0.0 1.5 2.0 0.0\n"
 # The JAX package's run_disturbance on the same length, on the CPU (its own
@@ -2674,13 +2722,11 @@ def phase_mapped(dev) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         logs = {}
         for mode in ("spheres", "esdf"):
-            path = os.path.join(tmp, f"{mode}.npz")
             t0 = time.perf_counter()
+            logs[mode] = {}
             r = scenarios.run_mapped_flight(0, N_MAPPED_STEPS, dev, MAPPED_K, mode,
-                                            save_log=path)
+                                            logs=logs[mode])
             wall = (time.perf_counter() - t0) * 1e3 / N_MAPPED_STEPS
-            with np.load(path) as d:
-                logs[mode] = {k: d[k] for k in d.files}
             print(f"[20a] run_mapped_flight ({mode}, K={MAPPED_K}), {N_MAPPED_STEPS} steps: "
                   + ", ".join(f"{k} {v}" for k, v in r.items())
                   + f" | {wall:.3f} ms/control step (capture included)", flush=True)
@@ -2724,14 +2770,13 @@ def phase_mapped(dev) -> dict:
         if not same:
             fail("occupied_centers on the card differs from the CPU")
 
-        ck, log = os.path.join(tmp, "mapped_ck.npz"), os.path.join(tmp, "resumed.npz")
+        ck, d = os.path.join(tmp, "mapped_ck.npz"), {}
         scenarios.run_mapped_flight(0, N_MAPPED_SAVE, dev, MAPPED_K, "spheres", save_state=ck)
         scenarios.run_mapped_flight(0, N_MAPPED_RESUMED, dev, MAPPED_K, "spheres", resume=ck,
-                                    save_log=log)
+                                    logs=d)
         end = N_MAPPED_SAVE + N_MAPPED_RESUMED
-        with np.load(log) as d:
-            resumed = all((d[k] == logs["spheres"][k][N_MAPPED_SAVE:end]).all()
-                          for k in ("pos", "clearance"))
+        resumed = all((d[k] == logs["spheres"][k][N_MAPPED_SAVE:end]).all()
+                      for k in ("pos", "clearance"))
         print(f"[20e] mapped flight saved at step {N_MAPPED_SAVE} and resumed: the next "
               f"{N_MAPPED_RESUMED} steps (pos, clearance) bit-equal to the uninterrupted run "
               f"{resumed}", flush=True)
@@ -3016,41 +3061,14 @@ def bridge_counts() -> dict:
 
 
 def session_kernels(tag: str, live, state, errs) -> dict:
-    """``wb_cost`` (row 1: position mode, Philox draw and spill) and
-    ``wb_update`` (row 3) at the whole-body session's own shape (K=512,
-    H=50) against their plain versions, on the session's own inputs: its
-    Philox key, solve index and warm start after the requests, and the
-    packed observation and targets of the request ``state``.  S within
-    TOL_COST, du and m2 within TOL_UPDATE, the spill bit-equal to the
-    plain draw."""
-    params, dev, carry = live.params, live._head.device, live._head._state
+    """``kernels_vs_plain`` at the whole-body session's own shape (K=512,
+    H=50), on its Philox key, solve index and warm start after the
+    requests, and the packed observation and targets of the request
+    ``state``."""
+    dev = live._head.device
     obs = serving.unpack_obs(torch.tensor(live._obs_vec(state), device=dev),
                              torch.tensor(live._targets(), device=dev))
-    kc = wk.make_kernel_config(params)
-    sigma = mppi._diag_sigma(params.mppi, device=dev)
-    if params.mppi.sigma_scale_fn is not None:
-        sigma = sigma * params.mppi.sigma_scale_fn(obs)
-    sc, u_prev = wk.pack_scalars(obs, sigma), carry.u_prev.contiguous()
-    s_k, m_k, e_k, eps = wk.wb_cost(kc, sc, u_prev, None, carry.seed, carry.step)
-    s_p, _, _, eps_p = wk.wb_cost_plain(kc, sc, u_prev, None, carry.seed, carry.step)
-    du_k, m2_k = wk.wb_update(kc, eps, s_k, m_k, e_k)
-    du_p, m2_p = wk.wb_update_plain(kc, eps, s_k, m_k, e_k)
-    sync()
-    abs_s, rel_s = (s_k - s_p).abs().max().item(), rel_err(s_k, s_p)
-    abs_du = max((du_k - du_p).abs().max().item(), (m2_k - m2_p).abs().max().item())
-    rel_du = max((du_k - du_p).abs().max().item() / du_p.abs().max().item(),
-                 (m2_k - m2_p).abs().max().item() / m2_p.abs().max().item())
-    spill_eq = torch.equal(eps, eps_p)
-    print(f"{tag} wb_cost / wb_update at the session's K={kc.n_samples}, H={params.mppi.n_horizon} "
-          f"(solve index {int(carry.step.item())}, a request's observation) vs plain: max|dS| "
-          f"{abs_s:.3e} (rel {rel_s:.2e}, limit {TOL_COST:g}) | du/m2 rel {rel_du:.2e} (limit "
-          f"{TOL_UPDATE:g}) | spill == plain draw {spill_eq}", flush=True)
-    if not (rel_s <= TOL_COST and rel_du <= TOL_UPDATE and spill_eq):
-        fail(f"{tag}: wb_cost or wb_update at the session's shape disagrees with its plain "
-             "version")
-    errs["wb_cost"] = max(errs["wb_cost"], abs_s)
-    errs["wb_update"] = max(errs["wb_update"], abs_du)
-    return {"rel_s": rel_s, "rel_du": rel_du}
+    return kernels_vs_plain(tag, "the session's", live.params, obs, live._head._state, errs)
 
 
 def bridge_session(tag: str, make, kernels: bool, errs) -> dict:
@@ -3356,6 +3374,333 @@ def phase_bridge(dev, errs) -> dict:
     return out
 
 
+def run_cli(argv) -> dict:
+    """``python -m quadrotor_manipulator_mppi_tpu_torch.run`` in this
+    process: the JSON line it printed, read back."""
+    out = cli.main(argv)
+    print(f"    run {' '.join(argv)}", flush=True)
+    return out
+
+
+def kernels_vs_plain(tag: str, what: str, params, obs, solver, errs) -> dict:
+    """``wb_cost`` (row 1: Philox draw and spill) and ``wb_update`` (row 3)
+    against their plain versions on a live solver state (its Philox keys,
+    solve index and warm start; a fleet's scenarios one by one) and the
+    observation ``obs``.  S within TOL_COST, du and m2 within TOL_UPDATE,
+    the spill bit-equal to the plain draw."""
+    dev, cfg = obs.base_target.device, params.mppi
+    kc = wk.make_kernel_config(params)
+    sigma = solver.sigma if cfg.adaptive_sigma else mppi._diag_sigma(cfg, device=dev)
+    if cfg.sigma_scale_fn is not None:
+        sigma = sigma * cfg.sigma_scale_fn(obs)
+    sc, u_prev = wk.pack_scalars(obs, sigma), solver.u_prev.contiguous()
+    seeds = sampling.philox_keys(solver.seed, dev)
+    step = sampling.step_tensor(solver.step, dev)
+    s_k, m_k, e_k, eps = wk.wb_cost(kc, sc, u_prev, None, seeds, step)
+    du_k, m2_k = wk.wb_update(kc, eps, s_k, m_k, e_k)
+    rows = list(range(sc.shape[0])) if sc.ndim == 2 else [None]
+    worst = {"rel_s": 0.0, "rel_du": 0.0, "abs_s": 0.0, "abs_du": 0.0}
+    spill_eq = True
+    for i in rows:
+        pick = (lambda x: x) if i is None else (lambda x: x[i])
+        key = seeds if i is None else seeds[i:i + 1]
+        n = step if step.numel() == 1 else step[i:i + 1]
+        s_p, _, _, eps_p = wk.wb_cost_plain(kc, pick(sc), pick(u_prev), None, key, n)
+        du_p, m2_p = wk.wb_update_plain(kc, pick(eps), pick(s_k), pick(m_k), pick(e_k))
+        sync()
+        du_i, m2_i = pick(du_k), pick(m2_k)
+        worst["rel_s"] = max(worst["rel_s"], rel_err(pick(s_k), s_p))
+        worst["abs_s"] = max(worst["abs_s"], (pick(s_k) - s_p).abs().max().item())
+        worst["abs_du"] = max(worst["abs_du"], (du_i - du_p).abs().max().item(),
+                              (m2_i - m2_p).abs().max().item())
+        worst["rel_du"] = max(worst["rel_du"],
+                              (du_i - du_p).abs().max().item() / du_p.abs().max().item(),
+                              (m2_i - m2_p).abs().max().item() / m2_p.abs().max().item())
+        spill_eq = spill_eq and torch.equal(pick(eps), eps_p)
+    batch = "" if rows[0] is None else f"B={len(rows)} x "
+    print(f"{tag} wb_cost / wb_update at {what} {batch}K={kc.n_samples}, H={cfg.n_horizon} "
+          f"(solve index {step.tolist()}, its live keys and warm start) vs plain: S rel "
+          f"{worst['rel_s']:.2e} (max|dS| {worst['abs_s']:.3e}, limit {TOL_COST:g}) | du/m2 rel "
+          f"{worst['rel_du']:.2e} (limit {TOL_UPDATE:g}) | spill == plain draw {spill_eq}",
+          flush=True)
+    if not (worst["rel_s"] <= TOL_COST and worst["rel_du"] <= TOL_UPDATE and spill_eq):
+        fail(f"{tag}: wb_cost or wb_update at {what} shape disagrees with its plain version")
+    errs["wb_cost"] = max(errs["wb_cost"], worst["abs_s"])
+    errs["wb_update"] = max(errs["wb_update"], worst["abs_du"])
+    return worst
+
+
+def runner_kernels(tag: str, params, plant, solver, ee_target, base_target, errs) -> dict:
+    """``kernels_vs_plain`` at a runner's own shape, on its live solver
+    state and the observation of its plant."""
+    obs = wb.WholeBodyObs(state=wbl.observe(plant), ee_target=ee_target, base_target=base_target)
+    return kernels_vs_plain(tag, "the runner's", params, obs, solver, errs)
+
+
+def render_check(dev, pos, rot) -> dict:
+    """Phase 24b: ``N_RENDER`` frames of the survey's scene at 640 x 480
+    rendered in one call in float32 on the card, against the same call on
+    the same inputs in float64 on the CPU; the Kinect noise on explicit
+    normals, card against CPU."""
+    cam = dcam.DepthCameraParams(width=RENDER_W, height=RENDER_H, max_depth=30.0)
+    sc = torch.tensor(rc.SURVEY_SPHERES, device=dev)
+    sr = torch.tensor(rc.SURVEY_RADII, device=dev)
+
+    def render():
+        return dcam.depth_render(cam, pos, rot, sphere_centers=sc, sphere_radii=sr)
+
+    got = render()
+    ms = event_ms(render)
+    p64, r64, c64, rad64 = (x.cpu().double() for x in (pos, rot, sc, sr))
+    want = dcam.depth_render(cam, p64, r64, sphere_centers=c64, sphere_radii=rad64)
+    got_h = got.cpu()
+    # The float64 discriminant of each pixel's ray against each sphere.
+    dirs = dcam.depth_to_points(cam, torch.ones(RENDER_H, RENDER_W, dtype=torch.float64),
+                                torch.zeros(3, dtype=torch.float64),
+                                torch.eye(3, dtype=torch.float64))[0]
+    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    oc = p64[:, None, None, :] - c64
+    b = (torch.einsum("fij,pj->fpi", r64, dirs)[:, :, None, :] * oc).sum(-1)
+    disc = b * b - ((oc * oc).sum(-1) - rad64 ** 2)
+    edge = ((disc.abs() / (b * b)).amin(-1) < SILHOUETTE_REL).reshape(got_h.shape)
+    fin = torch.isfinite(got_h) & torch.isfinite(want) & ~edge
+    rel = ((got_h.double() - want).abs() / want.abs())[fin].max().item()
+    inf_eq = torch.equal(torch.isinf(got_h) & ~edge, torch.isinf(want) & ~edge)
+    inf_diff_edge = int(((torch.isinf(got_h) != torch.isinf(want)) & edge).sum())
+    n_edge = int(edge.sum())
+    gen = torch.Generator()
+    gen.manual_seed(24)
+    z = torch.randn(got_h.shape, generator=gen)
+    noisy_card = dcam.noisy_depth(cam, got, noise=z.to(dev)).cpu()
+    noisy_cpu = dcam.noisy_depth(cam, got_h, noise=z)
+    nan_eq = torch.equal(torch.isnan(noisy_card), torch.isnan(noisy_cpu))
+    ok_n = ~torch.isnan(noisy_cpu)
+    rel_n = ((noisy_card - noisy_cpu).abs() / noisy_cpu.abs())[ok_n].max().item()
+    print(f"[24b] depth render, {N_RENDER} poses of the survey's log at {RENDER_W} x {RENDER_H} "
+          f"in one call (float32, card) vs float64 on the CPU: max rel {rel:.2e} on pixels "
+          f"finite in both (limit {TOL_RENDER:g}) | +inf masks equal off the silhouettes "
+          f"{inf_eq} | silhouette pixels (|disc| < {SILHOUETTE_REL:g} b^2) {n_edge} (limit "
+          f"{MAX_SILHOUETTE}; {inf_diff_edge} of them +inf on one side only) | +inf pixels "
+          f"{int(torch.isinf(got_h).sum())} | Kinect noise on explicit normals, card vs CPU: "
+          f"max rel {rel_n:.2e} (limit {TOL_DEPTH_NOISE:g}), NaN masks equal {nan_eq} | "
+          f"{ms:.4f} ms per batched render (CUDA events)", flush=True)
+    if not (rel <= TOL_RENDER and inf_eq and n_edge <= MAX_SILHOUETTE and nan_eq
+            and rel_n <= TOL_DEPTH_NOISE):
+        fail("the depth render or its noise on the card disagrees with the CPU")
+    return {"render_ms": ms, "rel": rel, "silhouette": n_edge, "noise_rel": rel_n}
+
+
+def phase_camera_cli(dev, errs) -> dict:
+    """The camera stack and the scenario command line on the card, each
+    scenario through ``run.main`` as a user calls it: (a) ``camera-survey
+    --steps 400`` with tests/test_cli.py's gates, streaming to a live
+    server (c), 10 control steps graphed bit-equal to eager, ms per step,
+    device ops per tick, no host sync in the replay loop; (b) the depth
+    camera at 640 x 480 on 8 poses of the survey's log against float64 on
+    the CPU, and its Kinect noise; (c) the streamed frames read back from
+    the server; (d) ``drone-waypoint``, ``whole-body-full``, its resume at
+    K=64, H=12, ``whole-body-batch`` (4 x K=64) with their gates, rows 1
+    and 3 against plain on the runners' live states at those shapes, and
+    ``bench-scaling`` on the card; (e) every registered name resolves to
+    the port's runner."""
+    out, walls, mark = {}, {}, [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        walls[part] = now - mark[0]
+        mark[0] = now
+
+    server = bridge.BridgeServer()
+    server.start()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            frames, log = os.path.join(tmp, "frames"), os.path.join(tmp, "survey.npz")
+            t0 = time.perf_counter()
+            r = run_cli(["camera-survey", "--steps", str(N_SURVEY), "--out-dir", frames,
+                         "--save-log", log, "--stream", f"127.0.0.1:{server.port}"])
+            wall = (time.perf_counter() - t0) * 1e3 / N_SURVEY
+            first = np.load(r["first_frame"])
+            img = first["image"]
+            ok = (r["frames_written"] >= 3 and r["point_err_tail_max_deg"] < 10.0
+                  and img.ndim == 2 and bool(np.isfinite(img).any())
+                  and abs(float(first["lat_deg"]) - 47.3667) < 0.01
+                  and float(first["alt_m"]) > 488.0 and r["device"] == torch.cuda.get_device_name(0))
+            print(f"[24a] camera-survey --steps {N_SURVEY}: frames {r['frames_written']}, point err "
+                  f"tail max {r['point_err_tail_max_deg']} deg (mean "
+                  f"{r['point_err_tail_mean_deg']}), orbit alt {r['orbit_alt_final_m']} m | first "
+                  f"frame {img.shape}, {int(np.isfinite(img).sum())} finite px, lat "
+                  f"{float(first['lat_deg']):.6f}, alt {float(first['alt_m']):.3f} m | gates {ok} | "
+                  f"{wall:.3f} ms/control step (capture and capture pass included)", flush=True)
+            if not ok:
+                fail("the camera survey missed tests/test_cli.py's gates")
+            last = np.load(os.path.join(frames, f"DSC{r['frames_written'] - 1:05d}.npz"))["image"]
+            with np.load(log) as f:
+                saved = dict(f)
+            lap("a survey")
+
+            # (c) The last streamed frame, read back from the server.
+            got, meta = None, {}
+            deadline = time.time() + BRIDGE_TIMEOUT_S
+            with socket.create_connection((server.host, server.port),
+                                          timeout=BRIDGE_TIMEOUT_S) as viewer:
+                while time.time() < deadline:
+                    got, meta = bridge_camera.fetch_image(viewer)
+                    if got is not None and meta.get("seq") == r["frames_written"] - 1:
+                        break
+                    time.sleep(0.05)
+            ok = (got is not None and got.shape == last.shape
+                  and np.array_equal(np.isnan(got), np.isnan(last))
+                  and np.array_equal(got[~np.isnan(last)], last[~np.isnan(last)]))
+            print(f"[24c] --stream to a live BridgeServer: frame seq {meta.get('seq')} of "
+                  f"{r['frames_written']} read back with fetch_image, equal to the last npz frame "
+                  f"with its {int(np.isnan(last).sum())} NaNs in place {ok}", flush=True)
+            if not ok:
+                fail("the streamed camera frame does not match the stored one")
+            lap("c stream")
+    finally:
+        server.stop()
+
+    # (a) The survey's control step graphed against eager, timed.
+    def build(n, g):
+        return rc.camera_survey_episode(n, dev, g)
+
+    _, eager_ms = graphed_equals_eager("[24a] camera survey,", build, N_SURVEY_CHECKED)
+    t = scenario_times("[24a] camera survey", build, N_SURVEY_TIMED, eager_ms)
+    t["ops_per_tick"] = None if t["graphed_ops"] is None else t["graphed_ops"] / 10
+    out["survey"] = t
+    lap("a timing")
+
+    # (b) The depth camera on 8 poses of the survey's saved log, from the
+    # settled orbit (the gimbal starts level, its first frame half sky; near
+    # the horizon a float32 ray's ground hit loses relative precision as
+    # 1/|dz|).
+    idx = np.linspace(N_SURVEY * 10 // 4, N_SURVEY * 10 - 1, N_RENDER).astype(int)
+    pos, quat, gang = (torch.tensor(saved[k][idx], device=dev) for k in ("pos", "quat", "gimbal"))
+    rot = gb.camera_rotation(gb.GimbalState(gang, torch.zeros_like(gang)), quat)
+    out.update(render_check(dev, pos, rot.contiguous()))
+    lap("b render")
+
+    # (d) The runners this command line adds.
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "drone.npz")
+        r = run_cli(["drone-waypoint", "--steps", str(N_DRONE_CLI), "--save-log", log])
+        shape = np.load(log)["pos"].shape
+        try:
+            run_cli(["drone-waypoint", "--controller", "lee", "--steps", "10"])
+            refused = False
+        except SystemExit:
+            refused = True
+        ok = np.isfinite(r["min_err_m"]) and shape == (N_DRONE_CLI, 3) and refused
+        print(f"[24d] drone-waypoint --steps {N_DRONE_CLI}: min err {r['min_err_m']} m, final "
+              f"{r['final_err_m']} m, response {r['response_time_s']} s | log pos {shape} | "
+              f"--controller lee refused {refused} | gates {ok}", flush=True)
+        if not ok:
+            fail("drone-waypoint missed tests/test_cli.py's gates")
+        lap("d drone")
+
+        reset_counts()
+        t0 = time.perf_counter()
+        r = run_cli(["whole-body-full", "--steps", str(N_WB_FULL)])
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3 / N_WB_FULL
+        launches = {"whole-body-full": bridge_counts()}
+        ok = r["min_ee_err_m"] < 0.4 and r["min_alt_m"] > 0.5
+        print(f"[24d] whole-body-full --steps {N_WB_FULL} (position, K=512, H=50, the RNEA "
+              f"plant): min EE err {r['min_ee_err_m']} m, final {r['final_ee_err_m']} m, min alt "
+              f"{r['min_alt_m']} m, tilt {r['max_tilt_rad']} | rows 1/3 launches "
+              f"{launches['whole-body-full']} | gates {ok} | {wall:.3f} ms/control step "
+              f"(capture included)", flush=True)
+        if not ok or launches["whole-body-full"] != {"wb_cost": N_WB_FULL + 2,
+                                                     "wb_update": N_WB_FULL + 2}:
+            fail("whole-body-full missed its gates or did not run through rows 1 and 3")
+        out["wb_full_ms"] = wall
+        lap("d full")
+
+        # tests/test_cli.py:175's resume at K=64, H=12, through the runner.
+        mid, end_r, end_c = (os.path.join(tmp, f) for f in ("mid.npz", "res.npz", "cont.npz"))
+        kw = dict(seed=0, device=dev, n_samples=RESUME_K, n_horizon=RESUME_H)
+        log_r, log_c = {}, {}
+        reset_counts()
+        run_whole_body_full(steps=N_RESUME, save_state=mid, **kw)
+        run_whole_body_full(steps=N_RESUME, resume=mid, save_state=end_r, logs=log_r, **kw)
+        run_whole_body_full(steps=2 * N_RESUME, save_state=end_c, logs=log_c, **kw)
+        launches["resume"] = bridge_counts()
+        with np.load(end_r) as a, np.load(end_c) as b:
+            worst = max(float(np.abs(a[k].astype(np.float64) - b[k]).max()) for k in a.files
+                        if k != "__meta__")
+        d_ee = abs(float(log_r["ee_err"][-1]) - float(log_c["ee_err"][-1]))
+        ok = worst <= TOL_RESUME and d_ee <= TOL_RESUME
+        print(f"[24d] whole-body-full K={RESUME_K}, H={RESUME_H}: {N_RESUME} steps saved + "
+              f"{N_RESUME} resumed against {2 * N_RESUME} continuous: every state leaf max|d| "
+              f"{worst:.2e}, last EE error |d| {d_ee:.2e} (limit {TOL_RESUME:g}) | rows 1/3 "
+              f"launches {launches['resume']}", flush=True)
+        if not ok:
+            fail("the resumed whole-body episode is not the continuous one")
+        params = wb.position_mode_params(n_samples=RESUME_K, n_horizon=RESUME_H)
+        _, init = wb.make_whole_body_solver(params, device=dev, low_k_guard="off")
+        plant, solver = checkpoint.restore(
+            end_r, (wbl.init_plant(params.model.vehicle, device=dev), init(0)), device=dev)
+        obs0 = wb.default_obs(device=dev)
+        out["resume_kernels"] = runner_kernels("[24d] resume,", params, plant, solver,
+                                               obs0.ee_target, obs0.base_target, errs)
+        lap("d resume")
+
+    reset_counts()
+    r = run_cli(["whole-body-batch", "--scenarios", str(WB_BATCH_B), "--k-per-device",
+                 str(WB_BATCH_K), "--steps", str(N_WB_BATCH)])
+    launches["whole-body-batch"] = bridge_counts()
+    ok = (r["l1_cmd_tail_mean_mm"] < 1500.0 and r["max_tilt_rad"] < 0.5
+          and r["control_steps_per_s"] > 0 and r["scenarios"] == WB_BATCH_B)
+    print(f"[24d] whole-body-batch {WB_BATCH_B} x K={WB_BATCH_K}, {N_WB_BATCH} steps: l1_cmd tail "
+          f"mean {r['l1_cmd_tail_mean_mm']} mm, tilt {r['max_tilt_rad']}, "
+          f"{r['control_steps_per_s']} control steps/s ({r['wall_s']} s timed run), gate held "
+          f"{r['gate_held_fraction']} | rows 1/3 launches {launches['whole-body-batch']} | gates "
+          f"{ok}", flush=True)
+    if not ok or launches["whole-body-batch"] != {"wb_cost": 2 * N_WB_BATCH + 2,
+                                                  "wb_update": 2 * N_WB_BATCH + 2}:
+        fail("whole-body-batch missed tests/test_cli.py's gates or skipped rows 1 and 3")
+    # The runner's fleet built again as it builds it, for its live state.
+    params = wb.position_mode_params(n_samples=WB_BATCH_K, n_horizon=H)
+    run = wbl.make_whole_body_episode(
+        params, n_control_steps=N_WB_BATCH, device=dev, n_scenarios=WB_BATCH_B,
+        cfg=wbl.WholeBodyLoopConfig(arm_coeffs_per_control=True, substep_unroll=10))
+    (plants, solver, targets, base_targets), _ = run(
+        *wbl.fleet_starts(params, WB_BATCH_B, seed=0, device=dev))
+    out["batch_kernels"] = runner_kernels("[24d] batch,", params, plants, solver, targets,
+                                          base_targets, errs)
+    out["launches"] = launches
+    lap("d batch")
+
+    r = run_cli(["bench-scaling"])
+    vals = [r[k] for k in ("weak_eff_sample_axis", "weak_eff_scenario_axis", "t_1dev_ms",
+                           "t_sample_sharded_ms", "t_scenario_sharded_ms")]
+    ok = r["devices"] == torch.cuda.device_count() and all(np.isfinite(v) and v > 0 for v in vals)
+    print(f"[24d] bench-scaling on {r['devices']} card(s), K per device {r['k_per_device']}: "
+          f"weak efficiency sample axis {r['weak_eff_sample_axis']:.3f}, scenario axis "
+          f"{r['weak_eff_scenario_axis']:.3f} | 1-rank solve {r['t_1dev_ms']:.3f} ms (CUDA "
+          f"events) | finite {ok}", flush=True)
+    if not ok:
+        fail("bench-scaling gave no finite efficiencies on the card")
+    lap("d scaling")
+
+    resolved = {}
+    for name in registry.NAMES:
+        fn = registry.get(name)
+        resolved[name] = fn.__module__.startswith("quadrotor_manipulator_mppi_tpu_torch.")
+    ok = all(resolved.values()) and set(resolved) == set(SCENARIO_PHASES)
+    print(f"[24e] {len(resolved)} registered names, each resolved to the port's runner {ok}; "
+          "driven on the card in phase " + ", ".join(f"{n} {SCENARIO_PHASES[n]}"
+                                                     for n in registry.NAMES), flush=True)
+    if not ok:
+        fail("a registered scenario does not resolve to the port's runner")
+    lap("e")
+    print("[t] phase 24 wall s per part: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()),
+          flush=True)
+    out["walls"] = walls
+    return out
+
+
 def reach_sweep(mode: str, seeds) -> None:
     """``--reach MODE --seeds ...``: phase 7 alone, for one mode on any
     seeds; prints one JSON line of the per-seed metrics and exits non-zero
@@ -3417,6 +3762,7 @@ def main() -> None:
     plain = lap("21", phase_plain, dev)
     rotor = lap("22", phase_rotorcraft, dev)
     bridge_out = lap("23", phase_bridge, dev, errs)
+    camera = lap("24", phase_camera_cli, dev, errs)
     print("[t] wall s per phase: " + ", ".join(f"{n} {w:.1f}" for n, w in walls)
           + f" | total {sum(w for _, w in walls):.1f}", flush=True)
     b256 = {(b, spill): e_ms for b, spill, _, e_ms, _, _, _ in batch_rows}
@@ -3485,6 +3831,7 @@ def main() -> None:
          "pick_lift_launches": pick["lift_launches"]["wb_cost"],
          "whole_body_launches": multirotor["whole_body_launches"]["wb_cost"],
          "bridge_launches": bridge_out["whole-body"]["launches"]["wb_cost"],
+         "cli_launches": {k: v["wb_cost"] for k, v in camera["launches"].items()},
          "b256_ms": t_b256["wb_cost"],
          "layout": COST_LAYOUT, "noise_layout": COST_LAYOUT,
          "graph_ms": t["wb_cost_graph"], "device_ms": t["wb_cost_device"],
@@ -3499,6 +3846,7 @@ def main() -> None:
          "pick_lift_launches": pick["lift_launches"]["wb_update"],
          "whole_body_launches": multirotor["whole_body_launches"]["wb_update"],
          "bridge_launches": bridge_out["whole-body"]["launches"]["wb_update"],
+         "cli_launches": {k: v["wb_update"] for k, v in camera["launches"].items()},
          **vs_library(t_k4096["wb_update"], t_k4096["library_mv"]), **rows_of("3", 1),
          "b256_ms": t_b256["wb_update"], "b256_bound_ms": b256_bounds["wb_update"][0],
          **vs_library(at_b256("wb_update"), at_b256("library_bmm"), "b256_"),
@@ -3603,7 +3951,12 @@ def main() -> None:
           + f", sim adapter period {bridge_out['period_ms']:.4f} ms graphed (CUDA events; "
           f"{bridge_out['period_host_ms']:.4f} host clock; {bridge_out['period_eager_ms']:.3f} "
           f"eager), HIL tick "
-          f"{bridge_out['hil_tick_ms']:.4f} ms ({bridge_out['hil_eager_tick_ms']:.4f} eager)"
+          f"{bridge_out['hil_tick_ms']:.4f} ms ({bridge_out['hil_eager_tick_ms']:.4f} eager), "
+          f"camera survey {camera['survey']['graphed_ms']:.3f} ms/control step graphed "
+          f"({camera['survey']['eager_ms']:.3f} eager; {fmt_ops(camera['survey']['ops_per_tick'])} "
+          f"ops per tick), {RENDER_W} x {RENDER_H} render of {N_RENDER} frames "
+          f"{camera['render_ms']:.4f} ms, whole-body-full {camera['wb_full_ms']:.3f} ms/control "
+          f"step (capture included)"
           + f" on {smi}")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,12 +1,19 @@
 """Log analysis: the ``rotors_evaluation`` metric families over a log.
 
-Port of the JAX package's ``evaluation/analyze.py`` (its command line
-waits for the port's CLI): the hover, waypoint and disturbance-recovery
-summaries of a log ``data`` (a mapping with ``"pos"`` (T, 3) and, for
-hover, optionally ``"omega"``), as tensors on any device or NumPy arrays.
+Port of the JAX package's ``evaluation/analyze.py``: the hover, waypoint
+and disturbance-recovery summaries of a log ``data`` (a mapping with
+``"pos"`` (T, 3) and, for hover, optionally ``"omega"``), as tensors on any
+device or NumPy arrays.  Its command line reads a scenario's ``--save-log``
+file and prints one JSON line:
+
+    python -m quadrotor_manipulator_mppi_tpu_torch.evaluation.analyze \
+        waypoint log.npz --target 1 2 3.4 --radius 0.5
 """
 
 from __future__ import annotations
+
+import argparse
+import json
 
 import numpy as np
 import torch
@@ -59,3 +66,29 @@ def analyze_disturbance(data, target, dt, radius) -> dict:
         "recovery_time_s": round(float(st), 2),
         "final_err_m": round(float(err[-1]), 4),
     }
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(prog="quadrotor_manipulator_mppi_tpu_torch.evaluation.analyze")
+    p.add_argument("kind", choices=["hover", "waypoint", "disturbance"])
+    p.add_argument("log")
+    p.add_argument("--target", type=float, nargs=3, required=True)
+    p.add_argument("--dt", type=float, default=0.01)
+    p.add_argument("--radius", type=float, default=0.1)
+    args = p.parse_args(argv)
+
+    with np.load(args.log) as f:
+        data = dict(f)
+    if args.kind == "hover":
+        out = analyze_hover(data, args.target, args.dt)
+    elif args.kind == "waypoint":
+        out = analyze_waypoint(data, args.target, args.dt, args.radius)
+    else:
+        out = analyze_disturbance(data, args.target, args.dt, args.radius)
+    out = {"kind": args.kind, "log": args.log, **out}
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,12 @@
-"""Shared scenario plumbing: the hover start of the rotorcraft scenarios,
-the 1 kHz tick episode and the perfect-model MPC loop.
+"""Shared scenario plumbing: the command line's report, checkpoint and log
+files, the hover start of the rotorcraft scenarios, the 1 kHz tick episode
+and the perfect-model MPC loop.
 
-Port of the JAX package's ``scenarios/common.py`` (its command-line
-report and log-file options are not ported: the port's scenarios return
-their metrics).  Where the JAX package scans an episode, the port runs it
+Port of the JAX package's ``scenarios/common.py``.  The port's scenarios
+are keyword functions that return their metrics; the command line
+(``run.py``) reports them through :func:`finish`, and a scenario that
+checkpoints goes through :func:`maybe_resume` and :func:`maybe_save`.
+Where the JAX package scans an episode, the port runs it
 through ``utils/graphs.episode_runner``: on the card one captured control
 step replayed per step.  A tick episode (:func:`tick_episode`) captures one
 control period of 10 plant ticks as that step, its per-tick logs written
@@ -13,15 +16,49 @@ into preallocated buffers, and checkpoints its carry through
 
 from __future__ import annotations
 
+import json
 import math
+import sys
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from ..models import multirotor as mr
 from ..solver.mppi import device_counters
 from ..utils import checkpoint, graphs
 from ..utils.device import resolve_device
+
+
+def maybe_resume(resume: Optional[str], carry0: Any, device=None) -> Any:
+    """``resume``, a checkpoint path: ``carry0`` restored from it (the
+    Philox keys and solve indices exactly, so a resumed episode continues
+    the noise stream the uninterrupted run would have drawn); tensors go to
+    their ``carry0`` leaf's device, or ``device``."""
+    if resume:
+        carry0 = checkpoint.restore(resume, carry0, device=device)
+        print(f"resumed state from {resume}", file=sys.stderr)
+    return carry0
+
+
+def maybe_save(save_state: Optional[str], carry: Any) -> None:
+    """``save_state``, a checkpoint path: the final episode carry saved."""
+    if save_state:
+        checkpoint.save(save_state, carry)
+        print(f"saved state to {save_state}", file=sys.stderr)
+
+
+def finish(name: str, metrics: dict, log_arrays: Optional[dict] = None,
+           save_log: Optional[str] = None) -> dict:
+    """The command line's report: the logs written to ``save_log`` (.npz)
+    if given, then one JSON line with ``"scenario"`` first.  Returns the
+    reported object."""
+    if save_log:
+        np.savez(save_log, **(log_arrays or {}))
+        metrics = {**metrics, "log": save_log}
+    out = {"scenario": name, **metrics}
+    print(json.dumps(out), flush=True)
+    return out
 
 
 def hover_plant(veh: mr.MultirotorParams, pos, dtype=torch.float32,
@@ -82,8 +119,7 @@ def tick_episode(tick: Callable, log_like: Callable, n_ticks: int, device="cuda"
 
     def run(carry: Any, z: Optional[torch.Tensor] = None, save_state: Optional[str] = None,
             resume: Optional[str] = None):
-        if resume:
-            carry = checkpoint.restore(resume, carry, device=dev)
+        carry = maybe_resume(resume, carry, dev)
         if z is not None:
             if len(z) != n_ticks:
                 raise ValueError(f"z carries {len(z)} ticks, the episode {n_ticks}")
@@ -92,8 +128,7 @@ def tick_episode(tick: Callable, log_like: Callable, n_ticks: int, device="cuda"
             z = z.reshape((n_steps, TICKS_PER_STEP) + tuple(z.shape[1:]))
         i0 = torch.zeros((), dtype=torch.int32, device=dev)
         (final, _), logs = run_steps((carry, i0), z)
-        if save_state:
-            checkpoint.save(save_state, final)
+        maybe_save(save_state, final)
         return final, tuple(x.reshape((padded,) + tuple(x.shape[2:]))[:n_ticks] for x in logs)
 
     return run

@@ -1,11 +1,12 @@
 """Inner-loop rotorcraft scenarios: hover, aggressive figure-eight
-tracking, wind disturbance, the full mission and file-driven waypoints.
+tracking, wind disturbance, the full mission, file-driven waypoints and
+the camera survey.
 
 Port of the JAX package's ``scenarios/rotorcraft.py``: the flight-control,
 wind, contact and mission layers with no MPPI solver in the loop.  Each
 scenario is a function ``run_*(seed, steps, device="cuda", ...)`` that
-returns the JAX scenario's metrics (the command line and its log files wait
-for the port's CLI), beside an ``*_episode`` builder, ``(run, start)``:
+returns the JAX scenario's metrics (``run.py`` is their command line), beside
+an ``*_episode`` builder, ``(run, start)``:
 ``run(start(seed))`` is one episode of 1 kHz ticks, on the card one
 captured control period of 10 ticks replayed per step
 (``scenarios.common.tick_episode``; ``graph=False`` runs it eagerly).
@@ -26,13 +27,16 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..bridge.camera import CameraPublisher
 from ..evaluation import analyze as analyze_mod
 from ..evaluation import metrics as metrics_mod
 from ..models import multirotor as mr
 from ..models import vehicles
 from ..ops import sampling
 from ..sim import closed_loop as cl
+from ..sim import depth_camera as dc
 from ..sim import flight_control as fc
+from ..sim import gimbal as gb
 from ..sim import lee_controller as lee
 from ..sim import scenario as mission_mod
 from ..sim import sensors
@@ -41,6 +45,7 @@ from ..utils.device import device_const, resolve_device
 from ..utils.trajectory import (
     gerono_reference, polynomial_sample, read_waypoint_file, waypoint_splines,
 )
+from ..sim.geotag import GeotagParams, GeotagRecorder, replay_capture
 from .common import TICK_DT, TICKS_PER_STEP, hover_plant, tick_episode
 
 DT = TICK_DT
@@ -93,11 +98,15 @@ def hover_episode(n_steps: int, device="cuda", graph: bool = True, vehicle: str 
 
 
 def run_hover(seed: int = 0, steps: int = 1000, device="cuda", vehicle: str = "harrier",
-              controller: str = "backstepping") -> dict:
+              controller: str = "backstepping", save_state: Optional[str] = None,
+              resume: Optional[str] = None, logs: Optional[dict] = None) -> dict:
     """The hover gate (the reference's hovering_eval thresholds): position
-    RMS and body-rate RMS over the second half, settling time."""
+    RMS and body-rate RMS over the second half, settling time.  ``logs``,
+    if given, receives ``pos`` and ``omega`` per tick."""
     run, start = hover_episode(steps, device, vehicle=vehicle, controller=controller)
-    _, (pos, omega) = run(start(seed))
+    _, (pos, omega) = run(start(seed), save_state=save_state, resume=resume)
+    if logs is not None:
+        logs.update(pos=pos.cpu().numpy(), omega=omega.cpu().numpy())
     m = metrics_mod.hover_metrics(pos, omega, device_const(HOVER_TARGET, pos), dt=DT)
     return {"vehicle": vehicle, "controller": controller,
             "pos_rms_m": round(float(m.pos_rms), 4),
@@ -139,12 +148,16 @@ def figure_eight_episode(n_steps: int, device="cuda", graph: bool = True,
 
 
 def run_figure_eight(seed: int = 0, steps: int = 1000, device="cuda", vehicle: str = "harrier",
-                     period: float = 6.0) -> dict:
+                     period: float = 6.0, save_state: Optional[str] = None,
+                     resume: Optional[str] = None, logs: Optional[dict] = None) -> dict:
     """The aggressive-maneuver gate: post-transient tracking RMSE < 0.15 m
-    (the first lap, or half the run, skipped)."""
+    (the first lap, or half the run, skipped).  ``logs``, if given,
+    receives ``err`` and ``tilt`` per tick."""
     run, start = figure_eight_episode(steps, device, vehicle=vehicle, period=period)
-    _, (err, tilt) = run(start(seed))
+    _, (err, tilt) = run(start(seed), save_state=save_state, resume=resume)
     err, tilt = err.cpu().numpy(), tilt.cpu().numpy()
+    if logs is not None:
+        logs.update(err=err, tilt=tilt)
     settle = min(int(period / DT), len(err) // 2)
     e_track = err[settle:]
     rms = float(np.sqrt((e_track ** 2).mean()))
@@ -202,11 +215,16 @@ def disturbance_episode(n_steps: int, device="cuda", graph: bool = True):
     return run, start
 
 
-def run_disturbance(seed: int = 0, steps: int = 1000, device="cuda") -> dict:
+def run_disturbance(seed: int = 0, steps: int = 1000, device="cuda",
+                    save_state: Optional[str] = None, resume: Optional[str] = None,
+                    logs: Optional[dict] = None) -> dict:
     """The hover gate under the wind, and the recovery after the peak
-    excursion (the reference's disturbance_eval)."""
+    excursion (the reference's disturbance_eval).  ``logs``, if given,
+    receives ``pos`` and ``omega`` per tick."""
     run, start = disturbance_episode(steps, device)
-    _, (pos, omega) = run(start(seed))
+    _, (pos, omega) = run(start(seed), save_state=save_state, resume=resume)
+    if logs is not None:
+        logs.update(pos=pos.cpu().numpy(), omega=omega.cpu().numpy())
     target = device_const(DISTURBANCE_TARGET, pos)
     m = metrics_mod.hover_metrics(pos, omega, target, dt=DT)
     rec = analyze_mod.analyze_disturbance({"pos": pos}, np.asarray(DISTURBANCE_TARGET), DT, 0.1)
@@ -256,16 +274,20 @@ def mission_episode(n_steps: int, device="cuda", graph: bool = True,
 
 
 def run_mission(seed: int = 0, steps: int = 1000, device="cuda",
-                save_state: Optional[str] = None, resume: Optional[str] = None) -> dict:
+                save_state: Optional[str] = None, resume: Optional[str] = None,
+                logs: Optional[dict] = None) -> dict:
     """The mission's metrics: the highest and last altitude, the final
     phase, whether it landed, and the contact quality (the rest height in
     the landed phase, the final tilt and vertical speed).  ``save_state``
     checkpoints the final carry; ``resume`` starts from one (the tick index
-    restarts, so the Land command comes after three fifths of this run)."""
+    restarts, so the Land command comes after three fifths of this run).
+    ``logs``, if given, receives ``z``, ``phase`` and ``tilt`` per tick."""
     run, start = mission_episode(steps, device)
     (plant, _, mission), (pos, phase, tilt, _, _) = run(start(seed), save_state=save_state,
                                                         resume=resume)
     z, phase, tilt = pos[:, 2].cpu().numpy(), phase.cpu().numpy(), tilt.cpu().numpy()
+    if logs is not None:
+        logs.update(z=z, phase=phase, tilt=tilt)
     landed = phase == mission_mod.LANDED
     final_phase = int(mission.phase)
     return {"max_alt_m": round(float(z.max()), 3), "final_alt_m": round(float(z[-1]), 3),
@@ -358,25 +380,131 @@ def waypoint_file_episode(path: Optional[str] = None, device="cuda", graph: bool
 
 def run_waypoint_file(seed: int = 0, steps: Optional[int] = None, device="cuda",
                       path: Optional[str] = None, smooth: bool = False,
-                      vehicle: str = "harrier") -> dict:
+                      vehicle: str = "harrier", save_state: Optional[str] = None,
+                      resume: Optional[str] = None, logs: Optional[dict] = None) -> dict:
     """``waypoint_publisher_file`` parity: each waypoint's position error
     at the end of its window against the hover-eval 0.2 m gate; smooth,
     also the tracking error against the spline.  The schedule sets the
     length (``steps`` is accepted for a uniform signature and ignored, as
-    the JAX scenario ignores it)."""
+    the JAX scenario ignores it).  ``logs``, if given, receives ``pos``
+    (and, smooth, the reference ``ref``) per tick."""
     run, start, (waits, positions, _, n_ticks) = waypoint_file_episode(path, device, True,
                                                                        vehicle, smooth)
-    _, logs = run(start(seed))
-    pos = logs[0].cpu().numpy()
+    _, lg = run(start(seed), save_state=save_state, resume=resume)
+    pos = lg[0].cpu().numpy()
+    if logs is not None:
+        logs.update(pos=pos, **({"ref": lg[1].cpu().numpy()} if smooth else {}))
     ends = np.cumsum(waits) / DT
     end_errors = [float(np.linalg.norm(pos[int(min(e, n_ticks)) - 1] - positions[i]))
                   for i, e in enumerate(ends)]
     out = {"file": path or EXAMPLE_WAYPOINTS, "n_waypoints": len(waits)}
     if smooth:
-        err = np.linalg.norm(pos - logs[1].cpu().numpy(), axis=-1)
+        err = np.linalg.norm(pos - lg[1].cpu().numpy(), axis=-1)
         out.update(smooth=True, track_rms_m=round(float(np.sqrt((err ** 2).mean())), 4),
                    track_max_m=round(float(err.max()), 4))
     out.update(end_window_err_m=[round(e, 4) for e in end_errors],
                max_end_err_m=round(max(end_errors), 4))
     out["passed"] = bool(err.max() < 0.2) if smooth else bool(max(end_errors) < 0.2)
     return out
+
+
+SURVEY_TARGET = (2.0, 0.0, 0.0)
+SURVEY_RADIUS, SURVEY_ALT, SURVEY_PERIOD = 3.0, 3.0, 12.0   # m, m, s per orbit
+SURVEY_CAMERA = dc.DepthCameraParams(width=32, height=24, max_depth=30.0)
+SURVEY_SPHERES = ((2.0, 0.0, 0.6), (0.5, 1.5, 0.4))
+SURVEY_RADII = (0.6, 0.4)
+
+
+def camera_survey_episode(n_steps: int, device="cuda", graph: bool = True):
+    """The multirotor (backstepping) orbits the ground target at 3 m radius
+    and 3 m altitude, one lap per 12 s, while the gimbal's world-frame
+    servo holds the camera's optical axis on the target.  ``(run,
+    start)``; the carry is (plant, controller, gimbal); the logs are the
+    position, the attitude, the gimbal angles and the pointing error [rad]
+    after each tick."""
+    dev = resolve_device(device)
+    veh, gains, gparams = mr.MultirotorParams(), fc.FlightGains(), gb.GimbalParams()
+
+    def tick(carry, i, noise):
+        plant, ctrl, gim = carry
+        target = device_const(SURVEY_TARGET, plant.pos)
+        ang = 2.0 * np.pi * i.to(plant.pos.dtype) / (SURVEY_PERIOD * 1000.0)
+        zero = torch.zeros((), dtype=plant.pos.dtype, device=plant.pos.device)
+        sp = fc.FlightSetpoint(
+            pos=torch.stack([target[0] + SURVEY_RADIUS * torch.cos(ang),
+                             target[1] + SURVEY_RADIUS * torch.sin(ang), zero + SURVEY_ALT]),
+            vel=torch.zeros_like(plant.pos), yaw=zero, yaw_rate=zero)
+        u, ctrl = fc.backstepping_step(gains, veh, ctrl, sp, pos=plant.pos, vel_world=plant.vel,
+                                       rpy=cl.rpy_of(plant), omega_body=plant.omega, dt=DT)
+        plant = mr.step(veh, plant, fc.allocate(veh, u), DT)
+        gim = gb.gimbal_step(gparams, gim, gb.point_at(plant.pos, target), plant.quat, DT)
+        axis = gb.camera_rotation(gim, plant.quat)[:, 2]
+        want = target - plant.pos
+        want = want / torch.linalg.norm(want)
+        point_err = torch.acos(torch.clamp(torch.dot(axis, want), -1.0, 1.0))
+        return (plant, ctrl, gim), (plant.pos, plant.quat, gim.angles, point_err)
+
+    run = tick_episode(tick, lambda c: (c[0].pos, c[0].quat, c[2].angles, c[0].pos[0]),
+                       n_steps * TICKS_PER_STEP, dev, graph, "loop.camera_survey")
+
+    def start(seed=0):
+        pos = (SURVEY_TARGET[0] + SURVEY_RADIUS, 0.0, SURVEY_ALT)
+        return (mr.init_state(veh, pos=pos, device=dev), fc.init_ctrl_state(veh.mass, device=dev),
+                gb.init_gimbal(device=dev))
+
+    return run, start
+
+
+def _stream_socket(stream: str):
+    """A connection to a live QMM server at ``HOST:PORT``."""
+    import socket
+
+    host, sep, port_s = stream.rpartition(":")
+    try:
+        if not sep:
+            raise ValueError
+        port = int(port_s)
+    except ValueError:
+        raise SystemExit(f"--stream expects HOST:PORT (got {stream!r}); "
+                         "e.g. --stream 127.0.0.1:9911") from None
+    return socket.create_connection((host or "127.0.0.1", port), timeout=5)
+
+
+def run_camera_survey(seed: int = 0, steps: int = 400, device="cuda", out_dir: Optional[str] = None,
+                      stream: Optional[str] = None, save_state: Optional[str] = None,
+                      resume: Optional[str] = None, logs: Optional[dict] = None) -> dict:
+    """The aerial survey with the whole camera stack: the orbit of
+    ``camera_survey_episode``, then the capture pass over its logs
+    (``sim/geotag.replay_capture``): every second the gimbal-steered depth
+    frame (32 x 24, Kinect noise) of the scene (the ground and two spheres)
+    is geotagged with the GPS fix and stored as an npz in ``out_dir``
+    (``frames`` by default).  ``stream`` (``HOST:PORT``) also pushes each
+    captured frame to a live QMM server as IMAGE frames
+    (``bridge/camera.CameraPublisher``).  The capture noise draws under the
+    seed's Philox key.  Returns the JAX scenario's metrics; ``logs``, if
+    given, receives its log arrays (``pos``, ``gimbal``, ``point_err``) and
+    the base attitude ``quat``, which with them gives each tick's camera
+    pose."""
+    dev = resolve_device(device)
+    run, start = camera_survey_episode(steps, dev)
+    _, (pos, quat, gangles, perr) = run(start(seed), save_state=save_state, resume=resume)
+    rec = GeotagRecorder(params=GeotagParams(interval=1.0), out_dir=out_dir or "frames")
+    sock = _stream_socket(stream) if stream else None
+    try:
+        replay_capture(rec, pos, quat, gangles, cam=SURVEY_CAMERA,
+                       seed=sampling.philox_keys(seed, dev), sphere_centers=SURVEY_SPHERES,
+                       sphere_radii=SURVEY_RADII,
+                       publisher=None if sock is None else CameraPublisher(sock, rate_hz=10.0))
+    finally:
+        if sock is not None:
+            sock.close()
+    perr_np, pos_np = perr.cpu().numpy(), pos.cpu().numpy()
+    tail = perr_np[perr_np.shape[0] // 2:]
+    if logs is not None:
+        logs.update(pos=pos_np, gimbal=gangles.cpu().numpy(), point_err=perr_np,
+                    quat=quat.cpu().numpy())
+    return {"frames_written": len(rec.written),
+            "first_frame": rec.written[0] if rec.written else None,
+            "point_err_tail_max_deg": round(float(np.rad2deg(tail.max())), 2),
+            "point_err_tail_mean_deg": round(float(np.rad2deg(tail.mean())), 2),
+            "orbit_alt_final_m": round(float(pos_np[-1, 2]), 3)}

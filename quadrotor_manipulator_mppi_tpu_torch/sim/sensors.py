@@ -130,9 +130,11 @@ class GpsParams:
 def gps_measure(params: GpsParams, pos: Tensor, noise: Optional[Tensor] = None,
                 seed: Optional[Tensor] = None, step: Optional[Tensor] = None) -> Tensor:
     """A fix: ``pos`` plus noise from 3 standard normals (horizontal x, y,
-    then vertical: the JAX split's two sub-keys)."""
-    z = _draws(3, noise, seed, step, pos)
-    return pos + torch.cat([params.horizontal_noise * z[:2], params.vertical_noise * z[2:]])
+    then vertical: the JAX split's two sub-keys).  ``pos`` (..., 3) gives
+    one fix per row, from 3 normals per row, row after row."""
+    z = _draws(pos.numel(), noise, seed, step, pos).reshape(pos.shape)
+    return pos + torch.cat([params.horizontal_noise * z[..., :2],
+                            params.vertical_noise * z[..., 2:]], dim=-1)
 
 
 @dataclass(frozen=True)

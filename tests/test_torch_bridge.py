@@ -601,3 +601,30 @@ def test_native_dashboard_once(native_build, server):
                              timeout=TIMEOUT)
     assert out.returncode == 0, out.stderr
     assert "base pos" in out.stdout and "2.100" in out.stdout and "drone tgt" in out.stdout
+
+
+def test_native_dashboard_camera_panel(native_build, server):
+    """qmm_dashboard --once --camera: the port's CameraPublisher streams a
+    depth frame to the server, and the dashboard polls it back (IMAGE_REQ)
+    and draws the ASCII depth panel under the telemetry
+    (tests/test_bridge.py's case on the port)."""
+    from quadrotor_manipulator_mppi_tpu_torch.bridge.camera import CameraPublisher, fetch_image
+
+    with socket.create_connection((server.host, server.port), timeout=TIMEOUT) as plant, \
+            socket.create_connection((server.host, server.port), timeout=TIMEOUT) as cam:
+        send_and_drain(plant, proto.Frame(proto.MsgType.ROBOT_STATES, hover_state()), 2)
+        pub = CameraPublisher(cam, rate_hz=1000.0)
+        assert pub.publish(np.linspace(0.5, 8.0, 24 * 32, dtype=np.float32).reshape(24, 32), t=1.25)
+        deadline = time.time() + TIMEOUT
+        while time.time() < deadline:   # until the server has taken the frame
+            with socket.create_connection((server.host, server.port), timeout=TIMEOUT) as v:
+                img, _ = fetch_image(v)
+                if img is not None and img.shape == (24, 32):
+                    break
+            time.sleep(0.05)
+        out = subprocess.run([os.path.join(native_build, "qmm_dashboard"), server.host,
+                              str(server.port), "--once", "--camera"], capture_output=True,
+                             text=True, timeout=TIMEOUT)
+    assert out.returncode == 0, out.stderr
+    assert "base pos" in out.stdout and "camera 32x24" in out.stdout
+    assert any(g in out.stdout for g in "#%@") and "." in out.stdout

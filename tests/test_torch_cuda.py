@@ -1,5 +1,7 @@
 """On-card cases of the port: each CUDA kernel against its plain PyTorch
-version at a small size.  Marked ``cuda``; each case decides in its body
+version at a small size, and the depth camera's batched render on the
+card against the same render in float64 on the CPU.  Marked ``cuda``;
+each case decides in its body
 whether a card exists and skips otherwise.  This file imports neither JAX
 nor the JAX package, so it also runs where only PyTorch is installed:
 
@@ -587,3 +589,45 @@ def test_drone_update_draw_equals_read_bit_for_bit(k, h):
                                atol=1e-4)
     assert torch.equal(dk.drone_update(w, keys, h, 3, 30.0),
                        dk.drone_update_noise(drawn.contiguous(), w))
+
+
+@pytest.mark.cuda
+def test_batched_depth_render_matches_float64_cpu():
+    """Eight 640 x 480 frames of the camera survey's scene, one call in
+    float32 on the card, against the same call on the same inputs in
+    float64 on the CPU: 1e-4 relative on pixels finite in both, the +inf
+    masks equal, except at silhouette pixels (the float64 discriminant of a
+    sphere within 1e-5 of zero, relative to its b^2, where float32 rounding
+    grows as 1/sqrt(|disc|): at most 512 of the 2.46 million)."""
+    import numpy as np
+
+    from quadrotor_manipulator_mppi_tpu_torch.scenarios import rotorcraft as rc
+    from quadrotor_manipulator_mppi_tpu_torch.sim import depth_camera as dc
+    from quadrotor_manipulator_mppi_tpu_torch.sim import gimbal as gb
+
+    dev = _card()
+    ang = torch.linspace(0, 2 * np.pi, 9)[:-1]
+    pos = torch.stack([2 + 3 * torch.cos(ang), 3 * torch.sin(ang), torch.full((8,), 3.0)], -1)
+    cmd = gb.point_at(pos, torch.tensor([2.0, 0.0, 0.0]))
+    quat = torch.tensor([[1.0, 0.0, 0.0, 0.0]]).repeat(8, 1)
+    rot = gb.camera_rotation(gb.GimbalState(cmd, torch.zeros_like(cmd)), quat)
+    p = dc.DepthCameraParams(width=640, height=480, max_depth=30.0)
+    sc, sr = torch.tensor(rc.SURVEY_SPHERES), torch.tensor(rc.SURVEY_RADII)
+    got = dc.depth_render(p, pos.to(dev), rot.to(dev), sphere_centers=sc.to(dev),
+                          sphere_radii=sr.to(dev)).cpu()
+    pos, rot, sc, sr = pos.double(), rot.double(), sc.double(), sr.double()
+    want = dc.depth_render(p, pos, rot, sphere_centers=sc, sphere_radii=sr)
+    assert got.shape == (8, 480, 640)
+    # The float64 discriminant of each pixel's ray against each sphere.
+    dirs = dc.depth_to_points(p, torch.ones(480, 640, dtype=torch.float64),
+                              torch.zeros(3, dtype=torch.float64),
+                              torch.eye(3, dtype=torch.float64))[0]
+    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    oc = pos[:, None, None, :] - sc
+    b = (torch.einsum("fij,pj->fpi", rot, dirs)[:, :, None, :] * oc).sum(-1)
+    disc = b * b - ((oc * oc).sum(-1) - sr ** 2)
+    edge = ((disc.abs() / (b * b)).amin(-1) < 1e-5).reshape(8, 480, 640)
+    assert int(edge.sum()) <= 512
+    fin = torch.isfinite(got) & torch.isfinite(want) & ~edge
+    assert ((got.double() - want).abs() / want.abs())[fin].max().item() <= 1e-4
+    assert torch.equal(torch.isinf(got) & ~edge, torch.isinf(want) & ~edge)

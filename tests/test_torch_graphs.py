@@ -6,12 +6,12 @@ helpers of ``utils/graphs``, and ``graph=True`` on the CPU running the
 eager call with the same result (the serving solve, the bridge head, the
 whole-body, drone and arm episodes, the scenario episodes: perfect-model
 whole-body and multirotor, fixed-wing, mapped flight in both obstacle
-modes, and the rotorcraft tick episodes).  ``cuda`` cases (each decides in
+modes, and the rotorcraft tick episodes, the camera survey's included).  ``cuda`` cases (each decides in
 its body whether a card exists): the graphed serving solve, bridge head,
 20-step whole-body episodes in every mode, the pick_weight branches (a
 payload, the object, contact), the drone episode, the arm episode, the
-20-step scenario episodes, the rotorcraft tick episodes (hover, mission
-and the rest) and the plain whole-body step in the configurations the
+20-step scenario episodes, the rotorcraft tick episodes (hover, mission,
+the camera survey and the rest) and the plain whole-body step in the configurations the
 kernels refuse, each bit-equal to its eager call, the launch counters counting replays, one
 graph per argument structure, a capture that fails raising, and a bridge
 session built and captured while another server's plant runs.  This file
@@ -322,6 +322,7 @@ ROTORCRAFT = {
     "mission": lambda dev, n, g: rotorcraft.mission_episode(n, dev, g, land_after=n * 5),
     "waypoint": lambda dev, n, g: rotorcraft.waypoint_file_episode(None, dev, g,
                                                                    n_ticks=n * 10)[:2],
+    "camera_survey": lambda dev, n, g: rotorcraft.camera_survey_episode(n, dev, g),
 }
 
 
@@ -333,7 +334,7 @@ def _rotorcraft_runs(case, dev, n):
     return outs
 
 
-@pytest.mark.parametrize("case", ["hover_lee", "mission"])
+@pytest.mark.parametrize("case", ["hover_lee", "mission", "camera_survey"])
 def test_rotorcraft_episode_graph_flag_on_cpu_runs_eagerly(case):
     (fg, lg), (fe, le) = _rotorcraft_runs(case, "cpu", 3)
     assert _trees_equal(lg, le) and _trees_equal(fg, fe)

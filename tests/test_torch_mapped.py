@@ -14,8 +14,8 @@ step on the same lidar normals and MPPI draws (position 1e-3 m); the
 checkpoint round trip of the loop state, the resumed run bit-equal to the
 uninterrupted one; the configuration crossing through ``convert``.  Then
 the JAX package's occupancy and mapped-solver tests
-(``tests/test_depth_occupancy.py``, the depth camera replaced by an
-equivalent noiseless pinhole ray fan) on the port alone.
+(``tests/test_depth_occupancy.py``, their scans through the port's depth
+camera in float64) on the port alone.
 """
 
 import dataclasses
@@ -38,6 +38,7 @@ from quadrotor_manipulator_mppi_tpu_torch.ops import integrators
 from quadrotor_manipulator_mppi_tpu_torch.scenarios.solvers import (
     mapped_flight_episode, run_mapped_flight,
 )
+from quadrotor_manipulator_mppi_tpu_torch.sim import depth_camera as dc
 from quadrotor_manipulator_mppi_tpu_torch.sim import flight_control as fc
 from quadrotor_manipulator_mppi_tpu_torch.sim import mapped_loop as ml
 from quadrotor_manipulator_mppi_tpu_torch.sim import occupancy as occ
@@ -316,7 +317,7 @@ def test_esdf_params_must_match_the_grid():
 def test_checkpoint_resume_is_bit_equal(tmp_path):
     """A loop state saved after 6 steps and restored: the next 4 steps equal
     the uninterrupted run's, bit for bit, grid and noise streams included;
-    ``run_mapped_flight``'s save_state/resume/save_log do the same."""
+    ``run_mapped_flight``'s save_state/resume and its logs do the same."""
     run10, start = mapped_flight_episode(10, "cpu", n_samples=32)
     run6, _ = mapped_flight_episode(6, "cpu", n_samples=32)
     run4, _ = mapped_flight_episode(4, "cpu", n_samples=32)
@@ -333,10 +334,10 @@ def test_checkpoint_resume_is_bit_equal(tmp_path):
         assert torch.equal(a, b)
     assert torch.equal(end.solver.u_prev, full.solver.u_prev)
 
-    ck, log = str(tmp_path / "run.npz"), str(tmp_path / "log.npz")
+    ck, logs = str(tmp_path / "run.npz"), {}
     r1 = run_mapped_flight(3, 6, "cpu", n_samples=32, save_state=ck)
-    r2 = run_mapped_flight(3, 4, "cpu", n_samples=32, resume=ck, save_log=log)
-    assert np.array_equal(np.load(log)["pos"], N(pos[6:]))
+    r2 = run_mapped_flight(3, 4, "cpu", n_samples=32, resume=ck, logs=logs)
+    assert np.array_equal(logs["pos"], N(pos[6:]))
     assert r1["mapped_occupied_voxels"] > 0 and r2["steps"] == 4
     assert set(r2) == {"final_dist_m", "min_dist_m", "reached", "min_clearance_m", "collided",
                        "mapped_occupied_voxels", "steps"}
@@ -351,28 +352,21 @@ PARAMS = occ.OccupancyParams(origin=(-2.0, -2.0, -0.5), resolution=0.25, shape=(
 
 
 def _scan_into_grid(grid, cam_pos, sphere=None, width=24, height=18, max_depth=40.0):
-    """One noiseless downward pinhole scan (90 deg horizontal FOV) of the
-    ground plane z = 0 and an optional sphere, inserted into ``grid``: the
-    JAX tests' depth-camera scan, cast here in float64."""
-    f = 0.5 * width / np.tan(0.25 * np.pi)
-    u = np.arange(width) - 0.5 * (width - 1)
-    v = np.arange(height) - 0.5 * (height - 1)
-    uu, vv = np.meshgrid(u, v)
-    d = np.stack([uu / f, -(vv / f), -np.ones_like(uu)], -1).reshape(-1, 3)
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    cam = np.asarray(cam_pos, np.float64)
-    t = np.where(d[:, 2] < 0, -cam[2] / np.minimum(d[:, 2], -1e-12), np.inf)
+    """One noiseless downward depth-camera scan (``sim/depth_camera``, 90 deg
+    horizontal FOV) of the ground plane z = 0 and an optional sphere,
+    rendered and back-projected in float64 on the CPU and inserted into
+    ``grid``: the JAX tests' scan."""
+    p = dc.DepthCameraParams(width=width, height=height, max_depth=max_depth)
+    pos = torch.tensor(cam_pos, dtype=torch.float64)
+    down = torch.tensor([[1.0, 0.0, 0.0], [0.0, -1.0, 0.0], [0.0, 0.0, -1.0]],
+                        dtype=torch.float64).T
+    kw = {}
     if sphere is not None:
-        oc = cam - np.asarray(sphere[0], np.float64)
-        b = d @ oc
-        disc = b * b - (oc @ oc - sphere[1] ** 2)
-        t_hit = -b - np.sqrt(np.maximum(disc, 0.0))
-        t = np.where((disc > 0) & (t_hit > 0), np.minimum(t, t_hit), t)
-    depth = -t * d[:, 2]                       # along the optical axis
-    valid = np.isfinite(t) & (depth > 0.2) & (depth <= max_depth)
-    ends = np.where(valid[:, None], cam + d * np.where(valid, t, 0.0)[:, None], 0.0)
-    return occ.insert_rays(PARAMS, grid, torch.tensor(cam, dtype=torch.float32),
-                           torch.tensor(ends, dtype=torch.float32), torch.tensor(valid))
+        kw = dict(sphere_centers=torch.tensor([sphere[0]], dtype=torch.float64),
+                  sphere_radii=torch.tensor([sphere[1]], dtype=torch.float64))
+    depth = dc.depth_render(p, pos, down, ground_z=0.0, **kw)
+    pts, valid = dc.depth_to_points(p, depth, pos, down)
+    return occ.insert_rays(PARAMS, grid, pos.float(), pts.float(), valid)
 
 
 def test_ground_becomes_occupied_and_path_free():
