@@ -5,7 +5,9 @@ pick_weight task, the multirotor preset and the perfect-model whole-body
 loop, the fixed-wing flyby, mapped flight, the plain whole-body solve on
 the card, the rotorcraft flight layer, the solver bridge (the QMM
 server with both sessions, the sim and HIL adapters, the float64 plant
-oracle), and the camera stack with the scenario command line.
+oracle), the camera stack with the scenario command line, and the offline
+tools (the config tree, dataset collection, profiling, the rosbag reader,
+the URDF loader with the matrix FK).
 
     python3 chip_smoke.py
 
@@ -52,7 +54,9 @@ lines; any failure exits non-zero before the final ``ok`` line):
    2 x 2048, both kernel pairs against the one-rank solve over 3 solves,
    all-reduce calls per solve, ms per sharded solve, weak scaling; then
    on each rank pass 2 (rows 7, 6) on that rank's own inputs of each solve
-   against its plain version, and its timings at K_local = 2048;
+   against its plain version, and its timings at K_local = 2048; and on
+   the same two ranks the arm node's plain solve sample-sharded (K=100 as
+   2 x 50) against the one-rank arm solve over 3 solves (2e-3);
 11. the drone kernels (rows 9a-9d) against their plain versions at the
    preset K=1000, H=32, at K=1024, 4096, 16384 (H=32) and at K=16384,
    H=100, with CUDA-event, profiler and CUDA-graph timings, bounds, the
@@ -179,18 +183,40 @@ lines; any failure exits non-zero before the final ``ok`` line):
    3 against plain on the resumed run's and the fleet's live states, and
    ``bench-scaling`` on the card; (e) every registered name resolved to
    the port's runner;
+25. the offline tools: (a) ``WholeBodyMPPIParams()`` saved in an
+   ``ExperimentConfig`` and loaded back: the loaded tree's solve (backend
+   cuda) bit-equal to the in-memory tree's; (b) ``collect_whole_body``
+   (20 solves at K=4096, H=50, each one replay of a captured solve: rows 1
+   and 3 once per solve, plus the capture's 2 warm-up calls) with the JAX
+   test's gates, graphed bit-equal to ``graph=False``, the ``.npz`` round
+   trip bit-equal, rows 1 and 3 against plain on the collector's last live
+   state, ms per collected solve with its readback; (c) ``time_fn`` on the
+   collector's graphed step (50 iterations, 3 warm-up) beside phase 4's
+   solve, and ``profiling.trace`` around 5 replays: its Chrome trace holds
+   5 ``wb_cost`` and 5 ``wb_update`` kernels; (d) the camera survey's log
+   written as a ``nav_msgs/Odometry`` bag (one bz2 chunk) and compared with
+   its npz by ``evaluation/parity.main`` (1e-6 m); (e) the Kinova URDF of
+   ``tests/kinova_urdf.py`` through ``models/urdf``, equal to
+   ``kinova.chain()`` and ``kinova.inertials()`` (1e-12), the matrix FK of
+   4096 configurations with base poses on the card against the quaternion
+   FK and float64 on the CPU (1e-5), ``arm_gravity_wrench`` at B=4096
+   against float64 (1e-5);
 then one ``kernels`` JSON line (rows 4-5 at B=256, rows 6-7 at K_local,
 rows 9a-9b at K=1000 and 9c-9d at K=1024: the shapes of the runs that
 count their launches; each ``wb_update`` row with the R it used and its
 device time over the library call's; rows 1, 2, 4, 9a and 9c with their
-layout), the ``nvidia-smi`` line and the ``ok`` line.
+layout; rows 1 and 3 with the launches of every later path, phase 25's
+as ``dataset_launches``), the ``nvidia-smi`` line and the ``ok`` line.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import socket
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -202,6 +228,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from quadrotor_manipulator_mppi_tpu_torch import config as config_mod
 from quadrotor_manipulator_mppi_tpu_torch import run as cli
 from quadrotor_manipulator_mppi_tpu_torch import scenarios as registry
 from quadrotor_manipulator_mppi_tpu_torch.bridge import action as bridge_action
@@ -211,7 +238,9 @@ from quadrotor_manipulator_mppi_tpu_torch.bridge import mavlink as mav
 from quadrotor_manipulator_mppi_tpu_torch.bridge import protocol as proto
 from quadrotor_manipulator_mppi_tpu_torch.bridge import server as bridge
 from quadrotor_manipulator_mppi_tpu_torch.bridge.sim_adapter import SimAdapter
+from quadrotor_manipulator_mppi_tpu_torch.evaluation import dataset as ds
 from quadrotor_manipulator_mppi_tpu_torch.evaluation import parity
+from quadrotor_manipulator_mppi_tpu_torch.evaluation import rosbag
 from quadrotor_manipulator_mppi_tpu_torch.evaluation.metrics import episode_quality
 from quadrotor_manipulator_mppi_tpu_torch.models import chain as chain_mod
 from quadrotor_manipulator_mppi_tpu_torch.models import kinova
@@ -219,6 +248,8 @@ from quadrotor_manipulator_mppi_tpu_torch.models import multirotor as mr
 from quadrotor_manipulator_mppi_tpu_torch.models.multirotor import Multirotor12State
 from quadrotor_manipulator_mppi_tpu_torch.models import point_mass as pm
 from quadrotor_manipulator_mppi_tpu_torch.models import rigid_body as rb
+from quadrotor_manipulator_mppi_tpu_torch.models import urdf
+from quadrotor_manipulator_mppi_tpu_torch.models.whole_body import arm_gravity_wrench
 from quadrotor_manipulator_mppi_tpu_torch.ops import sampling
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import build
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import drone_kernel as dk
@@ -249,8 +280,14 @@ from quadrotor_manipulator_mppi_tpu_torch.solver import arm, drone, mppi, servin
 from quadrotor_manipulator_mppi_tpu_torch.solver import fixed_wing as fws
 from quadrotor_manipulator_mppi_tpu_torch.solver import multirotor_mppi as mm
 from quadrotor_manipulator_mppi_tpu_torch.solver import whole_body as wb
-from quadrotor_manipulator_mppi_tpu_torch.utils import checkpoint, graphs
+from quadrotor_manipulator_mppi_tpu_torch.utils import checkpoint, graphs, profiling
+from quadrotor_manipulator_mppi_tpu_torch.utils import rotations as rotlib
+from quadrotor_manipulator_mppi_tpu_torch.utils import se3
 from quadrotor_manipulator_mppi_tpu_torch.utils.pose import Pose
+
+# The Kinova URDF that the tests build (tests/kinova_urdf.py; NumPy only).
+sys.path.append(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+from kinova_urdf import LINK_7, ROOT, TIP, kinova_urdf_text  # noqa: E402
 
 K, H, A = 4096, 50, wk.A_TOTAL
 N_SERVE = 50
@@ -428,6 +465,16 @@ JAX_DISTURBANCE = {"pos_rms_m": 0.0011, "ang_rate_rms": 0.0011, "passed": True,
                    "peak_err_m": 0.0085, "peak_time_s": 3.11, "recovery_time_s": 0.0,
                    "final_err_m": 0.0009}
 N_DRONE_BATCH_STEPS = 3
+N_ARM_SHARD_SOLVES = 3         # phase 10: sharded arm solves (2 x K/2) against the one-rank solve
+N_COLLECT = 20                 # phase 25b: collect_whole_body's solves at K=4096, H=50
+COLLECT_WARMUP = 2             # phase 25b: the capture's warm-up calls (utils/graphs.GraphedStep)
+N_TIME_FN, N_TIME_FN_WARMUP = 50, 3  # phase 25c: time_fn on the collector's graphed step
+N_TRACED = 5                   # phase 25c: graphed collector solves inside profiling.trace
+TOL_BAG = 1e-6                 # phase 25d: parity compare of a run's bag against its npz log, m
+TOL_URDF = 1e-12               # phase 25e: the loaded ChainSpec / inertials against kinova's
+N_FK = 4096                    # phase 25e: joint configurations through the matrix FK
+TOL_FK = 1e-5                  # phase 25e: matrix FK against pos-quat FK and float64 CPU
+TOL_WRENCH = 1e-5              # phase 25e: arm_gravity_wrench against float64, of its largest
 # The instantiation each drone wrapper launches, as the profiler names it.
 DRONE_KEYS = {"drone_cost": "drone_cost_kernel<true>", "drone_update": "drone_update_kernel<true>",
               "drone_cost_noise": "drone_cost_kernel<false>",
@@ -1819,6 +1866,20 @@ def shard_rank(rank: int, port: int, device: str, queue) -> None:
         finally:
             dist.all_reduce = plain
         out_d["all_reduce"]["adaptive sigma"] = len(calls)
+        # The arm node's plain pipeline sample-sharded (K=100 as 2 x 50)
+        # against the one-rank arm solve on the same seed.
+        aparams, aobs = arm.ArmMPPIParams(), arm_obs(dev)
+        astep, ainit = sharded.make_sharded_solver(arm.make_arm_solver, mesh,
+                                                   batch_scenarios=False, params=aparams,
+                                                   device=dev)
+        astep1, ainit1 = arm.make_arm_solver(aparams, device=dev)
+        st, st1, err = ainit(4), ainit1(4), 0.0
+        for _ in range(N_ARM_SHARD_SOLVES):
+            res, st = astep(st, aobs)
+            res1, st1 = astep1(st1, aobs)
+            err = max(err, ((res.u_seq - res1.u_seq).abs() / (1.0 + res1.u_seq.abs())).max().item(),
+                      ((res.qdes - res1.qdes).abs() / (1.0 + res1.qdes.abs())).max().item())
+        out_d["arm_err"] = err
         dist.barrier()
         if rank == 0:  # the card to itself: rank 1 waits at the barrier
             for spill, (kern, plain) in SHARD_PASS2.items():
@@ -1894,6 +1955,14 @@ def phase_sharded(dev):
     print(f"[10] pass 2 at K_local={K // SHARD_RANKS}, rank 0 alone on the card (ms): " + ", ".join(
         f"{k} {q} {fmt_ms(v)}" for k, d in r0["timing"].items() for q, v in d.items()),
         flush=True)
+    arm_k = arm.ArmMPPIParams().mppi.n_samples
+    print(f"[10] the arm node sample-sharded (make_arm_solver through make_sharded_solver, "
+          f"K={arm_k} as {SHARD_RANKS} x {arm_k // SHARD_RANKS}) vs the one-rank arm solve over "
+          f"{N_ARM_SHARD_SOLVES} solves: " + ", ".join(
+              f"rank {r} {res['arm_err']:.2e}" for r, res in sorted(results.items()))
+          + f" (limit {TOL_STEP:g})", flush=True)
+    if any(res["arm_err"] > TOL_STEP for res in results.values()):
+        fail("the sharded arm solve disagrees with the one-rank arm solve")
     want = {"spill": 3, "no spill": 3, "adaptive sigma": 4}
     if max(r0["err"].values()) > TOL_STEP or r0["all_reduce"] != want:
         fail("the sharded solve disagrees with the one-rank solve or its collective count")
@@ -2225,6 +2294,15 @@ def arm_episode(params, dev, n, graph=True):
     return run, lambda seed: arm_loop.init_arm_loop(init(seed), device=dev)
 
 
+def arm_obs(dev) -> "arm.ArmObs":
+    """The arm node's observation near home (phases 10 and 16)."""
+    return arm.ArmObs(q=torch.tensor(kinova.Q_HOME, dtype=torch.float32, device=dev) + 0.02,
+                      qdot=torch.full((7,), 0.05, device=dev),
+                      base_pose=Pose(torch.tensor([0.0, 0.0, 2.1], device=dev),
+                                     torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)),
+                      target=arm.default_target(device=dev))
+
+
 def phase_arm(dev) -> dict:
     """The arm node at its preset (K=100, H=32, A=7): (a) 50 solves of
     ``make_arm_solver`` replayed from one captured solve against the eager
@@ -2236,11 +2314,7 @@ def phase_arm(dev) -> dict:
     run from the same seed."""
     params = arm.ArmMPPIParams()
     step, init = arm.make_arm_solver(params, device=dev)
-    obs = arm.ArmObs(q=torch.tensor(kinova.Q_HOME, dtype=torch.float32, device=dev) + 0.02,
-                     qdot=torch.full((7,), 0.05, device=dev),
-                     base_pose=Pose(torch.tensor([0.0, 0.0, 2.1], device=dev),
-                                    torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)),
-                     target=arm.default_target(device=dev))
+    obs = arm_obs(dev)
 
     def solve_in_place(state, obs):
         out, new = step(state, obs)
@@ -3536,6 +3610,7 @@ def phase_camera_cli(dev, errs) -> dict:
             last = np.load(os.path.join(frames, f"DSC{r['frames_written'] - 1:05d}.npz"))["image"]
             with np.load(log) as f:
                 saved = dict(f)
+            out["survey_log"] = saved
             lap("a survey")
 
             # (c) The last streamed frame, read back from the server.
@@ -3701,6 +3776,242 @@ def phase_camera_cli(dev, errs) -> dict:
     return out
 
 
+def _bag_fields(fields: dict) -> bytes:
+    """A rosbag 2.0 field block: length-prefixed ``name=value`` entries."""
+    return b"".join(struct.pack("<I", len(k) + 1 + len(v)) + k.encode() + b"=" + v
+                    for k, v in fields.items())
+
+
+def _bag_record(fields: dict, data: bytes) -> bytes:
+    """One rosbag 2.0 record: its header's field block, then the data."""
+    header = _bag_fields(fields)
+    return struct.pack("<I", len(header)) + header + struct.pack("<I", len(data)) + data
+
+
+def write_odometry_bag(path: str, topic: str, t, pos, quat_xyzw) -> None:
+    """A minimal rosbag 2.0 writer (this script's scaffolding, not a feature
+    of the package): one connection and one ``nav_msgs/Odometry`` message
+    per row, all in one bz2 chunk."""
+    import bz2
+
+    def ros_string(x: str) -> bytes:
+        return struct.pack("<I", len(x)) + x.encode()
+
+    conn = struct.pack("<I", 0)
+    body = _bag_record({"op": bytes([rosbag.OP_CONNECTION]), "conn": conn,
+                        "topic": topic.encode()},
+                       _bag_fields({"type": b"nav_msgs/Odometry", "md5sum": b"0" * 32}))
+    for ti, p, q in zip(t, pos, quat_xyzw):
+        secs, nsecs = int(ti), int(round((ti - int(ti)) * 1e9))
+        msg = (struct.pack("<III", 0, secs, nsecs) + ros_string("world") + ros_string("base")
+               + struct.pack("<7d", *p, *q) + struct.pack("<36d", *([0.0] * 36))
+               + struct.pack("<6d", *([0.0] * 6)) + struct.pack("<36d", *([0.0] * 36)))
+        body += _bag_record({"op": bytes([rosbag.OP_MSG]), "conn": conn,
+                             "time": struct.pack("<II", secs, nsecs)}, msg)
+    chunk = _bag_record({"op": bytes([rosbag.OP_CHUNK]), "compression": b"bz2",
+                         "size": struct.pack("<I", len(body))}, bz2.compress(body))
+    head = _bag_record({"op": bytes([rosbag.OP_BAG_HEADER]), "index_pos": struct.pack("<Q", 0),
+                        "conn_count": struct.pack("<I", 1), "chunk_count": struct.pack("<I", 1)},
+                       b" " * 64)
+    with open(path, "wb") as f:
+        f.write(rosbag.MAGIC + head + chunk)
+
+
+def trace_kernel_counts(path: str) -> dict:
+    """Kernel events per whole-body family in a Chrome trace file."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {fam: sum(fam in n for n in names) for fam in ("wb_cost_kernel<", "wb_update_kernel<")}
+
+
+def phase_offline(dev, errs, serving_ms: float, survey_log: dict) -> dict:
+    """The offline tools on the card: (a) the flagship parameters saved in
+    an ``ExperimentConfig`` and loaded back build a solver whose solve
+    equals the in-memory tree's bit for bit; (b) ``collect_whole_body`` at
+    K=4096, H=50 (20 solves, each a graph replay, rows 1 and 3 once each)
+    with the JAX test's gates, graphed = eager, the ``.npz`` round trip,
+    rows 1 and 3 against plain on the collector's last live state, ms per
+    collected solve; (c) ``time_fn`` on the collector's graphed step and a
+    ``trace`` of 5 replays holding 5 + 5 kernel events; (d) the camera
+    survey's log written as a bz2 Odometry bag, compared with its npz by
+    ``parity.main``; (e) the Kinova URDF loaded and held against the arm
+    model, the matrix FK on 4096 configurations against the quaternion FK
+    and float64 on the CPU, ``arm_gravity_wrench`` against float64."""
+    out, walls, mark = {}, {}, [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        walls[part] = now - mark[0]
+        mark[0] = now
+
+    params = wb.WholeBodyMPPIParams()
+    obs = wb.default_obs(device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) The config tree through JSON and back into a solver.
+        exp = config_mod.ExperimentConfig(solver=params)
+        path = os.path.join(tmp, "exp.json")
+        config_mod.save_config(exp, path)
+        back = config_mod.load_config(path)
+        same_tree = config_mod.to_dict(back) == config_mod.to_dict(exp)
+        outs = []
+        for tree in (exp, back):
+            step, init = wb.make_whole_body_solver(tree.solver, device=dev, backend="cuda")
+            outs.append(step(init(tree.seed), obs)[0])
+        equal = all(torch.equal(a, b) for a, b in zip(outs[0], outs[1]))
+        print(f"[25a] ExperimentConfig(WholeBodyMPPIParams()) saved ({os.path.getsize(path)} B of "
+              f"JSON) and loaded: tree equal {same_tree}, the loaded tree's solve (backend cuda, "
+              f"K={back.solver.mppi.n_samples}, H={back.solver.mppi.n_horizon}) bit-equal to the "
+              f"in-memory tree's {equal}", flush=True)
+        if not (same_tree and equal):
+            fail("the loaded config tree does not reproduce the in-memory solve")
+        lap("a config")
+
+        # (b) The whole-body dataset at full width.
+        reset_counts()
+        t0 = time.perf_counter()
+        rec = ds.collect_whole_body(n_solves=N_COLLECT, seed=0, device=dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = counts(wk.wb_cost, wk.wb_update)
+        arrs = rec.arrays()
+        rec_e = ds.collect_whole_body(n_solves=N_COLLECT, seed=0, device=dev, graph=False)
+        eager_equal = all(np.array_equal(arrs[k], v) for k, v in rec_e.arrays().items())
+        path = os.path.join(tmp, "wb.npz")
+        rec.save(path)
+        loaded, meta = ds.load_dataset(path)
+        round_trip = (set(loaded) == set(arrs)
+                      and all(np.array_equal(loaded[k], arrs[k]) for k in arrs))
+        ok = (arrs["u_seq"].shape == (N_COLLECT, H, A) and bool(np.isfinite(arrs["u_seq"]).all())
+              and arrs["q"].shape == (N_COLLECT, 7)
+              and float(np.std(arrs["base_pos"], axis=0).max()) > 0.01
+              and meta["n_horizon"] == H and meta["task"] == "whole_body_reach"
+              and meta["n_steps"] == N_COLLECT)
+        want = {"wb_cost": N_COLLECT + COLLECT_WARMUP, "wb_update": N_COLLECT + COLLECT_WARMUP}
+        print(f"[25b] collect_whole_body(n_solves={N_COLLECT}, seed=0) at K={K}, H={H}, attitude: "
+              f"u_seq {arrs['u_seq'].shape} finite, q {arrs['q'].shape}, base_pos std max "
+              f"{float(np.std(arrs['base_pos'], axis=0).max()):.4f} m, meta {meta} | gates {ok} | "
+              f"rows 1/3 launches {launches} ({N_COLLECT} replays + {COLLECT_WARMUP} warm-up "
+              f"calls of the capture) | graphed = eager (graph=False) bit for bit {eager_equal} | "
+              f".npz round trip bit-equal {round_trip} | {wall_ms / N_COLLECT:.3f} ms per collected "
+              f"solve with its readback (build and capture included; {wall_ms:.1f} ms in all)",
+              flush=True)
+        if not (ok and eager_equal and round_trip) or launches != want:
+            fail("collect_whole_body missed its gates, its eager twin or rows 1 and 3")
+        out["launches"], out["collect_ms"] = launches, wall_ms / N_COLLECT
+
+        # The collector's graphed step again, to its last live state.
+        step, init = ds.make_whole_body_collector(device=dev)
+        rows, state = ds.whole_body_obs_rows(N_COLLECT, 0), init(1)
+        replayed = []
+        for row in rows:
+            row_out, state = step(state, row)
+            replayed.append(row_out)
+        same = all(np.array_equal(ds.split_out_row(r, H)["u_seq"], u)
+                   for r, u in zip(replayed, arrs["u_seq"]))
+        print(f"[25b] make_whole_body_collector's step over the same {N_COLLECT} rows equals the "
+              f"collected plans {same}", flush=True)
+        if not same:
+            fail("the collector's step does not reproduce collect_whole_body's plans")
+        live_obs = ds.whole_body_obs(torch.tensor(rows[-1], device=dev), obs)
+        out["kernels"] = kernels_vs_plain("[25b]", "the collector's", params, live_obs, state,
+                                          errs)
+        lap("b dataset")
+
+        # (c) Profiling: time_fn on the graphed step, and a trace of 5 replays.
+        tf = profiling.time_fn(step, state, rows[-1], iters=N_TIME_FN, warmup=N_TIME_FN_WARMUP)
+        print(f"[25c] time_fn(collector step, iters={N_TIME_FN}, warmup={N_TIME_FN_WARMUP}): mean "
+              f"{tf['mean_ms']:.4f} ms, p50 {tf['p50_ms']:.4f}, p99 {tf['p99_ms']:.4f}, "
+              f"{tf['solves_per_s']:.0f} solves/s, 100 Hz budget {tf['meets_100hz_budget']} | "
+              f"phase 4's graphed serving solve {serving_ms:.4f} ms", flush=True)
+        if tf["n"] != N_TIME_FN:
+            fail("time_fn did not time the collector's step")
+        reset_counts()
+        with profiling.trace(os.path.join(tmp, "trace"), device=dev) as trace_path:
+            for _ in range(N_TRACED):
+                step(state, rows[-1])
+        host = counts(wk.wb_cost, wk.wb_update)
+        in_trace = trace_kernel_counts(trace_path)
+        print(f"[25c] profiling.trace around {N_TRACED} graphed collector solves: "
+              f"{os.path.getsize(trace_path)} B of Chrome trace, kernel events {in_trace}, "
+              f"counted by the wrappers {host}", flush=True)
+        if list(in_trace.values()) != [N_TRACED, N_TRACED] or list(host.values()) != [N_TRACED] * 2:
+            fail("the trace does not hold one wb_cost and one wb_update per traced solve")
+        out["time_fn"] = tf
+        lap("c profiling")
+
+        # (d) A rotorcraft run's log (phase 24's camera survey) as a bag.
+        pos = survey_log["pos"].astype(np.float64)
+        quat = survey_log["quat"].astype(np.float64)
+        t = np.arange(pos.shape[0]) * rc.TICK_DT
+        bag, npz = os.path.join(tmp, "survey.bag"), os.path.join(tmp, "survey.npz")
+        write_odometry_bag(bag, "/survey/odometry", t, pos, np.roll(quat, -1, axis=-1))
+        np.savez(npz, pos=survey_log["pos"])
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            parity.main(["compare", bag, npz])
+        rep = json.loads(buf.getvalue().strip().splitlines()[-1])
+        devs = [rep[k] for k in ("rmse_m", "max_dev_m", "final_dev_m")]
+        topics = rosbag.list_topics(bag)
+        print(f"[25d] the camera survey's log ({pos.shape[0]} ticks) as a nav_msgs/Odometry bag "
+              f"in one bz2 chunk ({os.path.getsize(bag)} B; topics {topics}) | parity.main "
+              f"compare bag npz: rmse {rep['rmse_m']:.3g}, max {rep['max_dev_m']:.3g}, final "
+              f"{rep['final_dev_m']:.3g} m (limit {TOL_BAG:g})", flush=True)
+        if max(devs) > TOL_BAG or topics != {"/survey/odometry": ("nav_msgs/Odometry",
+                                                                   pos.shape[0])}:
+            fail("the bag does not compare equal to its own log")
+        lap("d rosbag")
+
+    # (e) The URDF loader and the matrix FK on the card.
+    model = urdf.Urdf.from_string(kinova_urdf_text(kinova))
+    worst = 0.0
+    for tip, hard in ((LINK_7, kinova.chain()), (TIP, kinova.chain("end_effector"))):
+        spec = model.build_chain(ROOT, tip)
+        for f in ("origin_rot", "origin_trans", "axis", "lower", "upper", "velocity", "effort",
+                  "tip_rot", "tip_trans"):
+            worst = max(worst, float(np.abs(getattr(spec, f) - getattr(hard, f)).max()))
+    loaded_in, hard_in = model.build_inertials(ROOT, LINK_7), kinova.inertials()
+    worst_in = max(float(np.abs(getattr(loaded_in, f) - getattr(hard_in, f)).max())
+                   for f in ("mass", "com", "inertia"))
+    spec = model.build_chain(ROOT, TIP)
+    gen = np.random.default_rng(25)
+    q64 = torch.tensor(gen.uniform(-2.0, 2.0, size=(N_FK, 7)))
+    rpy64 = torch.tensor(gen.uniform(-0.4, 0.4, size=(N_FK, 3)))
+    quat64 = rotlib.matrix_to_quat(rotlib.euler_to_matrix(rpy64.flip(-1), "ZYX"))
+    pos64 = torch.tensor(gen.uniform(-1.0, 1.0, size=(N_FK, 3)))
+    q, quat_b, pos_b = (x.to(dev, torch.float32) for x in (q64, quat64, pos64))
+    base = se3.Transform(rotlib.quat_to_matrix(quat_b), pos_b)
+    fk, fk_ms = timed_once(lambda: chain_mod.forward_kinematics(spec, q, base=base))
+    pq_pos, pq_quat = chain_mod.forward_kinematics_posquat(spec, q, base_pos=pos_b,
+                                                           base_quat=quat_b)
+    fk64 = chain_mod.forward_kinematics(
+        spec, q64, base=se3.Transform(rotlib.quat_to_matrix(quat64), pos64))
+    d_pq = max((fk.trans - pq_pos).abs().max().item(),
+               (fk.rot - rotlib.quat_to_matrix(pq_quat)).abs().max().item())
+    d_64 = max((fk.trans.cpu().double() - fk64.trans).abs().max().item(),
+               (fk.rot.cpu().double() - fk64.rot).abs().max().item())
+    hard_spec = kinova.chain()
+    base_rot64 = rotlib.euler_to_matrix(rpy64.flip(-1), "ZYX")
+    (f32, t32), w_ms = timed_once(lambda: arm_gravity_wrench(
+        hard_spec, hard_in, q, base_rot64.to(dev, torch.float32)))
+    f64, t64 = arm_gravity_wrench(hard_spec, hard_in, q64, base_rot64)
+    d_w = max(rel_err(f32.cpu().double(), f64), rel_err(t32.cpu().double(), t64))
+    print(f"[25e] the Kinova URDF (tests/kinova_urdf.py) through models/urdf: ChainSpec (link 7 "
+          f"and end effector) max|d| {worst:.1e}, inertials max|d| {worst_in:.1e} against "
+          f"kinova.chain()/inertials() (limit {TOL_URDF:g}) | matrix FK of {N_FK} configurations "
+          f"with base poses on the card ({fk_ms:.3f} ms): vs pos-quat FK {d_pq:.2e}, vs float64 "
+          f"on the CPU {d_64:.2e} (limit {TOL_FK:g}) | arm_gravity_wrench at B={N_FK} "
+          f"({w_ms:.3f} ms) vs float64 {d_w:.2e} of its largest (limit {TOL_WRENCH:g})",
+          flush=True)
+    if worst > TOL_URDF or worst_in > TOL_URDF or d_pq > TOL_FK or d_64 > TOL_FK \
+            or d_w > TOL_WRENCH or fk.trans.device != dev:
+        fail("the URDF loader, the matrix FK or the gravity wrench disagrees")
+    lap("e urdf")
+    print("[t] phase 25 wall s per part: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()),
+          flush=True)
+    out["walls"] = walls
+    return out
+
+
 def reach_sweep(mode: str, seeds) -> None:
     """``--reach MODE --seeds ...``: phase 7 alone, for one mode on any
     seeds; prints one JSON line of the per-seed metrics and exits non-zero
@@ -3763,6 +4074,7 @@ def main() -> None:
     rotor = lap("22", phase_rotorcraft, dev)
     bridge_out = lap("23", phase_bridge, dev, errs)
     camera = lap("24", phase_camera_cli, dev, errs)
+    offline = lap("25", phase_offline, dev, errs, solve_ms["graphed"], camera["survey_log"])
     print("[t] wall s per phase: " + ", ".join(f"{n} {w:.1f}" for n, w in walls)
           + f" | total {sum(w for _, w in walls):.1f}", flush=True)
     b256 = {(b, spill): e_ms for b, spill, _, e_ms, _, _, _ in batch_rows}
@@ -3832,6 +4144,7 @@ def main() -> None:
          "whole_body_launches": multirotor["whole_body_launches"]["wb_cost"],
          "bridge_launches": bridge_out["whole-body"]["launches"]["wb_cost"],
          "cli_launches": {k: v["wb_cost"] for k, v in camera["launches"].items()},
+         "dataset_launches": offline["launches"]["wb_cost"],
          "b256_ms": t_b256["wb_cost"],
          "layout": COST_LAYOUT, "noise_layout": COST_LAYOUT,
          "graph_ms": t["wb_cost_graph"], "device_ms": t["wb_cost_device"],
@@ -3847,6 +4160,7 @@ def main() -> None:
          "whole_body_launches": multirotor["whole_body_launches"]["wb_update"],
          "bridge_launches": bridge_out["whole-body"]["launches"]["wb_update"],
          "cli_launches": {k: v["wb_update"] for k, v in camera["launches"].items()},
+         "dataset_launches": offline["launches"]["wb_update"],
          **vs_library(t_k4096["wb_update"], t_k4096["library_mv"]), **rows_of("3", 1),
          "b256_ms": t_b256["wb_update"], "b256_bound_ms": b256_bounds["wb_update"][0],
          **vs_library(at_b256("wb_update"), at_b256("library_bmm"), "b256_"),
@@ -3956,7 +4270,8 @@ def main() -> None:
           f"({camera['survey']['eager_ms']:.3f} eager; {fmt_ops(camera['survey']['ops_per_tick'])} "
           f"ops per tick), {RENDER_W} x {RENDER_H} render of {N_RENDER} frames "
           f"{camera['render_ms']:.4f} ms, whole-body-full {camera['wb_full_ms']:.3f} ms/control "
-          f"step (capture included)"
+          f"step (capture included), collected whole-body solve {offline['collect_ms']:.3f} ms "
+          f"(capture included; time_fn {offline['time_fn']['mean_ms']:.4f})"
           + f" on {smi}")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,13 +8,23 @@ hand-written CUDA kernel under ``csrc/``, built with ``nvcc`` at first use
 beside it that runs for CPU tensors and serves as the on-card yardstick.
 
 Layout:
-  utils/      rotations, poses, Savitzky-Golay, device selection
-  models/     kinematic chain, Kinova constants, multirotor and whole-body
-              rollout models
-  ops/        sampling (Philox), softmin, integrators, the cost library,
-              and ``ops/cuda`` — the kernel wrappers and their build
-  solver/     the plain MPPI pipeline, the whole-body solver, serving
-  convert.py  carries the JAX package's configuration tree across
+  utils/       rotations, poses, rigid transforms, Savitzky-Golay, device
+               selection, CUDA graphs, checkpoints, timing and tracing
+  models/      kinematic chain (quaternion and matrix FK), the URDF loader,
+               Kinova constants, rigid-body dynamics, the multirotor,
+               whole-body, fixed-wing and point-mass models
+  ops/         sampling (Philox), softmin, integrators, the cost library,
+               and ``ops/cuda`` — the kernel wrappers and their build
+  solver/      the plain MPPI pipeline; the whole-body, drone, arm,
+               multirotor, fixed-wing and mapped solvers; serving
+  sim/         closed loops, plants, flight control, sensors, the camera stack
+  parallel/    process groups, the mesh, sharded solvers, scaling
+  scenarios/   the scenario runners (``run.py`` is the command line)
+  bridge/      the QMM solver bridge, its adapters and HIL session
+  evaluation/  metrics, log analysis, plant parity, the rosbag reader,
+               dataset collection
+  config.py    the configuration tree and its JSON round trip
+  convert.py   carries the JAX package's trees and states across
 """
 
 import torch as _torch

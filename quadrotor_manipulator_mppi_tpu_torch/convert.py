@@ -7,8 +7,9 @@ package's vmapped states (:func:`batched_state_from_numpy`).
 :func:`params_from_dict` reads the plain JSON-able dict that the JAX
 package's ``config.to_dict`` writes — ``{"__dataclass__": name, ...}``
 nodes, ``{"__ndarray__": list, "dtype": str}`` arrays and
-``{"__schedule__": {"kind": "ee_error", ...}}`` sigma schedules — and
-rebuilds it from this package's dataclasses (the whole-body, drone, arm,
+``{"__schedule__": {"kind": "ee_error", ...}}`` sigma schedules — through
+this package's one reader, ``config.from_dict``, and rebuilds it from this
+package's dataclasses (the whole-body, drone, arm,
 multirotor, fixed-wing and mapped solvers, the loops, the graspable object,
 the contact layer, the sensors, the occupancy grid, the ground contact,
 the Lee gains, the wind, the mission and the HIL session's
@@ -26,81 +27,23 @@ port's schedule back (``solver.mapped.distance_to_go_scale``).
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Any
 
 import numpy as np
 import torch
 
-from .bridge.config import HilConfig
-from .models.fixed_wing import FwAeroParams, FwVehicleParams
-from .models.multirotor import GroundContactParams, MultirotorParams
-from .models.whole_body import WholeBodyParams
-from .ops.costs import ArmCostParams
-from .sim.arm_loop import ArmLoopConfig, ArmLoopState
-from .sim.closed_loop import LoopConfig
-from .sim.contact import ContactParams, WorldPrimitives
-from .sim.flight_control import FlightGains
-from .sim.graspable import GraspableParams, GraspableState
-from .sim.lee_controller import LeeGains
-from .sim.mapped_loop import MappedFlightConfig
-from .sim.occupancy import OccupancyGrid, OccupancyParams
-from .sim.scenario import MissionConfig, MissionState
-from .sim.sensors import (
-    BarometerParams, GpsParams, ImuParams, LidarParams, MagnetometerParams, OdometryParams,
-    OpticalFlowParams,
-)
-from .sim.whole_body_loop import WholeBodyLoopConfig, WholeBodyPlant
-from .sim.wind import WindField, WindParams
+from .config import from_dict
+from .sim.arm_loop import ArmLoopState
+from .sim.graspable import GraspableState
+from .sim.occupancy import OccupancyGrid
+from .sim.scenario import MissionState
+from .sim.whole_body_loop import WholeBodyPlant
+from .sim.wind import WindField
 from .solver.arm import ArmMPPIParams
 from .solver.drone import DroneMPPIParams
-from .solver.fixed_wing import FwMPPIParams
-from .solver.mapped import MappedMPPIParams
-from .solver.mppi import MPPIConfig, MPPIState
-from .solver.multirotor_mppi import MultirotorCostParams, MultirotorMPPIParams
-from .solver.whole_body import (
-    WholeBodyCostParams, WholeBodyMPPIParams, ee_error_sigma_schedule,
-)
+from .solver.mppi import MPPIState
+from .solver.whole_body import WholeBodyMPPIParams
 from .utils.device import resolve_device
-
-_REGISTRY = {cls.__name__: cls for cls in (
-    MPPIConfig, MultirotorParams, WholeBodyParams, WholeBodyCostParams,
-    WholeBodyMPPIParams, FlightGains, WholeBodyLoopConfig, DroneMPPIParams, LoopConfig,
-    ArmCostParams, ArmMPPIParams, ArmLoopConfig, GraspableParams, ContactParams, WorldPrimitives,
-    MultirotorCostParams, MultirotorMPPIParams, FwAeroParams, FwVehicleParams, FwMPPIParams,
-    LidarParams, OccupancyParams, MappedMPPIParams, MappedFlightConfig, GroundContactParams,
-    LeeGains, WindParams, WindField, MissionConfig, ImuParams, GpsParams, BarometerParams,
-    MagnetometerParams, OdometryParams, OpticalFlowParams, HilConfig,
-)}
-_SCHEDULES = {"ee_error": ee_error_sigma_schedule}
-
-
-def _from_dict(data: Any) -> Any:
-    if isinstance(data, dict):
-        if "__ndarray__" in data:
-            return np.asarray(data["__ndarray__"], dtype=data["dtype"])
-        if "__schedule__" in data:
-            spec = dict(data["__schedule__"])
-            kind = spec.pop("kind")
-            if kind not in _SCHEDULES:
-                raise ValueError(f"unknown sigma schedule {kind!r}")
-            return _SCHEDULES[kind](**spec)
-        if "__dataclass__" in data:
-            name = data["__dataclass__"]
-            if name not in _REGISTRY:
-                raise ValueError(f"no counterpart for config dataclass {name!r}")
-            cls = _REGISTRY[name]
-            kwargs = {k: _from_dict(v) for k, v in data.items() if k != "__dataclass__"}
-            for f in dataclasses.fields(cls):
-                if isinstance(kwargs.get(f.name), list) and "tuple" in str(f.type).lower():
-                    kwargs[f.name] = tuple(
-                        tuple(x) if isinstance(x, list) else x for x in kwargs[f.name]
-                    )
-            return cls(**kwargs)
-        return {k: _from_dict(v) for k, v in data.items()}
-    if isinstance(data, list):
-        return [_from_dict(x) for x in data]
-    return data
 
 
 def config_from_dict(d: dict) -> Any:
@@ -109,16 +52,19 @@ def config_from_dict(d: dict) -> Any:
     ``ArmLoopConfig``, ``GraspableParams``, ``ContactParams``, the
     fixed-wing airframe, ``LidarParams``, ``OccupancyParams``,
     ``MappedFlightConfig``, ``GroundContactParams``, ``LeeGains``,
-    ``WindParams``, ``WindField``, ``MissionConfig``, the sensor
+    ``WindParams``, ``WindField``, ``MissionConfig``, the sensor and camera
     parameters, the bridge sessions' ``ArmMPPIParams``, ``DroneMPPIParams``
-    and ``HilConfig``) from its JAX ``config.to_dict`` form."""
-    return _from_dict(d)
+    and ``HilConfig``) from its JAX ``config.to_dict`` form, read by
+    ``config.from_dict``."""
+    return from_dict(d)
 
 
 def _typed_from_dict(d: dict, cls):
-    params = _from_dict(d)
+    params = from_dict(d)
     if not isinstance(params, cls):
-        raise ValueError(f"expected a {cls.__name__} tree, got {type(params).__name__}")
+        got = type(params).__name__
+        raise ValueError(f"expected a {cls.__name__} tree, got {got}: a {got} tree has no "
+                         f"counterpart as a {cls.__name__}")
     return params
 
 

@@ -10,6 +10,8 @@ Port of the JAX package's ``evaluation/parity.py``:
    original Gazebo sim (``bridge/ros_adapter.py`` against the same server),
    reported as per-axis RMSE, maximum and final deviations.  The QMM server
    is deterministic at a fixed seed, so the differences isolate the plants.
+   A ``.bag`` log (the Gazebo side's recording) is converted on the way in
+   by ``evaluation/rosbag.bag_to_npz``.
 
 2. **Float64 oracle cross-check** (:func:`oracle_parity_report`): the
    port's float32 plant (``models/multirotor.step``) against an
@@ -28,10 +30,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import tempfile
 from typing import Dict
 
 import numpy as np
 import torch
+
+from .rosbag import bag_to_npz
 
 # ---------------------------------------------------------------------------
 # 1. Log-vs-log comparison
@@ -241,7 +246,7 @@ def oracle_parity_report(n_steps: int = 2000, dt: float = 0.001, seed: int = 0,
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     sub = p.add_subparsers(dest="mode", required=True)
-    cmp_p = sub.add_parser("compare", help="compare two .npz trajectory logs")
+    cmp_p = sub.add_parser("compare", help="compare two trajectory logs (.npz, or .bag)")
     cmp_p.add_argument("log_a")
     cmp_p.add_argument("log_b")
     cmp_p.add_argument("--key", default="pos")
@@ -254,9 +259,11 @@ def main(argv=None):
     if args.mode == "compare":
 
         def load(path):
+            # Reference-side recordings arrive as rosbags: convert them.
             if path.endswith(".bag"):
-                # The rosbag reader (evaluation/rosbag.py) is not ported yet.
-                p.error(f"{path}: convert the bag to .npz first (rosbag reading is not ported)")
+                with tempfile.NamedTemporaryFile(suffix=".npz") as tmp:
+                    bag_to_npz(path, tmp.name)
+                    return dict(np.load(tmp.name))
             return dict(np.load(path))
 
         out = compare_logs(load(args.log_a), load(args.log_b), key=args.key, dt=args.dt)

@@ -1,10 +1,14 @@
-"""Static kinematic-chain specification and batched quaternion FK.
+"""Static kinematic-chain specification and batched FK.
 
-Port of the JAX package's ``models/chain.py`` (the posquat path).  The chain
-is compiled once on the host into a :class:`ChainSpec` of float64 NumPy
-arrays, fixed origins pre-composed into the next actuated joint.  The FK
-keeps every chain constant a Python float, so a call moves no constant to
-the device and runs elementwise on any batch shape.
+Port of the JAX package's ``models/chain.py``.  The chain is compiled once
+on the host into a :class:`ChainSpec` of float64 NumPy arrays, fixed
+origins pre-composed into the next actuated joint.  The quaternion FK
+(``*_posquat``, the solvers' path) keeps every chain constant a Python
+float, so a call moves no constant to the device and runs elementwise on
+any batch shape.  The matrix FK (:func:`forward_kinematics`,
+:func:`link_transforms` on ``utils/se3.Transform``) is the oracle the
+quaternion path is held against; its 3x3 constants are copied to the
+device once (``device_const``).
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ import numpy as np
 import torch
 
 from ..utils import rotations as rot
+from ..utils import se3
+from ..utils.device import device_const
 
 Tensor = torch.Tensor
 
@@ -186,6 +192,59 @@ def _revolute_quat(spec: ChainSpec, j: int, q_j: Tensor) -> Tensor:
     ax, ay, az = _floats(spec.axis[j])
     dq = torch.stack([torch.cos(half), s * ax, s * ay, s * az], dim=-1)
     return _const_mul(_floats(matrix_to_quat_np(spec.origin_rot[j])), dq)
+
+
+def joint_rotation_terms(spec: ChainSpec, j: int):
+    """Host constants (OA, OB, OC) with R_j(q) = cos q OA + sin q OB + OC:
+    the fixed origin rotation of revolute joint ``j`` composed with
+    Rodrigues' formula about its axis."""
+    k = np.asarray(spec.axis[j], np.float64)
+    kkt = np.outer(k, k)
+    kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]], np.float64)
+    orot = spec.origin_rot[j]
+    return orot @ (np.eye(3) - kkt), orot @ kx, orot @ kkt
+
+
+def joint_transform(spec: ChainSpec, j: int, q_j: Tensor) -> se3.Transform:
+    """Transform across joint ``j`` (its fixed origin, then the joint's
+    motion), batched over ``q_j``."""
+    otrans = device_const(spec.origin_trans[j], q_j)
+    if int(spec.joint_type[j]) == REVOLUTE:
+        oa, ob, oc = (device_const(m, q_j) for m in joint_rotation_terms(spec, j))
+        c, s = torch.cos(q_j)[..., None, None], torch.sin(q_j)[..., None, None]
+        return se3.Transform(rot=c * oa + s * ob + oc, trans=otrans.expand(q_j.shape + (3,)))
+    slide = device_const(spec.origin_rot[j] @ spec.axis[j], q_j)
+    return se3.Transform(rot=device_const(spec.origin_rot[j], q_j).expand(q_j.shape + (3, 3)),
+                         trans=otrans + slide * q_j[..., None])
+
+
+def forward_kinematics(spec: ChainSpec, q: Tensor,
+                       base: Optional[se3.Transform] = None) -> se3.Transform:
+    """Tip pose for joint positions ``q`` [..., J] as a matrix transform with
+    batch shape ``q.shape[:-1]``, composed from the optional world pose
+    ``base`` of the chain root."""
+    t = joint_transform(spec, 0, q[..., 0])
+    if base is not None:
+        t = base.compose(t)
+    for j in range(1, spec.n_joints):
+        t = t.compose(joint_transform(spec, j, q[..., j]))
+    return t.compose(se3.Transform(device_const(spec.tip_rot, q),
+                                   device_const(spec.tip_trans, q)))
+
+
+def link_transforms(spec: ChainSpec, q: Tensor,
+                    base: Optional[se3.Transform] = None) -> se3.Transform:
+    """World pose of every joint child frame, stacked on a new axis 0:
+    rotations (J,) + batch + (3, 3), translations (J,) + batch + (3,)."""
+    t = joint_transform(spec, 0, q[..., 0])
+    if base is not None:
+        t = base.compose(t)
+    ts = [t]
+    for j in range(1, spec.n_joints):
+        t = t.compose(joint_transform(spec, j, q[..., j]))
+        ts.append(t)
+    return se3.Transform(rot=torch.stack([x.rot for x in ts]),
+                         trans=torch.stack([x.trans for x in ts]))
 
 
 def forward_kinematics_posquat(

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..utils.device import device_const
-from .chain import REVOLUTE, ChainSpec
+from .chain import REVOLUTE, ChainSpec, joint_rotation_terms
 
 Tensor = torch.Tensor
 
@@ -60,17 +60,6 @@ def _cross(a: Tensor, b: Tensor) -> Tensor:
 def _mv(m: Tensor, v: Tensor) -> Tensor:
     """Matrix [..., 3, 3] times vector [..., 3]."""
     return (m @ v.unsqueeze(-1)).squeeze(-1)
-
-
-def _joint_rotation_terms(spec: ChainSpec, j: int):
-    """Host constants (OA, OB, OC) with R_j(q) = cos q OA + sin q OB + OC:
-    the fixed origin rotation composed with Rodrigues' formula about the
-    joint axis."""
-    k = np.asarray(spec.axis[j], np.float64)
-    kkt = np.outer(k, k)
-    kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]], np.float64)
-    orot = spec.origin_rot[j]
-    return orot @ (np.eye(3) - kkt), orot @ kx, orot @ kkt
 
 
 def rnea(
@@ -106,7 +95,7 @@ def rnea(
         axis = device_const(spec.axis[j], q)
         p = device_const(spec.origin_trans[j], q)
         if int(spec.joint_type[j]) == REVOLUTE:
-            oa, ob, oc = _joint_rotation_terms(spec, j)
+            oa, ob, oc = joint_rotation_terms(spec, j)
             c = torch.cos(q[..., j])[..., None, None]
             s = torch.sin(q[..., j])[..., None, None]
             r = c * device_const(oa, q) + s * device_const(ob, q) + device_const(oc, q)

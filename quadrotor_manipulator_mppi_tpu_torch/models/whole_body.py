@@ -34,7 +34,7 @@ from . import chain as chain_mod
 from . import kinova
 from .chain import ChainSpec
 from .multirotor import Multirotor12State, MultirotorParams, step12
-from .rigid_body import InertialParams
+from .rigid_body import InertialParams, rnea
 
 Tensor = torch.Tensor
 
@@ -99,6 +99,17 @@ def base_rotation(base: Multirotor12State) -> Tensor:
         [base.rpy[..., 2], base.rpy[..., 1], base.rpy[..., 0]], dim=-1
     )
     return rot.euler_to_matrix(angles, "ZYX")
+
+
+def arm_gravity_wrench(
+    spec: ChainSpec, inertials: InertialParams, q: Tensor, base_rot: Tensor,
+) -> Tuple[Tensor, Tensor]:
+    """Static arm reaction (force, torque) on the base, base frame: RNEA with
+    zero joint motion gives the wrench the mount applies to hold the arm;
+    the reaction on the base is its negative."""
+    zeros = torch.zeros_like(q)
+    _, wrench = rnea(spec, inertials, q, zeros, zeros, base_rot=base_rot)
+    return -wrench.lin, -wrench.ang
 
 
 def arm_gravity_torque_fast(

@@ -156,6 +156,24 @@ def joint_limit_soft_cost(
     return weight * torch.sum(torch.sum(viol * viol, dim=-1) * g, dim=-1)
 
 
+def gaussian_projected_dist_cost(
+    states: Tensor, goal: Tensor, dist_weight: float = 10.0,
+    disp_weight: Optional[Tensor] = None, n: int = 0, c: float = 0.0, s: float = 0.0,
+    r: float = 10.0,
+) -> Tensor:
+    """Weighted distance through STORM's gaussian projection: with c == 0 the
+    projection is the identity, otherwise
+    1 - (-1)^n exp(-(d-s)^2 / 2c^2) + r (d-s)^4.  Per-step costs [..., H]."""
+    disp = states - goal
+    if disp_weight is not None:
+        disp = disp * disp_weight
+    d = torch.linalg.norm(disp, dim=-1)
+    if c == 0.0:
+        return dist_weight * d
+    proj = 1.0 - ((-1.0) ** n) * torch.exp(-((d - s) ** 2) / (2.0 * c * c)) + r * (d - s) ** 4
+    return dist_weight * proj
+
+
 def sphere_obstacle_cost(
     points: Tensor, centers: Tensor, radii: Tensor, weight: float,
     margin: float = 0.0,

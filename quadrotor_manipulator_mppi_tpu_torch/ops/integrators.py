@@ -1,8 +1,9 @@
-"""Kinematic double integration along the horizon axis."""
+"""Kinematic double integration along the horizon axis, and a sequential
+rollout of true dynamics over the horizon."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Callable, Tuple
 
 import torch
 
@@ -21,3 +22,25 @@ def double_integrate(
     dq = v_prev * dt + 0.5 * accel * dt * dt
     q = torch.cumsum(dq, dim=-2) + q0b
     return q, v
+
+
+def scan_rollout(
+    step: Callable[[Any, torch.Tensor], Any],
+    x0: Any,
+    u_seq: torch.Tensor,
+    extract: Callable[[Any], Any] = lambda s: s,
+):
+    """Roll ``step(state, u_t) -> next_state`` over the horizon (axis 0 of
+    ``u_seq``, [H, K, ...]; the state's leaves carry the K axis): a loop over
+    the horizon, the counterpart of ``lax.scan``.  Returns the per-step
+    ``extract(next_state)`` stacked with the horizon first (a tensor, or a
+    tuple / NamedTuple of tensors)."""
+    ys, state = [], x0
+    for u_t in u_seq:
+        state = step(state, u_t)
+        ys.append(extract(state))
+    first = ys[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(ys)
+    stacked = [torch.stack(leaves) for leaves in zip(*ys)]
+    return type(first)(*stacked) if hasattr(first, "_fields") else type(first)(stacked)

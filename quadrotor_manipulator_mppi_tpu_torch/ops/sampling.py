@@ -33,6 +33,16 @@ _W0, _W1 = 0x9E3779B9, 0xBB67AE85   # Weyl key increments
 _MASK = 0xFFFFFFFF
 
 
+def sigma_matrix(sigma, n_action: int, dtype=torch.float32, device=None) -> Tensor:
+    """Normalize a sigma spec (scalar | (A,) diagonal | (A, A) full) to (A, A)."""
+    s = torch.as_tensor(sigma, dtype=dtype, device=device)
+    if s.ndim == 0:
+        return torch.eye(n_action, dtype=dtype, device=device) * s
+    if s.ndim == 1:
+        return torch.diag(s)
+    return s
+
+
 def sample_noise(z: Tensor, sigma: Tensor, batched: bool = False) -> Tensor:
     """Shape standard normals z (K, H, A) into eps = z @ Sigma; scalar or
     (A,) sigma take the elementwise path.  ``batched``: z (B, K, H, A) and

@@ -26,7 +26,7 @@ import torch
 from ..models import chain as chain_mod
 from ..models import kinova
 from ..ops import costs as costs_mod
-from ..ops import integrators
+from ..ops import integrators, sampling
 from ..utils.device import device_const, resolve_device
 from ..utils.pose import Pose
 from .mppi import MPPIConfig, MPPIState, init_state, make_step
@@ -67,26 +67,29 @@ def default_target(dtype=torch.float32, device=None) -> Pose:
     )
 
 
-def _sigma_inv(sigma, n_action: int) -> np.ndarray:
-    s = np.asarray(sigma, np.float64)
-    m = np.eye(n_action) * s if s.ndim == 0 else (np.diag(s) if s.ndim == 1 else s)
-    return np.linalg.inv(m)
-
-
 def make_arm_solver(
     params: ArmMPPIParams = ArmMPPIParams(),
     device="cuda",
     n_scenarios: Optional[int] = None,
+    group=None,
+    n_local_samples: Optional[int] = None,
 ):
     """Returns ``(step, init)``: ``step(state, obs, z=None) -> (ArmOutput,
     state)`` and ``init(seed, dtype=torch.float32) -> MPPIState`` on
     ``device``.  ``z`` optionally carries the step's standard normals
     (K, H, 7) in place of the Philox stream.  ``n_scenarios=B`` solves B
-    problems per call (``init(seed)`` then takes one seed or B)."""
+    problems per call (``init(seed)`` then takes one seed or B).
+
+    Sample-sharded (``parallel/sharded.make_sharded_solver`` passes these):
+    ``group`` is the ``torch.distributed`` group of the sample axis and
+    ``n_local_samples`` this rank's share of ``n_samples``; each rank draws
+    its shard of the Philox stream at its global sample offset, and ``z``
+    is then this rank's (n_local_samples, H, 7) block."""
     dev = resolve_device(device)
     spec = kinova.chain(params.tip)
     cfg, cp = params.mppi, params.cost
-    sigma_inv = _sigma_inv(cfg.sigma, cfg.n_action)
+    sigma_inv = np.linalg.inv(
+        sampling.sigma_matrix(cfg.sigma, cfg.n_action, torch.float64).numpy())
     # Per-scenario observations meet the (B, K, H, ...) samples with a
     # sample axis (and for the per-step terms a step axis) inserted.
     lift = (lambda x, n: x.reshape(x.shape[:1] + (1,) * n + x.shape[1:])) \
@@ -122,7 +125,8 @@ def make_arm_solver(
                 q_samples, device_const(spec.lower, v), device_const(spec.upper, v), cp.gamma)
         return s
 
-    inner = make_step(cfg, rollout, cost, n_scenarios=n_scenarios)
+    inner = make_step(cfg, rollout, cost, group=group, n_local_samples=n_local_samples,
+                      n_scenarios=n_scenarios)
 
     def step(state: MPPIState, obs: ArmObs, z=None) -> Tuple[ArmOutput, MPPIState]:
         # The reference reads the previous plan's first acceleration before

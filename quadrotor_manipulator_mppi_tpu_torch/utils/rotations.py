@@ -149,6 +149,14 @@ def quat_to_axis_angle(q: Tensor) -> Tensor:
     return v * scale
 
 
+def axis_angle_to_matrix(axis_angle: Tensor) -> Tensor:
+    return quat_to_matrix(quat_from_axis_angle(axis_angle))
+
+
+def matrix_to_axis_angle(m: Tensor) -> Tensor:
+    return quat_to_axis_angle(matrix_to_quat(m))
+
+
 # ---------------------------------------------------------------------------
 # Single-axis rotations and Euler angles
 # ---------------------------------------------------------------------------
@@ -193,3 +201,32 @@ def matrix_to_euler(m: Tensor, convention: str = "ZYX") -> Tensor:
     a0 = torch.atan2(-sign * m[..., i1, i2], m[..., i2, i2])
     a2 = torch.atan2(-sign * m[..., i0, i1], m[..., i0, i0])
     return torch.stack([a0, a1, a2], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# 6D rotation representation (Zhou et al.) and the SO(3) log map
+# ---------------------------------------------------------------------------
+
+def rotation_6d_to_matrix(d6: Tensor) -> Tensor:
+    """[..., 6] (two 3-vectors) -> rotation matrix via Gram-Schmidt."""
+    a1, a2 = d6[..., :3], d6[..., 3:]
+    b1 = a1 / torch.linalg.norm(a1, dim=-1, keepdim=True).clamp(min=_EPS)
+    a2p = a2 - torch.sum(b1 * a2, dim=-1, keepdim=True) * b1
+    b2 = a2p / torch.linalg.norm(a2p, dim=-1, keepdim=True).clamp(min=_EPS)
+    b3 = torch.linalg.cross(b1, b2, dim=-1)
+    return torch.stack([b1, b2, b3], dim=-2)
+
+
+def matrix_to_rotation_6d(m: Tensor) -> Tensor:
+    """Rotation matrix -> [..., 6]: its first two rows, flattened."""
+    return m[..., :2, :].reshape(m.shape[:-2] + (6,))
+
+
+def so3_log(m: Tensor) -> Tensor:
+    """Rotation matrix -> rotation vector (axis * angle), small-angle safe."""
+    return matrix_to_axis_angle(m)
+
+
+def so3_error(r: Tensor, r_target: Tensor) -> Tensor:
+    """Rotation error vector log(R^T R*): the transpose, never an inverse."""
+    return so3_log(r.transpose(-1, -2) @ r_target)

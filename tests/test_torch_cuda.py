@@ -1,6 +1,8 @@
 """On-card cases of the port: each CUDA kernel against its plain PyTorch
-version at a small size, and the depth camera's batched render on the
-card against the same render in float64 on the CPU.  Marked ``cuda``;
+version at a small size, the depth camera's batched render on the card
+against the same render in float64 on the CPU, and the offline tools'
+card paths (the graphed dataset collection against the eager one, a
+profiler trace of a graphed solve, the matrix FK against the CPU).  Marked ``cuda``;
 each case decides in its body
 whether a card exists and skips otherwise.  This file imports neither JAX
 nor the JAX package, so it also runs where only PyTorch is installed:
@@ -631,3 +633,81 @@ def test_batched_depth_render_matches_float64_cpu():
     fin = torch.isfinite(got) & torch.isfinite(want) & ~edge
     assert ((got.double() - want).abs() / want.abs())[fin].max().item() <= 1e-4
     assert torch.equal(torch.isinf(got) & ~edge, torch.isinf(want) & ~edge)
+
+
+def _collector_params(k=256, h=16):
+    import dataclasses
+
+    p = wb.WholeBodyMPPIParams()
+    return dataclasses.replace(p, mppi=dataclasses.replace(p.mppi, n_samples=k, n_horizon=h))
+
+
+@pytest.mark.cuda
+def test_collect_whole_body_graphed_equals_eager():
+    """collect_whole_body at K=256, H=16: each solve one replay of the
+    captured solve (rows 1 and 3 once per replay, plus the capture's two
+    warm-up calls), every column bit-equal to the eager collection."""
+    import numpy as np
+
+    from quadrotor_manipulator_mppi_tpu_torch.evaluation import dataset as ds
+
+    dev = _card()
+    params = _collector_params()
+    wk.wb_cost.launches = wk.wb_update.launches = 0
+    rec = ds.collect_whole_body(n_solves=4, seed=3, params=params, low_k_guard="off", device=dev)
+    assert (wk.wb_cost.launches, wk.wb_update.launches) == (6, 6)
+    eager = ds.collect_whole_body(n_solves=4, seed=3, params=params, low_k_guard="off",
+                                  device=dev, graph=False)
+    got, want = rec.arrays(), eager.arrays()
+    assert set(got) == set(want) and got["u_seq"].shape == (4, 16, 11)
+    for k in want:
+        assert np.array_equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+def test_trace_names_the_whole_body_kernels(tmp_path):
+    """profiling.trace around one graphed collector solve records the card:
+    its Chrome trace holds one wb_cost and one wb_update kernel."""
+    import json
+
+    import numpy as np
+
+    from quadrotor_manipulator_mppi_tpu_torch.evaluation import dataset as ds
+    from quadrotor_manipulator_mppi_tpu_torch.utils import profiling
+
+    dev = _card()
+    step, init = ds.make_whole_body_collector(_collector_params(), "off", dev)
+    row = ds.whole_body_obs_rows(1, 0)[0]
+    state = step(init(0), row)[1]  # the capture
+    with profiling.trace(str(tmp_path), device=dev) as path:
+        out, _ = step(state, row)
+    assert np.isfinite(out).all()
+    with open(path) as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    assert sum("wb_cost_kernel<" in n for n in names) == 1
+    assert sum("wb_update_kernel<" in n for n in names) == 1
+
+
+@pytest.mark.cuda
+def test_matrix_fk_on_the_card_equals_the_cpu():
+    """The matrix FK (with a base pose per configuration) on the card against
+    the same call on the CPU, and against the quaternion FK on the card."""
+    from quadrotor_manipulator_mppi_tpu_torch.models import chain, kinova
+    from quadrotor_manipulator_mppi_tpu_torch.utils import rotations as rot
+    from quadrotor_manipulator_mppi_tpu_torch.utils import se3
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(5)
+    q = torch.rand((512, 7), generator=gen) * 4 - 2
+    quat = rot.quat_normalize(torch.randn((512, 4), generator=gen))
+    pos = torch.randn((512, 3), generator=gen)
+    spec = kinova.chain("end_effector")
+    want = chain.forward_kinematics(spec, q, base=se3.Transform(rot.quat_to_matrix(quat), pos))
+    got = chain.forward_kinematics(spec, q.to(dev), base=se3.Transform(
+        rot.quat_to_matrix(quat.to(dev)), pos.to(dev)))
+    torch.testing.assert_close(got.trans.cpu(), want.trans, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got.rot.cpu(), want.rot, rtol=0, atol=1e-5)
+    p, qq = chain.forward_kinematics_posquat(spec, q.to(dev), base_pos=pos.to(dev),
+                                             base_quat=quat.to(dev))
+    torch.testing.assert_close(p, got.trans, rtol=0, atol=1e-5)
+    torch.testing.assert_close(rot.quat_to_matrix(qq), got.rot, rtol=0, atol=1e-5)

@@ -290,6 +290,14 @@ def test_sharded_batched_drone_solve_keeps_three_collectives(run, n_scn):
         assert float(res[f"dbatch{n_scn}_philox_err"]) <= 1e-6
 
 
+def test_sharded_arm_solve_equals_the_one_rank_solve(run):
+    """make_arm_solver through make_sharded_solver (batch_scenarios=False),
+    K=100 as 2 x 50: three solves (plan, qdes, warm start) equal the
+    one-rank arm solve on the same seed up to summation order."""
+    for res in run[1:3]:
+        assert float(res["arm_philox_err"]) <= 1e-5
+
+
 def test_weak_scaling_reports_the_jax_keys(run):
     want = {"devices", "backend", "k_per_device", "h", "t_1dev_ms", "t_sample_sharded_ms",
             "t_scenario_sharded_ms", "weak_eff_sample_axis", "weak_eff_scenario_axis",

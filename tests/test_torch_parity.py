@@ -70,6 +70,10 @@ def test_main_compares_npz_logs(tmp_path, capsys):
     parity.main(["compare", str(a), str(b), "--dt", "0.01"])
     out = json.loads(capsys.readouterr().out)
     assert out == jparity.compare_logs(dict(np.load(a)), dict(np.load(b)), dt=0.01)
-    with pytest.raises(SystemExit):
-        parity.main(["compare", str(a), str(tmp_path / "log.bag")])
+    # A .bag log is converted through the rosbag reader, as the JAX command
+    # converts it (tests/test_torch_offline.py compares a real bag): a
+    # missing bag fails in both alike.
+    for main in (parity.main, jparity.main):
+        with pytest.raises(FileNotFoundError):
+            main(["compare", str(a), str(tmp_path / "log.bag")])
 

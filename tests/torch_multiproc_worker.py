@@ -2,8 +2,9 @@
 
 Each of two OS processes joins a ``gloo`` process group through
 ``parallel.multihost.initialize`` and runs the port's sample-sharded and
-scenario-sharded whole-body solves and its sample-sharded drone solve,
-unbatched and with a scenario axis, on the CPU.  Everything that needs JAX was computed
+scenario-sharded whole-body solves, its sample-sharded drone solve,
+unbatched and with a scenario axis, and the sample-sharded arm solve, on
+the CPU.  Everything that needs JAX was computed
 by the parent test (``tests/test_torch_parallel.py``) and arrives as numpy
 arrays in ``in.npz``; this process imports PyTorch and the port only.  Each
 rank writes its results to ``<out_dir>/rank<r>.npz`` for the parent to hold
@@ -190,6 +191,29 @@ def main():
             err = max(err, (res.u_seq - res1.u_seq).abs().max().item()
                       / max(1.0, res1.u_seq.abs().max().item()))
         out[f"{tag}_philox_err"] = np.array(err)
+
+    # The arm node's plain solve sample-sharded (K=100 as 2 x 50) against the
+    # one-rank arm solve on the same seed, three solves.
+    from quadrotor_manipulator_mppi_tpu_torch.models import kinova
+    from quadrotor_manipulator_mppi_tpu_torch.solver import arm
+    from quadrotor_manipulator_mppi_tpu_torch.utils.pose import Pose
+
+    aparams = arm.ArmMPPIParams()
+    aobs = arm.ArmObs(q=torch.tensor(kinova.Q_HOME, dtype=torch.float32) + 0.02,
+                      qdot=torch.full((7,), 0.05),
+                      base_pose=Pose(torch.tensor([0.0, 0.0, 2.1]),
+                                     torch.tensor([1.0, 0.0, 0.0, 0.0])),
+                      target=arm.default_target())
+    astep, ainit = sharded.make_sharded_solver(arm.make_arm_solver, m, batch_scenarios=False,
+                                               params=aparams, device="cpu")
+    astep1, ainit1 = arm.make_arm_solver(aparams, device="cpu")
+    st, st1, err = ainit(4), ainit1(4), 0.0
+    for _ in range(3):
+        res, st = astep(st, aobs)
+        res1, st1 = astep1(st1, aobs)
+        for a, b in ((res.u_seq, res1.u_seq), (res.qdes, res1.qdes), (st.u_prev, st1.u_prev)):
+            err = max(err, (a - b).abs().max().item() / max(1.0, b.abs().max().item()))
+    out["arm_philox_err"] = np.array(err)
 
     # Weak scaling at a tiny size: the JAX function's keys, finite times.
     sc = scaling.measure_weak_scaling(k_per_device=64, h=8, iters=1, device="cpu")
