@@ -10,6 +10,7 @@ tools (the config tree, dataset collection, profiling, the rosbag reader,
 the URDF loader with the matrix FK).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases 10,26   # the build, then phases 10 and 26 alone
 
 Needs one CUDA card and ``nvcc``; builds the kernels from ``csrc/`` at
 first use, one ``nvcc`` per source, all at once.  Phases (each prints its
@@ -56,7 +57,13 @@ lines; any failure exits non-zero before the final ``ok`` line):
    on each rank pass 2 (rows 7, 6) on that rank's own inputs of each solve
    against its plain version, and its timings at K_local = 2048; and on
    the same two ranks the arm node's plain solve sample-sharded (K=100 as
-   2 x 50) against the one-rank arm solve over 3 solves (2e-3);
+   2 x 50) against the one-rank arm solve over 3 solves (2e-3); the
+   multirotor, fixed-wing and mapped presets (spheres, ESDF) through
+   ``make_sharded_solver`` at K=1024 as 2 x 512, unbatched and with 2
+   scenarios (two different maps), against the one-rank solve over 3
+   solves (1e-5 of the plan's largest entry), 3 all-reduces per solve, ms
+   per unbatched sharded solve; ``measure_weak_scaling`` with
+   ``backend="cuda"`` and ``backend="torch"``, each named in its result;
 11. the drone kernels (rows 9a-9d) against their plain versions at the
    preset K=1000, H=32, at K=1024, 4096, 16384 (H=32) and at K=16384,
    H=100, with CUDA-event, profiler and CUDA-graph timings, bounds, the
@@ -201,6 +208,19 @@ lines; any failure exits non-zero before the final ``ok`` line):
    4096 configurations with base poses on the card against the quaternion
    FK and float64 on the CPU (1e-5), ``arm_gravity_wrench`` at B=4096
    against float64 (1e-5);
+26. the whole-body callers on the plain pipeline (``backend="torch"``) in
+   configurations the kernels refuse, each refused first by the default
+   backend with a message naming ``backend="torch"``: (a)
+   ``make_packed_step`` at K=4096, H=50, attitude, zero-mean noise, 50
+   graphed solves bit-equal to eager, ms per solve graphed and eager,
+   device ops per solve; (b) ``WholeBodySession`` in position mode at
+   K=4004, H=50 behind a ``BridgeServer`` (requests bit-equal to an eager
+   session, 50 round trips p50/p99, one readback per request, the head's
+   device ops); (c) ``collect_whole_body`` at (a)'s configuration, 5
+   solves graphed = eager, finite; none of the three launches a whole-body
+   kernel; (d) the same callers on the default backend launch rows 1 and 3
+   once per call plus the capture's 2 warm-up calls, beside the counts of
+   phases 4, 23 and 25;
 then one ``kernels`` JSON line (rows 4-5 at B=256, rows 6-7 at K_local,
 rows 9a-9b at K=1000 and 9c-9d at K=1024: the shapes of the runs that
 count their launches; each ``wb_update`` row with the R it used and its
@@ -243,6 +263,7 @@ from quadrotor_manipulator_mppi_tpu_torch.evaluation import parity
 from quadrotor_manipulator_mppi_tpu_torch.evaluation import rosbag
 from quadrotor_manipulator_mppi_tpu_torch.evaluation.metrics import episode_quality
 from quadrotor_manipulator_mppi_tpu_torch.models import chain as chain_mod
+from quadrotor_manipulator_mppi_tpu_torch.models import fixed_wing as fw_model
 from quadrotor_manipulator_mppi_tpu_torch.models import kinova
 from quadrotor_manipulator_mppi_tpu_torch.models import multirotor as mr
 from quadrotor_manipulator_mppi_tpu_torch.models.multirotor import Multirotor12State
@@ -278,6 +299,7 @@ from quadrotor_manipulator_mppi_tpu_torch.sim import whole_body_loop as wbl
 from quadrotor_manipulator_mppi_tpu_torch.sim import wind as wind_mod
 from quadrotor_manipulator_mppi_tpu_torch.solver import arm, drone, mppi, serving
 from quadrotor_manipulator_mppi_tpu_torch.solver import fixed_wing as fws
+from quadrotor_manipulator_mppi_tpu_torch.solver import mapped as mapped_solver
 from quadrotor_manipulator_mppi_tpu_torch.solver import multirotor_mppi as mm
 from quadrotor_manipulator_mppi_tpu_torch.solver import whole_body as wb
 from quadrotor_manipulator_mppi_tpu_torch.utils import checkpoint, graphs, profiling
@@ -466,6 +488,13 @@ JAX_DISTURBANCE = {"pos_rms_m": 0.0011, "ang_rate_rms": 0.0011, "passed": True,
                    "final_err_m": 0.0009}
 N_DRONE_BATCH_STEPS = 3
 N_ARM_SHARD_SOLVES = 3         # phase 10: sharded arm solves (2 x K/2) against the one-rank solve
+N_FLIGHT_SHARD_SOLVES = 3      # phase 10: sharded flight-preset solves against the one-rank solve
+FLIGHT_SHARD_SCENARIOS = 2     # phase 10: the flight presets' scenario batch
+TOL_FLIGHT_SHARD = 1e-5        # phase 10: of the plan's largest entry (summation order only)
+SESSION_TORCH_K = 4004         # phase 26b: a sample count the kernels refuse (4004 % 16 = 4)
+N_SESSION_TORCH_RTT = 50       # phase 26b: client round trips timed
+N_COLLECT_TORCH = 5            # phase 26c: collected solves on the plain pipeline
+N_DEFAULT_CALLS = 5            # phase 26d: calls of each default-backend caller
 N_COLLECT = 20                 # phase 25b: collect_whole_body's solves at K=4096, H=50
 COLLECT_WARMUP = 2             # phase 25b: the capture's warm-up calls (utils/graphs.GraphedStep)
 N_TIME_FN, N_TIME_FN_WARMUP = 50, 3  # phase 25c: time_fn on the collector's graphed step
@@ -1798,6 +1827,107 @@ def shard_pass2(kc, params, states, obs, spill: bool, k_off: int, group):
     return worst_abs, worst_rel, args
 
 
+FLIGHT_SHARD_PRESETS = ("multirotor", "fixed-wing", "mapped spheres", "mapped ESDF")
+
+
+def flight_maps(dev) -> list:
+    """Two different occupancy grids on the mapped flight's geometry (a
+    seeded random field of free, unknown and occupied voxels, the second
+    shifted by 6 voxels): (grid params, [(centers, radii + margin, distance
+    field)] per map)."""
+    p = mapped_loop.MappedFlightConfig().grid
+    gen = torch.Generator(device=dev).manual_seed(16)
+    pick = torch.randint(0, 4, tuple(p.shape), generator=gen, device=dev)
+    lo = torch.tensor([0.0, occ.LOG_ODDS_MISS, occ.LOG_ODDS_MIN, occ.LOG_ODDS_MAX],
+                      device=dev)[pick]
+    maps = []
+    for grid_lo in (lo, torch.roll(lo, -6, dims=0)):
+        grid = occ.OccupancyGrid(grid_lo)
+        c, r = occ.occupied_centers(p, grid)
+        maps.append((c, torch.where(r > 0, r + mapped_loop.MappedFlightConfig().margin, 0.0),
+                     occ.distance_field(p, grid)))
+    return p, maps
+
+
+def flight_shard_case(name: str, dev, n_scn):
+    """(preset factory, params at the JAX default K=1024, observation of one
+    problem or of ``n_scn``) for phase 10's flight-preset runs; each
+    scenario its own state and target (and, mapped, its own map)."""
+    def rows(*vals):
+        t = torch.tensor(vals, dtype=torch.float32, device=dev)
+        return t[0] if n_scn is None else t[:n_scn]
+
+    if name == "multirotor":
+        obs = mm.MultirotorObs(
+            state=Multirotor12State(pos=rows([0.3, -0.2, 2.1], [0.0, 0.0, 2.0]),
+                                    rpy=rows([0.05, -0.03, 0.2], [0.0, 0.02, -0.1]),
+                                    vel=rows([0.2, 0.1, -0.05], [0.0, -0.2, 0.1]),
+                                    omega=rows([0.1, -0.05, 0.02], [0.0, 0.03, 0.0])),
+            target=rows(list(MR_WAYPOINT), [1.0, -1.0, 2.5]))
+        return mm.make_multirotor_solver, mm.MultirotorMPPIParams(), obs
+    if name == "fixed-wing":
+        c, s_ = np.cos(0.1), np.sin(0.1)
+        obs = fws.FwObs(
+            state=fw_model.FixedWingState(pos=rows([0.0, 0.0, 100.0], [10.0, -5.0, 95.0]),
+                                        quat=rows([1.0, 0.0, 0.0, 0.0], [c, s_, 0.0, 0.0]),
+                                        vel=rows([15.0, 0.0, 0.0], [14.0, 1.0, -0.5]),
+                                        omega=rows([0.0, 0.0, 0.0], [0.1, -0.05, 0.02])),
+            target=rows(list(scenarios.FW_TARGET), [-100.0, 200.0, 90.0]),
+            cruise_speed=rows(scenarios.FW_CRUISE, 17.0))
+        return fws.make_fixed_wing_solver, fws.FwMPPIParams(), obs
+    esdf = name == "mapped ESDF"
+    grid_p, maps = flight_maps(dev)
+    params = mapped_solver.MappedMPPIParams(altitude_weight=8.0, use_esdf=esdf,
+                                            esdf_params=grid_p)
+    pick = (lambda i: maps[0][i]) if n_scn is None else \
+        (lambda i: torch.stack([m[i] for m in maps[:n_scn]]))
+    obs = mapped_solver.MappedObs(x=rows([0.5, 0.1, 1.8], [1.0, -0.4, 1.7]),
+                       v=rows([1.5, 0.2, 0.0], [1.0, -0.1, 0.05]),
+                       target=rows([9.0, 0.0, 1.8], [8.0, 0.5, 1.8]),
+                       obst_centers=pick(0), obst_radii=pick(1),
+                       dist_field=pick(2) if esdf else None)
+    return mapped_solver.make_mapped_solver, params, obs
+
+
+def shard_flight(mesh, dev) -> dict:
+    """F9 on this rank: each flight preset through ``make_sharded_solver``
+    (K=1024 as 2 x 512), with ``batch_scenarios=False`` and with
+    FLIGHT_SHARD_SCENARIOS scenarios, against the one-rank solve on the same
+    seed over N_FLIGHT_SHARD_SOLVES solves (of the plan's largest entry),
+    all-reduces per solve, and host ms per unbatched sharded solve (two
+    ranks contending for one card: recorded as seen)."""
+    out = {}
+    for name in FLIGHT_SHARD_PRESETS:
+        for n_scn in (None, FLIGHT_SHARD_SCENARIOS):
+            make, params, obs = flight_shard_case(name, dev, n_scn)
+            kw = {"n_scenarios": n_scn} if n_scn else {}
+            step, init = sharded.make_sharded_solver(make, mesh, batch_scenarios=bool(n_scn),
+                                                     params=params, device=dev, **kw)
+            step1, init1 = make(params, device=dev, n_scenarios=n_scn)
+            st, st1, err = init(7), init1(7), 0.0
+            for _ in range(N_FLIGHT_SHARD_SOLVES):
+                res, st = step(st, obs)
+                res1, st1 = step1(st1, obs)
+                err = max(err, ((res.u_seq - res1.u_seq).abs().max()
+                                / res1.u_seq.abs().max()).item())
+            calls, plain = [], dist.all_reduce
+            dist.all_reduce = _counting(calls)
+            try:
+                step(st, obs)
+            finally:
+                dist.all_reduce = plain
+            box = [st]
+
+            def one():
+                _, box[0] = step(box[0], obs)
+
+            tag = f"{name}, " + (f"B={n_scn}" if n_scn else "unbatched")
+            out[tag] = {"err": err, "all_reduce": len(calls),
+                        "finite": bool(torch.isfinite(res.u_seq).all()),
+                        "ms": host_ms(one, reps=5) if n_scn is None else None}
+    return out
+
+
 def shard_rank(rank: int, port: int, device: str, queue) -> None:
     """One of two gloo ranks on the one card (NCCL refuses two ranks on one
     device): the sample-sharded solve at K_local = 2048 for both kernel
@@ -1880,6 +2010,7 @@ def shard_rank(rank: int, port: int, device: str, queue) -> None:
             err = max(err, ((res.u_seq - res1.u_seq).abs() / (1.0 + res1.u_seq.abs())).max().item(),
                       ((res.qdes - res1.qdes).abs() / (1.0 + res1.qdes.abs())).max().item())
         out_d["arm_err"] = err
+        out_d["flight"] = shard_flight(mesh, dev)
         dist.barrier()
         if rank == 0:  # the card to itself: rank 1 waits at the barrier
             for spill, (kern, plain) in SHARD_PASS2.items():
@@ -1891,6 +2022,8 @@ def shard_rank(rank: int, port: int, device: str, queue) -> None:
         dist.barrier()
         out_d["scaling"] = scaling.measure_weak_scaling(k_per_device=K // SHARD_RANKS, h=H,
                                                         iters=10, device=dev)
+        out_d["scaling_torch"] = scaling.measure_weak_scaling(
+            k_per_device=K // SHARD_RANKS, h=H, iters=10, device=dev, backend="torch")
         queue.put(out_d)
         dist.barrier()
         dist.destroy_process_group()
@@ -1944,9 +2077,10 @@ def phase_sharded(dev):
           + f" | all_reduce per solve {r0['all_reduce']} | launches {r0['launches']} | "
           f"ms per sharded solve (host) " + ", ".join(f"{k} {v:.3f}" for k, v in r0["ms"].items()),
           flush=True)
-    print(f"[10] weak scaling (rank 0, CUDA events): " + ", ".join(
-        f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}" for k, v in sc.items()),
-        flush=True)
+    for key in ("scaling", "scaling_torch"):
+        print(f"[10] weak scaling (rank 0, CUDA events): " + ", ".join(
+            f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}" for k, v in r0[key].items()),
+            flush=True)
     for r, res in sorted(results.items()):
         print(f"[10] rank {r} (k_off {res['k_off']}): pass 2 on its own inputs of each sharded "
               f"solve vs plain " + ", ".join(
@@ -1963,6 +2097,22 @@ def phase_sharded(dev):
           + f" (limit {TOL_STEP:g})", flush=True)
     if any(res["arm_err"] > TOL_STEP for res in results.values()):
         fail("the sharded arm solve disagrees with the one-rank arm solve")
+    for tag in r0["flight"]:
+        f = [res["flight"][tag] for _, res in sorted(results.items())]
+        ms_txt = "" if f[0]["ms"] is None else f" | {f[0]['ms']:.3f} ms per sharded solve " \
+            "(host, rank 0, two ranks on one card)"
+        print(f"[10] F9 {tag} through make_sharded_solver (K=1024 as {SHARD_RANKS} x "
+              f"{1024 // SHARD_RANKS}) vs the one-rank solve over {N_FLIGHT_SHARD_SOLVES} "
+              "solves: " + ", ".join(f"rank {r} {x['err']:.2e}" for r, x in enumerate(f))
+              + f" of the plan's largest entry (limit {TOL_FLIGHT_SHARD:g}) | all_reduce per "
+              f"solve {[x['all_reduce'] for x in f]} | finite {all(x['finite'] for x in f)}"
+              + ms_txt, flush=True)
+        if any(x["err"] > TOL_FLIGHT_SHARD or x["all_reduce"] != 3 or not x["finite"]
+               for x in f):
+            fail(f"the sharded {tag} solve disagrees with the one-rank solve or makes other "
+                 "than 3 all-reduces per solve")
+    if r0["scaling"]["backend"] != "cuda" or r0["scaling_torch"]["backend"] != "torch":
+        fail("measure_weak_scaling does not report the backend it was given")
     want = {"spill": 3, "no spill": 3, "adaptive sigma": 4}
     if max(r0["err"].values()) > TOL_STEP or r0["all_reduce"] != want:
         fail("the sharded solve disagrees with the one-rank solve or its collective count")
@@ -3145,7 +3295,8 @@ def session_kernels(tag: str, live, state, errs) -> dict:
     return kernels_vs_plain(tag, "the session's", live.params, obs, live._head._state, errs)
 
 
-def bridge_session(tag: str, make, kernels: bool, errs) -> dict:
+def bridge_session(tag: str, make, kernels: bool, errs, n_rtt: int = N_BRIDGE_RTT,
+                   profile: bool = False) -> dict:
     """Phase 23b/c for one session kind (``make(graph)``): the replies of
     an eager session first, then a BridgeServer on 127.0.0.1 with the
     graphed session and a Python QMM client; its replies bit-equal to the
@@ -3154,7 +3305,8 @@ def bridge_session(tag: str, make, kernels: bool, errs) -> dict:
     (``kernels``: its path runs them; its capture's two warm-up calls plus
     one per request), then both kernels against their plain versions on
     the live session's inputs; the client's round trip; one readback per
-    request; the head replay's device time."""
+    request; the head replay's device time (``n_rtt`` round trips; with
+    ``profile`` the head replay's device ops too)."""
     states = bridge_states(N_BRIDGE_CHECKED)
     goal = bridge_action.goal_frame(1, bridge_action.Task.EE_REACH, EE_GOAL)
     eager, eager_times = make(False), []
@@ -3196,7 +3348,7 @@ def bridge_session(tag: str, make, kernels: bool, errs) -> dict:
             fail(f"{tag}: the graphed session is not bit-equal to the eager session")
 
         rtts = []
-        for i in range(N_BRIDGE_RTT):
+        for i in range(n_rtt):
             t1 = time.perf_counter()
             client.request(states[i % len(states)])
             rtts.append((time.perf_counter() - t1) * 1e3)
@@ -3204,12 +3356,14 @@ def bridge_session(tag: str, make, kernels: bool, errs) -> dict:
         with server._session_lock:
             sites = sync_sites(lambda: [live.handle_states(st) for st in states[:N_BRIDGE_SYNC]])
             launches = bridge_counts()
-            want_n = N_BRIDGE_CHECKED + N_BRIDGE_AFTER + N_BRIDGE_RTT + N_BRIDGE_SYNC + 2 \
+            want_n = N_BRIDGE_CHECKED + N_BRIDGE_AFTER + n_rtt + N_BRIDGE_SYNC + 2 \
                 if kernels else 0
             check = session_kernels(tag, live, states[0], errs) if kernels else None
             head = live._head
             g = head._bind(head._z_none)
             head_ms = event_ms(g.replay, reps=20)
+            busy = profile_solves(f"{tag} head replay", g.replay, 1, head_ms,
+                                  unit="request") if profile else None
             req_ms = host_ms(lambda: live.handle_states(states[0]), reps=10)
         eager_ms = statistics.median(eager_times[1:])
         one_site = len(sites) == N_BRIDGE_SYNC and len(set(sites)) == 1 \
@@ -3223,14 +3377,15 @@ def bridge_session(tag: str, make, kernels: bool, errs) -> dict:
             fail(f"{tag}: a request synchronizes the host other than by its one readback")
         if launches != {"wb_cost": want_n, "wb_update": want_n}:
             fail(f"{tag}: rows 1 and 3 were not launched once per request")
-        print(f"{tag} client round trip p50 {p50:.3f} ms, p99 {p99:.3f} ms ({N_BRIDGE_RTT} "
+        print(f"{tag} client round trip p50 {p50:.3f} ms, p99 {p99:.3f} ms ({n_rtt} "
               f"requests) | request {req_ms:.3f} ms graphed, {eager_ms:.3f} ms eager (session "
               f"call, host clock) | head replay {head_ms:.4f} ms (CUDA events)", flush=True)
     finally:
         client.close()
         server.stop()
     return {"rtt_p50_ms": p50, "rtt_p99_ms": p99, "request_ms": req_ms, "eager_ms": eager_ms,
-            "head_ms": head_ms, "launches": launches, "build_s": build_s, "kernels": check}
+            "head_ms": head_ms, "launches": launches, "build_s": build_s, "kernels": check,
+            "head_ops": None if busy is None else busy[2]}
 
 
 def hil_climb(dev, graph: bool = True, n_ticks: int = N_HIL_CLIMB, armed: bool = True):
@@ -4012,12 +4167,163 @@ def phase_offline(dev, errs, serving_ms: float, survey_log: dict) -> dict:
     return out
 
 
+def zero_mean_params():
+    """The serving preset (attitude, K=4096, H=50) with zero-mean noise: a
+    configuration the kernels refuse."""
+    p = wb.WholeBodyMPPIParams()
+    return dataclasses.replace(p, mppi=dataclasses.replace(p.mppi, zero_mean_noise=True))
+
+
+def refuses_naming_torch(tag: str, build) -> str:
+    """``build()`` on the default backend must raise a ValueError that names
+    ``backend="torch"``; returns its message."""
+    try:
+        build()
+    except ValueError as exc:
+        if 'backend="torch"' not in str(exc):
+            fail(f"{tag}: the refusal does not name backend=\"torch\": {exc}")
+        return str(exc)
+    fail(f"{tag}: backend='cuda' took a configuration the kernels refuse")
+
+
+def phase_backends(dev, errs, earlier=None) -> dict:
+    """Phase 26 (F8): the whole-body callers on the plain pipeline
+    (``backend="torch"``) at full width, in configurations the kernels
+    refuse, each refused first by the default backend with a message naming
+    ``backend="torch"``: (a) ``make_packed_step`` at K=4096, H=50, attitude,
+    zero-mean noise: N_SERVE graphed solves bit-equal to the eager ones, ms
+    per solve graphed and eager, device ops per solve, no whole-body kernel
+    launched; (b) ``WholeBodySession`` in position mode at K=4004, H=50
+    behind a ``BridgeServer`` (``bridge_session``: requests bit-equal to the
+    eager session, N_SESSION_TORCH_RTT round trips p50/p99, one readback per
+    request, no kernel launched); (c) ``collect_whole_body`` at (a)'s
+    configuration, N_COLLECT_TORCH solves, graphed = eager, finite; (d) the
+    same three callers on the default backend launch rows 1 and 3 once per
+    call plus the capture's two warm-up calls, as phases 4, 23 and 25
+    (``earlier``: their counts, when the whole script ran)."""
+    out = {}
+    params = zero_mean_params()
+    obs_vec, target_vec = serving.pack_obs(wb.default_obs(device=dev))
+    refusal = refuses_naming_torch("[26a]", lambda: serving.make_packed_step(params, device=dev))
+    pstep, pinit = serving.make_packed_step(params, device=dev, backend="torch")
+    pstep_e, pinit_e = serving.make_packed_step(params, device=dev, backend="torch", graph=False)
+    serve_solves(pstep, pinit, obs_vec, target_vec, 3)  # capture
+    serve_solves(pstep_e, pinit_e, obs_vec, target_vec, 3)  # warm up
+    sync()
+    reset_counts()
+    outs = []
+    ms_g, carry = solve_blocks(pstep, pinit(0), obs_vec, target_vec, outs)
+    launches = bridge_counts()
+    eager_outs, eager_u = serve_solves(pstep_e, pinit_e, obs_vec, target_vec, N_SERVE)
+    sync()
+    equal = all(torch.equal(a, b) for a, b in zip(outs, eager_outs)) and torch.equal(
+        carry.u_prev, eager_u)
+    finite = all(bool(torch.isfinite(o).all()) for o in outs)
+    ms_e, _ = solve_blocks(pstep_e, pinit_e(0), obs_vec, target_vec)
+    box = [carry]
+
+    def one():
+        _, box[0] = pstep(box[0], obs_vec, target_vec)
+
+    busy = profile_solves("[26a] graphed plain packed solve", one, 1, ms_g)
+    out["packed"] = {"graphed_ms": ms_g, "eager_ms": ms_e,
+                     "ops": None if busy is None else busy[2]}
+    print(f"[26a] make_packed_step(backend='torch'), K={K}, H={H}, attitude, zero-mean noise: "
+          f"{N_SERVE} graphed solves bit-equal to the eager ones {equal} | finite {finite} | "
+          f"whole-body kernels launched {launches} | {ms_g:.3f} ms/solve graphed, {ms_e:.3f} "
+          f"eager (host, median of {N_SERVE // 10} blocks of 10) | device ops/solve "
+          f"{fmt_ops(out['packed']['ops'])} | backend='cuda' refuses: {refusal}", flush=True)
+    if not (equal and finite) or any(launches.values()):
+        fail("[26a] the plain packed solve is not bit-equal to eager, not finite, or launched "
+             "a whole-body kernel")
+
+    sp = wb.position_mode_params(n_samples=SESSION_TORCH_K, n_horizon=H)
+    refuses_naming_torch("[26b]", lambda: bridge.WholeBodySession(params=sp, device=dev))
+    out["session"] = bridge_session(
+        f"[26b] whole-body session (backend='torch', K={SESSION_TORCH_K}, H={H}, position),",
+        lambda g: bridge.WholeBodySession(params=sp, device=dev, graph=g, backend="torch"),
+        False, errs, n_rtt=N_SESSION_TORCH_RTT, profile=True)
+
+    refuses_naming_torch("[26c]", lambda: ds.collect_whole_body(n_solves=1, params=params,
+                                                                device=dev))
+    reset_counts()
+    t0 = time.perf_counter()
+    rec = ds.collect_whole_body(n_solves=N_COLLECT_TORCH, seed=0, params=params, device=dev,
+                                backend="torch")
+    collect_ms = (time.perf_counter() - t0) * 1e3 / N_COLLECT_TORCH
+    c_launches = bridge_counts()
+    rec_e = ds.collect_whole_body(n_solves=N_COLLECT_TORCH, seed=0, params=params, device=dev,
+                                  graph=False, backend="torch")
+    a, e = rec.arrays(), rec_e.arrays()
+    c_equal = set(a) == set(e) and all(np.array_equal(a[k], e[k]) for k in a)
+    c_finite = bool(np.isfinite(a["u_seq"]).all()) and a["u_seq"].shape == (N_COLLECT_TORCH, H, A)
+    out["collect_ms"] = collect_ms
+    print(f"[26c] collect_whole_body(backend='torch', n_solves={N_COLLECT_TORCH}) at (a)'s "
+          f"configuration: graphed = eager {c_equal} | finite plans {a['u_seq'].shape} "
+          f"{c_finite} | whole-body kernels launched {c_launches} | {collect_ms:.3f} ms per "
+          "collected solve (build and capture included)", flush=True)
+    if not (c_equal and c_finite) or any(c_launches.values()):
+        fail("[26c] the plain collector is not bit-equal to eager, not finite, or launched a "
+             "whole-body kernel")
+
+    want = {"wb_cost": N_DEFAULT_CALLS + 2, "wb_update": N_DEFAULT_CALLS + 2}
+    counts_d = {}
+    reset_counts()
+    dstep, dinit = serving.make_packed_step(device=dev)
+    serve_solves(dstep, dinit, obs_vec, target_vec, N_DEFAULT_CALLS)
+    counts_d["make_packed_step"] = bridge_counts()
+    reset_counts()
+    session = bridge.WholeBodySession(device=dev)
+    for st in bridge_states(N_DEFAULT_CALLS):
+        session.handle_states(st)
+    counts_d["WholeBodySession"] = bridge_counts()
+    reset_counts()
+    ds.collect_whole_body(n_solves=N_DEFAULT_CALLS, seed=0, device=dev)
+    counts_d["collect_whole_body"] = bridge_counts()
+    sync()
+    print(f"[26d] the default backend ('cuda'), {N_DEFAULT_CALLS} calls each: rows 1 and 3 "
+          f"launched {counts_d} (want {want}: the calls + the capture's 2 warm-up calls)"
+          + ("" if earlier is None else f" | phases 4, 23, 25 counted {earlier}"), flush=True)
+    if any(c != want for c in counts_d.values()):
+        fail("[26d] a default-backend caller did not launch rows 1 and 3 once per call")
+    out["default_launches"] = counts_d
+    return out
+
+
 def reach_sweep(mode: str, seeds) -> None:
     """``--reach MODE --seeds ...``: phase 7 alone, for one mode on any
     seeds; prints one JSON line of the per-seed metrics and exits non-zero
     if a seed misses the gate."""
     dev = torch.device("cuda", 0)
     phase_reach(dev, (mode,), seeds, summary=phase_build(dev))
+
+
+SELECTABLE = {"10": lambda dev, errs: phase_sharded(dev),
+              "26": lambda dev, errs: phase_backends(dev, errs)}
+
+
+def run_selected(names) -> None:
+    """``--phases 10,26``: the build, then those phases alone, each with its
+    gates; prints the phase walls, the ``nvidia-smi`` line and an ``ok``
+    line naming the phases (no ``kernels`` line: it needs every phase)."""
+    unknown = [n for n in names if n not in SELECTABLE]
+    if unknown:
+        fail(f"no phase {unknown} to run alone; choose from {sorted(SELECTABLE)}")
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    smi = phase_build(dev)
+    walls = [("1", time.perf_counter() - t0)]
+    errs = dict.fromkeys(("wb_cost", "wb_update"), 0.0)
+    for name in names:
+        t0 = time.perf_counter()
+        SELECTABLE[name](dev, errs)
+        walls.append((name, time.perf_counter() - t0))
+    print("[t] wall s per phase: " + ", ".join(f"{n} {w:.1f}" for n, w in walls)
+          + f" | total {sum(w for _, w in walls):.1f}", flush=True)
+    print(smi)
+    print(json.dumps({"ok": True, "phases": names,
+                      "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}}))
 
 
 def main() -> None:
@@ -4028,11 +4334,16 @@ def main() -> None:
                     help="run phase 7 alone, in this mode, on --seeds")
     ap.add_argument("--seeds", default=",".join(map(str, REACH_SEEDS)),
                     help="comma-separated solver seeds for --reach")
+    ap.add_argument("--phases", help="comma-separated phases to run alone after the build "
+                    f"(of {','.join(SELECTABLE)})")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device")
     if args.reach:
         reach_sweep(args.reach, tuple(int(x) for x in args.seeds.split(",")))
+        return
+    if args.phases:
+        run_selected(args.phases.split(","))
         return
     dev = torch.device("cuda", 0)
     walls = []
@@ -4075,6 +4386,8 @@ def main() -> None:
     bridge_out = lap("23", phase_bridge, dev, errs)
     camera = lap("24", phase_camera_cli, dev, errs)
     offline = lap("25", phase_offline, dev, errs, solve_ms["graphed"], camera["survey_log"])
+    backends = lap("26", phase_backends, dev, errs, {
+        "4": launches, "23": bridge_out["whole-body"]["launches"], "25": offline["launches"]})
     print("[t] wall s per phase: " + ", ".join(f"{n} {w:.1f}" for n, w in walls)
           + f" | total {sum(w for _, w in walls):.1f}", flush=True)
     b256 = {(b, spill): e_ms for b, spill, _, e_ms, _, _, _ in batch_rows}
@@ -4271,7 +4584,16 @@ def main() -> None:
           f"ops per tick), {RENDER_W} x {RENDER_H} render of {N_RENDER} frames "
           f"{camera['render_ms']:.4f} ms, whole-body-full {camera['wb_full_ms']:.3f} ms/control "
           f"step (capture included), collected whole-body solve {offline['collect_ms']:.3f} ms "
-          f"(capture included; time_fn {offline['time_fn']['mean_ms']:.4f})"
+          f"(capture included; time_fn {offline['time_fn']['mean_ms']:.4f}), plain packed "
+          f"solve (zero-mean) {backends['packed']['graphed_ms']:.3f} ms graphed "
+          f"({backends['packed']['eager_ms']:.3f} eager; {fmt_ops(backends['packed']['ops'])} "
+          f"ops), plain session K={SESSION_TORCH_K} round trip p50/p99 "
+          f"{backends['session']['rtt_p50_ms']:.3f}/{backends['session']['rtt_p99_ms']:.3f} ms "
+          f"(head {backends['session']['head_ms']:.4f}; "
+          f"{fmt_ops(backends['session']['head_ops'])} ops), sharded flight presets (host, "
+          "two ranks on one card) " + ", ".join(
+              f"{k.split(',')[0]} {v['ms']:.3f} ms" for k, v in shard["flight"].items()
+              if v["ms"] is not None)
           + f" on {smi}")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

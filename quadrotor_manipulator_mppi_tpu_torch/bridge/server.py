@@ -288,22 +288,28 @@ class WholeBodySession(_Session):
     position setpoint, which is the DRONE_POSE contract).
 
     The session head is the bridge head of ``solver/serving.make_bridge_step``
-    (the solve on the CUDA kernels, the tracking law, the carrot) on the
-    packed observation and target; ``handle_states(..., z=)`` takes the
-    solve's standard normals in place of the Philox draw under ``seed``."""
+    (the solve, the tracking law, the carrot) on the packed observation and
+    target; ``handle_states(..., z=)`` takes the solve's standard normals in
+    place of the Philox draw under ``seed``.  ``backend="cuda"`` (the
+    default) solves on the hand-written kernels; ``backend="torch"`` on the
+    plain pipeline, the counterpart of the JAX session's ``"xla"`` (the JAX
+    ``"pallas"`` is ``"cuda"`` here), for configurations the kernels
+    refuse, such as K=500; either head is captured on the card."""
 
     params: Any = None
     seed: int = 0
     setpoint_lookahead: int = 10
     device: Any = "cuda"
     graph: bool = True
+    backend: str = "cuda"
 
     def __post_init__(self):
         dev = resolve_device(self.device)
         if self.params is None:
             self.params = wbs.position_mode_params(n_samples=512, n_horizon=50)
         bstep, binit = serving.make_bridge_step(
-            self.params, setpoint_lookahead=self.setpoint_lookahead, device=dev, graph=False)
+            self.params, setpoint_lookahead=self.setpoint_lookahead, device=dev, graph=False,
+            backend=self.backend)
 
         def head(carry, inp, z=None):
             reply, new = bstep(carry, inp[:STATE_SIZE], inp[STATE_SIZE:], z)

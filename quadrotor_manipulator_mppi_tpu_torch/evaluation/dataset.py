@@ -143,7 +143,7 @@ def whole_body_obs(row: torch.Tensor, task):
 
 
 def make_whole_body_collector(params=None, low_k_guard: str = "warn", device="cuda",
-                              graph: bool = True):
+                              graph: bool = True, backend: str = "cuda"):
     """The whole-body collector's solve: ``(step, init)`` with
     ``step(state, obs_row) -> (out_row, state)``, ``obs_row`` a host float32
     row of :func:`whole_body_obs_rows` and ``out_row`` the host float32 row
@@ -156,10 +156,16 @@ def make_whole_body_collector(params=None, low_k_guard: str = "warn", device="cu
     solve's static buffer, replays it (the state advances in place, so the
     returned state is the graph's own) and reads the plan back: one copy
     in, one readback.  ``graph=False`` and the CPU run the same solve
-    eagerly, bit for bit the same."""
+    eagerly, bit for bit the same.
+
+    ``backend="cuda"`` (the default) solves on the hand-written kernels;
+    ``backend="torch"`` on the plain pipeline, the counterpart of the JAX
+    collector's XLA solve (the JAX ``"pallas"`` is ``"cuda"`` here), for
+    configurations the kernels refuse; either is captured on the card."""
     params = params or wb.WholeBodyMPPIParams()
     dev = resolve_device(device)
-    solver, init = wb.make_whole_body_solver(params, device=dev, low_k_guard=low_k_guard)
+    solver, init = wb.make_whole_body_solver(params, device=dev, backend=backend,
+                                             low_k_guard=low_k_guard)
     task = wb.default_obs(device=dev)
 
     def solve(state, row):
@@ -200,6 +206,7 @@ def collect_whole_body(
     low_k_guard: str = "warn",
     device="cuda",
     graph: bool = True,
+    backend: str = "cuda",
 ) -> TrajectoryRecorder:
     """Ready-made collector for the flagship solver (K=4096, H=50, attitude
     mode at the defaults; on the card rows 1 and 3 run once per solve):
@@ -207,10 +214,11 @@ def collect_whole_body(
     arm q/qdot (7+7), ee_target (3), u_seq (H, 11), action (11), qdes/vdes
     (7+7).  The perturbations come from ``np.random.default_rng(seed)``
     (:func:`whole_body_obs_rows`), the solver's Philox key from
-    ``seed + 1``."""
+    ``seed + 1``.  ``backend``: as :func:`make_whole_body_collector`
+    (``"torch"`` for a configuration the kernels refuse)."""
     params = params or wb.WholeBodyMPPIParams()
     h = params.mppi.n_horizon
-    step, init = make_whole_body_collector(params, low_k_guard, device, graph)
+    step, init = make_whole_body_collector(params, low_k_guard, device, graph, backend)
     ee_target = wb.default_obs(device="cpu").ee_target.position.numpy()
     widths = np.cumsum([0] + [w for _, w in WB_OBS_COLUMNS])
 

@@ -184,6 +184,11 @@ def scan_powers(m) -> list:
     return out
 
 
+class KernelRefusal(ValueError):
+    """A whole-body configuration the kernels cannot run but the plain
+    pipeline can (``make_whole_body_solver(..., backend="torch")``)."""
+
+
 def make_kernel_config(params, n_local_samples: Optional[int] = None) -> WbKernelConfig:
     """Validate ``params`` for the kernels (the JAX kernel's checks, same
     messages) and build the constant struct.  ``n_local_samples``: this
@@ -194,28 +199,28 @@ def make_kernel_config(params, n_local_samples: Optional[int] = None) -> WbKerne
     if cfg.n_action != A_TOTAL:
         raise ValueError(f"whole-body kernel expects {A_TOTAL} actions")
     if k % BLOCK:
-        raise ValueError(f"local sample count must be a multiple of {BLOCK}")
+        raise KernelRefusal(f"local sample count must be a multiple of {BLOCK}")
     if mp.control_mode not in MODES:
         raise ValueError("unknown control mode for the fused kernel")
     if cp.ori_mode != "log":
-        raise ValueError("fused kernel implements the 'log' orientation metric")
+        raise KernelRefusal("fused kernel implements the 'log' orientation metric")
     if cfg.zero_mean_noise:
-        raise ValueError("zero_mean_noise unsupported in the fused kernel")
+        raise KernelRefusal("zero_mean_noise unsupported in the fused kernel")
     if cfg.adaptive_sigma and cfg.sigma_scale_fn is not None:
         raise ValueError("adaptive_sigma and sigma_scale_fn are exclusive")
     if np.ndim(cfg.sigma) == 2:
-        raise ValueError("fused kernel requires scalar or diagonal sigma")
+        raise KernelRefusal("fused kernel requires scalar or diagonal sigma")
     if mp.control_mode in ("attitude", "wrench") and not mp.time_parallel:
-        raise ValueError("fused kernel is parallel-in-time only")
+        raise KernelRefusal("fused kernel is parallel-in-time only")
     if mp.arm_tip != "link_7":
-        raise ValueError("fused kernel bakes the link_7 tip frame")
+        raise KernelRefusal("fused kernel bakes the link_7 tip frame")
     spec = mp.chain()
     if (not np.allclose(spec.tip_rot, np.eye(3)) or not np.allclose(spec.tip_trans, 0.0)
             or np.any(spec.joint_type != REVOLUTE)
             or not np.allclose(spec.axis, [0.0, 0.0, 1.0])):
-        raise ValueError("fused kernel expects revolute +z joints and an identity tip")
+        raise KernelRefusal("fused kernel expects revolute +z joints and an identity tip")
     if h > max_horizon():
-        raise ValueError("horizon too long for the kernel's shared-memory warm start")
+        raise KernelRefusal("horizon too long for the kernel's shared-memory warm start")
 
     s = WbParams()
     s.mode, s.h, s.k = MODES[mp.control_mode], h, k

@@ -6,7 +6,10 @@ per-rank K (the softmin collectives are the only communication), (c)
 scenario-sharded (one independent problem per rank, no communication).
 Every rank of an initialised world calls it; each returns its own
 timings.  On the card the times come from CUDA events, on the CPU from the
-host clock.
+host clock.  ``backend`` is the whole-body solver's: ``"cuda"`` (the
+kernels, the JAX ``"pallas"``) or ``"torch"`` (the plain pipeline, the JAX
+``"xla"``); the result's ``"backend"`` field names it, as the JAX field
+does.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ from ..utils.device import resolve_device
 
 
 def measure_weak_scaling(k_per_device: int = 2048, h: int = 50, iters: int = 10,
-                         device="cuda", noise_spill: bool = True) -> dict:
+                         device="cuda", noise_spill: bool = True,
+                         backend: str = "cuda") -> dict:
     from ..solver import whole_body as wbs
     from ..solver.mppi import MPPIConfig
     from . import mesh as mesh_mod
@@ -58,7 +62,7 @@ def measure_weak_scaling(k_per_device: int = 2048, h: int = 50, iters: int = 10,
 
     obs1 = wbs.default_obs(device=dev)
     one = tree_map(lambda x: x[None], obs1)
-    common = dict(device=dev, noise_spill=noise_spill, low_k_guard="off")
+    common = dict(device=dev, backend=backend, noise_spill=noise_spill, low_k_guard="off")
 
     # One rank at the per-rank problem size.
     step1, init1 = wbs.make_whole_body_solver(mk_params(k_per_device), **common)
@@ -82,7 +86,7 @@ def measure_weak_scaling(k_per_device: int = 2048, h: int = 50, iters: int = 10,
 
     return {
         "devices": n,
-        "backend": dev.type,
+        "backend": backend,
         "k_per_device": k_per_device,
         "h": h,
         "t_1dev_ms": t1,

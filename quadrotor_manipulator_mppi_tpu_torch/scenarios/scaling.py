@@ -7,7 +7,10 @@ measures over the devices of one process, the port runs one process per
 rank of a ``torch.distributed`` world: ``nccl`` with one card per rank on
 the card, ``gloo`` ranks on the CPU.  One rank runs in this process; more
 are started as child processes on a free localhost port, each bounded by a
-timeout and all killed if one fails.
+timeout and all killed if one fails.  The solve runs on the kernels
+(``backend="cuda"``) on the card and on the plain pipeline
+(``backend="torch"``) on the CPU, as the JAX runner passes ``"pallas"``
+and ``"xla"``.
 
     python -m quadrotor_manipulator_mppi_tpu_torch.scenarios.scaling \\
         <init_method> <rank> <world> <k_per_device> <iters> <device>
@@ -47,10 +50,12 @@ def measure_rank(init_method: str, rank: int, world: int, k_per_device: int, ite
     from ..parallel.scaling import measure_weak_scaling
 
     dev = resolve_device(device)
-    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", init_method=init_method,
+    on_card = dev.type == "cuda"
+    dist.init_process_group("nccl" if on_card else "gloo", init_method=init_method,
                             world_size=world, rank=rank)
     try:
-        return measure_weak_scaling(k_per_device=k_per_device, iters=iters, device=dev)
+        return measure_weak_scaling(k_per_device=k_per_device, iters=iters, device=dev,
+                                    backend="cuda" if on_card else "torch")
     finally:
         dist.destroy_process_group()
 

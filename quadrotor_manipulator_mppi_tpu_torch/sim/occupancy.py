@@ -201,7 +201,12 @@ def distance_field(params: OccupancyParams, grid: OccupancyGrid, max_dist: float
 def query_distance(params: OccupancyParams, dist: Tensor, pts: Tensor,
                    max_dist: float = 2.0) -> Tensor:
     """Clearance [m] at world points from the distance field (nearest-voxel
-    gather; out-of-bounds reads ``max_dist``)."""
+    gather; out-of-bounds reads ``max_dist``).  A field of B scenarios,
+    (B, nx, ny, nz), takes points (B, ..., 3): scenario b's points read
+    field b."""
     ijk, inb = _voxel_index(params, pts)
-    d = dist[ijk[..., 0], ijk[..., 1], ijk[..., 2]]
-    return torch.where(inb, d, max_dist)
+    idx = (ijk[..., 0], ijk[..., 1], ijk[..., 2])
+    if dist.ndim == 4:
+        b = torch.arange(dist.shape[0], device=dist.device)
+        idx = (b.view((-1,) + (1,) * (pts.ndim - 2)),) + idx
+    return torch.where(inb, dist[idx], max_dist)

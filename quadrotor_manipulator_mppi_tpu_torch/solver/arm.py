@@ -29,7 +29,7 @@ from ..ops import costs as costs_mod
 from ..ops import integrators, sampling
 from ..utils.device import device_const, resolve_device
 from ..utils.pose import Pose
-from .mppi import MPPIConfig, MPPIState, init_state, make_step
+from .mppi import MPPIConfig, MPPIState, init_state, make_step, scenario_lift
 
 Tensor = torch.Tensor
 
@@ -92,8 +92,7 @@ def make_arm_solver(
         sampling.sigma_matrix(cfg.sigma, cfg.n_action, torch.float64).numpy())
     # Per-scenario observations meet the (B, K, H, ...) samples with a
     # sample axis (and for the per-step terms a step axis) inserted.
-    lift = (lambda x, n: x.reshape(x.shape[:1] + (1,) * n + x.shape[1:])) \
-        if n_scenarios is not None else (lambda x, n: x)
+    lift = scenario_lift(n_scenarios)
 
     def rollout(v: Tensor, obs: ArmObs):
         q_samples, v_samples = integrators.double_integrate(v, lift(obs.q, 1),

@@ -27,7 +27,7 @@ import torch
 from ..ops import costs as costs_mod
 from ..ops import integrators
 from ..utils.device import resolve_device
-from .mppi import MPPIConfig, MPPIState, init_state, make_step
+from .mppi import MPPIConfig, MPPIState, init_state, make_step, scenario_lift
 
 Tensor = torch.Tensor
 
@@ -82,8 +82,7 @@ def make_drone_solver(
     cfg = params.mppi
     # Per-scenario (B, 3) observations meet the (B, K, H, 3) samples with a
     # sample axis (and, for the stage terms, a step axis) inserted.
-    lift = (lambda x, n: x.reshape(x.shape[:1] + (1,) * n + x.shape[1:])) \
-        if n_scenarios is not None else (lambda x, n: x)
+    lift = scenario_lift(n_scenarios)
 
     def rollout(v: Tensor, obs: DroneObs) -> Tensor:
         traj, _ = integrators.double_integrate(v, lift(obs.x, 1), lift(obs.v, 1), cfg.dt)

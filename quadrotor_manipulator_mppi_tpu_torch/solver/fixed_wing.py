@@ -15,32 +15,37 @@ hold, cruise airspeed, bank and rate regularization, action size, and a
 ground-crash barrier.  The rollout clamps velocity and body rates to a
 generous envelope, and a non-finite cost becomes the crash penalty, so one
 wild sample cannot poison the softmin.
+
+With ``n_scenarios=B`` the step solves B problems per call, every
+observation and output field with a leading B; with ``group`` and
+``n_local_samples`` it is sample-sharded
+(``parallel/sharded.make_sharded_solver``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..models import fixed_wing as fw
 from ..utils import rotations as rot
 from ..utils.device import resolve_device
-from .mppi import MPPIConfig, MPPIState, init_state, make_step
+from .mppi import MPPIConfig, MPPIState, init_state, make_step, scenario_lift
 
 Tensor = torch.Tensor
 
 
 class FwObs(NamedTuple):
-    state: fw.FixedWingState  # current (unbatched) plant state
-    target: Tensor            # (3,) waypoint, world frame
-    cruise_speed: Tensor      # () [m/s]
+    state: fw.FixedWingState  # current plant state, fields (3,)/(4,); (B, 3)/(B, 4)
+    target: Tensor            # (3,) waypoint, world frame; (B, 3)
+    cruise_speed: Tensor      # () [m/s]; (B,)
 
 
 class FwOutput(NamedTuple):
-    controls: fw.FwControls   # next tick's surface commands (normalized)
-    u_seq: Tensor             # (H, 4) updated plan
+    controls: fw.FwControls   # next tick's surface commands (normalized); fields (B,)
+    u_seq: Tensor             # (H, 4) updated plan; (B, H, 4)
 
 
 @dataclass(frozen=True)
@@ -75,21 +80,36 @@ def controls_of(v: Tensor, base_throttle: float) -> fw.FwControls:
                          throttle=torch.clamp(base_throttle + v[..., 3], 0.0, 1.0))
 
 
-def make_fixed_wing_solver(params: FwMPPIParams = FwMPPIParams(), device="cuda"):
+def make_fixed_wing_solver(
+    params: FwMPPIParams = FwMPPIParams(),
+    device="cuda",
+    group: Optional[Any] = None,
+    n_local_samples: Optional[int] = None,
+    n_scenarios: Optional[int] = None,
+):
     """Returns ``(step, init)``: ``step(state, obs, z=None) -> (FwOutput,
     state)`` and ``init(seed, dtype=torch.float32) -> MPPIState`` on
     ``device``.  ``z`` optionally carries the step's standard normals
-    (K, H, 4) in place of the Philox stream."""
+    (K, H, 4) in place of the Philox stream.
+
+    ``group`` and ``n_local_samples`` (the JAX factory's ``axis_name`` and
+    ``n_local_samples``) make it a sample-sharded solve; ``z`` is then this
+    rank's block.  ``n_scenarios=B`` solves B problems per call, as
+    ``jax.vmap`` of the JAX step: every observation and output field with a
+    leading B, ``z`` (B, K, H, 4), and ``init(seed)`` takes one seed or B."""
     dev = resolve_device(device)
     cfg = params.mppi
+    # Per-scenario observations meet the (B, K, H, ...) rollout with a
+    # sample axis (and, for the stage terms, a step axis) inserted.
+    lift = scenario_lift(n_scenarios)
 
     def rollout(v: Tensor, obs: FwObs):
-        k = v.shape[0]
-        s = fw.FixedWingState(*(x.expand((k,) + x.shape) for x in obs.state))
+        lead = v.shape[:-2]  # (K,), or (B, K)
+        s = fw.FixedWingState(*(lift(x, 1).expand(lead + x.shape[-1:]) for x in obs.state))
         pos, vel, quat, omega = [], [], [], []
-        for t in range(v.shape[1]):
-            s = fw.step(params.aero, params.veh, s, controls_of(v[:, t], params.base_throttle),
-                        cfg.dt)
+        for t in range(v.shape[-2]):
+            s = fw.step(params.aero, params.veh, s,
+                        controls_of(v[..., t, :], params.base_throttle), cfg.dt)
             # The rollout's flight envelope: full deflection held over the
             # horizon can spin the explicit-Euler airframe into a V^2-force
             # blow-up; the optimum lies far inside these bounds.
@@ -99,16 +119,17 @@ def make_fixed_wing_solver(params: FwMPPIParams = FwMPPIParams(), device="cuda")
             vel.append(s.vel)
             quat.append(s.quat)
             omega.append(s.omega)
-        return tuple(torch.stack(x, dim=1) for x in (pos, vel, quat, omega))
+        return tuple(torch.stack(x, dim=-2) for x in (pos, vel, quat, omega))
 
     def cost(aux, v: Tensor, u_prev: Tensor, obs: FwObs) -> Tensor:
         pos, vel, quat, omega = aux
-        dist = torch.linalg.norm(pos - obs.target, dim=-1)                # (K, H)
+        dist = torch.linalg.norm(pos - lift(obs.target, 2), dim=-1)       # (*B, K, H)
         s = params.w_waypoint * torch.sum(dist, dim=-1)
         s = s + params.w_closest * torch.amin(dist, dim=-1)
-        s = s + params.w_altitude * torch.sum(torch.abs(pos[..., 2] - obs.target[2]), dim=-1)
+        s = s + params.w_altitude * torch.sum(
+            torch.abs(pos[..., 2] - lift(obs.target[..., 2], 2)), dim=-1)
         speed = torch.linalg.norm(vel, dim=-1)
-        s = s + params.w_speed * torch.sum((speed - obs.cruise_speed) ** 2, dim=-1)
+        s = s + params.w_speed * torch.sum((speed - lift(obs.cruise_speed, 2)) ** 2, dim=-1)
         # Bank: the world-z component of the body-y (left-wing) axis, R[2, 1].
         m = rot.quat_to_matrix(quat)
         s = s + params.w_bank * torch.sum(m[..., 2, 1] ** 2, dim=-1)
@@ -119,14 +140,14 @@ def make_fixed_wing_solver(params: FwMPPIParams = FwMPPIParams(), device="cuda")
         # A non-finite rollout must lose, not poison the softmin.
         return torch.where(torch.isfinite(s), s, params.crash_penalty)
 
-    inner = make_step(cfg, rollout, cost)
+    inner = make_step(cfg, rollout, cost, group, n_local_samples, n_scenarios)
 
     def step(state: MPPIState, obs: FwObs, z=None) -> Tuple[FwOutput, MPPIState]:
         u_seq, new_state = inner(state, obs, z)
-        return FwOutput(controls=controls_of(u_seq[0], params.base_throttle),
+        return FwOutput(controls=controls_of(u_seq[..., 0, :], params.base_throttle),
                         u_seq=u_seq), new_state
 
     def init(seed, dtype=torch.float32) -> MPPIState:
-        return init_state(cfg, seed, dtype, dev)
+        return init_state(cfg, seed, dtype, dev, n_scenarios)
 
     return step, init

@@ -118,6 +118,15 @@ def scenario_state(u_prev: Tensor, sigma: Tensor, seed, n_scenarios: int) -> MPP
     )
 
 
+def scenario_lift(n_scenarios: Optional[int]) -> Callable[[Tensor, int], Tensor]:
+    """``lift(x, n)`` for a task's cost: a per-scenario field (B, ...) with
+    ``n`` unit axes inserted after B, to meet (B, K, H, ...) samples; the
+    identity for one problem (``n_scenarios=None``)."""
+    if n_scenarios is None:
+        return lambda x, n: x
+    return lambda x, n: x.reshape(x.shape[:1] + (1,) * n + x.shape[1:])
+
+
 def device_counters(state: MPPIState, device) -> MPPIState:
     """``state`` with its Philox key and solve index as int64 tensors on
     ``device`` (``sampling.philox_keys``, ``sampling.step_tensor``), as a

@@ -7,13 +7,15 @@ reference's position terms (stage x100, terminal x20 squared error) plus
 attitude, body-rate and velocity regularization.  The step is the plain
 pipeline (``solver/mppi.make_step``), on the card by default, as the JAX
 preset runs XLA; with ``n_scenarios=B`` it solves B problems per call,
-every state, observation and output field with a leading B.
+every state, observation and output field with a leading B; with ``group``
+and ``n_local_samples`` it is sample-sharded
+(``parallel/sharded.make_sharded_solver``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +27,7 @@ from ..models.whole_body import (
 )
 from ..ops import costs as costs_mod
 from ..utils.device import device_const, resolve_device
-from .mppi import MPPIConfig, MPPIState, _diag_sigma, make_step, scenario_state
+from .mppi import MPPIConfig, MPPIState, _diag_sigma, make_step, scenario_lift, scenario_state
 
 Tensor = torch.Tensor
 
@@ -95,19 +97,22 @@ def make_multirotor_solver(
     params: MultirotorMPPIParams = MultirotorMPPIParams(),
     device="cuda",
     n_scenarios: Optional[int] = None,
+    group: Optional[Any] = None,
+    n_local_samples: Optional[int] = None,
 ):
     """Returns ``(step, init)``: ``step(state, obs, z=None) ->
     (MultirotorOutput, state)`` and ``init(seed, dtype=torch.float32) ->
     MPPIState`` (hover-thrust warm start) on ``device``.  ``z`` optionally
     carries the step's standard normals (K, H, 4) in place of the Philox
     stream.  ``n_scenarios=B`` solves B problems per call (``init(seed)``
-    then takes one seed or B)."""
+    then takes one seed or B).  ``group`` and ``n_local_samples`` (the JAX
+    factory's ``axis_name`` and ``n_local_samples``) make it a
+    sample-sharded solve; ``z`` is then this rank's block."""
     dev = resolve_device(device)
     cfg, cp, mp = params.mppi, params.cost, params.model
     # Per-scenario (B, 3) targets meet the (B, K, H, 3) trajectories with a
     # sample axis (and, for the stage term, a step axis) inserted.
-    lift = (lambda x, n: x.reshape(x.shape[:1] + (1,) * n + x.shape[1:])) \
-        if n_scenarios is not None else (lambda x, n: x)
+    lift = scenario_lift(n_scenarios)
 
     def rollout_fn(v: Tensor, obs: MultirotorObs):
         return base_rollout(params, obs.state, v)
@@ -124,7 +129,7 @@ def make_multirotor_solver(
             s = s + cp.vel_weight * torch.mean(torch.sum(base.vel * base.vel, -1), -1)
         return s
 
-    inner = make_step(cfg, rollout_fn, cost_fn, n_scenarios=n_scenarios)
+    inner = make_step(cfg, rollout_fn, cost_fn, group, n_local_samples, n_scenarios)
 
     def step(state: MPPIState, obs: MultirotorObs, z=None) -> Tuple[MultirotorOutput, MPPIState]:
         u_seq, new_state = inner(state, obs, z)

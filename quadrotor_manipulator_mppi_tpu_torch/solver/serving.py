@@ -129,8 +129,9 @@ def make_packed_step(
     static_targets=None,
     low_k_guard: str = "warn",
     graph: bool = True,
+    backend: str = "cuda",
 ):
-    """Build the packed serving solve on the CUDA kernels.
+    """Build the packed serving solve.
 
     Returns ``(pstep, pinit)``: ``pinit(seed) -> PackedCarry``; with
     ``static_targets`` (a WholeBodyObs or an (ee_target Pose, base_target)
@@ -141,7 +142,13 @@ def make_packed_step(
     On the card (``graph=True``) each call replays a CUDA graph of one
     solve and the carry is donated (see the module docstring): the returned
     carry is overwritten by the next call, so keep a copy of one you need
-    later.  ``graph=False`` runs the solve eagerly; so does the CPU."""
+    later.  ``graph=False`` runs the solve eagerly; so does the CPU.
+
+    ``backend="cuda"`` (the default, the JAX ``"pallas"`` default) solves
+    on the hand-written kernels and refuses what they cannot run;
+    ``backend="torch"`` (the JAX ``"xla"``) solves on the plain pipeline,
+    any configuration (``zero_mean_noise``, a K that is not a multiple of
+    16, ...), and is captured and replayed the same way on the card."""
     params = params or wbs.WholeBodyMPPIParams()
     if params.mppi.adaptive_sigma:
         raise ValueError(
@@ -149,7 +156,8 @@ def make_packed_step(
             "adaptive_sigma needs the full MPPIState API"
         )
     dev = resolve_device(device)
-    step, init = wbs.make_whole_body_solver(params, device=dev, low_k_guard=low_k_guard)
+    step, init = wbs.make_whole_body_solver(params, device=dev, backend=backend,
+                                            low_k_guard=low_k_guard)
     sigma_const = _diag_sigma(params.mppi, torch.float32, dev)
 
     def solve(carry: PackedCarry, obs_vec: Tensor, target_vec: Tensor, z):
@@ -194,6 +202,7 @@ def make_bridge_step(
     device="cuda",
     low_k_guard: str = "warn",
     graph: bool = True,
+    backend: str = "cuda",
 ):
     """The whole-body bridge head: the solve, the inertia-weighted tracking
     torque and the smooth-carrot base setpoint in one call.
@@ -203,7 +212,12 @@ def make_bridge_step(
     Position mode only (its base command is a position setpoint).
     ``bpinit(seed) -> PackedCarry``.  On the card each call replays a CUDA
     graph and donates the carry, as :func:`make_packed_step`;
-    ``graph=False`` runs eagerly."""
+    ``graph=False`` runs eagerly.
+
+    ``backend="cuda"`` (the default) solves on the hand-written kernels;
+    ``backend="torch"`` on the plain pipeline, the counterpart of the JAX
+    bridge head's default ``"xla"`` (the JAX ``"pallas"`` is ``"cuda"``
+    here), for configurations the kernels refuse, such as K=500."""
     from ..models import rigid_body as rb
     from ..models.whole_body import _base_rollout_position
 
@@ -216,7 +230,8 @@ def make_bridge_step(
             "adaptive_sigma needs the full MPPIState API"
         )
     dev = resolve_device(device)
-    step, init = wbs.make_whole_body_solver(params, device=dev, low_k_guard=low_k_guard)
+    step, init = wbs.make_whole_body_solver(params, device=dev, backend=backend,
+                                            low_k_guard=low_k_guard)
     sigma_const = _diag_sigma(params.mppi, torch.float32, dev)
     spec = params.model.chain()
     inertials = params.model.inertials()

@@ -300,6 +300,11 @@ def make_whole_body_solver(
     optional (K, H, A) array of standard normals to use instead of the
     Philox stream.  ``init(seed) -> MPPIState``.
 
+    ``backend="cuda"`` (the JAX ``"pallas"``) runs the hand-written
+    kernels and refuses, with a ``ValueError`` naming ``backend="torch"``,
+    a configuration they cannot run; ``backend="torch"`` (the JAX
+    ``"xla"``) runs the plain pipeline, any configuration, on any device.
+
     ``low_k_guard`` polices the attitude-mode floor
     (:data:`ATTITUDE_MIN_SAMPLES`): ``"warn"``, ``"error"`` or ``"off"``.
 
@@ -329,11 +334,15 @@ def make_whole_body_solver(
             raise ValueError(f"unknown low_k_guard {low_k_guard!r}")
 
     if backend == "cuda":
-        from ..ops.cuda.whole_body_kernel import make_whole_body_cuda_step
+        from ..ops.cuda.whole_body_kernel import KernelRefusal, make_whole_body_cuda_step
 
-        inner = make_whole_body_cuda_step(params, dev, group=group,
-                                          n_local_samples=n_local_samples,
-                                          noise_spill=noise_spill, n_scenarios=n_scenarios)
+        try:
+            inner = make_whole_body_cuda_step(params, dev, group=group,
+                                              n_local_samples=n_local_samples,
+                                              noise_spill=noise_spill, n_scenarios=n_scenarios)
+        except KernelRefusal as e:
+            raise KernelRefusal(f'{e}; backend="torch" runs this configuration on the plain '
+                                "pipeline") from e
     elif backend == "torch":
         inner = make_step(cfg, *rollout_cost_fns(params), group=group,
                           n_local_samples=n_local_samples, n_scenarios=n_scenarios)

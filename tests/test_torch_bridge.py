@@ -212,9 +212,20 @@ def test_whole_body_session_matches_jax():
     """Three requests at K=64, H=8 on the JAX session's key chain, a
     teleop nudge and an EE_REACH goal between them (the targets reach the
     solve), within the bridge head's 2e-3."""
-    jp = jwb.position_mode_params(n_samples=WB_K, n_horizon=WB_H)
+    _whole_body_session_requests(WB_K)
+
+
+def test_whole_body_session_torch_backend_matches_jax_at_k500():
+    """The session with backend="torch" at K=500 (a size the kernels
+    refuse; the JAX session's own XLA solve) on the same three requests."""
+    _whole_body_session_requests(500, backend="torch")
+
+
+def _whole_body_session_requests(k, **session_kw):
+    jp = jwb.position_mode_params(n_samples=k, n_horizon=WB_H)
     js = jserver.WholeBodySession(params=jp)
-    ts = WholeBodySession(params=convert.params_from_dict(jcfg.to_dict(jp)), device="cpu")
+    ts = WholeBodySession(params=convert.params_from_dict(jcfg.to_dict(jp)), device="cpu",
+                          **session_kw)
     key = js._carry.key
     state = hover_state(np.asarray(HOME) - 0.05)
     state[14], state[20] = 0.1, 0.05
@@ -228,7 +239,7 @@ def test_whole_body_session_matches_jax():
                                           [f.payload for f in js.actions.handle_goal(goal, js)])
             np.testing.assert_array_equal(ts.ee_position, np.float32([0.2, 0.4, 1.5]))
         key, sub = jax.random.split(key)
-        z = np.array(jax.random.normal(sub, (WB_K, WB_H, 11)))
+        z = np.array(jax.random.normal(sub, (k, WB_H, 11)))
         jr, tr = js.handle_states(state), ts.handle_states(state, z=z)
         got = np.concatenate([tr[0].payload, tr[1].payload])
         want = np.concatenate([jr[0].payload, jr[1].payload])

@@ -201,6 +201,32 @@ def test_solves_match_jax(k, h):
     close(s.u_prev, js.u_prev, TOL_SOLVE, "warm start")
 
 
+def test_batched_solver_equals_unbatched_solves():
+    """Two problems in one batched solve (``n_scenarios=2``) against their
+    unbatched solves, three solves on the Philox stream (1e-6 of the
+    largest entry): the plan and the emitted surface commands."""
+    p = convert.config_from_dict(jcfg.to_dict(_jax_params(64, 12)))
+    step, init = fws.make_fixed_wing_solver(p, device="cpu", n_scenarios=2)
+    step1, init1 = fws.make_fixed_wing_solver(p, device="cpu")
+    quat = N(rot.quat_from_axis_angle(torch.tensor([[0.2, -0.05, 0.1], [0.0, 0.1, -0.3]])))
+    obs = fws.FwObs(state=fw.FixedWingState(
+        pos=torch.tensor([[10.0, -5.0, 95.0], [0.0, 3.0, 105.0]]), quat=T(quat),
+        vel=torch.tensor([[14.0, 1.0, -0.5], [15.0, 0.0, 0.3]]),
+        omega=torch.tensor([[0.1, -0.05, 0.02], [0.0, 0.1, 0.0]])),
+        target=torch.tensor([[250.0, 60.0, 110.0], [-100.0, 200.0, 90.0]]),
+        cruise_speed=torch.tensor([15.0, 17.0]))
+    s, singles = init([3, 4]), [init1(3), init1(4)]
+    for i in range(3):
+        out, s = step(s, obs)
+        for b in range(2):
+            one, singles[b] = step1(singles[b], fws.FwObs(
+                fw.FixedWingState(*(x[b] for x in obs.state)), obs.target[b],
+                obs.cruise_speed[b]))
+            close(out.u_seq[b], N(one.u_seq), 1e-6, f"solve {i}, scenario {b}")
+            for name, a, c in zip(one.controls._fields, out.controls, one.controls):
+                close(a[b], N(c), 1e-6, f"solve {i}, scenario {b}: {name}")
+
+
 def test_yaml_param_loaders(tmp_path):
     """The RotorS fixed-wing YAML format: flat coefficient vectors and
     per-surface deflection maps (the JAX test's files), loaded alike."""

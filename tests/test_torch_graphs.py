@@ -410,6 +410,32 @@ def test_graphed_bridge_head_bit_equal_to_eager():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("caller", ["packed", "bridge"])
+def test_graphed_torch_backend_bit_equal_to_eager(caller):
+    """The serving call and the bridge head on the plain pipeline
+    (backend="torch") in configurations the kernels refuse (zero-mean noise
+    at K=200; K=500), graphed against eager, and no whole-body kernel
+    launched."""
+    dev = _card()
+    if caller == "packed":
+        p = PRESETS["attitude"]()
+        params = dataclasses.replace(p, mppi=dataclasses.replace(
+            p.mppi, n_samples=200, n_horizon=H, zero_mean_noise=True))
+        make = serving.make_packed_step
+    else:
+        params, make = wb.position_mode_params(n_samples=500, n_horizon=H), serving.make_bridge_step
+    obs_vec, target_vec = serving.pack_obs(wb.default_obs(device=dev))
+    for f in wk.KERNEL_WRAPPERS:
+        f.launches = 0
+    runs = [_serve(*make(params, device=dev, low_k_guard="off", graph=g, backend="torch"),
+                   (obs_vec, target_vec), 8) for g in (True, False)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+    assert torch.equal(runs[0][1], runs[1][1]) and runs[0][2].tolist() == [8]
+    assert all(f.launches == 0 for f in wk.KERNEL_WRAPPERS)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(EPISODES))
 def test_graphed_episode_bit_equal_to_eager(case):
     dev = _card()

@@ -266,6 +266,43 @@ def test_mapped_solves_match_jax(mode):
             close(getattr(out, name), getattr(jout, name), TOL_SOLVE, f"solve {i}: {name}")
 
 
+@pytest.mark.parametrize("mode", ["spheres", "esdf"])
+def test_batched_solve_equals_unbatched(mode):
+    """Two scenarios on two different maps in one batched solve
+    (``n_scenarios=2``) against their unbatched solves, three solves on the
+    Philox stream (1e-6 of the largest entry); each scenario must read its
+    own obstacles or distance field: scenario 1 on map 0 solves otherwise."""
+    p = _port_params(_jax_params(mode))
+    step, init = ms.make_mapped_solver(p, device="cpu", n_scenarios=2)
+    step1, init1 = ms.make_mapped_solver(p, device="cpu")
+    op = occ.OccupancyParams(**GRID)
+    maps = []
+    for b, lo in enumerate((_lo_with_blobs(), np.roll(_lo_with_blobs(), -6, axis=0))):
+        grid = occ.OccupancyGrid(T(lo))
+        c, r = occ.occupied_centers(op, grid)
+        maps.append((c, torch.where(r > 0, r + 0.65, 0.0), occ.distance_field(op, grid)))
+    x = torch.tensor([[0.5, 0.1, 1.8], [1.0, -0.4, 1.7]])
+    v = torch.tensor([[1.5, 0.2, 0.0], [1.0, -0.1, 0.05]])
+    tgt = torch.tensor([[9.0, 0.0, 1.8], [8.0, 0.5, 1.8]])
+    field = (lambda d: d) if mode == "esdf" else (lambda d: None)
+
+    def one(b, m):
+        return ms.MappedObs(x[b], v[b], tgt[b], maps[m][0], maps[m][1], field(maps[m][2]))
+
+    obs = ms.MappedObs(x, v, tgt, torch.stack([m[0] for m in maps]),
+                       torch.stack([m[1] for m in maps]),
+                       field(torch.stack([m[2] for m in maps])))
+    s, singles, wrong = init([3, 4]), [init1(3), init1(4)], init1(4)
+    for i in range(3):
+        out, s = step(s, obs)
+        for b in range(2):
+            res, singles[b] = step1(singles[b], one(b, b))
+            for name in ("u_seq", "xdes", "vdes"):
+                close(getattr(out, name)[b], N(getattr(res, name)), 1e-6, f"{i} {b} {name}")
+        res_wrong, wrong = step1(wrong, one(1, 0))
+        assert (res_wrong.u_seq - out.u_seq[1]).abs().max() > 1e-3
+
+
 def _plant_to_port(jplant):
     return MultirotorState(*(T(x) for x in jplant))
 

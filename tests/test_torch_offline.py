@@ -8,6 +8,7 @@ gravity wrench).  Inputs come from a numpy seed; the JAX functions run on
 the CPU; the Kinova URDF is built inline (``tests/kinova_urdf.py``).
 """
 
+import dataclasses
 import io
 import json
 from contextlib import redirect_stdout
@@ -249,7 +250,25 @@ def test_collect_solver_dataset_matches_jax_collect_whole_body():
     collector's perturbations (drawn here with jax.random as it draws them)
     and its solver's normals, against JAX collect_whole_body(n_solves=3,
     seed=1), column by column within 2e-3."""
-    jp = _small_jax_params()
+    _collect_against_jax(_small_jax_params())
+
+
+def _refused_jax_params():
+    """A collector configuration the kernels refuse: K=40 (not a multiple
+    of 16) with zero-mean noise."""
+    p = _small_jax_params()
+    return dataclasses.replace(p, mppi=dataclasses.replace(p.mppi, n_samples=40,
+                                                           zero_mean_noise=True))
+
+
+def test_torch_backend_collect_matches_jax_collect_whole_body_on_a_refused_config():
+    """As above, on a configuration the kernels refuse, with the port's
+    step on backend="torch" (the JAX collector's XLA solve)."""
+    _collect_against_jax(_refused_jax_params(), backend="torch")
+
+
+def _collect_against_jax(jp, backend="cuda"):
+    n_k, h = jp.mppi.n_samples, jp.mppi.n_horizon
     want = jds.collect_whole_body(n_solves=3, seed=1, params=jp, low_k_guard="off").arrays()
     base = jwb.default_obs()
     keys = jax.random.split(jax.random.key(1), 3)
@@ -264,9 +283,10 @@ def test_collect_solver_dataset_matches_jax_collect_whole_body():
     _, jinit = jwb.make_whole_body_solver(jp, low_k_guard="off")
     key, zs = jinit(jax.random.key(2)).key, []
     for _ in range(3):
-        key, z = shared_z(key, 32, 8)
+        key, z = shared_z(key, n_k, h)
         zs.append(z)
-    step, init = twb.make_whole_body_solver(to_port(jp), device="cpu", low_k_guard="off")
+    step, init = twb.make_whole_body_solver(to_port(jp), device="cpu", low_k_guard="off",
+                                            backend=backend)
     z_iter = iter(zs)
 
     def port_step(state, obs):
@@ -309,6 +329,27 @@ def test_port_collect_whole_body_meets_the_jax_gates(tmp_path):
     step, init = tds.make_whole_body_collector(params, "off", "cpu")
     state = init(2)
     for i, row in enumerate(rows):
+        out, state = step(state, row)
+        np.testing.assert_array_equal(tds.split_out_row(out, 8)["u_seq"], arrs["u_seq"][i])
+
+
+def test_port_collect_whole_body_torch_backend_meets_the_jax_gates(tmp_path):
+    """collect_whole_body(backend="torch") on the refused configuration:
+    tests/test_action_dataset.py's gates, the plans the collector step's on
+    its rows; the default backend still refuses it, naming "torch"."""
+    params = to_port(_refused_jax_params())
+    with pytest.raises(ValueError, match='backend="torch"'):
+        tds.collect_whole_body(n_solves=3, seed=1, params=params, low_k_guard="off",
+                               device="cpu")
+    rec = tds.collect_whole_body(n_solves=3, seed=1, params=params, low_k_guard="off",
+                                 device="cpu", backend="torch")
+    arrs = rec.arrays()
+    assert len(rec) == 3 and arrs["u_seq"].shape == (3, 8, 11)
+    assert np.isfinite(arrs["u_seq"]).all() and np.std(arrs["base_pos"], axis=0).max() > 0.01
+    assert rec.metadata["n_samples"] == 40
+    step, init = tds.make_whole_body_collector(params, "off", "cpu", backend="torch")
+    state = init(2)
+    for i, row in enumerate(tds.whole_body_obs_rows(3, 1)):
         out, state = step(state, row)
         np.testing.assert_array_equal(tds.split_out_row(out, 8)["u_seq"], arrs["u_seq"][i])
 

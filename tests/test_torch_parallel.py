@@ -9,7 +9,10 @@ rebuilt from ``fold_in(sub, shard)`` as ``tests/test_parallel.py`` does.
 The drone preset runs sample-sharded too, on each rank's half of the JAX
 unsharded preset's draws, and with a scenario axis (``batch_scenarios=True``,
 1 and 2 scenarios) against the JAX sharded solve, vmapped, on each shard's
-normals.  The workers import no JAX.
+normals.  So do the multirotor, fixed-wing and mapped presets (spheres and
+ESDF, two different maps in a batch), unbatched and with 2 scenarios,
+against the JAX sharded solve on each shard's normals.  The workers import
+no JAX.
 """
 
 import dataclasses
@@ -27,10 +30,18 @@ import torch
 import torch.distributed as dist
 
 from quadrotor_manipulator_mppi_tpu import config as jcfg
+from quadrotor_manipulator_mppi_tpu.models import fixed_wing as jfw
+from quadrotor_manipulator_mppi_tpu.models.multirotor import Multirotor12State as JState12
 from quadrotor_manipulator_mppi_tpu.parallel import mesh as jmesh
 from quadrotor_manipulator_mppi_tpu.parallel.sharded import make_sharded_solver as jsharded
+from quadrotor_manipulator_mppi_tpu.sim import mapped_loop as jml
+from quadrotor_manipulator_mppi_tpu.sim import occupancy as jocc
 from quadrotor_manipulator_mppi_tpu.solver import drone as jdrone
+from quadrotor_manipulator_mppi_tpu.solver import fixed_wing as jfws
+from quadrotor_manipulator_mppi_tpu.solver import mapped as jms
+from quadrotor_manipulator_mppi_tpu.solver import multirotor_mppi as jmm
 from quadrotor_manipulator_mppi_tpu.solver import whole_body as jwb
+from quadrotor_manipulator_mppi_tpu.utils import rotations as jrot
 from quadrotor_manipulator_mppi_tpu_torch.ops import weights as tweights
 from quadrotor_manipulator_mppi_tpu_torch.parallel import mesh as tmesh
 from quadrotor_manipulator_mppi_tpu_torch.parallel import multihost, sharded
@@ -43,6 +54,10 @@ K, H, A, N_SHARDS, N_STEPS = 2 * 128, 12, 11, 2, 2
 DRONE_K = 64
 DRONE_SCENARIOS = (1, 2)
 TOLS = (2e-3, 4e-3)  # first and second solve, as tests/test_parallel.py
+FLIGHT_K, FLIGHT_H = 64, 8
+FLIGHT_PRESETS = ("multirotor", "fixed_wing", "mapped_spheres", "mapped_esdf")
+FLIGHT_SCENARIOS = (0, 2)  # 0: batch_scenarios=False; 2: two scenarios
+TOL_FLIGHT = 2e-4  # of the largest entry: tests/test_torch_multirotor.py's TOL_SOLVE
 
 
 def _free_port() -> int:
@@ -98,6 +113,11 @@ def run(tmp_path_factory):
     for n_scn in DRONE_SCENARIOS:
         ref_batched[n_scn], batched_inp = _jax_drone_batched(n_scn)
         inp.update(batched_inp)
+    ref_flight = {}
+    for name in FLIGHT_PRESETS:
+        for n_scn in FLIGHT_SCENARIOS:
+            ref_flight[name, n_scn], flight_inp = _jax_flight(name, n_scn)
+            inp.update(flight_inp)
     np.savez(d / "in.npz", **inp)
 
     worker = os.path.join(REPO, "tests", "torch_multiproc_worker.py")
@@ -122,7 +142,7 @@ def run(tmp_path_factory):
         assert p.returncode == 0, log[-3000:]
     res = [dict(np.load(d / f"rank{r}.npz")) for r in range(N_SHARDS)]
     return ({"xla": ref_xla, "pallas": ref_pallas, "drone": ref_drone,
-             "drone_batched": ref_batched}, res[0], res[1], coll)
+             "drone_batched": ref_batched, "flight": ref_flight}, res[0], res[1], coll)
 
 
 def _jax_drone():
@@ -179,6 +199,106 @@ def _jax_drone_batched(n_scn):
                     for sub in subs])
             out, states = jstep(states, obs)
             outs.append((np.asarray(out.u_seq), np.asarray(out.xdes)))
+    return outs, inp
+
+
+def _flight_jax_params(name):
+    """(JAX preset factory, JAX params) at K=FLIGHT_K, H=FLIGHT_H."""
+    if name == "multirotor":
+        make, jp = jmm.make_multirotor_solver, jmm.MultirotorMPPIParams()
+    elif name == "fixed_wing":
+        make, jp = jfws.make_fixed_wing_solver, jfws.FwMPPIParams()
+    else:
+        make = jms.make_mapped_solver
+        jp = jms.MappedMPPIParams(altitude_weight=8.0, use_esdf=name == "mapped_esdf",
+                                  esdf_params=jml.MappedFlightConfig().grid)
+    return make, small(jp, FLIGHT_K, FLIGHT_H)
+
+
+def _flight_obs_arrays(name, n_scn):
+    """The observation's fields as float32 numpy, from a numpy seed: one
+    problem (n_scn 0) or n_scn, each scenario its own (the mapped
+    scenarios on two different maps)."""
+    rng = np.random.default_rng(len(name) + 10 * n_scn)
+    lead = (n_scn,) if n_scn else ()
+
+    def f32(x):
+        return np.asarray(x, np.float32)
+
+    if name == "multirotor":
+        return {"pos": f32(rng.normal(size=lead + (3,)) + [0.0, 0.0, 2.0]),
+                "rpy": f32(rng.normal(scale=0.1, size=lead + (3,))),
+                "vel": f32(rng.normal(scale=0.5, size=lead + (3,))),
+                "omega": f32(rng.normal(scale=0.2, size=lead + (3,))),
+                "target": f32(rng.normal(size=lead + (3,)) + [1.0, 2.0, 3.4])}
+    if name == "fixed_wing":
+        aa = rng.normal(scale=0.1, size=lead + (3,))
+        return {"pos": f32(rng.normal(scale=5.0, size=lead + (3,)) + [10.0, -5.0, 95.0]),
+                "quat": f32(jrot.quat_from_axis_angle(jnp.asarray(aa))),
+                "vel": f32(rng.normal(size=lead + (3,)) + [14.0, 1.0, -0.5]),
+                "omega": f32(rng.normal(scale=0.05, size=lead + (3,))),
+                "target": f32(rng.normal(scale=20.0, size=lead + (3,)) + [250.0, 60.0, 110.0]),
+                "cruise": f32(15.0 + rng.uniform(size=lead))}
+    op = jml.MappedFlightConfig().grid
+    maps = []
+    for b in range(max(n_scn, 1)):
+        lo = np.where(rng.uniform(size=op.shape) < 0.5, jocc.LOG_ODDS_MISS, 0.0)
+        lo[17 - 6 * b:21 - 6 * b, 14:19, 3:6] = jocc.LOG_ODDS_MAX  # a block near the line
+        grid = jocc.OccupancyGrid(jnp.asarray(lo, jnp.float32))
+        c, r = jocc.occupied_centers(op, grid)
+        maps.append((np.asarray(c), np.asarray(jnp.where(r > 0, r + 0.65, 0.0)),
+                     np.asarray(jocc.distance_field(op, grid))))
+    out = {"x": f32(rng.normal(scale=0.2, size=lead + (3,)) + [0.5, 0.1, 1.8]),
+           "v": f32(rng.normal(scale=0.3, size=lead + (3,)) + [1.5, 0.2, 0.0]),
+           "target": f32(np.broadcast_to([9.0, 0.0, 1.8], lead + (3,)))}
+    for i, key in enumerate(("centers", "radii", "dist")):
+        out[key] = f32(np.stack([m[i] for m in maps]) if n_scn else maps[0][i])
+    return out
+
+
+def _flight_jax_obs(name, arr):
+    a = {k: jnp.asarray(v) for k, v in arr.items()}
+    if name == "multirotor":
+        return jmm.MultirotorObs(JState12(a["pos"], a["rpy"], a["vel"], a["omega"]), a["target"])
+    if name == "fixed_wing":
+        return jfws.FwObs(jfw.FixedWingState(a["pos"], a["quat"], a["vel"], a["omega"]),
+                          a["target"], a["cruise"])
+    return jms.MappedObs(a["x"], a["v"], a["target"], a["centers"], a["radii"],
+                         a["dist"] if name == "mapped_esdf" else None)
+
+
+def _jax_flight(name, n_scn):
+    """(outputs per step, worker inputs) of the JAX sharded preset on a
+    2-shard sample mesh, ``batch_scenarios=False`` (n_scn 0) or True with
+    n_scn scenarios, vmapped; each shard's normals rebuilt from
+    ``fold_in(sub, shard)`` of its scenario's key."""
+    from quadrotor_manipulator_mppi_tpu.parallel.sharded import scenario_keys
+
+    make, jp = _flight_jax_params(name)
+    mesh = jmesh.make_mesh(n_sample_shards=N_SHARDS, devices=jax.devices()[:N_SHARDS])
+    step, init = jsharded(make, mesh, batch_scenarios=bool(n_scn), params=jp)
+    states = (jax.vmap(init)(scenario_keys(jax.random.key(9), n_scn)) if n_scn
+              else init(jax.random.key(9)))
+    arr = _flight_obs_arrays(name, n_scn)
+    obs = _flight_jax_obs(name, arr)
+    tag = f"{name}_b{n_scn}"
+    port_jp = jp
+    if name.startswith("mapped"):  # the JAX schedule is a bare lambda: the worker restores it
+        port_jp = dataclasses.replace(jp, mppi=dataclasses.replace(jp.mppi, sigma_scale_fn=None))
+    inp = {f"{tag}_params_json": json.dumps(jcfg.to_dict(port_jp)),
+           **{f"{tag}_obs_{k}": v for k, v in arr.items()}}
+    half, a, outs = FLIGHT_K // N_SHARDS, jp.mppi.n_action, []
+    with jax.set_mesh(mesh):
+        jstep = jax.jit(step)
+        for i in range(N_STEPS):
+            keys = [states.key[b] for b in range(n_scn)] if n_scn else [states.key]
+            subs = [jax.random.split(k)[1] for k in keys]
+            for r in range(N_SHARDS):
+                zs = [np.asarray(jax.random.normal(jax.random.fold_in(sub, r), (half, FLIGHT_H, a)))
+                      for sub in subs]
+                inp[f"{tag}_z_rank{r}_step{i}"] = np.stack(zs) if n_scn else zs[0]
+            out, states = jstep(states, obs)
+            outs.append((np.asarray(out.u_seq), np.asarray(states.u_prev)))
     return outs, inp
 
 
@@ -298,16 +418,76 @@ def test_sharded_arm_solve_equals_the_one_rank_solve(run):
         assert float(res["arm_philox_err"]) <= 1e-5
 
 
+@pytest.mark.parametrize("n_scn", FLIGHT_SCENARIOS)
+@pytest.mark.parametrize("name", FLIGHT_PRESETS)
+def test_sharded_flight_preset_matches_jax(run, name, n_scn):
+    """make_multirotor_solver, make_fixed_wing_solver and make_mapped_solver
+    (spheres, ESDF) through make_sharded_solver, K=64 as 2 x 32, H=8, with
+    batch_scenarios=False (n_scn 0) and with 2 scenarios, on each rank's
+    blocks of the JAX sharded solve's normals, against that solve over two
+    solves (plan and warm start, of the largest entry)."""
+    refs, r0, r1, _ = run
+    for i, want in enumerate(refs["flight"][name, n_scn]):
+        for res in (r0, r1):
+            for col, what in enumerate(("u_seq", "u_prev")):
+                got = res[f"{name}_b{n_scn}_{what}_{i}"]
+                assert got.shape == want[col].shape
+                np.testing.assert_allclose(
+                    got, want[col], rtol=0, atol=TOL_FLIGHT * max(1.0, np.abs(want[col]).max()),
+                    err_msg=f"solve {i}: {what}")
+
+
+@pytest.mark.parametrize("n_scn", FLIGHT_SCENARIOS)
+@pytest.mark.parametrize("name", FLIGHT_PRESETS)
+def test_sharded_flight_preset_philox_solve_equals_the_one_rank_solve(run, name, n_scn):
+    """The same presets on the Philox stream: three sharded solves equal the
+    one-rank solve on the same seed (summation order only, of the plan's
+    largest entry), with 3 all-reduces per solve."""
+    for res in run[1:3]:
+        assert float(res[f"{name}_b{n_scn}_philox_err"]) <= 1e-6
+        assert int(res[f"{name}_b{n_scn}_collectives"]) == 3
+
+
 def test_weak_scaling_reports_the_jax_keys(run):
     want = {"devices", "backend", "k_per_device", "h", "t_1dev_ms", "t_sample_sharded_ms",
             "t_scenario_sharded_ms", "weak_eff_sample_axis", "weak_eff_scenario_axis",
             "global_k_sample_axis", "global_solves_per_s_scenario_axis"}
     res = run[1]
     assert set(res["scaling_keys"].tolist()) == want
-    assert str(res["scaling_backend"]) == "cpu"  # host-clock times on the CPU
+    assert str(res["scaling_backend"]) == "cuda"  # the default backend's name
     devices, global_k, *times = res["scaling_vals"]
     assert (devices, global_k) == (2, 128)
     assert all(np.isfinite(t) and t > 0 for t in times)
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_weak_scaling_takes_the_backend_on_one_rank(backend):
+    """measure_weak_scaling(backend=...) on one gloo rank of this process:
+    the JAX result's keys, the backend's name in "backend", finite times."""
+    from quadrotor_manipulator_mppi_tpu_torch.parallel import scaling as tscaling
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        sc = tscaling.measure_weak_scaling(k_per_device=32, h=8, iters=1, device="cpu",
+                                           backend=backend)
+    finally:
+        dist.destroy_process_group()
+    assert set(sc) == {"devices", "backend", "k_per_device", "h", "t_1dev_ms",
+                       "t_sample_sharded_ms", "t_scenario_sharded_ms", "weak_eff_sample_axis",
+                       "weak_eff_scenario_axis", "global_k_sample_axis",
+                       "global_solves_per_s_scenario_axis"}
+    assert sc["backend"] == backend and sc["devices"] == 1 and sc["global_k_sample_axis"] == 32
+    assert all(np.isfinite(sc[k]) and sc[k] > 0 for k in sc if k.startswith("t_"))
+
+
+def test_bench_scaling_runs_the_plain_pipeline_on_the_cpu():
+    """scenarios/scaling passes backend="torch" on the CPU, as the JAX runner
+    passes "xla" there."""
+    from quadrotor_manipulator_mppi_tpu_torch.scenarios import scaling as tscaling
+
+    r = tscaling.run_bench_scaling(device="cpu", devices=1, k_per_device=32, iters=1)
+    assert r["platform"] == "cpu" and r["backend"] == "torch" and r["devices"] == 1
 
 
 def test_initialize_plumbs_args_and_environment(monkeypatch):

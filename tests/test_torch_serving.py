@@ -1,6 +1,9 @@
 """The port's packed serving API: wire-format round trip, packed step ==
 pytree step, and packed step == the JAX packed step (XLA backend) with the
-JAX noise shared."""
+JAX noise shared; the packed step and the bridge head on the plain
+pipeline (``backend="torch"``) in configurations the kernels refuse
+(zero-mean noise, K=500) against the JAX XLA builds, and the kernels'
+refusals naming that backend."""
 
 import jax
 import jax.numpy as jnp
@@ -97,6 +100,29 @@ def test_packed_matches_jax_packed(mode):
         np.testing.assert_allclose(N(carry.u_prev), np.asarray(jcarry.u_prev), rtol=2e-3, atol=2e-3)
 
 
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_packed_torch_backend_matches_jax_xla_with_zero_mean_noise(mode):
+    """backend="torch" with zero_mean_noise at K=200 (two refusals of the
+    kernels) against the JAX make_packed_step(backend="xla", jit=False) on
+    its key chain's normals, at test_packed_matches_jax_packed's tolerance."""
+    import dataclasses
+
+    jp = small(MODES[mode](), k=200, h=12)
+    jp = dataclasses.replace(jp, mppi=dataclasses.replace(jp.mppi, zero_mean_noise=True))
+    jstep, jinit = jserving.make_packed_step(jp, backend="xla", low_k_guard="off", jit=False)
+    pstep, pinit = serving.make_packed_step(to_port(jp), device="cpu", low_k_guard="off",
+                                            backend="torch")
+    jcarry, carry = jinit(jax.random.key(5)), pinit(5)
+    key = jcarry.key
+    obs_vec, target_vec = jserving.pack_obs(jwb.default_obs())
+    for _ in range(3):
+        key, z = shared_z(key, 200, 12)
+        jout, jcarry = jstep(jcarry, obs_vec, target_vec)
+        out, carry = pstep(carry, T(obs_vec), T(target_vec), z)
+        np.testing.assert_allclose(N(out), np.asarray(jout), rtol=2e-3, atol=2e-3)
+        np.testing.assert_allclose(N(carry.u_prev), np.asarray(jcarry.u_prev), rtol=2e-3, atol=2e-3)
+
+
 def test_static_targets_variant():
     params = to_port(small(jwb.position_mode_params(), k=128, h=10))
     obs = twb.default_obs(device="cpu")
@@ -143,6 +169,48 @@ def test_bridge_step_matches_jax_bridge(bridge_pair):
         assert reply.shape == (serving.BRIDGE_OUT_SIZE,)
         np.testing.assert_allclose(N(reply), np.asarray(jreply), atol=2e-3)
         np.testing.assert_allclose(N(carry.u_prev), np.asarray(jcarry.u_prev), atol=2e-3)
+
+
+def test_bridge_step_torch_backend_matches_jax_bridge_at_k500():
+    """backend="torch" at K=500, H=20 (the kernels refuse K=500) against the
+    JAX make_bridge_step(backend="xla") at the same size."""
+    jp = jwb.position_mode_params(n_samples=500, n_horizon=20)
+    jstep, jinit = jserving.make_bridge_step(jp, backend="xla", low_k_guard="off")
+    bstep, binit = serving.make_bridge_step(to_port(jp), device="cpu", low_k_guard="off",
+                                            backend="torch")
+    jcarry, carry = jinit(jax.random.key(3)), binit(3)
+    key = jcarry.key
+    obs_vec, target_vec = (np.asarray(N(v)) for v in serving.pack_obs(_perturbed_port_obs()))
+    for _ in range(3):
+        key, z = shared_z(key, 500, 20)
+        jreply, jcarry = jstep(jcarry, jnp.asarray(obs_vec), jnp.asarray(target_vec))
+        reply, carry = bstep(carry, T(obs_vec), T(target_vec), z)
+        np.testing.assert_allclose(N(reply), np.asarray(jreply), atol=2e-3)
+        np.testing.assert_allclose(N(carry.u_prev), np.asarray(jcarry.u_prev), atol=2e-3)
+
+
+def _zero_mean(p):
+    import dataclasses
+
+    return dataclasses.replace(p, mppi=dataclasses.replace(p.mppi, zero_mean_noise=True))
+
+
+@pytest.mark.parametrize("build,match", [
+    (lambda: serving.make_packed_step(_zero_mean(small(twb.WholeBodyMPPIParams())),
+                                      device="cpu", low_k_guard="off"), "zero_mean_noise"),
+    (lambda: serving.make_packed_step(small(twb.WholeBodyMPPIParams(), k=200), device="cpu",
+                                      low_k_guard="off"), "multiple of 16"),
+    (lambda: serving.make_bridge_step(twb.position_mode_params(n_samples=500, n_horizon=20),
+                                      device="cpu"), "multiple of 16"),
+    (lambda: serving.make_bridge_step(_zero_mean(twb.position_mode_params(64, 8)),
+                                      device="cpu", backend="cuda"), "zero_mean_noise"),
+], ids=["packed-zero-mean", "packed-k200", "bridge-k500", "bridge-zero-mean"])
+def test_cuda_backend_refusals_name_the_torch_backend(build, match):
+    """The default backend still refuses what the kernels cannot run, with
+    a ValueError naming backend="torch"; it never switches on its own."""
+    with pytest.raises(ValueError, match=match) as err:
+        build()
+    assert 'backend="torch"' in str(err.value)
 
 
 def test_bridge_step_refusals(monkeypatch):

@@ -3,8 +3,9 @@
 Each of two OS processes joins a ``gloo`` process group through
 ``parallel.multihost.initialize`` and runs the port's sample-sharded and
 scenario-sharded whole-body solves, its sample-sharded drone solve,
-unbatched and with a scenario axis, and the sample-sharded arm solve, on
-the CPU.  Everything that needs JAX was computed
+unbatched and with a scenario axis, the sample-sharded arm solve, and the
+multirotor, fixed-wing and mapped presets sample-sharded, unbatched and
+with a scenario axis, on the CPU.  Everything that needs JAX was computed
 by the parent test (``tests/test_torch_parallel.py``) and arrives as numpy
 arrays in ``in.npz``; this process imports PyTorch and the port only.  Each
 rank writes its results to ``<out_dir>/rank<r>.npz`` for the parent to hold
@@ -32,6 +33,34 @@ def _counting_all_reduce(calls: list):
         return inner(*args, **kwargs)
 
     return counted
+
+
+def flight_case(name: str, tag: str, inp: dict):
+    """(port preset factory, params, observation) of a flight preset case
+    from the parent's arrays."""
+    from quadrotor_manipulator_mppi_tpu_torch import convert
+    from quadrotor_manipulator_mppi_tpu_torch.models import fixed_wing as fw
+    from quadrotor_manipulator_mppi_tpu_torch.models.multirotor import Multirotor12State
+    from quadrotor_manipulator_mppi_tpu_torch.solver import fixed_wing as fws
+    from quadrotor_manipulator_mppi_tpu_torch.solver import mapped as ms
+    from quadrotor_manipulator_mppi_tpu_torch.solver import multirotor_mppi as mm
+
+    params = convert.config_from_dict(json.loads(str(inp[f"{tag}_params_json"])))
+    a = {k[len(tag) + 5:]: torch.tensor(v) for k, v in inp.items()
+         if k.startswith(f"{tag}_obs_")}
+    if name == "multirotor":
+        return (mm.make_multirotor_solver, params,
+                mm.MultirotorObs(Multirotor12State(a["pos"], a["rpy"], a["vel"], a["omega"]),
+                                 a["target"]))
+    if name == "fixed_wing":
+        return (fws.make_fixed_wing_solver, params,
+                fws.FwObs(fw.FixedWingState(a["pos"], a["quat"], a["vel"], a["omega"]),
+                          a["target"], a["cruise"]))
+    params = dataclasses.replace(params, mppi=dataclasses.replace(
+        params.mppi, sigma_scale_fn=ms.distance_to_go_scale))
+    return (ms.make_mapped_solver, params,
+            ms.MappedObs(a["x"], a["v"], a["target"], a["centers"], a["radii"],
+                         a["dist"] if name == "mapped_esdf" else None))
 
 
 def main():
@@ -214,6 +243,38 @@ def main():
         for a, b in ((res.u_seq, res1.u_seq), (res.qdes, res1.qdes), (st.u_prev, st1.u_prev)):
             err = max(err, (a - b).abs().max().item() / max(1.0, b.abs().max().item()))
     out["arm_philox_err"] = np.array(err)
+
+    # The flight presets through make_sharded_solver: on this rank's blocks
+    # of the JAX sharded solve's normals; on the Philox stream against the
+    # one-rank solve; all-reduces per solve.
+    for name in ("multirotor", "fixed_wing", "mapped_spheres", "mapped_esdf"):
+        for n_scn in (0, 2):
+            tag = f"{name}_b{n_scn}"
+            make, fparams, fobs = flight_case(name, tag, inp)
+            kw = dict(batch_scenarios=bool(n_scn), params=fparams, device="cpu")
+            if n_scn:
+                kw["n_scenarios"] = n_scn
+            fstep, finit = sharded.make_sharded_solver(make, m, **kw)
+            st = finit(9)
+            for i in range(n_steps):
+                res, st = fstep(st, fobs, inp[f"{tag}_z_rank{rank}_step{i}"])
+                out[f"{tag}_u_seq_{i}"] = res.u_seq.numpy()
+                out[f"{tag}_u_prev_{i}"] = st.u_prev.numpy()
+            step1, init1 = make(fparams, device="cpu", n_scenarios=n_scn or None)
+            st, st1, err = finit(21), init1(21), 0.0
+            for _ in range(3):
+                res, st = fstep(st, fobs)
+                res1, st1 = step1(st1, fobs)
+                err = max(err, (res.u_seq - res1.u_seq).abs().max().item()
+                          / max(1.0, res1.u_seq.abs().max().item()))
+            out[f"{tag}_philox_err"] = np.array(err)
+            calls, plain = [], dist.all_reduce
+            dist.all_reduce = _counting_all_reduce(calls)
+            try:
+                fstep(st, fobs)
+            finally:
+                dist.all_reduce = plain
+            out[f"{tag}_collectives"] = np.array(len(calls))
 
     # Weak scaling at a tiny size: the JAX function's keys, finite times.
     sc = scaling.measure_weak_scaling(k_per_device=64, h=8, iters=1, device="cpu")
