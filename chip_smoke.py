@@ -846,12 +846,9 @@ def profile_solves(tag: str, fn, n: int, solve_ms: float, unit: str = "solve",
         wall_us = (time.perf_counter() - t0) * 1e6
         host = {k: v - host0[k] for k, v in family_counts().items()}
         prof.step()
-    # The episodes' record_function ranges (wb_loop.*, loop.step,
-    # arm_loop.step) and the profiler's steps also appear on the device
-    # timeline as annotations.
+    # The profiler's steps also appear on the device timeline as annotations.
     ops = [e for e in (traced[0] if traced else [])
-           if e.device_type == DeviceType.CUDA
-           and not e.key.startswith(("wb_loop.", "loop.", "arm_loop.", "ProfilerStep"))]
+           if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep")]
     dev_us = sum(e.self_device_time_total for e in ops)
     launches = sum(e.count for e in ops)
     if check_counts:
@@ -1103,21 +1100,23 @@ def phase_episode(dev):
         args = window_start(1)
         busy[name] = profile_solves(f"[6] {name}", lambda: fn(*args), 1, ms * n_prof,
                                     unit=f"{n_prof} control steps", check_counts=True)
-    eager_parts(window_e, window_start, n_prof)
+    eager_parts(dev, window_e, window_start, n_prof)
     return launches, {"graphed": step_ms, "eager": eager_ms}, busy
 
 
-def eager_parts(window, window_start, n_prof) -> None:
-    """Host time per part of the eager control step (its wb_loop.* ranges;
-    a graph replays them as one range per step)."""
+def eager_parts(dev, window, window_start, n_prof) -> None:
+    """Host time per part of the eager control step: the ranges its
+    wb_loop.* stage marks open under a profiler while a tracer is
+    installed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     args = window_start(1)
     sync()
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
+    with profiling.tracing(dev) as tracer, profile(activities=[ProfilerActivity.CPU]) as prof:
         window(*args)
         sync()
+        tracer.close_ranges()
     parts = sorted((e for e in prof.key_averages()
                     if e.key.startswith("wb_loop.") and e.device_type == DeviceType.CPU),
                    key=lambda e: -e.cpu_time_total)
@@ -3095,7 +3094,7 @@ def gust_episode(n_steps: int, dev, graph: bool = True):
         plant = mr.step(veh, plant, fc.allocate(veh, u), 0.001, wind_world=wvel)
         return (plant, ws), (plant.pos,)
 
-    run = tick_episode(tick, lambda c: (c[0].pos,), n_steps * 10, dev, graph, "loop.gust")
+    run = tick_episode(tick, lambda c: (c[0].pos,), n_steps * 10, dev, graph)
     return run, lambda seed=0: (hover_plant(veh, (0.0, 0.0, 2.0), device=dev),
                                 wind_mod.init_wind(device=dev))
 

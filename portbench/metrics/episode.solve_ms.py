@@ -1,0 +1,11 @@
+"""episode.solve_ms: device ms per control step of the solve, the observation
+included. The mean over the stamped slice's calls of the port's marks
+``wb_loop.solve`` -> ``wb_loop.servo`` (``%globaltimer`` on the card,
+``stamped.py``); None where either mark is missing."""
+
+from portbench import stamped
+
+
+def read(ctx):
+    st = stamped.of(ctx)
+    return None if st is None else st.stage_ms("wb_loop.solve", "wb_loop.servo")

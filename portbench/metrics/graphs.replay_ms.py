@@ -1,0 +1,10 @@
+"""graphs.replay_ms: host ms per call in the port's span ``graphs.replay``: the
+graph's launch. The mean over the stamped slice's calls (host clock, no
+profiler; ``stamped.py``); None where the span is missing."""
+
+from portbench import stamped
+
+
+def read(ctx):
+    st = stamped.of(ctx)
+    return None if st is None else st.span_ms("graphs.replay")

@@ -146,7 +146,7 @@ def _near_hover_positions(veh, cmds: np.ndarray, dt: float, dev: torch.device) -
         plant = mr.step(veh, plant, cmd, dt)
         return plant, (plant.pos,)
 
-    run = tick_episode(tick, lambda plant: (plant.pos,), len(cmds), dev, label="parity.ticks")
+    run = tick_episode(tick, lambda plant: (plant.pos,), len(cmds), dev)
     _, (pos,) = run(hover_plant(veh, (0.0, 0.0, 2.0), device=dev),
                     z=torch.tensor(cmds, dtype=torch.float32, device=dev))
     return pos.cpu().numpy().astype(np.float64)

@@ -74,7 +74,7 @@ from ...ops.sampling import key_list as _key_list, philox_keys  # noqa: F401 (re
 from ...solver.mppi import (
     MPPIState, _diag_sigma, action_bounds, adapt_sigma, nominal_sequence, update_tail,
 )
-from ...utils import graphs
+from ...utils import graphs, profiling
 from ...utils import rotations as rot
 from ...utils import savgol
 from ...utils.device import device_const, resolve_device
@@ -697,11 +697,14 @@ def make_whole_body_cuda_step(params, device="cuda", group=None,
             z = torch.as_tensor(z, dtype=torch.float32, device=dev)
             sigma = sc[..., None, None, SC_SIGMA:SC_SIGMA + A_TOTAL]
             eps = (z * sigma).transpose(-1, -3).contiguous()
+        profiling.mark("solve.cost")
+        if eps is not None:
             s, m_part, e_part, eps = wb_cost(kc, sc, u_prev, eps)
         elif noise_spill:
             s, m_part, e_part, eps = wb_cost(kc, sc, u_prev, None, seeds, n, k_off)
         else:
             s, m_part, e_part = wb_cost_nospill(kc, sc, u_prev, seeds, n, k_off)
+        profiling.mark("solve.update")
         if group is None:
             if eps is not None:
                 du_rows, m2_rows = wb_update(kc, eps, s, m_part, e_part)
@@ -713,6 +716,8 @@ def make_whole_body_cuda_step(params, device="cuda", group=None,
                 du_rows, m2_rows = wb_update_shard(kc, eps, s, se)
             else:
                 du_rows, m2_rows = wb_update_shard_regen(kc, sc, s, se, seeds, n, k_off)
+        profiling.mark("solve.tail")
+        if group is not None:
             dist.all_reduce(du_rows, op=dist.ReduceOp.SUM, group=group)
         du = du_rows.view(lead + (A_TOTAL, h)).transpose(-1, -2)
         u, warm = update_tail(cfg, u_prev, du, smoother, lo, hi, nominal)

@@ -76,7 +76,7 @@ TICKS_PER_STEP = 10   # plant ticks per captured control step (100 Hz)
 
 
 def tick_episode(tick: Callable, log_like: Callable, n_ticks: int, device="cuda",
-                 graph: bool = True, label: str = "loop.ticks", draw: Optional[Callable] = None):
+                 graph: bool = True, draw: Optional[Callable] = None):
     """The rotorcraft scenarios' episode: ``n_ticks`` calls of ``tick(carry,
     i, noise) -> (carry, log_row)``, the JAX package's ``lax.scan`` of one
     tick.  ``i`` is the tick index, a () int32 device tensor counting from
@@ -115,7 +115,7 @@ def tick_episode(tick: Callable, log_like: Callable, n_ticks: int, device="cuda"
     def row_like(state):
         return tuple(x.expand((TICKS_PER_STEP,) + tuple(x.shape)) for x in log_like(state[0]))
 
-    run_steps = graphs.episode_runner(control_step, row_like, n_steps, dev, graph, label)
+    run_steps = graphs.episode_runner(control_step, row_like, n_steps, dev, graph)
 
     def run(carry: Any, z: Optional[torch.Tensor] = None, save_state: Optional[str] = None,
             resume: Optional[str] = None):
@@ -135,8 +135,7 @@ def tick_episode(tick: Callable, log_like: Callable, n_ticks: int, device="cuda"
 
 
 def perfect_model_episode(step: Callable, obs_of: Callable, plant_step: Callable,
-                          log_of: Callable, n_steps: int, device="cuda", graph: bool = True,
-                          label: str = "loop.perfect_model"):
+                          log_of: Callable, n_steps: int, device="cuda", graph: bool = True):
     """The perfect-model MPC loop: the plant is one step of the solver's
     own rollout model (mode-correct by construction).  Returns ``run((state0,
     solver0), z=None) -> ((state, solver), logs)``: per step, ``out, solver =
@@ -154,7 +153,7 @@ def perfect_model_episode(step: Callable, obs_of: Callable, plant_step: Callable
         return (state, solver), log_of(state)
 
     run = graphs.episode_runner(control_step, lambda carry: log_of(carry[0]), n_steps, dev,
-                                graph, label)
+                                graph)
 
     def go(carry: Any, z=None):
         state0, solver0 = carry

@@ -92,7 +92,7 @@ def hover_episode(n_steps: int, device="cuda", graph: bool = True, vehicle: str 
         return (plant, c), (plant.pos, plant.omega)
 
     run = tick_episode(tick, lambda c: (c[0].pos, c[0].omega), n_steps * TICKS_PER_STEP, dev,
-                       graph, "loop.hover")
+                       graph)
     return run, lambda seed=0: (hover_plant(veh, HOVER_START, device=dev),
                                 fc.init_ctrl_state(veh.mass, device=dev))
 
@@ -142,7 +142,7 @@ def figure_eight_episode(n_steps: int, device="cuda", graph: bool = True,
         return (plant, c), (torch.linalg.norm(plant.pos - p_ref), _tilt(plant))
 
     run = tick_episode(tick, lambda c: (c[0].pos[0], c[0].pos[0]), n_steps * TICKS_PER_STEP, dev,
-                       graph, "loop.figure_eight")
+                       graph)
     return run, lambda seed=0: (hover_plant(veh, (0.0, 0.0, FIG8_Z), device=dev),
                                 fc.init_ctrl_state(veh.mass, device=dev))
 
@@ -205,7 +205,7 @@ def disturbance_episode(n_steps: int, device="cuda", graph: bool = True):
         return sensors.normals(3 * TICKS_PER_STEP, carry[3], i).reshape(TICKS_PER_STEP, 3)
 
     run = tick_episode(tick, lambda c: (c[0].pos, c[0].omega), n_steps * TICKS_PER_STEP, dev,
-                       graph, "loop.disturbance", draw=draw)
+                       graph, draw=draw)
 
     def start(seed=0):
         return (hover_plant(veh, DISTURBANCE_TARGET, device=dev),
@@ -262,8 +262,7 @@ def mission_episode(n_steps: int, device="cuda", graph: bool = True,
                                         mission.land_cmd, mission.payload_attached)
 
     run = tick_episode(tick, lambda c: (c[0].pos, c[2].phase, c[0].pos[2], c[2].land_cmd,
-                                        c[2].payload_attached), n_ticks, dev, graph,
-                       "loop.mission")
+                                        c[2].payload_attached), n_ticks, dev, graph)
 
     def start(seed=0):
         # At rest on the extended gear (the feet at -gear_height).
@@ -342,8 +341,7 @@ def waypoint_file_episode(path: Optional[str] = None, device="cuda", graph: bool
             plant = mr.step(veh, plant, fc.allocate(veh, u), DT)
             return plant, (plant.pos, p_ref)
 
-        run = tick_episode(tick, lambda p: (p.pos, p.pos), n_ticks, dev, graph,
-                           "loop.waypoint_smooth")
+        run = tick_episode(tick, lambda p: (p.pos, p.pos), n_ticks, dev, graph)
 
         def start(seed=0):
             return hover_plant(veh, tuple(positions[0]), device=dev)
@@ -367,7 +365,7 @@ def waypoint_file_episode(path: Optional[str] = None, device="cuda", graph: bool
             plant = mr.step(veh, plant, fc.allocate(veh, u), DT)
             return (plant, yaw_cmd), (plant.pos,)
 
-        run = tick_episode(tick, lambda c: (c[0].pos,), n_ticks, dev, graph, "loop.waypoint")
+        run = tick_episode(tick, lambda c: (c[0].pos,), n_ticks, dev, graph)
 
         def start(seed=0):
             # The slewed yaw starts at the plant's yaw (0), not the first
@@ -445,7 +443,7 @@ def camera_survey_episode(n_steps: int, device="cuda", graph: bool = True):
         return (plant, ctrl, gim), (plant.pos, plant.quat, gim.angles, point_err)
 
     run = tick_episode(tick, lambda c: (c[0].pos, c[0].quat, c[2].angles, c[0].pos[0]),
-                       n_steps * TICKS_PER_STEP, dev, graph, "loop.camera_survey")
+                       n_steps * TICKS_PER_STEP, dev, graph)
 
     def start(seed=0):
         pos = (SURVEY_TARGET[0] + SURVEY_RADIUS, 0.0, SURVEY_ALT)

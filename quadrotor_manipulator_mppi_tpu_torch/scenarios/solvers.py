@@ -148,7 +148,7 @@ def whole_body_episode(params: wbs.WholeBodyMPPIParams, n_steps: int, device="cu
     run = perfect_model_episode(
         step, lambda st: wbs.WholeBodyObs(state=st, ee_target=obs0.ee_target,
                                           base_target=obs0.base_target),
-        plant_step, log_of, n_steps, dev, graph, "loop.whole_body")
+        plant_step, log_of, n_steps, dev, graph)
     return run, lambda seed: (obs0.state, init(seed))
 
 
@@ -191,7 +191,7 @@ def multirotor_episode(params: mm.MultirotorMPPIParams, target, n_steps: int, de
 
     run = perfect_model_episode(
         step, lambda st: mm.MultirotorObs(state=st, target=tgt), plant_step,
-        lambda st: (torch.linalg.norm(st.pos - tgt),), n_steps, dev, graph, "loop.multirotor")
+        lambda st: (torch.linalg.norm(st.pos - tgt),), n_steps, dev, graph)
 
     def start(seed):
         zero = torch.zeros(3, device=dev)
@@ -247,7 +247,7 @@ def fixed_wing_episode(params: fw_solver.FwMPPIParams, n_steps: int, device="cud
         return (plant, sol), (plant.pos, torch.linalg.norm(plant.vel))
 
     run = graphs.episode_runner(control_step, lambda c: (c[0].pos, c[0].pos[0]), n_steps, dev,
-                                graph, "loop.fixed_wing")
+                                graph)
 
     def start(seed):
         plant = fw.init_state(pos=(0.0, 0.0, 100.0), vel=(FW_CRUISE, 0.0, 0.0), device=dev)

@@ -149,7 +149,7 @@ def make_arm_episode(
         return nxt, (q, out.ee_target_err, tau)
 
     episode = graphs.episode_runner(control_step, lambda s: (s.q, s.t, s.q), n_control_steps,
-                                    dev, graph, "arm_loop.step")
+                                    dev, graph)
 
     def run(state: ArmLoopState, z: Optional[Tensor] = None):
         if z is not None:

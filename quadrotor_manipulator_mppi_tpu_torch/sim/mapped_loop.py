@@ -162,5 +162,5 @@ def make_mapped_episode(cfg: MappedFlightConfig, params: mapped_solver.MappedMPP
     control_step = make_mapped_control_step(cfg, params, vehicle, gains, dev)
     run = graphs.episode_runner(lambda state, _: control_step(state),
                                 lambda state: (state.plant.pos, state.plant.pos[0]),
-                                n_control_steps, dev, graph, "loop.mapped")
+                                n_control_steps, dev, graph)
     return lambda state: run(state)

@@ -48,7 +48,6 @@ from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..models import chain as chain_mod
 from ..models import kinova
@@ -60,7 +59,7 @@ from ..models.rigid_body import InertialParams
 from ..models.whole_body import WholeBodyState, _base_rollout_position, arm_gravity_torque_fast
 from ..solver import whole_body as wbs
 from ..solver.mppi import device_counters
-from ..utils import graphs
+from ..utils import graphs, profiling
 from ..utils import rotations as rot
 from ..utils.device import device_const, resolve_device
 from ..utils.pose import Pose
@@ -445,77 +444,78 @@ def make_whole_body_episode(
     def control_step(carry, z: Optional[Tensor]):
         plant, solver, ee_target, base_target = carry[:4]
         obj = carry[4] if graspable is not None else None
-        # The record_function ranges name the step's parts for a profiler
-        # of the eager loop; a graph replays them as one range per step.
+        # The stage marks (utils.profiling) name the step's parts, inside a
+        # captured step too; each part runs from its mark to the next.
+        profiling.mark("wb_loop.solve")
         state = observe(plant)
-        with record_function("wb_loop.solve"):
-            out, solver = step(solver, wbs.WholeBodyObs(state=state, ee_target=ee_target,
-                                                        base_target=base_target), z)
-        with record_function("wb_loop.servo"):
-            qdes = out.qdes
-            if tube_radius > 0.0 and tube_gain > 0.0:
-                qdes = tube_servo(plant, ee_target, qdes)
-            # Never command beyond the joint stops.
-            qdes = torch.minimum(torch.maximum(qdes, device_const(spec.lower, qdes)),
-                                 device_const(spec.upper, qdes))
+        out, solver = step(solver, wbs.WholeBodyObs(state=state, ee_target=ee_target,
+                                                    base_target=base_target), z)
 
-        with record_function("wb_loop.arm_dynamics"):
-            # Arm torque: track the setpoint (the reference's phase-2 law).
-            base_rot = rot.quat_to_matrix(plant.base.quat)
-            if cfg.arm_coeffs_per_control:
-                dyn = rb.frozen_arm_coeffs(spec, inertials, plant.q)
-                m = dyn.mass
-                nle = rb.frozen_nle(dyn, rb.gravity_accel(base_rot, plant.q.dtype), plant.qdot)
-            else:
-                m = rb.mass_matrix(spec, inertials, plant.q)
-                nle = rb.nonlinear_effects(spec, inertials, plant.q, plant.qdot,
-                                           base_rot=base_rot)
-                dyn = torch.linalg.cholesky_ex(m).L if cfg.mass_matrix_per_control else None
-            tau_arm = _mv(m, cfg.track_kp * (qdes - plant.q) - cfg.track_kd * plant.qdot) + nle
-            effort = device_const(spec.effort, tau_arm)
-            tau_arm = torch.minimum(torch.maximum(tau_arm, -effort), effort)
+        profiling.mark("wb_loop.servo")
+        qdes = out.qdes
+        if tube_radius > 0.0 and tube_gain > 0.0:
+            qdes = tube_servo(plant, ee_target, qdes)
+        # Never command beyond the joint stops.
+        qdes = torch.minimum(torch.maximum(qdes, device_const(spec.lower, qdes)),
+                             device_const(spec.upper, qdes))
 
-        with record_function("wb_loop.carrot"):
-            if mode == "position":
-                # Smooth carrot: the model's predicted position a short
-                # lookahead along the updated plan.
-                pred = _base_rollout_position(params.model, state,
-                                              out.u_seq[..., None, :, :4],
-                                              cfg.substeps * cfg.physics_dt)
-                base_cmd = torch.cat([pred.pos[..., 0, lookahead, :], out.action[..., 3:4]],
-                                     dim=-1)
-            else:
-                base_cmd = out.action[..., :4]
+        profiling.mark("wb_loop.arm_dynamics")
+        # Arm torque: track the setpoint (the reference's phase-2 law).
+        base_rot = rot.quat_to_matrix(plant.base.quat)
+        if cfg.arm_coeffs_per_control:
+            dyn = rb.frozen_arm_coeffs(spec, inertials, plant.q)
+            m = dyn.mass
+            nle = rb.frozen_nle(dyn, rb.gravity_accel(base_rot, plant.q.dtype), plant.qdot)
+        else:
+            m = rb.mass_matrix(spec, inertials, plant.q)
+            nle = rb.nonlinear_effects(spec, inertials, plant.q, plant.qdot,
+                                       base_rot=base_rot)
+            dyn = torch.linalg.cholesky_ex(m).L if cfg.mass_matrix_per_control else None
+        tau_arm = _mv(m, cfg.track_kp * (qdes - plant.q) - cfg.track_kd * plant.qdot) + nle
+        effort = device_const(spec.effort, tau_arm)
+        tau_arm = torch.minimum(torch.maximum(tau_arm, -effort), effort)
+
+        profiling.mark("wb_loop.carrot")
+        if mode == "position":
+            # Smooth carrot: the model's predicted position a short
+            # lookahead along the updated plan.
+            pred = _base_rollout_position(params.model, state,
+                                          out.u_seq[..., None, :, :4],
+                                          cfg.substeps * cfg.physics_dt)
+            base_cmd = torch.cat([pred.pos[..., 0, lookahead, :], out.action[..., 3:4]],
+                                 dim=-1)
+        else:
+            base_cmd = out.action[..., :4]
 
         ext_wrench_b = None
         if external:
-            with record_function("wb_loop.contact"):
-                ext_wrench_b, tau_arm, obj = external_wrench(plant, obj, tau_arm, effort)
+            profiling.mark("wb_loop.contact")
+            ext_wrench_b, tau_arm, obj = external_wrench(plant, obj, tau_arm, effort)
 
-        with record_function("wb_loop.tick"):
-            if cfg.plant_kernel:
-                plant = pk.unpack_plant(plant_tick(pk.pack_plant(plant), pk.pack_dyn(dyn),
-                                                   base_cmd, tau_arm))
-            else:
-                for _ in range(cfg.substeps):
-                    plant = physics_tick(physics, plant, base_cmd, tau_arm, dyn, ext_wrench_b)
+        profiling.mark("wb_loop.tick")
+        if cfg.plant_kernel:
+            plant = pk.unpack_plant(plant_tick(pk.pack_plant(plant), pk.pack_dyn(dyn),
+                                               base_cmd, tau_arm))
+        else:
+            for _ in range(cfg.substeps):
+                plant = physics_tick(physics, plant, base_cmd, tau_arm, dyn, ext_wrench_b)
 
-        with record_function("wb_loop.logs"):
-            # One FK of the measured q and the commanded qdes together.
-            pos2, quat2 = chain_mod.forward_kinematics_posquat(
-                spec, torch.stack([plant.q, qdes]), base_pos=plant.base.pos,
-                base_quat=plant.base.quat)
-            d_pos = pos2 - ee_target.position
-            qe = rot.quat_multiply(ee_target.quat, rot.quat_conjugate(quat2[0]))
-            log = WholeBodyLog(
-                ee_err=torch.linalg.norm(d_pos[0], dim=-1),
-                base_pos=plant.base.pos,
-                tilt=torch.linalg.norm(cl.rpy_of(plant.base)[..., :2], dim=-1),
-                l1_cmd=d_pos[1].abs().sum(dim=-1),
-                l1_meas=d_pos[0].abs().sum(dim=-1),
-                ori_err=2.0 * torch.arccos(qe[..., 0].abs().clamp(0.0, 1.0)),
-                obj_pos=obj.pos if graspable is not None else torch.zeros_like(plant.base.pos),
-            )
+        profiling.mark("wb_loop.logs")
+        # One FK of the measured q and the commanded qdes together.
+        pos2, quat2 = chain_mod.forward_kinematics_posquat(
+            spec, torch.stack([plant.q, qdes]), base_pos=plant.base.pos,
+            base_quat=plant.base.quat)
+        d_pos = pos2 - ee_target.position
+        qe = rot.quat_multiply(ee_target.quat, rot.quat_conjugate(quat2[0]))
+        log = WholeBodyLog(
+            ee_err=torch.linalg.norm(d_pos[0], dim=-1),
+            base_pos=plant.base.pos,
+            tilt=torch.linalg.norm(cl.rpy_of(plant.base)[..., :2], dim=-1),
+            l1_cmd=d_pos[1].abs().sum(dim=-1),
+            l1_meas=d_pos[0].abs().sum(dim=-1),
+            ori_err=2.0 * torch.arccos(qe[..., 0].abs().clamp(0.0, 1.0)),
+            obj_pos=obj.pos if graspable is not None else torch.zeros_like(plant.base.pos),
+        )
         new_carry = (plant, solver, ee_target, base_target)
         return (new_carry + (obj,) if graspable is not None else new_carry), log
 
@@ -544,7 +544,7 @@ def make_whole_body_episode(
             f: torch.zeros((n_control_steps,) + lead + ((3,) if f in _VECTOR_LOGS else ()),
                            dtype=carry[0].base.pos.dtype, device=dev)
             for f in WholeBodyLog._fields})
-        carry, logs = graphs.run_episode(load, carry, z, logs, n_control_steps, "wb_loop.step")
+        carry, logs = graphs.run_episode(load, carry, z, logs, n_control_steps)
         return carry, WholeBodyLog(*(buf.movedim(0, 1) if lead else buf for buf in logs))
 
     def run(plant: WholeBodyPlant, solver, ee_target: Pose, base_target: Tensor,

@@ -38,7 +38,7 @@ from ..models.multirotor import Multirotor12State
 from ..models.whole_body import WholeBodyState
 from ..utils import rotations as rot
 from ..ops.sampling import philox_keys
-from ..utils import graphs
+from ..utils import graphs, profiling
 from ..utils.device import resolve_device
 from ..utils.pose import Pose
 from . import whole_body as wbs
@@ -81,7 +81,10 @@ def _graphed_call(solve, dev):
         if z is not None:
             z = torch.as_tensor(z, dtype=torch.float32)
         g = load(carry, *vecs, z)
-        return g.replay().clone(), g.args[0]
+        out = g.replay()
+        with profiling.span("serving.reply"):
+            reply = out.clone()
+        return reply, g.args[0]
 
     return call
 

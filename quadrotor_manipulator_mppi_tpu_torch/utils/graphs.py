@@ -33,6 +33,12 @@ copies of its arguments, and replays it: one launch of the host's per call.
   launches nothing: they are taken back off the counters, and added to
   them again on every replay.  Another thread's launches during the
   capture count as that thread's.
+* With a tracer installed (``utils.profiling.tracing``) a capture holds
+  the marks ``graph.begin`` before ``fn`` and ``graph.end`` after it, the
+  warm-up and the capture run in the span ``graphs.capture`` (counted in
+  the tracer's ``captures`` and ``capture_s``), and :meth:`GraphedStep.load`
+  and :meth:`GraphedStep.replay` run in the spans ``graphs.load`` and
+  ``graphs.replay``.  Without one, the graph holds ``fn``'s nodes alone.
 
 :func:`episode_step` and :func:`run_episode` are the episode runner the
 whole-body, drone and arm episodes share: one control step captured on the
@@ -45,10 +51,12 @@ fixed-wing, mapped flight).
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Callable, Dict
 
 import torch
-from torch.profiler import record_function
+
+from . import profiling
 
 Tensor = torch.Tensor
 
@@ -116,6 +124,17 @@ class GraphedStep:
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, got {device}")
+        # The graph's marks write into this tracer's ring: it lives as long.
+        self._tracer = tracer = profiling.current()
+        t0 = time.perf_counter()
+        with profiling.span("graphs.capture"):
+            self._capture(fn if tracer is None else _stamped(fn), device, args, warmup,
+                          capture_error_mode)
+        if tracer is not None:
+            tracer.captures += 1
+            tracer.capture_s += time.perf_counter() - t0
+
+    def _capture(self, fn, device, args, warmup: int, capture_error_mode: str) -> None:
         self.args = clone_tree(args, device)
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
@@ -148,18 +167,31 @@ class GraphedStep:
 
     def load(self, *args) -> "GraphedStep":
         """Copy ``args`` (the capture's structure) into the static buffers."""
-        if shapes(args) != shapes(self.args):
-            raise ValueError(f"this graph was captured for {shapes(self.args)}, "
-                             f"got {shapes(args)}")
-        copy_into(self.args, args)
+        with profiling.span("graphs.load"):
+            if shapes(args) != shapes(self.args):
+                raise ValueError(f"this graph was captured for {shapes(self.args)}, "
+                                 f"got {shapes(args)}")
+            copy_into(self.args, args)
         return self
 
     def replay(self) -> Any:
         """Replay the graph once; returns :attr:`out`."""
-        self.graph.replay()
+        with profiling.span("graphs.replay"):
+            self.graph.replay()
         for w, n in self._per_replay:
             w.launches += n
         return self.out
+
+
+def _stamped(fn: Callable[..., Any]) -> Callable[..., Any]:
+    """``fn`` between the marks ``graph.begin`` and ``graph.end``."""
+    def stamped(*args):
+        profiling.mark("graph.begin")
+        out = fn(*args)
+        profiling.mark("graph.end")
+        return out
+
+    return stamped
 
 
 def graphed(fn: Callable[..., Any], device, warmup: int = 2,
@@ -215,7 +247,7 @@ def episode_step(control_step: Callable[[Any, Any], tuple]) -> Callable[..., Non
 
 
 def run_episode(load: Callable[..., GraphedStep], carry: Any, z: Any, logs: Any,
-                n_steps: int, label: str = "episode.step") -> tuple:
+                n_steps: int) -> tuple:
     """Replay the graph of ``episode_step`` (``load = graphed(one_step,
     device)``) ``n_steps`` times from ``carry``, the logs written into the
     preallocated ``logs`` buffers.  Returns copies of the final carry and of
@@ -224,14 +256,13 @@ def run_episode(load: Callable[..., GraphedStep], carry: Any, z: Any, logs: Any,
     index = torch.zeros(1, dtype=torch.int64, device=logs[0].device)
     g = load(carry, z, index, logs)
     for _ in range(n_steps):
-        with record_function(label):
-            g.replay()
+        g.replay()
     carry, _, _, logs = g.args
     return clone_tree(carry), clone_tree(logs)
 
 
 def episode_runner(control_step: Callable[[Any, Any], tuple], row_like: Callable[[Any], tuple],
-                   n_steps: int, device, graph: bool = True, label: str = "loop.step"):
+                   n_steps: int, device, graph: bool = True):
     """``run(carry, z=None) -> (final carry, logs)``: ``n_steps`` calls of
     ``control_step(carry, z_i) -> (carry, log_row)``, each log field stacked
     over the steps; ``row_like(carry)`` gives one row's tensors, whose
@@ -249,7 +280,7 @@ def episode_runner(control_step: Callable[[Any, Any], tuple], row_like: Callable
         if load is not None:
             logs = tuple(torch.zeros((n_steps,) + tuple(x.shape), dtype=x.dtype, device=dev)
                          for x in row_like(carry))
-            return run_episode(load, carry, z, logs, n_steps, label)
+            return run_episode(load, carry, z, logs, n_steps)
         rows = []
         for i in range(n_steps):
             carry, row = control_step(carry, None if z is None else z[i])
