@@ -11,6 +11,7 @@ the URDF loader with the matrix FK).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 10,26   # the build, then phases 10 and 26 alone
+    python3 chip_smoke.py --phases 27      # the prologue kernel alone
 
 Needs one CUDA card and ``nvcc``; builds the kernels from ``csrc/`` at
 first use, one ``nvcc`` per source, all at once.  Phases (each prints its
@@ -221,6 +222,11 @@ lines; any failure exits non-zero before the final ``ok`` line):
    kernel; (d) the same callers on the default backend launch rows 1 and 3
    once per call plus the capture's 2 warm-up calls, beside the counts of
    phases 4, 23 and 25;
+27. ``wb_prologue`` (the scalar pack with the sigma schedule's FK, one
+   thread per scenario) against its plain version (the schedule and
+   ``pack_scalars`` in PyTorch) at B=1 and B=256 in the attitude and wrench
+   presets: the packs equal, CUDA-event and CUDA-graph ms of both, the
+   launch floor beside them;
 then one ``kernels`` JSON line (rows 4-5 at B=256, rows 6-7 at K_local,
 rows 9a-9b at K=1000 and 9c-9d at K=1024: the shapes of the runs that
 count their launches; each ``wb_update`` row with the R it used and its
@@ -801,6 +807,7 @@ def phase_serving(dev):
 # the launches the capture recorded, added per replay) against the kernels
 # the device ran.
 KERNEL_FAMILIES = {
+    "wb_prologue_kernel": (wk.wb_prologue,),
     "wb_cost_kernel<": (wk.wb_cost, wk.wb_cost_nospill),
     "wb_update_kernel<": (wk.wb_update, wk.wb_update_regen, wk.wb_update_shard,
                           wk.wb_update_shard_regen),
@@ -2117,10 +2124,11 @@ def phase_sharded(dev):
         fail("the sharded solve disagrees with the one-rank solve or its collective count")
     if any(v["rel"] > TOL_UPDATE for res in results.values() for v in res["kernel_err"].values()):
         fail("a sharded pass-2 kernel disagrees with its plain version")
-    if r0["launches"] != {"wb_cost": N_SHARD_SOLVES, "wb_update_shard": N_SHARD_SOLVES,
-                          "wb_cost_nospill": N_SHARD_SOLVES,
+    if r0["launches"] != {"wb_prologue": N_SHARD_SOLVES, "wb_cost": N_SHARD_SOLVES,
+                          "wb_update_shard": N_SHARD_SOLVES, "wb_cost_nospill": N_SHARD_SOLVES,
                           "wb_update_shard_regen": N_SHARD_SOLVES}:
-        fail(f"the sharded solve did not run through rows 1+7 and 4+6: {r0['launches']}")
+        fail(f"the sharded solve did not run through the prologue and rows 1+7 and 4+6: "
+             f"{r0['launches']}")
     r0["kernel_err_all_ranks"] = {
         k: max(res["kernel_err"][k]["abs"] for res in results.values()) for k in r0["kernel_err"]}
     return r0
@@ -4079,6 +4087,14 @@ def phase_offline(dev, errs, serving_ms: float, survey_log: dict) -> dict:
               f"phase 4's graphed serving solve {serving_ms:.4f} ms", flush=True)
         if tf["n"] != N_TIME_FN:
             fail("time_fn did not time the collector's step")
+        # CUPTI can leave the first graph launches of a profiler session
+        # untraced (on the H100, this late in the run: the first 2 of these
+        # 5 short replays, in some sessions).  A first session with one
+        # replay, as portbench's traced slice opens, takes that loss.
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]):
+            step(state, rows[-1])
+            sync()
         reset_counts()
         with profiling.trace(os.path.join(tmp, "trace"), device=dev) as trace_path:
             for _ in range(N_TRACED):
@@ -4289,6 +4305,40 @@ def phase_backends(dev, errs, earlier=None) -> dict:
     return out
 
 
+def phase_prologue(dev, errs) -> dict:
+    """Phase 27: ``wb_prologue`` against its plain version at one scenario
+    (the default observation) and at B=256 (``scenario_obs``), in the
+    attitude and wrench presets: every element of the pack (relative
+    1e-6), and the device ms of both, by CUDA events and by CUDA-graph
+    replay, beside the launch floor."""
+    floor = launch_floor_ms()
+    out = {}
+    for mode in ("attitude", "wrench"):
+        cfg = presets()[mode].mppi
+        pc = wk.make_prologue_config(cfg)
+        sigma = mppi._diag_sigma(cfg, device=dev)
+        for b in (1, B_BATCH):
+            obs = wb.default_obs(device=dev) if b == 1 else scenario_obs(dev, b)
+            got = wk.wb_prologue(pc, obs, sigma)
+            want = wk.wb_prologue_plain(pc, obs, sigma)
+            sync()
+            err = ((got - want).abs() / want.abs().clamp(min=1e-30)).max().item()
+            equal = torch.equal(got, want)
+            errs["wb_prologue"] = max(errs.get("wb_prologue", 0.0), err)
+            t = {"kernel_event_ms": event_ms(lambda: wk.wb_prologue(pc, obs, sigma)),
+                 "kernel_graph_ms": graph_ms(lambda: wk.wb_prologue(pc, obs, sigma)),
+                 "plain_event_ms": event_ms(lambda: wk.wb_prologue_plain(pc, obs, sigma)),
+                 "plain_graph_ms": graph_ms(lambda: wk.wb_prologue_plain(pc, obs, sigma))}
+            out[(mode, b)] = {"max_rel_err": err, "bit_equal": equal, **t}
+            print(f"[27] wb_prologue {mode} B={b}: max rel err {err:.2e} (bit-equal {equal}) | "
+                  f"kernel {t['kernel_event_ms']:.4f} ms events, {t['kernel_graph_ms']:.4f} "
+                  f"graph | plain {t['plain_event_ms']:.4f} events, {t['plain_graph_ms']:.4f} "
+                  f"graph | launch floor {floor:.4f}", flush=True)
+            if not err <= 1e-6:
+                fail(f"wb_prologue {mode} B={b}: {err:.2e} from its plain version")
+    return out
+
+
 def reach_sweep(mode: str, seeds) -> None:
     """``--reach MODE --seeds ...``: phase 7 alone, for one mode on any
     seeds; prints one JSON line of the per-seed metrics and exits non-zero
@@ -4298,7 +4348,8 @@ def reach_sweep(mode: str, seeds) -> None:
 
 
 SELECTABLE = {"10": lambda dev, errs: phase_sharded(dev),
-              "26": lambda dev, errs: phase_backends(dev, errs)}
+              "26": lambda dev, errs: phase_backends(dev, errs),
+              "27": phase_prologue}
 
 
 def run_selected(names) -> None:
@@ -4387,6 +4438,7 @@ def main() -> None:
     offline = lap("25", phase_offline, dev, errs, solve_ms["graphed"], camera["survey_log"])
     backends = lap("26", phase_backends, dev, errs, {
         "4": launches, "23": bridge_out["whole-body"]["launches"], "25": offline["launches"]})
+    lap("27", phase_prologue, dev, errs)
     print("[t] wall s per phase: " + ", ".join(f"{n} {w:.1f}" for n, w in walls)
           + f" | total {sum(w for _, w in walls):.1f}", flush=True)
     b256 = {(b, spill): e_ms for b, spill, _, e_ms, _, _, _ in batch_rows}

@@ -7,6 +7,10 @@
 //       DRAW, STORE   <- _cost_kernel_store (in-kernel PRNG, noise spilled)
 //       DRAW, !STORE  <- _cost_kernel (in-kernel PRNG, no spill)
 //       !DRAW         <- _cost_kernel_noise (explicit noise)
+//   wb_prologue, before pass 1: the solve's scalar pack from the
+//     observation, the live sigma and the sigma schedule's 7-joint FK.  It
+//     replaces no TPU kernel: under jit, XLA fuses the JAX step's prologue;
+//     the port's eager PyTorch ran it as ~640 small kernels.
 //   wb_update<REGEN, GIVEN>, pass 2: softmin weights, the weighted noise
 //     sum du and the weighted second moment for adaptive sigma, per row.
 //       !REGEN, !GIVEN <- _update_kernel_fused_noise / _fused_update_body
@@ -115,6 +119,7 @@
 #define WB_BLOCK 16          // samples per softmin partial = warps per wb_cost block
 #define WB_SCAN 5            // scan powers per step map in the parameter struct
 #define WB_UPDATE_THREADS 256
+#define WB_PROLOGUE_THREADS 128  // threads per wb_prologue block, one scenario each
 
 static_assert(WB_SCAN == WARP_SCAN, "one power per warp-scan step");
 
@@ -769,6 +774,177 @@ wb_update_kernel(const float* __restrict__ eps, const float* __restrict__ s,
   }
 }
 
+// ---------------------------------------------------------------------------
+// wb_prologue: the scalar pack, the sigma schedule's FK included
+// ---------------------------------------------------------------------------
+//
+// What bounds it: one scenario is one dependent chain (the base attitude,
+// then seven joints of FK, each a sincos, a rotation and a quaternion
+// product, then a norm), ~600 float operations and 20 sincos; it reads 47
+// floats and writes 54.  Neither bytes nor operations bound it at any
+// batch: the chain's latency does, a few microseconds.  What the design
+// does about it: one thread per scenario, so B=1 and B=256 run one body
+// and the kernel is one graph node where the PyTorch prologue was ~640.
+// Every product and sum is rounded on its own (__fmul_rn, __fadd_rn, no
+// FMA contraction), in the order of the PyTorch code it replaces
+// (models/whole_body._quat_from_rpy, models/chain.forward_kinematics_posquat,
+// solver/whole_body.ee_error_sigma_schedule, pack_scalars), each op as that
+// code's CUDA kernel rounds it: a scalar divisor is a multiply by its
+// reciprocal, torch.linalg.cross contracts one product into an FMA, and
+// torch.linalg.norm sums its squares in the reduction's tree order (each
+// pattern read off PyTorch's own results on the H100).  So the
+// pack equals the PyTorch prologue's on the card, and a solve does not
+// change with the path that packed its scalars.
+
+// The observation fields wb_prologue reads (WbPrologueArgs.field), in
+// this order.
+enum { PRO_Q, PRO_QD, PRO_POS, PRO_VEL, PRO_TPOS, PRO_TQUAT, PRO_BTGT, PRO_SIGMA, PRO_RPY,
+       PRO_OM, PRO_N };
+
+// Must match the ctypes Structure WbPrologueArgs: each field's rows and
+// the floats between two scenarios' rows (0: one row for every scenario).
+struct WbPrologueArgs {
+  const float* field[PRO_N];
+  long long stride[PRO_N];
+};
+
+// Must match the ctypes Structure WbSchedule (every field 4 bytes).
+// kind 0: no schedule (sigma as given); 1: clip(|p_ee - p*| / r0, floor,
+// 1), the base channels clipped at base_floor instead where base_floor_set.
+struct WbSchedule {
+  int kind, base_floor_set;
+  float inv_r0, floor, base_floor;
+  float oq[WB_J][4];  // the schedule chain's joint-origin quaternions (wxyz)
+  float ot[WB_J][3];  // and translations
+};
+
+__device__ __forceinline__ float mul_(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add_(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub_(float a, float b) { return __fsub_rn(a, b); }
+
+// One component of torch.linalg.cross: a*b - c*d with c*d rounded first
+// and a*b fused into the subtraction.
+__device__ __forceinline__ float cross_term(float a, float b, float c, float d) {
+  return __fmaf_rn(a, b, -mul_(c, d));
+}
+
+__device__ __forceinline__ void cross_rn(const float* u, const float* v, float* out) {
+  out[0] = cross_term(u[1], v[2], u[2], v[1]);
+  out[1] = cross_term(u[2], v[0], u[0], v[2]);
+  out[2] = cross_term(u[0], v[1], u[1], v[0]);
+}
+
+// torch.clamp: NaN passes through.
+__device__ __forceinline__ float clamp_(float x, float lo, float hi) {
+  return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
+}
+
+__global__ void __launch_bounds__(WB_PROLOGUE_THREADS)
+wb_prologue_kernel(const WbSchedule s, const WbPrologueArgs a, float* __restrict__ sc,
+                   int n_scen) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= n_scen) return;
+  const float* f[PRO_N];
+#pragma unroll
+  for (int i = 0; i < PRO_N; ++i) f[i] = a.field[i] + a.stride[i] * b;
+  float* out = sc + (size_t)b * SC_LEN;
+
+  // The base attitude qz(yaw) qy(pitch) qx(roll).
+  float cs[3], sn[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float half = mul_(0.5f, f[PRO_RPY][i]);
+    cs[i] = cosf(half);
+    sn[i] = sinf(half);
+  }
+  const float cr = cs[0], sr = sn[0], cp = cs[1], sp = sn[1], cy = cs[2], sy = sn[2];
+  const Quat bq{add_(mul_(mul_(cy, cp), cr), mul_(mul_(sy, sp), sr)),
+                sub_(mul_(mul_(cy, cp), sr), mul_(mul_(sy, sp), cr)),
+                add_(mul_(mul_(cy, sp), cr), mul_(mul_(sy, cp), sr)),
+                sub_(mul_(mul_(sy, cp), cr), mul_(mul_(cy, sp), sr))};
+
+  // Base-frame gravity: -9.81 times the last row of the normalized
+  // attitude's rotation matrix.  The norm's tree: (w^2 + y^2) + (x^2 + z^2).
+  const float n4 = sqrtf(add_(add_(mul_(bq.w, bq.w), mul_(bq.y, bq.y)),
+                              add_(mul_(bq.x, bq.x), mul_(bq.z, bq.z))));
+  const float nrm = clamp_(n4, 1e-12f, CUDART_INF_F);
+  const float qw = __fdiv_rn(bq.w, nrm), qx = __fdiv_rn(bq.x, nrm), qy = __fdiv_rn(bq.y, nrm),
+              qz = __fdiv_rn(bq.z, nrm);
+  const float g_b[3] = {
+      mul_(-9.81f, mul_(2.0f, sub_(mul_(qx, qz), mul_(qw, qy)))),
+      mul_(-9.81f, mul_(2.0f, add_(mul_(qy, qz), mul_(qw, qx)))),
+      mul_(-9.81f, sub_(1.0f, mul_(2.0f, add_(mul_(qx, qx), mul_(qy, qy)))))};
+
+  float sigma[WB_A];
+#pragma unroll
+  for (int i = 0; i < WB_A; ++i) sigma[i] = f[PRO_SIGMA][i];
+  if (s.kind == 1) {
+    // The tip of the schedule's chain, composed from the base pose.
+    Quat tq = bq;
+    float tp[3] = {f[PRO_POS][0], f[PRO_POS][1], f[PRO_POS][2]};
+#pragma unroll
+    for (int j = 0; j < WB_J; ++j) {
+      // t_pos += rotate(t_quat, ot_j) = ot_j + 2 (w (u x ot_j) + u x (u x ot_j))
+      const float u[3] = {tq.x, tq.y, tq.z};
+      float uv[3], uuv[3];
+      cross_rn(u, s.ot[j], uv);
+      cross_rn(u, uv, uuv);
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        tp[i] = add_(tp[i], add_(s.ot[j][i], mul_(2.0f, add_(mul_(tq.w, uv[i]), uuv[i]))));
+      // t_quat = t_quat oq_j (cos(q/2), 0, 0, sin(q/2))
+      const float half = mul_(0.5f, f[PRO_Q][j]);
+      const float c = cosf(half), sh = sinf(half);
+      const float* o = s.oq[j];
+      const Quat jq{sub_(mul_(o[0], c), mul_(o[3], sh)), add_(mul_(o[1], c), mul_(o[2], sh)),
+                    sub_(mul_(o[2], c), mul_(o[1], sh)), add_(mul_(o[0], sh), mul_(o[3], c))};
+      tq = Quat{sub_(sub_(sub_(mul_(tq.w, jq.w), mul_(tq.x, jq.x)), mul_(tq.y, jq.y)),
+                     mul_(tq.z, jq.z)),
+                sub_(add_(add_(mul_(tq.w, jq.x), mul_(tq.x, jq.w)), mul_(tq.y, jq.z)),
+                     mul_(tq.z, jq.y)),
+                add_(add_(sub_(mul_(tq.w, jq.y), mul_(tq.x, jq.z)), mul_(tq.y, jq.w)),
+                     mul_(tq.z, jq.x)),
+                add_(sub_(add_(mul_(tq.w, jq.z), mul_(tq.x, jq.y)), mul_(tq.y, jq.x)),
+                     mul_(tq.z, jq.w))};
+    }
+    float e[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) e[i] = sub_(tp[i], f[PRO_TPOS][i]);
+    // torch.linalg.norm's tree over two threads: (e0^2 + e2^2) + e1^2.
+    const float d = sqrtf(add_(add_(mul_(e[0], e[0]), mul_(e[2], e[2])), mul_(e[1], e[1])));
+    const float x = mul_(d, s.inv_r0);
+    const float s_arm = clamp_(x, s.floor, 1.0f);
+    const float s_base = s.base_floor_set ? clamp_(x, s.base_floor, 1.0f) : s_arm;
+#pragma unroll
+    for (int i = 0; i < WB_A; ++i) sigma[i] = mul_(sigma[i], i < 4 ? s_base : s_arm);
+  }
+
+  // The pack, in SC_* order.
+#pragma unroll
+  for (int i = 0; i < WB_J; ++i) {
+    out[SC_Q0 + i] = f[PRO_Q][i];
+    out[SC_QD0 + i] = f[PRO_QD][i];
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    out[SC_POS0 + i] = f[PRO_POS][i];
+    out[SC_VEL0 + i] = f[PRO_VEL][i];
+    out[SC_TPOS + i] = f[PRO_TPOS][i];
+    out[SC_BTGT + i] = f[PRO_BTGT][i];
+    out[SC_RPY0 + i] = f[PRO_RPY][i];
+    out[SC_OM0 + i] = f[PRO_OM][i];
+    out[SC_GB + i] = g_b[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) out[SC_TQUAT + i] = f[PRO_TQUAT][i];
+  out[SC_BQ0] = bq.w;
+  out[SC_BQ0 + 1] = bq.x;
+  out[SC_BQ0 + 2] = bq.y;
+  out[SC_BQ0 + 3] = bq.z;
+#pragma unroll
+  for (int i = 0; i < WB_A; ++i) out[SC_SIGMA + i] = sigma[i];
+}
+
 // Dynamic shared memory above the default 48 KB must be opted into, per
 // kernel: a long horizon's warm start (up to 227 KB a block on the H100,
 // less the kernel's static share).  A failure shows in the launch's error.
@@ -866,6 +1042,16 @@ int wb_update_launch(const float* eps, const float* s, const float* m_part,
   }
 #undef WB_UPDATE_VARIANT
 #undef WB_UPDATE_CASE
+  return (int)cudaGetLastError();
+}
+
+// The scalar packs sc (n_scen x SC_LEN) of n_scen scenarios, one thread
+// each.  Returns cudaGetLastError() after the launch.
+int wb_prologue_launch(const WbSchedule* s, const WbPrologueArgs* a, float* sc, int n_scen,
+                       void* stream) {
+  const int blocks = (n_scen + WB_PROLOGUE_THREADS - 1) / WB_PROLOGUE_THREADS;
+  wb_prologue_kernel<<<blocks, WB_PROLOGUE_THREADS, 0, (cudaStream_t)stream>>>(
+      *s, *a, sc, n_scen);
   return (int)cudaGetLastError();
 }
 

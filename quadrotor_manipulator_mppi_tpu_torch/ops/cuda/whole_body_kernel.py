@@ -2,8 +2,12 @@
 
 Port of the JAX package's ``ops/pallas/whole_body_kernel.py``: its
 single-device, sample-sharded and (through a scenario axis, its ``vmap``)
-batched paths.  Per solve, two launches of ``csrc/whole_body_kernel.cu``:
+batched paths.  Per solve, three launches of ``csrc/whole_body_kernel.cu``:
 
+* the prologue packs what the passes read from the observation into one
+  54-float vector per scenario, the sigma schedule's 7-joint FK included
+  (:func:`wb_prologue`, one thread per scenario; it replaces no TPU
+  kernel: XLA fuses the JAX step's prologue under jit);
 * pass 1 draws the noise (Philox) or reads explicit noise, rolls out base
   + arm, runs the 7-joint FK and the whole cost stack, and writes the
   per-sample cost S and the softmin partials (min, sum exp) per group of
@@ -29,6 +33,7 @@ wb_cost_nospill           _cost_kernel                 4
 wb_update_regen           _update_kernel_fused         5
 wb_update_shard_regen     _update_kernel               6
 wb_update_shard           _update_kernel_noise         7
+wb_prologue               (none: XLA's fusion)         -
 ========================  ===========================  ===============
 
 Every wrapper takes one scenario (``sc`` (54,), ``u_prev`` (H, A), ...) or
@@ -44,9 +49,10 @@ reach the kernel as a device buffer of any length
 
 Between and after the passes only (H, A)-sized work runs in plain PyTorch:
 reshaping du, the collectives of the sharded solve, the Savitzky-Golay
-matmul, the clamp, the warm start and the adaptive-sigma update.  What the
-kernels need from the observation is packed into one 54-float vector per
-scenario (:func:`pack_scalars`).
+matmul, the clamp, the warm start and the adaptive-sigma update; and,
+where the sigma schedule is a callable the prologue kernel does not know,
+the schedule and the scalar pack (:func:`pack_scalars`, the prologue's
+plain version).
 
 Each wrapper launches its kernel for CUDA tensors, or raises; for CPU
 tensors it runs its plain version (``*_plain``), which the CPU tests use
@@ -299,6 +305,79 @@ def pack_scalars(obs, sigma_live: Tensor) -> Tensor:
                       for p in parts], dim=-1)
 
 
+class WbSchedule(ctypes.Structure):
+    """The sigma schedule as :func:`wb_prologue` runs it — the C struct
+    ``WbSchedule`` field for field (all 4-byte, no padding)."""
+
+    _fields_ = [
+        ("kind", ctypes.c_int), ("base_floor_set", ctypes.c_int),
+        *[(n, _F) for n in ("inv_r0", "floor", "base_floor")],
+        ("oq", (_F * 4) * kinova.N_JOINTS),
+        ("ot", (_F * 3) * kinova.N_JOINTS),
+    ]
+
+
+# The observation fields wb_prologue reads (PRO_* in the CUDA source): name,
+# width, and how to get it from (observation, live sigma).
+PROLOGUE_FIELDS = (
+    ("q", kinova.N_JOINTS, lambda o, s: o.state.q),
+    ("qdot", kinova.N_JOINTS, lambda o, s: o.state.qdot),
+    ("pos", 3, lambda o, s: o.state.base.pos),
+    ("vel", 3, lambda o, s: o.state.base.vel),
+    ("ee_pos", 3, lambda o, s: o.ee_target.position),
+    ("ee_quat", 4, lambda o, s: o.ee_target.quat),
+    ("base_target", 3, lambda o, s: o.base_target),
+    ("sigma", A_TOTAL, lambda o, s: s),
+    ("rpy", 3, lambda o, s: o.state.base.rpy),
+    ("omega", 3, lambda o, s: o.state.base.omega),
+)
+
+
+class WbPrologueArgs(ctypes.Structure):
+    """The C struct ``WbPrologueArgs``: each field's rows and the floats
+    between two scenarios' rows (0: one row shared by every scenario)."""
+
+    _fields_ = [("field", ctypes.c_void_p * len(PROLOGUE_FIELDS)),
+                ("stride", ctypes.c_longlong * len(PROLOGUE_FIELDS))]
+
+
+@dataclass(frozen=True, eq=False)
+class WbPrologueConfig:
+    """A configuration's sigma schedule compiled for :func:`wb_prologue`:
+    ``scale_fn`` (``MPPIConfig.sigma_scale_fn``, which the plain version
+    calls) and the by-value struct."""
+
+    scale_fn: Any
+    struct: WbSchedule
+
+
+def make_prologue_config(cfg) -> Optional[WbPrologueConfig]:
+    """The prologue kernel's view of ``cfg`` (an ``MPPIConfig``), or None
+    where its ``sigma_scale_fn`` is a callable the kernel does not know:
+    the kernel runs no schedule (None) and the end-effector error schedule
+    (``solver/whole_body.ee_error_sigma_schedule``, known by its
+    ``__qmm_schedule__`` kind ``"ee_error"``), whose FK is of the chain the
+    schedule uses."""
+    from ...solver.whole_body import _SCHEDULE_CHAIN
+
+    fn = cfg.sigma_scale_fn
+    spec = getattr(fn, "__qmm_schedule__", None)
+    s = WbSchedule()
+    if fn is not None:
+        if spec is None or spec.get("kind") != "ee_error":
+            return None
+        s.kind = 1
+        # A CUDA tensor divided by a number is multiplied by its float32 reciprocal.
+        s.inv_r0 = float(np.float32(1.0) / np.float32(spec["r0"]))
+        s.floor = spec["floor"]
+        if spec.get("base_floor") is not None:
+            s.base_floor_set, s.base_floor = 1, spec["base_floor"]
+        for j in range(kinova.N_JOINTS):  # revolute +z joints, identity tip (a test holds it)
+            _fill(s.oq[j], matrix_to_quat_np(_SCHEDULE_CHAIN.origin_rot[j]))
+            _fill(s.ot[j], _SCHEDULE_CHAIN.origin_trans[j])
+    return WbPrologueConfig(scale_fn=fn, struct=s)
+
+
 def obs_from_scalars(sc: Tensor):
     """Inverse of :func:`pack_scalars` (the observation part)."""
     from ...solver.whole_body import WholeBodyObs
@@ -329,6 +408,9 @@ def _lib() -> ctypes.CDLL:
     lib.wb_update_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
                                      ci, ci, ci, ctypes.c_float, ci, ci, vp, vp, vp]
     lib.wb_update_launch.restype = ci
+    lib.wb_prologue_launch.argtypes = [ctypes.POINTER(WbSchedule),
+                                       ctypes.POINTER(WbPrologueArgs), vp, ci, vp]
+    lib.wb_prologue_launch.restype = ci
     return lib
 
 
@@ -545,8 +627,61 @@ def wb_update_shard_regen(kc: WbKernelConfig, sc: Tensor, s: Tensor, se: Tensor,
 
 wb_update_shard_regen.launches = 0
 
-KERNEL_WRAPPERS = (wb_cost, wb_cost_nospill, wb_update, wb_update_regen, wb_update_shard,
-                   wb_update_shard_regen)
+
+def _prologue_field(t: Tensor, width: int, lead, device, name: str) -> Tuple[Tensor, int]:
+    """``t`` as float32 rows of ``width`` on ``device`` and its stride over
+    the scenarios: one row for all (stride 0) or one per scenario."""
+    t = t.to(torch.float32)
+    if t.stride(-1) != 1:
+        t = t.contiguous()
+    if t.device != device or t.shape[-1] != width or t.ndim > len(lead) + 1 \
+            or (t.ndim > 1 and t.shape[0] not in (1, _n_scen(lead))):
+        raise ValueError(f"wb_prologue: {name} must be ({width},) or {lead + (width,)} on "
+                         f"{device}, got {tuple(t.shape)} on {t.device}")
+    return t, (t.stride(0) if t.ndim > 1 and t.shape[0] > 1 else 0)
+
+
+def wb_prologue(pc: WbPrologueConfig, obs, sigma_live: Tensor) -> Tensor:
+    """The solve's scalar pack (54 floats per scenario) from the
+    observation and the live sigma, scaled by the configuration's sigma
+    schedule: :func:`pack_scalars` of ``sigma_live * scale_fn(obs)`` (of
+    ``sigma_live`` without a schedule) in one launch, one thread per
+    scenario.  The scenarios are the observation's rpy's leading axis (none
+    or B); each other field, ``sigma_live`` (A,) or (B, A) included, has
+    the same or none.  The fields are read as float32 (the plain version
+    runs the schedule in the observation's own dtype)."""
+    if sigma_live.device.type == "cpu":
+        return wb_prologue_plain(pc, obs, sigma_live)
+    dev = sigma_live.device
+    lead = tuple(obs.state.base.rpy.shape[:-1])
+    if len(lead) > 1:
+        raise ValueError(f"wb_prologue takes one scenario axis, got {lead}")
+    args, keep = WbPrologueArgs(), []  # keep: any float32 copies, alive until the launch
+    for i, (name, width, get) in enumerate(PROLOGUE_FIELDS):
+        t, args.stride[i] = _prologue_field(get(obs, sigma_live), width, lead, dev, name)
+        args.field[i] = t.data_ptr()
+        keep.append(t)
+    sc = torch.empty(lead + (SC_LEN,), dtype=torch.float32, device=dev)
+    rc = _lib().wb_prologue_launch(ctypes.byref(pc.struct), ctypes.byref(args), sc.data_ptr(),
+                                   _n_scen(lead), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "wb_prologue")
+    graphs.count_launch(wb_prologue)
+    return sc
+
+
+wb_prologue.launches = 0
+
+
+def wb_prologue_plain(pc: WbPrologueConfig, obs, sigma_live: Tensor) -> Tensor:
+    """Plain version of :func:`wb_prologue`: the configuration's schedule,
+    then :func:`pack_scalars`."""
+    if pc.scale_fn is not None:
+        sigma_live = sigma_live * pc.scale_fn(obs)
+    return pack_scalars(obs, sigma_live)
+
+
+KERNEL_WRAPPERS = (wb_prologue, wb_cost, wb_cost_nospill, wb_update, wb_update_regen,
+                   wb_update_shard, wb_update_shard_regen)
 
 
 def philox_eps(kc: WbKernelConfig, sc: Tensor, seeds: Tensor, step=0,
@@ -668,10 +803,15 @@ def make_whole_body_cuda_step(params, device="cuda", group=None,
     (the JAX step's ``vmap``): ``state.u_prev`` (B, H, A), ``state.sigma``
     (B, A), ``state.seed`` a (B,) int64 tensor of keys on the card, the
     observation's fields and ``u_seq`` with a leading B, ``z`` (B, K, H, A).
-    The sigma schedule's FK runs batched too."""
+
+    The scalar pack, with the sigma schedule's FK, is one launch of
+    :func:`wb_prologue` where the configuration has no schedule or the
+    end-effector error schedule; any other ``sigma_scale_fn`` is called
+    and its scale packed in plain PyTorch (:func:`make_prologue_config`)."""
     dev = resolve_device(device)
     kc = make_kernel_config(params, n_local_samples)
     cfg = params.mppi
+    pc = make_prologue_config(cfg)
     h = cfg.n_horizon
     lead = () if n_scenarios is None else (int(n_scenarios),)
     k_off = 0 if group is None else dist.get_rank(group) * kc.n_samples
@@ -687,9 +827,11 @@ def make_whole_body_cuda_step(params, device="cuda", group=None,
 
     def step(state: MPPIState, obs, z=None) -> Tuple[Tensor, MPPIState]:
         sigma_live = state.sigma if cfg.adaptive_sigma else sigma_base
-        if cfg.sigma_scale_fn is not None:
+        if pc is not None:
+            sc = wb_prologue(pc, obs, sigma_live)
+        else:
             sigma_live = sigma_live * cfg.sigma_scale_fn(obs)
-        sc = pack_scalars(obs, sigma_live)
+            sc = pack_scalars(obs, sigma_live)
         u_prev = state.u_prev.to(torch.float32).contiguous()
         seeds, n = philox_keys(state.seed, dev), sampling.step_tensor(state.step, dev)
         eps = None

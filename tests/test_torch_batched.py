@@ -254,7 +254,7 @@ def _c_params(src: str, fn: str) -> int:
 
 
 def test_c_interface_matches_the_cuda_source():
-    """Argument counts of the two C entry points against their ctypes
+    """Argument counts of the three C entry points against their ctypes
     declarations, and every kernel variant instantiated: 3 modes x 3
     pass-1 variants, 4 pass-2 variants."""
     src = CU_SOURCE.read_text()
@@ -263,7 +263,7 @@ def test_c_interface_matches_the_cuda_source():
         class F:
             pass
 
-        wb_cost_launch, wb_update_launch = F(), F()
+        wb_cost_launch, wb_update_launch, wb_prologue_launch = F(), F(), F()
 
     fake = Fake()
     orig = wk.build.load_library
@@ -276,6 +276,7 @@ def test_c_interface_matches_the_cuda_source():
         wk._lib.cache_clear()
     assert len(lib.wb_cost_launch.argtypes) == _c_params(src, "wb_cost_launch") == 15
     assert len(lib.wb_update_launch.argtypes) == _c_params(src, "wb_update_launch") == 20
+    assert len(lib.wb_prologue_launch.argtypes) == _c_params(src, "wb_prologue_launch") == 5
     cases = re.findall(r"WB_COST_CASE\((MODE_\w+), (\d), (true|false), (true|false)\)", src)
     assert sorted((m, int(v)) for m, v, _, _ in cases) == sorted(
         (m, v) for m in ("MODE_ATTITUDE", "MODE_POSITION", "MODE_WRENCH") for v in range(3))

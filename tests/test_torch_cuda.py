@@ -10,6 +10,8 @@ nor the JAX package, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -711,3 +713,217 @@ def test_matrix_fk_on_the_card_equals_the_cpu():
                                              base_quat=quat.to(dev))
     torch.testing.assert_close(p, got.trans, rtol=0, atol=1e-5)
     torch.testing.assert_close(rot.quat_to_matrix(qq), got.rot, rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# wb_prologue: the scalar pack with the sigma schedule's FK, one launch
+# ---------------------------------------------------------------------------
+
+def _reach_obs(dev, n=None, seed=0, targets_batched=True):
+    """Observations near hover, a leading axis of ``n`` (none for None):
+    joints anywhere in [-3, 3] rad, tilts up to 0.3 rad, each EE target 1 mm
+    to 0.3 m from the schedule chain's tip, so the schedule's clip runs in
+    its live range as well as at both ends."""
+    from quadrotor_manipulator_mppi_tpu_torch.models import chain
+    from quadrotor_manipulator_mppi_tpu_torch.models.multirotor import Multirotor12State
+    from quadrotor_manipulator_mppi_tpu_torch.models.whole_body import (
+        WholeBodyState, _quat_from_rpy,
+    )
+    from quadrotor_manipulator_mppi_tpu_torch.utils import rotations as rot
+    from quadrotor_manipulator_mppi_tpu_torch.utils.pose import Pose
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lead = () if n is None else (n,)
+
+    def rand(*shape, scale=1.0, offset=0.0):
+        return offset + scale * (2 * torch.rand(lead + shape, generator=gen, device=dev) - 1)
+
+    base = Multirotor12State(pos=rand(3, scale=0.5, offset=torch.tensor([0., 0., 2.1], device=dev)),
+                             rpy=rand(3, scale=0.3), vel=rand(3, scale=0.5), omega=rand(3))
+    q = rand(7, scale=3.0)
+    tip, _ = chain.forward_kinematics_posquat(wb._SCHEDULE_CHAIN, q, base_pos=base.pos,
+                                              base_quat=_quat_from_rpy(base.rpy))
+    away = torch.nn.functional.normalize(rand(3), dim=-1)
+    dist = 10 ** (torch.rand(lead + (1,), generator=gen, device=dev) * 2.5 - 3.0)
+    target_pos, target_quat = tip + away * dist, rot.quat_normalize(rand(4))
+    base_target = rand(3, offset=2.0)
+    if not targets_batched and n is not None:
+        target_pos, target_quat, base_target = target_pos[0], target_quat[0], base_target[0]
+    return wb.WholeBodyObs(state=WholeBodyState(base=base, q=q, qdot=rand(7)),
+                           ee_target=Pose(position=target_pos, quat=target_quat),
+                           base_target=base_target)
+
+
+def _schedules():
+    return {"attitude": wb.WholeBodyMPPIParams().mppi, "position": wb.position_mode_params().mppi,
+            "wrench": wb.wrench_mode_params().mppi,
+            "none": dataclasses.replace(wb.WholeBodyMPPIParams().mppi, sigma_scale_fn=None)}
+
+
+def _prologue_equal(pc, obs, sigma):
+    got = wk.wb_prologue(pc, obs, sigma)
+    want = wk.wb_prologue_plain(pc, obs, sigma)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [None, 1, 256])
+@pytest.mark.parametrize("schedule", ["attitude", "position", "wrench", "none"])
+def test_wb_prologue_matches_plain(schedule, n):
+    """Every element of the pack against the PyTorch prologue on the card,
+    relative 1e-6, for each preset's schedule (the wrench preset's base
+    floor included) and for none, at one scenario and a batch."""
+    dev = _card()
+    cfg = _schedules()[schedule]
+    pc = wk.make_prologue_config(cfg)
+    assert pc is not None and pc.struct.kind == (0 if schedule == "none" else 1)
+    sigma = mppi._diag_sigma(cfg, device=dev)
+    got, want = _prologue_equal(pc, _reach_obs(dev, n, seed=3), sigma)
+    assert got.shape == (() if n is None else (n,)) + (wk.SC_LEN,)
+    if n == 256 and schedule != "none":  # the clip ran in its live range
+        scale = got[:, wk.SC_SIGMA + 4] / sigma[4]
+        assert bool(((scale > cfg.sigma_scale_fn.__qmm_schedule__["floor"])
+                     & (scale < 1.0)).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["attitude", "wrench"])
+def test_wb_prologue_broadcasts_unbatched_targets(schedule):
+    """A B-led state with targets and sigma shared by every scenario (stride
+    0), and fields that are strided views (a packed (B, 37) row)."""
+    dev = _card()
+    cfg = _schedules()[schedule]
+    pc = wk.make_prologue_config(cfg)
+    sigma = mppi._diag_sigma(cfg, device=dev)
+    obs = _reach_obs(dev, 64, seed=4, targets_batched=False)
+    _prologue_equal(pc, obs, sigma)
+    rows = torch.cat([obs.state.q, obs.state.base.pos, torch.zeros(64, 27, device=dev)], dim=-1)
+    viewed = obs._replace(state=obs.state._replace(q=rows[:, :7], base=obs.state.base._replace(
+        pos=rows[:, 7:10])))
+    assert viewed.state.q.stride(0) == 37
+    _prologue_equal(pc, viewed, sigma)
+
+
+@pytest.mark.cuda
+def test_wb_prologue_takes_adaptive_sigma_per_scenario():
+    """adaptive_sigma: the live sigma is the state's, (B, A), no schedule."""
+    dev = _card()
+    cfg = dataclasses.replace(wb.WholeBodyMPPIParams().mppi, sigma_scale_fn=None,
+                              adaptive_sigma=True)
+    pc = wk.make_prologue_config(cfg)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    sigma = 0.1 + torch.rand((32, wk.A_TOTAL), generator=gen, device=dev)
+    got, _ = _prologue_equal(pc, _reach_obs(dev, 32, seed=6), sigma)
+    assert torch.equal(got[:, wk.SC_SIGMA:wk.SC_SIGMA + wk.A_TOTAL], sigma)
+
+
+def _count_wb(fn):
+    """(wb_prologue launches, pass-1 launches) that ``fn`` adds."""
+    before = (wk.wb_prologue.launches, wk.wb_cost.launches + wk.wb_cost_nospill.launches)
+    fn()
+    torch.cuda.synchronize()
+    return (wk.wb_prologue.launches - before[0],
+            wk.wb_cost.launches + wk.wb_cost_nospill.launches - before[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["packed", "batched", "episode"])
+def test_wb_prologue_launches_once_per_solve(path):
+    """One prologue launch per pass-1 launch over replays of the packed
+    serving solve, the batched solver (graphed, as a batch client runs it)
+    and a short fleet episode."""
+    from quadrotor_manipulator_mppi_tpu_torch.utils import graphs
+
+    dev = _card()
+    if path == "packed":
+        obs_vec, target_vec = serving.pack_obs(wb.default_obs(device=dev))
+        pstep, pinit = serving.make_packed_step(_params("attitude"), device=dev,
+                                                low_k_guard="off")
+        carry = [pinit(0)]
+
+        def run():
+            for _ in range(9):
+                _, carry[0] = pstep(carry[0], obs_vec, target_vec)
+    elif path == "batched":
+        step, init = wb.make_whole_body_solver(_params("attitude"), device=dev, n_scenarios=8,
+                                               low_k_guard="off")
+
+        def fn(state, obs):
+            out, new = step(state, obs)
+            graphs.copy_into(state, new)
+            return out.action
+
+        load, state, obs = graphs.graphed(fn, dev), init(3), _reach_obs(dev, 8, seed=1)
+        state = state._replace(step=torch.zeros(1, dtype=torch.int64, device=dev))
+
+        def run():
+            for _ in range(9):
+                load(state, obs).replay()
+    else:
+        params = wb.position_mode_params(n_samples=K, n_horizon=H)
+        episode = wbl.make_whole_body_episode(
+            params, cfg=wbl.WholeBodyLoopConfig(arm_coeffs_per_control=True, plant_kernel=True),
+            n_control_steps=9, device=dev, low_k_guard="off", n_scenarios=4)
+
+        def run():
+            episode(*wbl.fleet_starts(params, 4, seed=2, device=dev))
+    n_pro, n_cost = _count_wb(run)
+    assert n_cost >= 9 and n_pro == n_cost
+
+
+@pytest.mark.cuda
+def test_wb_prologue_stays_off_for_a_custom_schedule():
+    """A sigma schedule the kernel does not know runs in PyTorch as before:
+    the step's answer equals the one of the same scale written as the
+    known schedule, and the prologue kernel is never launched."""
+    dev = _card()
+    known = _params("position")
+    sched = known.mppi.sigma_scale_fn
+
+    def custom(obs):
+        return sched(obs)
+
+    params = dataclasses.replace(known, mppi=dataclasses.replace(known.mppi,
+                                                                 sigma_scale_fn=custom))
+    assert wk.make_prologue_config(params.mppi) is None
+    obs = wb.default_obs(device=dev)
+    outs = []
+    for p in (params, known):
+        step = wk.make_whole_body_cuda_step(p, device=dev)
+        _, init = wb.make_whole_body_solver(p, device=dev, low_k_guard="off")
+        counts = _count_wb(lambda: outs.append(step(init(5), obs)[0]))
+        assert counts == ((0, 1) if p is params else (1, 1))
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_packed_step_graph_is_a_few_nodes():
+    """The packed serving solve's graph, replayed, runs at most 100 device
+    ops (the prologue was ~640 of ~710), bit-equal to its eager call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = _card()
+    obs_vec, target_vec = serving.pack_obs(wb.default_obs(device=dev))
+    runs = {}
+    for g in (True, False):
+        pstep, pinit = serving.make_packed_step(_params("attitude"), device=dev,
+                                                low_k_guard="off", graph=g)
+        carry, outs = pinit(0), []
+        for _ in range(3):
+            out, carry = pstep(carry, obs_vec, target_vec)
+            outs.append(out.clone())
+        runs[g] = (outs, carry.u_prev.clone())
+        if g:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(4):
+                    pstep(carry, obs_vec, target_vec)
+                torch.cuda.synchronize()
+            ops = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    assert all(torch.equal(a, b) for a, b in zip(runs[True][0], runs[False][0]))
+    assert torch.equal(runs[True][1], runs[False][1])
+    assert 0 < ops / 4 <= 100, ops / 4

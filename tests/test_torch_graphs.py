@@ -177,7 +177,7 @@ def test_every_kernel_wrapper_counts_replays():
     from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import drone_kernel as dk
 
     wrappers = (*wk.KERNEL_WRAPPERS, pk.plant_tick, *dk.KERNEL_WRAPPERS)
-    assert len(wrappers) == 11
+    assert len(wrappers) == 12
     assert all(f"graphs.count_launch({w.__name__})" in inspect.getsource(w) for w in wrappers)
     before = [w.launches for w in wrappers]
     graphs._CAPTURE.tally = tally = {}
@@ -730,7 +730,7 @@ def test_bridge_session_builds_while_another_plant_runs():
     """A BridgeServer builds its session lazily, its head captured in a
     handler thread, while another server's plant runs on the card from a
     thread of its own: the capture (thread-local) holds, it tallies only
-    its own launches (one of rows 1 and 3 per replay), and the new
+    its own launches (the prologue's and one of rows 1 and 3 per replay), and the new
     session's reply equals an eager session's."""
     import socket
     import threading
@@ -788,6 +788,7 @@ def test_bridge_session_builds_while_another_plant_runs():
         running.stop()
         lazy.stop()
     head = lazy.session()._head
-    assert head._bind(head._z_none).launches_per_replay == {"wb_cost": 1, "wb_update": 1}
+    assert head._bind(head._z_none).launches_per_replay == {"wb_prologue": 1, "wb_cost": 1,
+                                                           "wb_update": 1}
     want = session(False).handle_states(state)
     assert [f.payload for f in frames] == [f.payload for f in want]

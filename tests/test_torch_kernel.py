@@ -27,6 +27,7 @@ from quadrotor_manipulator_mppi_tpu_torch.ops import sampling
 from quadrotor_manipulator_mppi_tpu_torch.ops import weights as tweights
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import build
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import whole_body_kernel as wk
+from quadrotor_manipulator_mppi_tpu_torch.solver import mppi
 from quadrotor_manipulator_mppi_tpu_torch.solver import whole_body as twb
 
 from torch_parity import (  # noqa: F401
@@ -137,8 +138,8 @@ def test_rejects_what_the_jax_kernel_rejects():
             wk.make_kernel_config(to_port(bad_j))
 
 
-def _c_struct_fields(src: str):
-    body = re.search(r"struct WbParams \{(.*?)\};", src, re.S).group(1)
+def _c_struct_fields(src: str, struct: str = "WbParams"):
+    body = re.search(r"struct " + struct + r" \{(.*?)\};", src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
     defines = dict(re.findall(r"#define (\w+) (\d+)", src))
     fields = []
@@ -153,17 +154,47 @@ def _c_struct_fields(src: str):
     return fields
 
 
-def test_ctypes_struct_matches_the_cuda_source():
-    src = CU_SOURCE.read_text()
-    want = _c_struct_fields(src)
+def _ctypes_fields(struct):
     got = []
-    for name, ctype in wk.WbParams._fields_:
+    for name, ctype in struct._fields_:
         n = 1
         while hasattr(ctype, "_length_"):  # nested ctypes arrays
             n, ctype = n * ctype._length_, ctype._type_
         got.append((name, "int" if ctype is ctypes.c_int else "float", n))
-    assert got == want
+    return got
+
+
+def test_ctypes_struct_matches_the_cuda_source():
+    want = _c_struct_fields(CU_SOURCE.read_text())
+    assert _ctypes_fields(wk.WbParams) == want
     assert ctypes.sizeof(wk.WbParams) == 4 * sum(n for _, _, n in want)
+
+
+def test_schedule_struct_matches_the_cuda_source():
+    want = _c_struct_fields(CU_SOURCE.read_text(), "WbSchedule")
+    assert _ctypes_fields(wk.WbSchedule) == want
+    assert ctypes.sizeof(wk.WbSchedule) == 4 * sum(n for _, _, n in want)
+
+
+def test_prologue_fields_match_the_cuda_source():
+    """wb_prologue's field order (the PRO_* enum) and its argument struct:
+    a pointer and an int64 stride per field."""
+    src = CU_SOURCE.read_text()
+    enum = re.search(r"enum \{ (PRO_Q,.*?) \};", src, re.S).group(1)
+    names = [n.strip() for n in enum.split(",")]
+    assert names[-1] == "PRO_N" and len(names) - 1 == len(wk.PROLOGUE_FIELDS)
+    c_names = {"q": "PRO_Q", "qdot": "PRO_QD", "pos": "PRO_POS", "vel": "PRO_VEL",
+               "ee_pos": "PRO_TPOS", "ee_quat": "PRO_TQUAT", "base_target": "PRO_BTGT",
+               "sigma": "PRO_SIGMA", "rpy": "PRO_RPY", "omega": "PRO_OM"}
+    assert [c_names[name] for name, _, _ in wk.PROLOGUE_FIELDS] == names[:-1]
+    body = re.search(r"struct WbPrologueArgs \{(.*?)\};", src, re.S).group(1)
+    assert "const float* field[PRO_N];" in body and "long long stride[PRO_N];" in body
+    n = len(wk.PROLOGUE_FIELDS)
+    assert ctypes.sizeof(wk.WbPrologueArgs) == n * (ctypes.sizeof(ctypes.c_void_p) + 8)
+    # Each field's width is where the pack puts it.
+    widths = dict((name, w) for name, w, _ in wk.PROLOGUE_FIELDS)
+    assert (widths["q"], widths["sigma"], widths["ee_quat"]) == (
+        wk.SC_QD0 - wk.SC_Q0, wk.SC_RPY0 - wk.SC_SIGMA, wk.SC_BTGT - wk.SC_TQUAT)
 
 
 def test_scalar_layout_and_constants_match_the_cuda_source():
@@ -354,3 +385,99 @@ def test_wrappers_refuse_other_devices():
         wk._check(sc.double(), (wk.SC_LEN,), sc.device, "sc")
     with pytest.raises(ValueError, match="expected a contiguous float32"):
         wk._check(u_prev.T, (11, 12), u_prev.device, "u_prev")
+
+
+# ---------------------------------------------------------------------------
+# wb_prologue: the scalar pack with the sigma schedule
+# ---------------------------------------------------------------------------
+
+def _batched_obs(n: int):
+    """``n`` scenarios (none for 0) around the default observation, the EE
+    target 2-30 cm from the tip, so the schedules' clips differ."""
+    obs = twb.default_obs(device="cpu")
+    if not n:
+        return obs
+    gen = torch.Generator().manual_seed(n)
+
+    def spread(x, scale):
+        return x + scale * torch.randn((n,) + x.shape, generator=gen)
+
+    base = obs.state.base._replace(pos=spread(obs.state.base.pos, 0.1),
+                                   rpy=spread(obs.state.base.rpy, 0.05),
+                                   vel=spread(obs.state.base.vel, 0.1),
+                                   omega=spread(obs.state.base.omega, 0.1))
+    state = obs.state._replace(base=base, q=spread(obs.state.q, 0.3),
+                               qdot=spread(obs.state.qdot, 0.1))
+    return obs._replace(state=state, ee_target=obs.ee_target._replace(
+        position=spread(obs.ee_target.position, 0.2)))
+
+
+PROLOGUE_PRESETS = {"attitude": twb.WholeBodyMPPIParams, "position": twb.position_mode_params,
+                    "wrench": twb.wrench_mode_params}
+
+
+@pytest.mark.parametrize("n", [0, 1, 3])
+@pytest.mark.parametrize("preset", sorted(PROLOGUE_PRESETS))
+def test_wb_prologue_plain_is_the_former_composition(preset, n):
+    """On the CPU the prologue is exactly the schedule's scale times the
+    live sigma, packed: what the step computed before the kernel."""
+    cfg = PROLOGUE_PRESETS[preset]().mppi
+    pc = wk.make_prologue_config(cfg)
+    obs, sigma = _batched_obs(n), mppi._diag_sigma(cfg)
+    got = wk.wb_prologue(pc, obs, sigma)
+    assert torch.equal(got, wk.pack_scalars(obs, sigma * cfg.sigma_scale_fn(obs)))
+    assert got.shape == ((n,) if n else ()) + (wk.SC_LEN,)
+
+
+def _custom_scale(obs):
+    return torch.ones_like(obs.state.base.pos[..., :1])
+
+
+SCHEDULE_CHOICES = {
+    "attitude": (PROLOGUE_PRESETS["attitude"], 1),
+    "position": (PROLOGUE_PRESETS["position"], 1),
+    "wrench": (PROLOGUE_PRESETS["wrench"], 1),
+    "none": (lambda: dataclasses.replace(twb.WholeBodyMPPIParams(), mppi=dataclasses.replace(
+        twb.WholeBodyMPPIParams().mppi, sigma_scale_fn=None)), 0),
+    "custom": (lambda: dataclasses.replace(twb.WholeBodyMPPIParams(), mppi=dataclasses.replace(
+        twb.WholeBodyMPPIParams().mppi, sigma_scale_fn=_custom_scale)), None),
+}
+
+
+@pytest.mark.parametrize("choice", sorted(SCHEDULE_CHOICES))
+def test_step_chooses_the_prologue_kernel_at_build_time(choice, monkeypatch):
+    """No schedule and the end-effector error schedule take wb_prologue; any
+    other callable keeps the PyTorch prologue, and the kernel wrapper is
+    never called (so never launched)."""
+    make, kind = SCHEDULE_CHOICES[choice]
+    params = small(make(), k=32, h=4)
+    pc = wk.make_prologue_config(params.mppi)
+    assert (pc is None) if kind is None else (pc.struct.kind == kind)
+    calls = []
+    real = wk.wb_prologue
+    monkeypatch.setattr(wk, "wb_prologue", lambda *a: calls.append(1) or real(*a))
+    step = wk.make_whole_body_cuda_step(params, device="cpu")
+    _, init = twb.make_whole_body_solver(params, device="cpu", low_k_guard="off")
+    launches = real.launches
+    step(init(1), twb.default_obs(device="cpu"))
+    assert len(calls) == (0 if kind is None else 1)
+    assert real.launches == launches  # the CPU runs the plain version
+
+
+def test_schedule_struct_values():
+    """The schedule's numbers as the kernel takes them: 1/r0 as the float32
+    reciprocal a CUDA tensor's division multiplies by, the floors, and the
+    schedule chain's joint origins."""
+    from quadrotor_manipulator_mppi_tpu_torch.models.chain import matrix_to_quat_np
+
+    s = wk.make_prologue_config(twb.wrench_mode_params().mppi).struct
+    assert (s.kind, s.base_floor_set) == (1, 1)
+    assert s.inv_r0 == 4.0 and s.floor == np.float32(0.02) and s.base_floor == np.float32(0.005)
+    assert wk.make_prologue_config(twb.position_mode_params().mppi).struct.base_floor_set == 0
+    chain = twb._SCHEDULE_CHAIN  # the kernel's FK: revolute +z joints, an identity tip
+    assert np.all(chain.joint_type == 0) and np.allclose(chain.axis, [0.0, 0.0, 1.0])
+    assert np.allclose(chain.tip_rot, np.eye(3)) and np.allclose(chain.tip_trans, 0.0)
+    np.testing.assert_array_equal(np.asarray(s.ot), chain.origin_trans.astype(np.float32))
+    np.testing.assert_array_equal(
+        np.asarray(s.oq), np.stack([matrix_to_quat_np(r) for r in chain.origin_rot]).astype(
+            np.float32))
