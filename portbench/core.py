@@ -71,6 +71,7 @@ class Cell:
         self.shape = {"B": int(self.mix["vehicles"]), "K": int(self.config["n_samples"]),
                       "H": int(self.config["n_horizon"]), "A": int(self.config["n_action"]),
                       "mode": self.config["control_mode"],
+                      "n_obstacles": int(self.config.get("n_obstacles", 0)),
                       "substeps": int(self.mix.get("loop", {}).get("substeps", 10)),
                       "loop": dict(self.mix.get("loop", {}))}
 

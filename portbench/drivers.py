@@ -31,8 +31,9 @@ ALTERED_M = 0.1  # the altered answer of an episode: one logged base position mo
 
 def check_preset(params, config: dict, who: str) -> None:
     """Refuse a preset that differs from what the configuration file states."""
-    got = ref_solve.stated(params)
-    want = {k: config[k] for k in got}
+    stated = ref_solve.stated(params)
+    keys = sorted(set(stated) | ({"obstacles"} & set(config)))
+    got, want = {k: stated.get(k) for k in keys}, {k: config.get(k) for k in keys}
     if got != want:
         raise SystemExit(f"{who}'s preset differs from the configuration file: {got} != {want}")
 
@@ -188,15 +189,24 @@ class StandIn:
     """The plain reference in the program's place, for the controls and the
     planted faults: ``precision`` ``"tf32"`` (the control: float32 with TF32
     on), ``"bf16"`` (the step below it, bfloat16) or ``"float32"`` with one
-    of :data:`FAULTS` planted."""
+    of :data:`FAULTS` planted.  An episode's ``"bf16"`` runs the solves in
+    bfloat16 and the plant (physics, servo, arm torque) in float32, cast at
+    the solver's boundary: the per-substep plant's Cholesky factor and
+    triangular solves have no bfloat16 kernel."""
+
+    SOLVER_ONLY = False  # "bf16" lowers the solver alone, not the plant
 
     def __init__(self, config, dev, shape, precision="tf32", fault=None):
         if fault is not None and fault not in FAULTS:
             raise SystemExit(f"unknown fault {fault!r}; one of {FAULTS}")
         k = shape["K"] // 2 if fault == "half_samples" else shape["K"]
         dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+        solver_dtype = None
+        if self.SOLVER_ONLY and dtype == torch.bfloat16:
+            dtype, solver_dtype = torch.float32, torch.bfloat16
         self.ref = ref_solve.Reference(config, dev, dtype=dtype, tf32=precision == "tf32",
-                                       n_samples=k, n_horizon=shape["H"])
+                                       n_samples=k, n_horizon=shape["H"],
+                                       solver_dtype=solver_dtype)
         self.fault, self.shape = fault, shape
 
 
@@ -242,6 +252,8 @@ class EpisodeStandIn(StandIn):
     its state after them stands for the state after the call's
     ``n_steps``, and the solve index advances by ``n_steps``, as the
     program's does."""
+
+    SOLVER_ONLY = True
 
     def __init__(self, check_steps, n_steps, *args):
         super().__init__(*args)

@@ -249,6 +249,27 @@ def _mv(m: Tensor, v: Tensor) -> Tensor:
     return m @ v if v.ndim == 1 else (m @ v.unsqueeze(-1)).squeeze(-1)
 
 
+def _cast(tree, dtype):
+    """The floating-point tensors of a tree of NamedTuples in ``dtype``."""
+    if isinstance(tree, Tensor):
+        return tree.to(dtype) if tree.is_floating_point() else tree
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_cast(x, dtype) for x in tree))
+    return tree
+
+
+def _solve_in(step, dtype):
+    """The solver ``step`` computing in ``dtype``: the observation and the
+    normals cast to it on the way in, the output back to the observation's
+    dtype on the way out.  The solver state stays in ``dtype``."""
+
+    def solve(state, obs, z=None):
+        out, state = step(state, _cast(obs, dtype), None if z is None else z.to(dtype))
+        return _cast(out, obs.base_target.dtype), state
+
+    return solve
+
+
 def make_whole_body_episode(
     params: "wbs.WholeBodyMPPIParams" = None,
     cfg: WholeBodyLoopConfig = WholeBodyLoopConfig(),
@@ -256,6 +277,7 @@ def make_whole_body_episode(
     low_k_guard: str = "warn",
     device="cuda",
     n_scenarios: Optional[int] = None,
+    solver_dtype: Optional[torch.dtype] = None,
 ):
     """Returns ``run(plant, solver, ee_target, base_target, z=None) ->
     (carry, logs)`` with every :class:`WholeBodyLog` field stacked over the
@@ -266,7 +288,10 @@ def make_whole_body_episode(
     standard normals, one draw per control step, in place of the Philox
     stream.  ``n_scenarios=B``: B vehicles (see the module docstring);
     every argument's fields carry a leading B, ``z`` is (n_control_steps,
-    B, K, H, A) and the logs come back (B, n_control_steps, ...)."""
+    B, K, H, A) and the logs come back (B, n_control_steps, ...).
+    ``solver_dtype`` (default: the plant's) runs the solves in another
+    dtype than the plant, cast at the solver's boundary; the solver state
+    is then in that dtype."""
     params = params or wbs.WholeBodyMPPIParams()
     dev = resolve_device(device)
     mode = params.model.control_mode
@@ -276,6 +301,8 @@ def make_whole_body_episode(
     inertials = params.model.inertials()
     step, _ = wbs.make_whole_body_solver(params, device=dev, low_k_guard=low_k_guard,
                                          n_scenarios=n_scenarios)
+    if solver_dtype is not None:
+        step = _solve_in(step, solver_dtype)
     physics = PlantPhysics(
         vehicle=vehicle, spec=spec, dt=cfg.physics_dt, extra_mass=extra, mode=mode,
         arm_coeffs_per_control=cfg.arm_coeffs_per_control,

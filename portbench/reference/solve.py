@@ -27,28 +27,57 @@ from .frozen.utils.pose import Pose
 LOG_FIELDS = ("ee_err", "base_pos", "tilt", "l1_cmd", "l1_meas", "ori_err")
 
 
+PRESETS = ("attitude", "position", "wrench")
+OBSTACLE_KEYS = ("weight", "centers", "radii")
+
+
 def make_params(wbs_module, config: dict, n_samples: Optional[int] = None,
                 n_horizon: Optional[int] = None):
     """The configuration's solver preset from ``wbs_module`` (the port's
     ``solver.whole_body`` or the frozen copy), at K and H of the file unless
-    overridden (the CPU tests run tiny sizes)."""
+    overridden (the CPU tests run tiny sizes): ``"attitude"``,
+    ``WholeBodyMPPIParams()``; ``"position"``, ``position_mode_params``;
+    ``"wrench"``, ``wrench_mode_params``.  An ``"obstacles"`` object
+    (``weight``, ``centers`` [[x, y, z], ...], ``radii``) replaces the
+    preset's sphere obstacles."""
     k = int(n_samples or config["n_samples"])
     h = int(n_horizon or config["n_horizon"])
-    if config["preset"] == "attitude":
+    preset = config["preset"]
+    if preset == "attitude":
         p = wbs_module.WholeBodyMPPIParams()
-        return dataclasses.replace(p, mppi=dataclasses.replace(p.mppi, n_samples=k, n_horizon=h))
-    if config["preset"] == "position":
-        return wbs_module.position_mode_params(n_samples=k, n_horizon=h)
-    raise ValueError(f"unknown preset {config['preset']!r}")
+        p = dataclasses.replace(p, mppi=dataclasses.replace(p.mppi, n_samples=k, n_horizon=h))
+    elif preset in PRESETS:
+        p = getattr(wbs_module, f"{preset}_mode_params")(n_samples=k, n_horizon=h)
+    else:
+        raise SystemExit(f"unknown preset {preset!r}; one of {', '.join(PRESETS)}")
+    obstacles = config.get("obstacles")
+    if obstacles is not None:
+        if sorted(obstacles) != sorted(OBSTACLE_KEYS):
+            raise SystemExit(f"the obstacles object has the keys {sorted(obstacles)}; it needs "
+                             f"exactly {', '.join(OBSTACLE_KEYS)}")
+        centers = tuple(tuple(float(x) for x in c) for c in obstacles["centers"])
+        radii = tuple(float(r) for r in obstacles["radii"])
+        if len(centers) != len(radii) or any(len(c) != 3 for c in centers):
+            raise SystemExit("obstacles: one [x, y, z] centre per radius")
+        p = dataclasses.replace(p, cost=dataclasses.replace(
+            p.cost, obstacle_weight=float(obstacles["weight"]), obstacle_centers=centers,
+            obstacle_radii=radii))
+    return p
 
 
 def stated(params) -> dict:
-    """The numbers of a preset that a configuration file states."""
-    cfg = params.mppi
-    return {"control_mode": params.model.control_mode, "n_action": cfg.n_action,
-            "lam": cfg.lam, "dt": cfg.dt, "sigma": [float(x) for x in np.asarray(cfg.sigma)],
-            "savgol_window": cfg.savgol_window, "warm_start_decay": cfg.warm_start_decay,
-            "n_obstacles": len(params.cost.obstacle_centers)}
+    """The numbers of a preset that a configuration file states; its sphere
+    obstacles whole (``obstacles``) only where there are any."""
+    cfg, cost = params.mppi, params.cost
+    out = {"control_mode": params.model.control_mode, "n_action": cfg.n_action,
+           "lam": cfg.lam, "dt": cfg.dt, "sigma": [float(x) for x in np.asarray(cfg.sigma)],
+           "savgol_window": cfg.savgol_window, "warm_start_decay": cfg.warm_start_decay,
+           "n_obstacles": len(cost.obstacle_centers)}
+    if len(cost.obstacle_centers):
+        out["obstacles"] = {"weight": float(cost.obstacle_weight),
+                            "centers": [[float(x) for x in c] for c in cost.obstacle_centers],
+                            "radii": [float(r) for r in cost.obstacle_radii]}
+    return out
 
 
 def obs_from_fields(f: dict) -> "wbs.WholeBodyObs":
@@ -66,13 +95,17 @@ class Reference:
     ``dtype`` float64 is the check's reference; float32 with ``tf32`` is the
     control (the reference in the precision below the configuration's
     float32 with TF32 off).  ``n_samples`` overrides K (a stand-in that
-    leaves samples out)."""
+    leaves samples out).  ``solver_dtype`` (episodes only; default
+    ``dtype``) runs the episode's solves in another dtype than its plant:
+    the bfloat16 control, whose plant stays in float32."""
 
     def __init__(self, config: dict, device, dtype=torch.float64, tf32: bool = False,
-                 n_samples: Optional[int] = None, n_horizon: Optional[int] = None):
+                 n_samples: Optional[int] = None, n_horizon: Optional[int] = None,
+                 solver_dtype=None):
         torch.backends.cuda.matmul.allow_tf32 = tf32
         torch.backends.cudnn.allow_tf32 = tf32
         self.config, self.device, self.dtype = config, torch.device(device), dtype
+        self.solver_dtype = solver_dtype
         self.params = make_params(wbs, config, n_samples, n_horizon)
         self.step, self.init = wbs.make_whole_body_solver(self.params, device=self.device,
                                                           low_k_guard="off")
@@ -127,7 +160,9 @@ class Reference:
         # The plant kernel's physics on the plain substeps it stands for.
         cfg = wbl.WholeBodyLoopConfig(**{k: v for k, v in loop.items() if k != "plant_kernel"})
         run = wbl.make_whole_body_episode(self.params, cfg=cfg, n_control_steps=n_steps,
-                                          low_k_guard="off", device=self.device, n_scenarios=n)
+                                          low_k_guard="off", device=self.device, n_scenarios=n,
+                                          solver_dtype=self.solver_dtype)
+        sigma = self.sigma
         if carry is None:
             plant = wbl.init_plant(self.params.model.vehicle, pos=np.asarray(start["pos"]),
                                    dtype=self.dtype, device=self.device)
@@ -140,7 +175,9 @@ class Reference:
                 q=t(carry["q"]), qdot=t(carry["qdot"]),
                 ctrl=FlightCtrlState(**{f: t(v) for f, v in carry["ctrl"].items()}))
             u0 = t(carry["u_prev"])
-        solver = MPPIState(u_prev=u0, sigma=self.sigma.expand(n, *self.sigma.shape).clone(),
+        if self.solver_dtype is not None:
+            u0, sigma = u0.to(self.solver_dtype), sigma.to(self.solver_dtype)
+        solver = MPPIState(u_prev=u0, sigma=sigma.expand(n, *sigma.shape).clone(),
                            seed=torch.tensor(start["keys"], dtype=torch.int64, device=self.device),
                            step=int(step0))
         target = Pose(position=self.tensor(start["ee_pos"]), quat=self.tensor(start["ee_quat"]))

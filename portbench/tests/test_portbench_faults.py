@@ -12,6 +12,7 @@ CELLS = {
     "wb_att_k4096.serve_b1": {"B": 1},
     "wb_att_k4096.batch_b256": {"B": 3, "check": {"every": 3, "sampled_vehicles": 3}},
     "wb_pos_k512.fleet_b256": {"B": 3, "check": {"steps": 3, "sampled_vehicles": 3}},
+    "wb_att_k4096.reach_b1": {"B": 1, "check": {"steps": 3}},
 }
 FAULTS = ("unchanged_state", "half_samples", "altered_answer")
 

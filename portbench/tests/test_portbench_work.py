@@ -29,6 +29,18 @@ def test_rollout_cost_by_hand(mode, per_step):
     assert got == {"flops": 2 * 3 * (4 * per_step + 60), "bytes": 2 * 4 * (4 * 11 + 54 + 3)}
 
 
+def test_rollout_cost_of_the_wrench_mode_and_obstacles_by_hand():
+    # as attitude, but the base's 105 (terms 61, quaternion of rpy 44) are the wrench's 107:
+    # lag 12, rates 15, attitude 12 + 12 + 28, thrust 16, vel 6, pos 6; an obstacle 16
+    w = stage("rollout_cost")
+    assert w.per_step(11, "wrench") == 1456
+    assert w.per_step(11, "attitude", 2) == 1454 + 32
+    (got,) = w.work({"B": 1, "K": 3, "H": 4, "A": 11, "mode": "wrench", "n_obstacles": 2})
+    assert got == {"flops": 3 * (4 * 1488 + 60), "bytes": 4 * (4 * 11 + 54 + 8 + 3)}
+    with pytest.raises(ValueError, match="no work count"):
+        w.per_step(11, "hover")
+
+
 def test_weighted_update_by_hand():
     # n = K H A = 132; weights 4 x (3 + 4) + min 4 + du 2 x 132 = 296 per scenario
     read, draw = stage("weighted_update").work({"B": 2, "K": 4, "H": 3, "A": 11})

@@ -41,6 +41,10 @@ from quadrotor_manipulator_mppi_tpu.solver import whole_body as jwb  # noqa: E40
 
 CONFIGS = {n: json.loads((ROOT / f"portbench/configs/{n}.json").read_text())
            for n in ("wb_att_k4096", "wb_pos_k512")}
+# The wrench preset by name (no cell runs it yet): what a wrench configuration file states.
+CONFIGS["wb_wrench_k4096"] = dict(CONFIGS["wb_att_k4096"], name="wb_wrench_k4096",
+                                  preset="wrench", control_mode="wrench",
+                                  sigma=[8.0, 1.2, 1.2, 0.5] + [1.0] * 7)
 SOLVE_TOL = 2e-3  # rtol and atol, as the port's test_packed_matches_jax_packed
 EPISODE_TOL = 1e-3  # atol; the port's test_episode_matches_jax takes 5e-3
 
@@ -48,10 +52,11 @@ EPISODE_TOL = 1e-3  # atol; the port's test_episode_matches_jax takes 5e-3
 def jax_params(name: str, k: int, h: int):
     import dataclasses
 
-    if CONFIGS[name]["preset"] == "attitude":
+    preset = CONFIGS[name]["preset"]
+    if preset == "attitude":
         p = jwb.WholeBodyMPPIParams()
         return dataclasses.replace(p, mppi=dataclasses.replace(p.mppi, n_samples=k, n_horizon=h))
-    return jwb.position_mode_params(n_samples=k, n_horizon=h)
+    return getattr(jwb, f"{preset}_mode_params")(n_samples=k, n_horizon=h)
 
 
 def z_chain(key, n: int, k: int, h: int, a: int = 11):
@@ -130,6 +135,7 @@ def rows(final) -> dict:
 @pytest.mark.parametrize("name,loop,k,h,n", [
     ("wb_pos_k512", {"arm_coeffs_per_control": True}, 64, 8, 10),
     ("wb_att_k4096", {}, 256, 12, 3),
+    ("wb_wrench_k4096", {}, 256, 12, 3),
 ])
 def test_episode_calls_follow_jax(name, loop, k, h, n):
     """Two calls of ``n`` control steps, the second from the first's final

@@ -18,9 +18,21 @@ attitude mode: 3 PD axes              3 * 10 (x' = A x + B u, 2 states)
 position mode: 3 position axes        3 * 10, the setpoint add 3, the
                                       accelerations 3 * 4, the small-angle
                                       attitude 3, its rates 6
-quaternion of roll, pitch, yaw        6 transcendentals + 20
+attitude, position: quaternion of     6 transcendentals + 20
+roll, pitch, yaw
 attitude mode: thrust acceleration    11 (body z axis) + 5, velocity 6,
                                       position 6
+wrench mode: rotor lag                4 * 3 (thrust and three torques)
+wrench mode: body rates               3 * 5 (torque over inertia, the
+                                      damped rate)
+wrench mode: attitude                 3 transcendentals + 12 (the rate
+                                      step's quaternion) + 28 (composed
+                                      onto the attitude)
+wrench mode: thrust acceleration      11 (body z axis) + 5, velocity 6,
+                                      position 6
+sphere obstacles, per obstacle        12 + 1 transcendental (the EE's
+                                      distance to the centre, the squared
+                                      penetration)
 FK, per joint                         2 transcendentals (half-angle sin and
                                       cos) + 12 (joint rotation onto the
                                       fixed origin) + 28 (compose) + 30
@@ -35,8 +47,8 @@ stage costs                           EE position 6 + 2, orientation error
 
 Per sample once: the terminal pose and stopping-point costs, 60.  Bytes:
 each input read once (the warm start H * A, 54 scalars of the
-observation), the costs S written once (K); the noise is not an input, and
-intermediate buffers are not counted.
+observation, 4 per obstacle), the costs S written once (K); the noise is
+not an input, and intermediate buffers are not counted.
 """
 
 import importlib.util
@@ -52,23 +64,28 @@ J = 7
 OBS_SCALARS = 54
 
 
-def per_step(a: int, mode: str) -> int:
+def per_step(a: int, mode: str, n_obstacles: int = 0) -> int:
     t = c.TRANSCENDENTAL
     ops = a * c.DRAW + 2 * a + 4 * J + 2 * J
     if mode == "attitude":
         ops += 3 + 3 * 10 + (11 + 5) + 6 + 6
+        ops += 6 * t + 20                               # quaternion of rpy
     elif mode == "position":
         ops += 3 * 10 + 3 + 3 * 4 + 3 + 6
+        ops += 6 * t + 20                               # quaternion of rpy
+    elif mode == "wrench":
+        ops += 4 * 3 + 3 * 5 + (3 * t + 12 + 28) + (11 + 5) + 6 + 6
     else:
         raise ValueError(f"no work count for mode {mode!r}")
-    ops += 6 * t + 20                                   # quaternion of rpy
     ops += J * (2 * t + 12 + 28 + 30 + 3)               # forward kinematics
     ops += (6 + 2) + (28 + t + 8) + 8 + 8 + 5 + 5 + J * (2 * t + 4) + 10
+    ops += n_obstacles * (12 + t)
     return ops
 
 
 def work(shape: dict) -> list:
     b, k, h, a = shape["B"], shape["K"], shape["H"], shape["A"]
-    flops = b * k * (h * per_step(a, shape["mode"]) + 60)
-    nbytes = b * c.FLOAT * (h * a + OBS_SCALARS + k)
+    n_obs = int(shape.get("n_obstacles", 0))
+    flops = b * k * (h * per_step(a, shape["mode"], n_obs) + 60)
+    nbytes = b * c.FLOAT * (h * a + OBS_SCALARS + 4 * n_obs + k)
     return [{"flops": flops, "bytes": nbytes}]
