@@ -12,6 +12,7 @@ the URDF loader with the matrix FK).
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 10,26   # the build, then phases 10 and 26 alone
     python3 chip_smoke.py --phases 27      # the prologue kernel alone
+    python3 chip_smoke.py --phases 8w      # the wrench preset's scenario batch alone (8 runs both)
 
 Needs one CUDA card and ``nvcc``; builds the kernels from ``csrc/`` at
 first use, one ``nvcc`` per source, all at once.  Phases (each prints its
@@ -48,7 +49,10 @@ lines; any failure exits non-zero before the final ``ok`` line):
    steps (batches of 4 and 8, and 4 scenarios of the B=256 batch), 1 + 1
    launches per batched solve, ms per batched solve
    at B=1, 16, 256, then the kernels alone at B=256 (pass 2 and
-   ``torch.bmm`` also by the profiler and by CUDA-graph replay);
+   ``torch.bmm`` also by the profiler and by CUDA-graph replay); then in
+   the wrench preset (8w): both pairs against plain as above, the batched
+   step against 4 of its scenarios' unbatched steps, 5 graphed batched
+   solves bit-equal to eager ones, ms per graphed solve and per kernel;
 9. no spill against spill at K=4096 (du, u_seq, sigma), and each new
    kernel (rows 4-7) against its plain version at one scenario, K=4096,
    with timings and bounds;
@@ -384,6 +388,7 @@ B_BATCH = 256                  # phase 8: BASELINE.json config 5's 256 scenarios
 B_TIMED = (1, 16, B_BATCH)
 CHECK_SCENARIOS = (0, 85, 170, 255)
 TOL_BATCH = 1e-6     # batched vs unbatched step, relative to max|u|: float order only
+N_BATCH_GRAPHED = 5  # phase 8w: graphed wrench batched solves held bit-equal to eager
 TOL_SPILL = 1e-6     # no spill vs spill: the same draws, relative
 # wb_update's REGEN variants per noise element: the second Philox draw
 # (~100), erfinv and scaling (~35), the accumulations (4); the weight is
@@ -1358,14 +1363,11 @@ def counts(*fns) -> dict:
 PAIRS = {True: (wk.wb_cost, wk.wb_update), False: (wk.wb_cost_nospill, wk.wb_update_regen)}
 
 
-def phase_batch(dev, errs):
-    """The scenario batch at B=256 (BASELINE.json config 5's shape on one
-    card): the no-spill pair (rows 4 and 5, whose main path this is)
-    against its plain versions on all 256 scenarios, the spill pair on 4,
-    the batched step against unbatched steps, launches per batched solve,
-    ms per batched solve at B=1, 16, 256 for both kernel pairs, then the
-    kernels alone at B=256."""
-    params = wb.WholeBodyMPPIParams()
+def batch_vs_plain(dev, params, tag: str, errs) -> tuple:
+    """The batched kernels at B=256 in ``params``' mode: the no-spill pair
+    (rows 4 and 5) against its plain versions on all 256 scenarios, the
+    spill pair on 4.  Returns the inputs (kernel config, observations,
+    scalar pack, warm start, seeds) and the plain versions' ms."""
     cfg = params.mppi
     kc = wk.make_kernel_config(params)
     obs = scenario_obs(dev, B_BATCH)
@@ -1386,8 +1388,10 @@ def phase_batch(dev, errs):
     worst = {"S_nospill": max(rel_err(s4, s_p), rel_err(m4, m_p)),
              "du_regen": max(rel_err(du5, du5_p), rel_err(m2_5, m2_5p)),
              "S": 0.0, "eps": 0.0, "du": 0.0}
-    errs["wb_cost_nospill"] = max((s4 - s_p).abs().max().item(), (m4 - m_p).abs().max().item())
-    errs["wb_update_regen"] = max((du5 - du5_p).abs().max().item(),
+    errs["wb_cost_nospill"] = max(errs.get("wb_cost_nospill", 0.0),
+                                  (s4 - s_p).abs().max().item(), (m4 - m_p).abs().max().item())
+    errs["wb_update_regen"] = max(errs.get("wb_update_regen", 0.0),
+                                  (du5 - du5_p).abs().max().item(),
                                   (m2_5 - m2_5p).abs().max().item())
     for i in CHECK_SCENARIOS:
         eps_p = wk.philox_eps(kc, sc[i], seeds[i:i + 1], 0)
@@ -1396,22 +1400,25 @@ def phase_batch(dev, errs):
         worst["S"] = max(worst["S"], rel_err(s[i], s_p[i]))
         worst["eps"] = max(worst["eps"], (eps[i] - eps_p).abs().max().item())
         worst["du"] = max(worst["du"], rel_err(du[i], du_p), rel_err(m2[i], m2_p))
-    print(f"[8] B={B_BATCH} batched kernels vs plain (no-spill pair on all {B_BATCH} scenarios, "
-          f"spill pair on {CHECK_SCENARIOS}): "
+    print(f"{tag} B={B_BATCH} batched kernels vs plain (no-spill pair on all {B_BATCH} "
+          f"scenarios, spill pair on {CHECK_SCENARIOS}): "
           + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
           + f" | plain ms at B={B_BATCH}: " + ", ".join(f"{k} {v:.1f}" for k, v in plain_ms.items()),
           flush=True)
     if not (worst["S"] <= TOL_COST and worst["S_nospill"] <= TOL_COST
             and worst["eps"] <= TOL_NOISE and worst["du"] <= TOL_UPDATE
             and worst["du_regen"] <= TOL_UPDATE):
-        fail("a batched kernel disagrees with its plain version")
-    del s, m, e, eps, du, m2, s4, m4, e4, du5, m2_5, s_p, m_p, du5_p, m2_5p
+        fail(f"{params.model.control_mode}: a batched kernel disagrees with its plain version")
+    return kc, obs, sc, u_prev, seeds, plain_ms
 
-    # The batched step against unbatched steps on the same seeds and z, in
-    # batches of 4, 8 and 256 (4 of its scenarios checked).
+
+def batch_vs_unbatched(dev, params, tag: str, sizes) -> None:
+    """The batched step against unbatched steps on the same seeds and z,
+    both kernel pairs; ``sizes``: (batch size, scenarios checked)."""
+    obs = scenario_obs(dev, B_BATCH)
     gen = torch.Generator(device=dev)
     gen.manual_seed(77)
-    for nb, picked in ((4, range(4)), (8, range(8)), (B_BATCH, CHECK_SCENARIOS)):
+    for nb, picked in sizes:
         obs_b = tree_map(lambda x: x[:nb], obs)
         z = torch.randn((nb, K, H, A), generator=gen, device=dev)
         step_err = 0.0
@@ -1430,10 +1437,25 @@ def phase_batch(dev, errs):
                                    rel_err(st_nb.u_prev[b], st_n1.u_prev))
         sync()
         del z
-        print(f"[8] batched step (B={nb}) vs {len(picked)} unbatched steps (Philox and z, "
+        print(f"{tag} batched step (B={nb}) vs {len(picked)} unbatched steps (Philox and z, "
               f"spill and no spill): max rel {step_err:.2e}", flush=True)
         if not step_err <= TOL_BATCH:
-            fail(f"the batched step at B={nb} disagrees with the unbatched steps")
+            fail(f"{params.model.control_mode}: the batched step at B={nb} disagrees with the "
+                 "unbatched steps")
+
+
+def phase_batch(dev, errs):
+    """The scenario batch at B=256 (BASELINE.json config 5's shape on one
+    card): the no-spill pair (rows 4 and 5, whose main path this is)
+    against its plain versions on all 256 scenarios, the spill pair on 4,
+    the batched step against unbatched steps, launches per batched solve,
+    ms per batched solve at B=1, 16, 256 for both kernel pairs, then the
+    kernels alone at B=256; then the same batch in the wrench preset
+    (:func:`phase_batch_wrench`)."""
+    params = wb.WholeBodyMPPIParams()
+    kc, obs, sc, u_prev, seeds, plain_ms = batch_vs_plain(dev, params, "[8]", errs)
+    batch_vs_unbatched(dev, params, "[8]", ((4, range(4)), (8, range(8)),
+                                            (B_BATCH, CHECK_SCENARIOS)))
 
     # Launches per batched solve, then ms per solve at B = 1, 16, 256.
     rows, launches = [], {}
@@ -1499,7 +1521,63 @@ def phase_batch(dev, errs):
         for k, v in t.items())
         + f" | bounds: wb_cost {b_cost[0]:.3f} ms by {b_cost[1]}, "
         + ", ".join(f"{k} {v[0]:.3f} ms by {v[1]}" for k, v in bounds.items()), flush=True)
+    del s, m, e, eps, se, w, flat
+    phase_batch_wrench(dev, errs)
     return launches, t, rows, bounds
+
+
+def phase_batch_wrench(dev, errs) -> dict:
+    """The scenario batch at B=256 in the wrench preset (``wb_cost``'s mode
+    2, the base floor's per-scenario (B, A) sigma scale): both kernel pairs
+    against their plain versions, the batched step against 4 of its
+    scenarios' unbatched steps, then :data:`N_BATCH_GRAPHED` graphed batched
+    solves (``utils.graphs.graphed``, as the benchmark replays them) bit-equal
+    to the same solves run eagerly, and ms per graphed solve and per kernel."""
+    t0 = time.perf_counter()
+    params = wb.wrench_mode_params()
+    kc, obs, sc, u_prev, seeds, _ = batch_vs_plain(dev, params, "[8w]", errs)
+    batch_vs_unbatched(dev, params, "[8w]", ((B_BATCH, CHECK_SCENARIOS),))
+
+    step, init = wb.make_whole_body_solver(params, device=dev, n_scenarios=B_BATCH)
+
+    def fn(state, o):
+        out, new = step(state, o)
+        graphs.copy_into(state, new)
+        return torch.cat([out.action, out.qdes, out.vdes], dim=-1)
+
+    def start():
+        return init(list(range(B_BATCH)))._replace(
+            step=torch.zeros(1, dtype=torch.int64, device=dev))
+
+    def drifted(i):
+        base = obs.state.base
+        return obs._replace(state=obs.state._replace(base=base._replace(
+            pos=base.pos + 0.002 * i, omega=base.omega * (1.0 - 0.05 * i))))
+
+    load = graphs.graphed(fn, dev)
+    s_g, s_e, equal = start(), start(), True
+    for i in range(N_BATCH_GRAPHED):
+        g = load(s_g, drifted(i))
+        reply_g = g.replay().clone()
+        s_g = g.args[0]
+        reply_e = fn(s_e, drifted(i))
+        equal = (equal and torch.equal(reply_g, reply_e) and torch.equal(s_g.u_prev, s_e.u_prev)
+                 and torch.equal(s_g.step, s_e.step))
+    sync()
+    finite = bool(torch.isfinite(reply_g).all())
+    o = drifted(0)
+    t = {"graphed_solve": event_ms(lambda: load(s_g, o).replay(), reps=10, warmup=2),
+         "wb_cost": event_ms(lambda: wk.wb_cost(kc, sc, u_prev, None, seeds, 0), reps=5)}
+    s, m, e, eps = wk.wb_cost(kc, sc, u_prev, None, seeds, 0)
+    t["wb_update"] = event_ms(lambda: wk.wb_update(kc, eps, s, m, e), reps=5)
+    t["wb_cost_graph"] = graph_ms(lambda: wk.wb_cost(kc, sc, u_prev, None, seeds, 0), reps=5)
+    print(f"[8w] {N_BATCH_GRAPHED} graphed batched solves (B={B_BATCH}) bit-equal to eager "
+          f"{equal} | finite {finite} | ms: " + ", ".join(f"{k} {v:.3f}" for k, v in t.items())
+          + f" | {B_BATCH * 1e3 / t['graphed_solve']:.0f} solves/s by events | wall "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not (equal and finite):
+        fail("wrench: the graphed batched solve differs from the eager one")
+    return t
 
 
 def cost_bytes(k: int, spill: bool) -> int:
@@ -4347,7 +4425,8 @@ def reach_sweep(mode: str, seeds) -> None:
     phase_reach(dev, (mode,), seeds, summary=phase_build(dev))
 
 
-SELECTABLE = {"10": lambda dev, errs: phase_sharded(dev),
+SELECTABLE = {"8": phase_batch, "8w": phase_batch_wrench,
+              "10": lambda dev, errs: phase_sharded(dev),
               "26": lambda dev, errs: phase_backends(dev, errs),
               "27": phase_prologue}
 
