@@ -12,6 +12,7 @@ the URDF loader with the matrix FK).
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 10,26   # the build, then phases 10 and 26 alone
     python3 chip_smoke.py --phases 27      # the prologue kernel alone
+    python3 chip_smoke.py --phases 28      # the RNEA-plant kernel alone
     python3 chip_smoke.py --phases 8w      # the wrench preset's scenario batch alone (8 runs both)
 
 Needs one CUDA card and ``nvcc``; builds the kernels from ``csrc/`` at
@@ -231,6 +232,17 @@ lines; any failure exits non-zero before the final ``ok`` line):
    ``pack_scalars`` in PyTorch) at B=1 and B=256 in the attitude and wrench
    presets: the packs equal, CUDA-event and CUDA-graph ms of both, the
    launch floor beside them;
+28. ``rnea_plant_period`` (one control period of the per-substep RNEA
+   plant, eight lanes per vehicle row) against its plain version (the
+   substep loop of ``physics_tick``) in the attitude, position and wrench
+   modes, with the factor of M per substep and once per period, free and
+   with a payload and an external wrench, at B=1, 5 and 256: one period
+   within 2e-4 and, at B=256, 20 chained periods (the loop's tracking
+   torque each period) within 5e-3 of ``1 + |plain|``, reruns bit-equal,
+   rows equal to their one-row launches; a graphed 20-step episode in attitude and wrench
+   mode bit-equal to the eager loop with one launch per control step; the
+   kernel's CUDA-event and CUDA-graph ms at B=1 beside its bound, the
+   launch floor and the plain period's graph ms;
 then one ``kernels`` JSON line (rows 4-5 at B=256, rows 6-7 at K_local,
 rows 9a-9b at K=1000 and 9c-9d at K=1024: the shapes of the runs that
 count their launches; each ``wb_update`` row with the R it used and its
@@ -285,6 +297,7 @@ from quadrotor_manipulator_mppi_tpu_torch.ops import sampling
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import build
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import drone_kernel as dk
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import plant_kernel as pk
+from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import rnea_plant_kernel as rpk
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import whole_body_kernel as wk
 from quadrotor_manipulator_mppi_tpu_torch.parallel import mesh as mesh_mod
 from quadrotor_manipulator_mppi_tpu_torch.parallel import multihost, scaling, sharded
@@ -369,6 +382,24 @@ PLANT_OPS_PER_SUBSTEP = 16 + 777 + 161 + 18 + 39 + 6 + 40 + 44 + 20 + 73 + 136 +
     + 58 + 1 + 59
 PLANT_FLOATS_PER_ROW = pk.STATE_SIZE + pk.DYN_SIZE + 4 + 7 + pk.STATE_SIZE  # in + out
 TOL_PLANT = 1e-4     # max |d state| per field: atan2f vs torch.atan2 on one card
+# Phase 28: rnea_plant_period against its plain version, |a - b| <= TOL (1 + |b|).
+# The two round differently (the factor, the FK of the gravity moment, FMA
+# contraction): ~1e-6 of a rotor speed per period.  One period holds 2e-4
+# (ROADMAP's plant limit; a dropped or doubled term of the model, such as
+# the gravity moment or one link's inertia, moves a period by 1e-3 or
+# more); 20 chained closed-loop periods hold 5e-3, as rounding grows
+# through the loop's feedback.
+TOL_RNEA_PERIOD = 2e-4
+TOL_RNEA_CHAIN = 5e-3
+N_RNEA_CHAIN = 20          # phase 28: chained periods (at the largest B)
+RNEA_ROWS = (1, 5, 256)    # phase 28: vehicle rows (5: a ragged warp)
+N_RNEA_EPISODE = 20        # phase 28: graphed episode steps held bit-equal to eager
+RNEA_EPISODE_K = 512       # phase 28: the episode's solver width
+# Phase 28's float32 operations per substep and row: eight RNEA passes (~850
+# each), the gravity moment's FK (~350), the 7x7 factor and two solves
+# (~250), the base law, allocation, lag, wrench and step (~300).
+RNEA_OPS_PER_SUBSTEP = 8 * 850 + 350 + 250 + 300
+RNEA_FLOATS_PER_ROW = rpk.STATE_SIZE + 4 + 7 + rpk.EXT_SIZE + rpk.STATE_SIZE  # in + out
 N_EPISODE = 100      # phase 6 control steps
 N_REACH = 1000       # phase 7 control steps per seed (10 s of flight)
 REACH_SEEDS = (0, 1, 2)
@@ -640,7 +671,7 @@ def phase_build(dev) -> str:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    names = ("whole_body_kernel", "plant_kernel", "drone_kernel")
+    names = ("whole_body_kernel", "plant_kernel", "drone_kernel", "rnea_plant_kernel")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all at once
         list(pool.map(build.build, names))
     for name in names:
@@ -648,7 +679,7 @@ def phase_build(dev) -> str:
     print(f"[1] device {torch.cuda.get_device_name(dev)} | {smi} | "
           f"torch {torch.__version__} cuda {torch.version.cuda} | "
           f"build {time.perf_counter() - t0:.1f} s", flush=True)
-    for name in ("whole_body_kernel", "drone_kernel"):
+    for name in ("whole_body_kernel", "drone_kernel", "rnea_plant_kernel"):
         print_ptxas(name)
     return smi
 
@@ -1219,14 +1250,23 @@ def phase_reach(dev, modes=tuple(REACH_MODES), seeds=REACH_SEEDS, summary=None) 
     for mode in modes:
         make, loop = REACH_MODES[mode]
         run, start = serving_episode(make(), dev, N_REACH, loop)
+        n0 = rpk.rnea_plant_period.launches
         t0 = time.perf_counter()
         for seed in seeds:
             _, logs = run(*start(seed))
             results[(mode, seed)] = reach_quality(f"[7] {mode} reach seed {seed}", logs, 300,
                                                   base_target)
         ms[mode] = (time.perf_counter() - t0) * 1e3 / (N_REACH * len(seeds))
+        # The RNEA plant: one kernel launch per control step, plus the
+        # capture's two warm-up calls.
+        rnea = wbl.plant_path(wbl.WholeBodyLoopConfig(**loop), "cuda", dev) == "rnea_kernel"
+        launches = rpk.rnea_plant_period.launches - n0
+        want = N_REACH * len(seeds) + 2 if rnea else 0
         print(f"[7] {mode}: {ms[mode]:.3f} ms/control step over {len(seeds)} x "
-              f"{N_REACH} steps (graphed, capture included)", flush=True)
+              f"{N_REACH} steps (graphed, capture included) | rnea_plant_period launches "
+              f"{launches}", flush=True)
+        if launches != want:
+            fail(f"{mode} reach: {launches} rnea_plant_period launches, not {want}")
     bad = [key for key, q in results.items() if not gate_met(q)]
     if summary is not None:
         print(json.dumps({"k": K, "h": H, "steps": N_REACH, "nvidia_smi": summary,
@@ -4417,6 +4457,121 @@ def phase_prologue(dev, errs) -> dict:
     return out
 
 
+def rnea_physics(mode: str, mm: bool, payload: float):
+    """The loop's PlantPhysics for the per-substep RNEA plant in ``mode``."""
+    return wbl.plant_physics(presets()[mode], wbl.WholeBodyLoopConfig(
+        mass_matrix_per_control=mm, payload_mass=payload))
+
+
+def rnea_rel(got, want) -> float:
+    """max |got - want| / (1 + |want|) over two plants' state vectors."""
+    a, b = rpk.pack_state(got), rpk.pack_state(want)
+    return ((a - b).abs() / (1.0 + b.abs())).max().item()
+
+
+def rnea_episode(mode: str, dev, graph: bool):
+    params = presets()[mode]
+    params = dataclasses.replace(params, mppi=dataclasses.replace(params.mppi,
+                                                                  n_samples=RNEA_EPISODE_K))
+    return serving_episode(params, dev, N_RNEA_EPISODE, loop={}, graph=graph)
+
+
+def phase_rnea_plant(dev, errs) -> dict:
+    """Phase 28: ``rnea_plant_period`` against its plain version in every
+    mode, factor schedule, payload/external-wrench case and row count, 20
+    chained periods, the graphed episode against the eager loop with its
+    launches, and the kernel's time at B=1."""
+    worst = {"period": 0.0, "chain": 0.0}
+    for mode in ("attitude", "position", "wrench"):
+        for mm in (False, True):
+            for payload, external in ((0.0, False), (0.6, True)):
+                ph = rnea_physics(mode, mm, payload)
+                rc = rpk.make_rnea_plant_config(ph, 10)
+                for rows in RNEA_ROWS:
+                    plant, cmd, tau, ext = rpk.sample_rows(rc, rows, seed=rows, device=dev,
+                                                           external=external)
+                    got = rpk.rnea_plant_period(rc, plant, cmd, tau, ext)
+                    again = rpk.rnea_plant_period(rc, plant, cmd, tau, ext)
+                    want = rpk.rnea_plant_period_plain(ph, 10, plant, cmd, tau, None, ext)
+                    sync()
+                    err = rnea_rel(got, want)
+                    same = torch.equal(rpk.pack_state(got), rpk.pack_state(again))
+                    alone = all(torch.equal(
+                        rpk.pack_state(rpk.rnea_plant_period(
+                            rc, tree_map(lambda t: t[b], plant), cmd[b], tau[b],
+                            None if ext is None else (ext[0][b], ext[1][b]))),
+                        rpk.pack_state(got)[b]) for b in sorted({0, rows // 3, rows - 1}))
+                    # 20 chained periods at the largest B, each with the loop's
+                    # tracking torque toward the start's posture, from each
+                    # side's own state.
+                    chain, k_pl = 0.0, got
+                    if rows == RNEA_ROWS[-1]:
+                        qdes = plant.q.clone()
+                        k_pl = p_pl = plant
+                        for _ in range(N_RNEA_CHAIN):
+                            k_pl = rpk.rnea_plant_period(
+                                rc, k_pl, cmd, rpk.hold_torque(ph, k_pl, qdes), ext)
+                            p_pl = rpk.rnea_plant_period_plain(
+                                ph, 10, p_pl, cmd, rpk.hold_torque(ph, p_pl, qdes), None, ext)
+                        chain = rnea_rel(k_pl, p_pl)
+                    finite = bool(torch.isfinite(rpk.pack_state(k_pl)).all())
+                    worst["period"] = max(worst["period"], err)
+                    worst["chain"] = max(worst["chain"], chain)
+                    print(f"[28] {mode} mm_once={mm} payload={payload} ext={external} B={rows}: "
+                          f"period {err:.2e}" + (f" | {N_RNEA_CHAIN} periods {chain:.2e}"
+                                                 if rows == RNEA_ROWS[-1] else "")
+                          + f" | rerun bit-equal {same} | rows equal one-row launches {alone}",
+                          flush=True)
+                    if not (err <= TOL_RNEA_PERIOD and chain <= TOL_RNEA_CHAIN and finite):
+                        fail(f"rnea_plant_period {mode} mm_once={mm} payload={payload} B={rows}: "
+                             f"{err:.2e} / {chain:.2e} from its plain version")
+                    if not (same and alone):
+                        fail(f"rnea_plant_period {mode} B={rows} is not deterministic per row")
+    errs["rnea_plant_period"] = worst["period"]
+
+    episodes = {}
+    for mode in ("attitude", "wrench"):
+        run, start = rnea_episode(mode, dev, graph=True)
+        run_e, _ = rnea_episode(mode, dev, graph=False)
+        run(*start(0))  # capture (its warm-up launches count), then count replays
+        rpk.rnea_plant_period.launches = 0
+        graphed = run(*start(0))
+        sync()
+        launches = rpk.rnea_plant_period.launches
+        eager = run_e(*start(0))
+        equal, dmax = episodes_equal(graphed, eager)
+        episodes[mode] = {"launches": launches, "bit_equal": equal}
+        print(f"[28] {mode} episode K={RNEA_EPISODE_K}, {N_RNEA_EPISODE} steps: graphed "
+              f"bit-equal to eager {equal} (max|d| {dmax:.2e}) | rnea_plant_period launches "
+              f"{launches}", flush=True)
+        if not equal or launches != N_RNEA_EPISODE:
+            fail(f"the graphed {mode} RNEA-plant episode: bit-equal {equal}, {launches} launches")
+
+    floor = launch_floor_ms()
+    t = {}
+    for mode in ("attitude", "wrench"):
+        ph = rnea_physics(mode, False, 0.0)
+        rc = rpk.make_rnea_plant_config(ph, 10)
+        args = rpk.sample_rows(rc, 1, device=dev)
+        t[mode] = {
+            "kernel_event_ms": event_ms(lambda: rpk.rnea_plant_period(rc, *args), reps=200),
+            "kernel_graph_ms": graph_ms(lambda: rpk.rnea_plant_period(rc, *args)),
+            "plain_event_ms": event_ms(
+                lambda: rpk.rnea_plant_period_plain(ph, 10, *args[:3], None, args[3]), reps=5),
+            "plain_graph_ms": graph_ms(
+                lambda: rpk.rnea_plant_period_plain(ph, 10, *args[:3], None, args[3]), reps=5)}
+    ops = 10 * RNEA_OPS_PER_SUBSTEP
+    b1 = bound(RNEA_FLOATS_PER_ROW * 4, ops)
+    for mode, v in t.items():
+        print(f"[28] rnea_plant_period {mode} B=1 (ms): kernel {v['kernel_event_ms']:.4f} events, "
+              f"{v['kernel_graph_ms']:.4f} graph | plain {v['plain_event_ms']:.3f} events, "
+              f"{v['plain_graph_ms']:.3f} graph | bound {b1[0]:.2e} by {b1[1]} + launch floor "
+              f"{floor:.4f} | {ops} ops/row", flush=True)
+    print_ptxas("rnea_plant_kernel")
+    return {"worst": worst, "episodes": episodes, "timing": t, "bound_ms": b1[0],
+            "bound_by": b1[1], "launch_floor_ms": floor}
+
+
 def reach_sweep(mode: str, seeds) -> None:
     """``--reach MODE --seeds ...``: phase 7 alone, for one mode on any
     seeds; prints one JSON line of the per-seed metrics and exits non-zero
@@ -4428,7 +4583,7 @@ def reach_sweep(mode: str, seeds) -> None:
 SELECTABLE = {"8": phase_batch, "8w": phase_batch_wrench,
               "10": lambda dev, errs: phase_sharded(dev),
               "26": lambda dev, errs: phase_backends(dev, errs),
-              "27": phase_prologue}
+              "27": phase_prologue, "28": phase_rnea_plant}
 
 
 def run_selected(names) -> None:
@@ -4518,6 +4673,7 @@ def main() -> None:
     backends = lap("26", phase_backends, dev, errs, {
         "4": launches, "23": bridge_out["whole-body"]["launches"], "25": offline["launches"]})
     lap("27", phase_prologue, dev, errs)
+    lap("28", phase_rnea_plant, dev, errs)
     print("[t] wall s per phase: " + ", ".join(f"{n} {w:.1f}" for n, w in walls)
           + f" | total {sum(w for _, w in walls):.1f}", flush=True)
     b256 = {(b, spill): e_ms for b, spill, _, e_ms, _, _, _ in batch_rows}

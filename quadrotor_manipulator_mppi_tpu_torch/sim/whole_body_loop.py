@@ -12,7 +12,10 @@ backstepping or direct wrench).
 
 In the serving configuration (position mode, ``arm_coeffs_per_control``,
 ``plant_kernel``) the control period's physics is ONE launch of the CUDA
-plant-tick kernel (``ops/cuda/plant_kernel``).
+plant-tick kernel (``ops/cuda/plant_kernel``).  The per-substep RNEA
+plant (``arm_coeffs_per_control`` off) is ONE launch of the RNEA-plant
+kernel (``ops/cuda/rnea_plant_kernel``) on a CUDA device with the kernel
+backend, in every mode; :func:`plant_path` states the rule.
 
 Where the JAX package scans, the episode here captures one control step in
 a CUDA graph (``utils/graphs.graphed``) and replays it once per step:
@@ -282,6 +285,36 @@ def physics_tick(ph: PlantPhysics, plant: WholeBodyPlant, action_cmd: Tensor,
     return WholeBodyPlant(base=base, q=q, qdot=qdot, ctrl=ctrl)
 
 
+def plant_physics(params: "wbs.WholeBodyMPPIParams", cfg: WholeBodyLoopConfig) -> PlantPhysics:
+    """The plant of ``params``' model under ``cfg``: the base carries the
+    arm's lump (``cfg.plant_arm_lump`` or the model's) and the payload,
+    and link 7 carries the payload."""
+    m = params.model
+    extra = (cfg.plant_arm_lump if cfg.plant_arm_lump is not None
+             else m.arm_mass_lump) + cfg.payload_mass
+    return PlantPhysics(
+        vehicle=m.vehicle, spec=m.chain(), dt=cfg.physics_dt, extra_mass=extra,
+        mode=m.control_mode, arm_coeffs_per_control=cfg.arm_coeffs_per_control,
+        mass_matrix_per_control=cfg.mass_matrix_per_control,
+        inertials=payload_inertials(m.inertials(), cfg.payload_mass), model=m,
+    )
+
+
+def plant_path(cfg: WholeBodyLoopConfig, backend: str, device) -> str:
+    """Which code runs a control period's physics: ``"plant_tick"`` (the
+    frozen-coefficient serving plant, ``cfg.plant_kernel``), ``"rnea_kernel"``
+    (the per-substep RNEA plant in one launch: a CUDA device, the kernel
+    backend and no frozen coefficients) or ``"plain"`` (the substep loop of
+    :func:`physics_tick`: the CPU, ``backend="torch"``, the frozen
+    coefficients without the plant tick)."""
+    if cfg.plant_kernel:
+        return "plant_tick"
+    if torch.device(device).type == "cuda" and backend == "cuda" \
+            and not cfg.arm_coeffs_per_control:
+        return "rnea_kernel"
+    return "plain"
+
+
 def pose_error_jacobian(spec: ChainSpec, q: Tensor, base_pos: Tensor, base_quat: Tensor,
                         ee_target: Pose, ori_weight: float):
     """The tube servo's 6-vector EE pose residual err6 = [p* - p,
@@ -373,26 +406,23 @@ def make_whole_body_episode(
             "plant_kernel covers the serving configuration only: "
             "position mode + arm_coeffs_per_control, free flight"
         )
-    vehicle = params.model.vehicle
-    extra = (cfg.plant_arm_lump if cfg.plant_arm_lump is not None
-             else params.model.arm_mass_lump) + cfg.payload_mass
-    spec = params.model.chain()
-    inertials = payload_inertials(params.model.inertials(), cfg.payload_mass)
+    physics = plant_physics(params, cfg)
+    vehicle, spec, inertials = physics.vehicle, physics.spec, physics.inertials
+    extra = physics.extra_mass
     step, _ = wbs.make_whole_body_solver(params, device=dev, backend=backend,
                                          low_k_guard=low_k_guard, n_scenarios=n_scenarios)
-    physics = PlantPhysics(
-        vehicle=vehicle, spec=spec, dt=cfg.physics_dt, extra_mass=extra, mode=mode,
-        arm_coeffs_per_control=cfg.arm_coeffs_per_control,
-        mass_matrix_per_control=cfg.mass_matrix_per_control,
-        inertials=inertials, model=params.model,
-    )
-    if cfg.plant_kernel:
+    from ..ops.cuda import rnea_plant_kernel as rpk
+
+    path = plant_path(cfg, backend, dev)
+    if path == "plant_tick":
         from ..ops.cuda import plant_kernel as pk
 
         plant_tick = pk.make_plant_tick_kernel(
             vehicle, fc.FlightGains(), spec, substeps=cfg.substeps, dt=cfg.physics_dt,
             extra_mass=extra, device=dev,
         )
+    elif path == "rnea_kernel":
+        rnea_config = rpk.make_rnea_plant_config(physics, cfg.substeps)
     tube_radius = (cfg.tube_radius if cfg.tube_radius is not None
                    else (0.3 if mode == "position" else 0.08))
     tube_gain = (cfg.tube_gain if cfg.tube_gain is not None
@@ -470,7 +500,9 @@ def make_whole_body_episode(
             m = rb.mass_matrix(spec, inertials, plant.q)
             nle = rb.nonlinear_effects(spec, inertials, plant.q, plant.qdot,
                                        base_rot=base_rot)
-            dyn = torch.linalg.cholesky_ex(m).L if cfg.mass_matrix_per_control else None
+            # The kernel factors M itself, at the period's first substep.
+            dyn = (torch.linalg.cholesky_ex(m).L
+                   if cfg.mass_matrix_per_control and path == "plain" else None)
         tau_arm = _mv(m, cfg.track_kp * (qdes - plant.q) - cfg.track_kd * plant.qdot) + nle
         effort = device_const(spec.effort, tau_arm)
         tau_arm = torch.minimum(torch.maximum(tau_arm, -effort), effort)
@@ -493,12 +525,14 @@ def make_whole_body_episode(
             ext_wrench_b, tau_arm, obj = external_wrench(plant, obj, tau_arm, effort)
 
         profiling.mark("wb_loop.tick")
-        if cfg.plant_kernel:
+        if path == "plant_tick":
             plant = pk.unpack_plant(plant_tick(pk.pack_plant(plant), pk.pack_dyn(dyn),
                                                base_cmd, tau_arm))
+        elif path == "rnea_kernel":
+            plant = rpk.rnea_plant_period(rnea_config, plant, base_cmd, tau_arm, ext_wrench_b)
         else:
-            for _ in range(cfg.substeps):
-                plant = physics_tick(physics, plant, base_cmd, tau_arm, dyn, ext_wrench_b)
+            plant = rpk.rnea_plant_period_plain(physics, cfg.substeps, plant, base_cmd, tau_arm,
+                                                dyn, ext_wrench_b)
 
         profiling.mark("wb_loop.logs")
         # One FK of the measured q and the commanded qdes together.

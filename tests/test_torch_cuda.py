@@ -18,6 +18,7 @@ import torch
 from quadrotor_manipulator_mppi_tpu_torch.ops import sampling
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import drone_kernel as dk
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import plant_kernel as pk
+from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import rnea_plant_kernel as rpk
 from quadrotor_manipulator_mppi_tpu_torch.ops.cuda import whole_body_kernel as wk
 from quadrotor_manipulator_mppi_tpu_torch.parallel.multihost import tree_map
 from quadrotor_manipulator_mppi_tpu_torch.sim import flight_control as fc
@@ -212,6 +213,86 @@ def test_serving_episode_kernel_matches_plain_physics():
 
 def _rel(got, want) -> float:
     return (got - want).abs().max().item() / max(1.0, want.abs().max().item())
+
+
+def _rnea_physics(mode, mm=False, payload=0.0):
+    return wbl.plant_physics(PRESETS[mode](), wbl.WholeBodyLoopConfig(
+        mass_matrix_per_control=mm, payload_mass=payload))
+
+
+def _rnea_err(got, want) -> float:
+    """max |got - want| / (1 + |want|) over two plants' state vectors."""
+    a, b = rpk.pack_state(got), rpk.pack_state(want)
+    return ((a - b).abs() / (1.0 + b.abs())).max().item()
+
+
+# (rows, payload, external wrench): one row free, a ragged warp carrying a
+# payload under an external wrench, a full card's worth of rows free.
+RNEA_CASES = [(1, 0.0, False), (5, 0.6, True), (256, 0.0, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,payload,external", RNEA_CASES)
+@pytest.mark.parametrize("mm", [False, True])
+@pytest.mark.parametrize("mode", sorted(PRESETS))
+def test_rnea_plant_period_matches_plain(mode, mm, rows, payload, external):
+    """One period within 2e-4 of 1 + |plain| (rounding order only), reruns
+    bit-equal, each row equal to its one-row launch."""
+    dev = _card()
+    ph = _rnea_physics(mode, mm, payload)
+    rc = rpk.make_rnea_plant_config(ph, 10)
+    plant, cmd, tau, ext = rpk.sample_rows(rc, rows, seed=7, device=dev, external=external)
+    got = rpk.rnea_plant_period(rc, plant, cmd, tau, ext)
+    want = rpk.rnea_plant_period_plain(ph, 10, plant, cmd, tau, None, ext)
+    assert _rnea_err(got, want) <= 2e-4
+    assert torch.equal(rpk.pack_state(rpk.rnea_plant_period(rc, plant, cmd, tau, ext)),
+                       rpk.pack_state(got))
+    b = rows - 1
+    one = rpk.rnea_plant_period(rc, tree_map(lambda t: t[b], plant), cmd[b], tau[b],
+                                None if ext is None else (ext[0][b], ext[1][b]))
+    assert torch.equal(rpk.pack_state(one), rpk.pack_state(got)[b])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(PRESETS))
+def test_rnea_plant_twenty_periods_match_plain(mode):
+    """20 chained periods, each with the loop's tracking torque from its own
+    state, within 5e-3 of 1 + |plain|."""
+    dev = _card()
+    ph = _rnea_physics(mode, payload=0.6)
+    rc = rpk.make_rnea_plant_config(ph, 10)
+    plant, cmd, _, ext = rpk.sample_rows(rc, 5, seed=3, device=dev, external=True)
+    qdes = plant.q.clone()
+    k_pl = p_pl = plant
+    for _ in range(20):
+        k_pl = rpk.rnea_plant_period(rc, k_pl, cmd, rpk.hold_torque(ph, k_pl, qdes), ext)
+        p_pl = rpk.rnea_plant_period_plain(ph, 10, p_pl, cmd, rpk.hold_torque(ph, p_pl, qdes),
+                                           None, ext)
+    assert _rnea_err(k_pl, p_pl) <= 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["attitude", "wrench"])
+def test_rnea_plant_episode_graphed_equals_eager(mode):
+    """The default loop on the card steps the RNEA kernel, once per control
+    step, and the graphed episode equals the eager one bit for bit."""
+    dev = _card()
+    n = 10
+    params = _params(mode)
+    obs = wb.default_obs(device=dev)
+    _, init = wb.make_whole_body_solver(params, device=dev)
+    out = {}
+    for graph in (True, False):
+        run = wbl.make_whole_body_episode(params, n_control_steps=n, device=dev, graph=graph)
+        args = (wbl.init_plant(params.model.vehicle, device=dev), init(0), obs.ee_target,
+                obs.base_target)
+        run(*args)  # the capture (its warm-up calls launch), then a counted run
+        n0 = rpk.rnea_plant_period.launches
+        out[graph] = run(*args)
+        assert rpk.rnea_plant_period.launches - n0 == n
+    (fg, lg), (fe, le) = out[True], out[False]
+    assert all(torch.equal(a, b) for a, b in zip(lg, le))
+    assert torch.equal(rpk.pack_state(fg[0]), rpk.pack_state(fe[0]))
 
 
 @pytest.mark.cuda
